@@ -29,6 +29,12 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "m.update(torch.tensor([1, 2, 299, 7]), torch.tensor([1, 2, 0, 7]))\n"
         "cm = m.compute()\n"
         "assert cm.shape == (300, 300) and int(cm.trace()) == 3 and int(cm[0, 299]) == 1\n"
+        "fid = tt.FrechetInceptionDistance(feature=64, device='cpu')\n"
+        "fid.update(torch.randint(0, 256, (2, 3, 32, 32), dtype=torch.uint8), real=True)\n"
+        "assert float(fid.real_features_num_samples) == 2\n"
+        "lp = tt.LearnedPerceptualImagePatchSimilarity(net_type='squeeze', device='cpu')\n"
+        "lp.update(torch.rand(2, 3, 32, 32) * 2 - 1, torch.rand(2, 3, 32, 32) * 2 - 1)\n"
+        "assert bool(torch.isfinite(lp.compute()))\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
         "print('ok')\n"
     )

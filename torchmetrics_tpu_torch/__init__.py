@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime and streaming classification.
+"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, streaming classification, FID and LPIPS.
 
 Same module paths and names as the JAX package. Metric states live on ``cuda``
-unless a metric is built with ``device=...``; the confusion matrix from 256
-classes on is counted by a hand-written Hopper kernel (``csrc/confmat.cu``).
+unless a metric is built with ``device=...``. Hand-written Hopper kernels
+(``csrc/``) count the confusion matrix from 256 classes on
+(``confmat.cu``), run InceptionV3's conv epilogues (``conv_epilogue.cu``) and
+the LPIPS heads (``lpips_head.cu``).
 """
 
 from torchmetrics_tpu_torch import functional
@@ -20,6 +22,7 @@ from torchmetrics_tpu_torch.classification import (
     MultilabelStatScores,
     StatScores,
 )
+from torchmetrics_tpu_torch.image import FrechetInceptionDistance, LearnedPerceptualImagePatchSimilarity
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 
 __all__ = [
@@ -38,4 +41,6 @@ __all__ = [
     "BinaryStatScores",
     "MulticlassStatScores",
     "MultilabelStatScores",
+    "FrechetInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
 ]

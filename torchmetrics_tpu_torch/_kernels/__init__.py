@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels of the model-based metrics' trunks, with their plain versions.
+
+- :func:`conv_bias_act`: ``relu(conv + bias)`` for the BN-folded InceptionV3
+  (kernel B2a for pointwise convs, B2b after the library's spatial convs);
+- :func:`lpips_head`: one LPIPS ``lin`` head (kernel B3).
+
+CPU tensors take the plain PyTorch versions; CUDA tensors launch the kernels,
+built at first use from ``torchmetrics_tpu_torch/csrc/``. There is no switch
+between the two and no fallback.
+"""
+
+from torchmetrics_tpu_torch._kernels.conv_epilogue import (
+    KernelCost,
+    bias_relu_cost,
+    conv_bias_act,
+    conv_bias_act_cost,
+)
+from torchmetrics_tpu_torch._kernels.lpips_head import lpips_head, lpips_head_cost
+
+__all__ = [
+    "KernelCost",
+    "bias_relu_cost",
+    "conv_bias_act",
+    "conv_bias_act_cost",
+    "lpips_head",
+    "lpips_head_cost",
+]

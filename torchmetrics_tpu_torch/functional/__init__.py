@@ -1,4 +1,4 @@
-"""Functional metrics ported so far (classification: stat scores, accuracy, confusion matrix)."""
+"""Functional metrics ported so far (classification: stat scores, accuracy, confusion matrix; image: LPIPS)."""
 
 from torchmetrics_tpu_torch.functional.classification import (
     accuracy,
@@ -14,6 +14,7 @@ from torchmetrics_tpu_torch.functional.classification import (
     multilabel_stat_scores,
     stat_scores,
 )
+from torchmetrics_tpu_torch.functional.image import learned_perceptual_image_patch_similarity
 
 __all__ = [
     "accuracy",
@@ -28,4 +29,5 @@ __all__ = [
     "binary_stat_scores",
     "multiclass_stat_scores",
     "multilabel_stat_scores",
+    "learned_perceptual_image_patch_similarity",
 ]

@@ -14,35 +14,25 @@ it, and the caller's ``state += update``, move more bytes than the kernel
 reads. Accumulating straight into the metric state is left for later work.
 
 The library is built with ``nvcc`` at first use from the source in this
-package into ``torchmetrics_tpu_torch/_build/`` and loaded with ``ctypes``;
-``nvcc`` and ``ctypes`` are only touched then, so this module imports where
-there is no CUDA toolkit. :func:`confusion_matrix_cuda` takes the plain
-version only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
+package into ``torchmetrics_tpu_torch/_build/`` and loaded with ``ctypes``
+(``utilities/nvcc.py``); ``nvcc`` and ``ctypes`` are only touched then, so
+this module imports where there is no CUDA toolkit. :func:`confusion_matrix_cuda`
+takes the plain version only for CPU tensors; on a CUDA tensor it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
 
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Optional
 
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.data import _one_hot
 
-_PACKAGE_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PACKAGE_DIR / "csrc" / "confmat.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = nvcc.CSRC_DIR / "confmat.cu"
 
 _IDX_KINDS = {torch.int32: 0, torch.int64: 1}
 _WEIGHT_NONE, _WEIGHT_MASK, _WEIGHT_FLOAT = 0, 1, 2
@@ -134,8 +124,7 @@ def confusion_matrix_cuda(
             _max_blocks(preds.device.index),
             torch.cuda.current_stream(preds.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"confmat kernel launch failed: {lib.tm_cuda_error_string(err).decode()}")
+    nvcc.raise_on_error(lib, err, "confmat")
     confusion_matrix_cuda.launches += 1
     return out
 
@@ -148,49 +137,14 @@ def _max_blocks(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count * _BLOCKS_PER_SM
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise FileNotFoundError("nvcc not found on PATH or under CUDA_HOME: the confmat kernel cannot be built")
-
-
-def build() -> Dict[str, Any]:
-    """Compile ``csrc/confmat.cu`` unless this source's library exists; returns path, seconds and compiler log.
-
-    The library's name carries a hash of the source and flags, so an edited
-    source is never served by a stale build.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"libconfmat-{digest}.so"
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a process building at the same time never loads a half-written file
-    return {"path": str(path), "seconds": seconds, "built": True, "log": proc.stdout + proc.stderr}
-
-
 @functools.cache
 def _library() -> Any:
     import ctypes
 
-    lib = ctypes.CDLL(build()["path"])
+    lib = nvcc.load(SOURCE)
     lib.tm_confmat.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.tm_confmat.restype = ctypes.c_int
-    lib.tm_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tm_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,7 +7,8 @@ neither reads a value back to the host.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 from torch import Tensor
@@ -67,3 +68,23 @@ def normalize_logits_if_needed(tensor: Tensor, normalization: Optional[str]) -> 
     if normalization == "softmax":
         return torch.where(outside, torch.softmax(tensor, dim=1), tensor)
     raise ValueError(f"Unknown normalization: {normalization}")
+
+
+@contextlib.contextmanager
+def full_fp32() -> Iterator[None]:
+    """Run float32 convolutions and matrix products in full float32 inside the block.
+
+    cuDNN runs a float32 convolution in TF32 (a 10-bit mantissa) unless
+    ``torch.backends.cudnn.allow_tf32`` is false, and cuBLAS does the same for
+    matrix products when ``torch.backends.cuda.matmul.allow_tf32`` is set. The
+    JAX package asks for ``precision="highest"`` in float32; this is its
+    counterpart. Both flags are restored on exit, so the caller's settings
+    outside the block are untouched.
+    """
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
