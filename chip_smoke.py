@@ -2,14 +2,14 @@
 """Drive the PyTorch/CUDA port's main paths on one GPU and hold each kernel against its plain version.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA card and ``nvcc``; it builds the three kernel libraries of
+It needs one CUDA card and ``nvcc``; it builds the five kernel libraries of
 ``torchmetrics_tpu_torch/csrc/`` (one ``nvcc`` each, started together). It
 exits non-zero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is not beside it.
 
 Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 
-1. ``build``: compile the three kernel libraries, print the card's name and power limit;
+1. ``build``: compile the five kernel libraries, print the card's name and power limit;
 2. ``kernel_vs_plain``: the confmat kernel against its plain PyTorch version on the card,
    counts exactly, float32 weights within a stated tolerance;
 3. ``imagenet_val``: torchvision's classification evaluation (50,000 samples,
@@ -36,8 +36,25 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
    Phases 8 and 9 also give one update's device time by kernel
    (``torch.profiler``) and the share of its wall time the card sat idle;
 10. ``image_timing``: CUDA-event medians of B2a, B2b and B3 at their main-path
-    shapes, beside their bounds, plain versions and library calls, per shape
-    and summed over one forward;
+    shapes, beside their bounds, plain versions and library calls, summed over
+    one forward;
+11. ``attention_vs_plain``: kernel B4 (masked attention) against its plain version
+    at the path's shapes, (2999, 128, 768)/12 heads of ``compute`` and
+    (100, 128, 768) of a ``forward``, with the WMT corpus's ragged masks, at
+    L 1, 37 and 509, at hidden 96/4 heads, with fully masked rows, float32
+    and bf16; a view that is not 4-element aligned is refused;
+12. ``layernorm_residual_vs_plain``: kernel B5 at the path's (383872, 768) and at
+    C 70, 1000, 1024 and 2000, float32, bf16 and mixed inputs;
+13. ``bertscore_wmt``: ``BERTScore(model=BertEncoderExtractor(npz))`` on seeded
+    random bert-base-uncased weights over 2,999 pre-tokenized pairs (the size of
+    WMT16 newstest2016 de-en) in updates of 100, half by ``forward``, then
+    ``compute``, with ``idf`` off and on: launch counts exact, scores against the
+    unfused float32 encoder on the card, one ``compute``'s device time by kernel;
+14. ``infolm_pairs``: ``InfoLM`` (KL, idf, temperature 0.25) on the same weights'
+    MLM head over 128 pairs of up to 64 wordpieces, launch counts exact, against
+    the unfused MLM on the card;
+15. ``text_timing``: CUDA-event medians of B4 and B5 at one BERTScore encoder
+    forward's shapes, beside their bounds, plain versions and library calls;
 
 then the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
@@ -51,6 +68,7 @@ import collections
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -71,6 +89,17 @@ TRUNK_F32_RTOL = 1e-3  # fused (kernels) vs unfused float32 trunk, by relative n
 # roundings reach ~0.2 at the 2048 tap. Wrong weights or a wrong layout give ~1.
 TRUNK_BF16_RTOL = 0.5
 FID_RTOL = 1e-2  # the metric's float32 FID vs a float64 host recomputation from its own states
+ATT_F32_RTOL = 1e-5  # of the output's scale: float32 sums of L*d products and L exps, in another order
+ATT_BF16_ULP = 2.0**-7  # of each value: kernel and plain both round one float32 value to bf16, which may flip
+LN_RTOL = 1e-5  # of the output's scale: float32 row sums in another order, rsqrtf within 2 ulp
+# fused (B4/B5) vs unfused float32 encoder: hidden states agree to ~1e-6 relative, and
+# precision/recall/F1 are weighted means of cosines in [-1, 1]
+BERTSCORE_ATOL = 1e-4
+# InfoLM KL per sentence, fused vs unfused float32 MLM: logits ~1e-6 apart, divided by the 0.25 temperature
+INFOLM_RTOL, INFOLM_ATOL = 1e-4, 1e-5
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072,
+                 max_position=512, type_vocab=2)  # bert-base-uncased's published config
+SPECIAL_IDS = {"pad_token_id": 0, "cls_token_id": 101, "sep_token_id": 102, "mask_token_id": 103}  # its vocab's
 
 
 def emit(obj: dict) -> None:
@@ -109,6 +138,13 @@ def wall_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Kernel count, most registers and largest spill of one library, from ``nvcc -Xptxas -v``'s log."""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0), "max_spill_bytes": max(spills, default=0)}
 
 
 def bound_ms(cost, flops_per_s: float):
@@ -161,9 +197,9 @@ def inception_npz(torch, np, seed: int, folder: str, dev, gen) -> str:
     activations shrinking layer by layer, and the pooled features' covariance
     so ill-conditioned that float32 statistics no longer resolve it.
     """
-    from torchmetrics_tpu_torch.image._inception import InceptionV3, _BatchNorm, _resize_bilinear_tf1, build_on_cpu, init_weights_
+    from torchmetrics_tpu_torch.image._inception import InceptionV3, _BatchNorm, _resize_bilinear_tf1, init_weights_
     from torchmetrics_tpu_torch.utilities.compute import full_fp32
-    from torchmetrics_tpu_torch.utilities.convert import variables_from_state_dict
+    from torchmetrics_tpu_torch.utilities.convert import build_on_cpu, variables_from_state_dict
 
     net = init_weights_(build_on_cpu(InceptionV3, fuse_bn=False), seed)
     cpu_gen = torch.Generator().manual_seed(seed + 1)
@@ -279,8 +315,9 @@ def phase_conv_epilogue_vs_plain(torch, ce, calls, dev, gen) -> dict:
 
 def lpips_tap_shapes(torch, dev, net_type: str, pairs: int, side: int) -> list:
     """``(B, H, W, C)`` of each LPIPS tap's half for ``pairs`` image pairs of ``side`` x ``side``."""
-    from torchmetrics_tpu_torch.image._inception import build_on_cpu, init_weights_
+    from torchmetrics_tpu_torch.image._inception import init_weights_
     from torchmetrics_tpu_torch.image._lpips import LPIPSNet
+    from torchmetrics_tpu_torch.utilities.convert import build_on_cpu
 
     trunk = init_weights_(build_on_cpu(LPIPSNet, net_type=net_type, dtype=torch.bfloat16), 0).net
     trunk = trunk.to(device=dev, memory_format=torch.channels_last)
@@ -290,7 +327,7 @@ def lpips_tap_shapes(torch, dev, net_type: str, pairs: int, side: int) -> list:
 
 
 def phase_lpips_head_vs_plain(torch, lh, tap_shapes: dict, dev, gen) -> dict:
-    cases, worst_rel, worst_abs = [], 0.0, 0.0
+    cases, worst_rel, worst_abs = 0, 0.0, 0.0
     for net_type, shapes in tap_shapes.items():
         for shape in shapes:
             f0 = torch.randn(shape, generator=gen, device=dev).relu_()
@@ -304,7 +341,7 @@ def phase_lpips_head_vs_plain(torch, lh, tap_shapes: dict, dev, gen) -> dict:
             name = f"B3 {net_type} {shape}"
             check(bool((err <= HEAD_RTOL * ref.abs() + 1e-7).all()), f"{name}: max rel err {rel}")
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, float(err.max()))
-            cases.append({"case": name, "max_rel_err": rel})
+            cases += 1
     emit({
         "phase": "lpips_head_vs_plain", "cases": cases, "max_rel_err": worst_rel, "max_abs_err": worst_abs,
         "tolerance": f"|err| <= {HEAD_RTOL} * |ref| + 1e-7 (the JAX package's rtol)",
@@ -510,9 +547,266 @@ def phase_image_timing(torch, ce, lh, calls, lpips_taps, dev, gen, smi: str) -> 
         total["bound_by"] = "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations"
         totals[name] = total
     emit({"phase": "image_timing", "per_forward": totals, "card": smi,
-          "at": {"conv": "one InceptionV3 forward, batch 200, bf16", "lpips_head": "one alex LPIPS forward, 50 pairs of 256x256"},
-          "rows": rows})
+          "at": {"conv": "one InceptionV3 forward, batch 200, bf16", "lpips_head": "one alex LPIPS forward, 50 pairs of 256x256"}})
     return totals
+
+
+def phase_attention_vs_plain(torch, ka, dev, gen, path_mask) -> dict:
+    """B4 against its plain version: the path's shapes and masks, odd lengths, a narrow head, fully masked rows."""
+    hidden, heads = BERT_BASE["hidden_size"], BERT_BASE["num_heads"]
+    # (B, L, hidden, heads, rows whose keys are all masked, mask): the path's own masks first, for
+    # compute's (2999, 128) and a forward's (100, 128); None draws ragged lengths, as padded sentences
+    shapes = [(*path_mask.shape, hidden, heads, 0, path_mask), (100, path_mask.shape[1], hidden, heads, 0, path_mask[:100]),
+              (8, 1, hidden, heads, 1, None), (8, 37, hidden, heads, 1, None), (4, 509, hidden, heads, 1, None),
+              (16, 50, 96, 4, 2, None)]
+    cases, worst = 0, {"f32_abs": 0.0, "f32_rel_to_scale": 0.0, "bf16_abs": 0.0, "masked_row_vs_mean_v": 0.0}
+    for bsz, length, hidden, heads, masked, mask in shapes:
+        if mask is None:
+            lens = torch.randint(max(1, length // 10), length + 1, (bsz,), generator=gen, device=dev)
+            mask = (torch.arange(length, device=dev)[None, :] < lens[:, None]).long()
+            mask[:masked] = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((bsz, length, hidden), generator=gen, device=dev).to(dtype) for _ in range(3))
+            got = ka.attention(q, k, v, mask, num_heads=heads)
+            ref = ka.attention_plain(q, k, v, mask, num_heads=heads)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            scale = float(ref.float().abs().max())
+            name = f"B4 ({bsz},{length},{hidden})/{heads} {str(dtype).split('.')[-1]}"
+            if dtype == torch.float32:
+                check(float(err.max()) <= ATT_F32_RTOL * scale, f"{name}: max abs err {float(err.max())} at scale {scale}")
+                worst["f32_abs"] = max(worst["f32_abs"], float(err.max()))
+                worst["f32_rel_to_scale"] = max(worst["f32_rel_to_scale"], float(err.max()) / scale)
+                if masked:  # the oracle's uniform softmax: the mean of V over the L keys
+                    dev_mean = float((got[:masked] - v[:masked].mean(dim=1, keepdim=True)).abs().max())
+                    check(dev_mean <= ATT_F32_RTOL * scale, f"{name}: fully masked rows {dev_mean} from mean(V)")
+                    worst["masked_row_vs_mean_v"] = max(worst["masked_row_vs_mean_v"], dev_mean)
+            else:
+                ok = bool((err <= ATT_BF16_ULP * ref.float().abs() + ATT_F32_RTOL * scale).all())
+                check(ok, f"{name}: max abs err {float(err.max())} at scale {scale}")
+                worst["bf16_abs"] = max(worst["bf16_abs"], float(err.max()))
+            cases += 1
+            del q, k, v, got, ref, err
+    # a view one element into (B, L, hidden + 1) tensors defeats the kernel's 4-element loads: refused, not launched
+    q = torch.randn((2, 8, 97), device=dev)[..., 1:]
+    launches = ka.attention.launches
+    try:
+        ka.attention(q, q, q, torch.ones((2, 8), device=dev), num_heads=4)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and ka.attention.launches == launches, "B4 launched on a view that is not 4-element aligned")
+    emit({
+        "phase": "attention_vs_plain", "cases": cases, "shapes": [list(sh[:5]) for sh in shapes], "worst": worst,
+        "misaligned_view": "refused",
+        "tolerance": {
+            "float32": f"max|err| <= {ATT_F32_RTOL} * max|ref|, fully masked rows within that of mean(V)",
+            "bfloat16": f"|err| <= 2**-7 * |ref| + {ATT_F32_RTOL} * max|ref| (one bf16 rounding step)",
+        },
+    })
+    return {"max_abs_err": max(worst["f32_abs"], worst["bf16_abs"])}
+
+
+def phase_layernorm_vs_plain(torch, ka, dev, gen, rows: int) -> dict:
+    """B5 against its plain version at the path's (rows, 768) and at other widths, float32/bf16 inputs."""
+    shapes = [(rows, 768), (1000, 70), (1000, 1000), (1000, 1024), (77, 2000)]
+    cases, worst_abs, worst_rel = 0, 0.0, 0.0
+    for r, c in shapes:
+        for dx, dh in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
+            x = torch.randn((r, c), generator=gen, device=dev).to(dx)
+            h = torch.randn((r, c), generator=gen, device=dev).to(dh)
+            scale = torch.rand(c, generator=gen, device=dev) + 0.5
+            bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+            got = ka.layernorm_residual(x, h, scale, bias, eps=1e-12)
+            ref = ka.layernorm_residual_plain(x, h, scale, bias, eps=1e-12)
+            torch.cuda.synchronize()
+            err, top = float((got - ref).abs().max()), float(ref.abs().max())
+            check(got.dtype == torch.float32 and err <= LN_RTOL * top, f"B5 ({r},{c}) {dx}+{dh}: max abs err {err} at scale {top}")
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / top)
+            cases += 1
+    emit({
+        "phase": "layernorm_residual_vs_plain", "cases": cases, "shapes": [list(sh) for sh in shapes],
+        "inputs": ["f32+f32", "bf16+bf16", "f32+bf16"], "max_abs_err": worst_abs, "max_rel_to_scale": worst_rel,
+        "tolerance": f"max|err| <= {LN_RTOL} * max|ref|",
+    })
+    return {"max_abs_err": worst_abs}
+
+
+def bert_base_npz(torch, np, seed: int, folder: str) -> str:
+    """Seeded random bert-base-uncased weights (with its MLM head) as the JAX package's flat ``.npz``."""
+    from torchmetrics_tpu_torch.text._bert_encoder import BertConfig, _BertWithHead, init_bert_weights_
+    from torchmetrics_tpu_torch.utilities.convert import bert_variables_from_state_dict, build_on_cpu
+
+    config = BertConfig(**BERT_BASE, with_mlm_head=True)
+    net = init_bert_weights_(build_on_cpu(_BertWithHead, config), seed)
+    path = os.path.join(folder, "bert_base_uncased.npz")
+    np.savez(path, **bert_variables_from_state_dict(net.state_dict(), config))
+    return path
+
+
+def token_corpus(np, rng, pairs: int, width: int, min_len: int, max_len: int, mean_len: float, vocab: int):
+    """Pre-tokenized sentence pairs: [CLS] wordpieces [SEP], zero-padded to ``width``; predictions swap ~30% of the wordpieces."""
+    lengths = np.clip(np.rint(rng.gamma(4.0, mean_len / 4.0, pairs)), min_len, max_len).astype(np.int64)
+    cols = np.arange(width)[None, :]
+    mask = (cols < lengths[:, None]).astype(np.int64)
+    ids = rng.integers(1000, vocab, (pairs, width)) * mask  # wordpieces; BERT's vocab has its specials below 1000
+    ids[:, 0] = SPECIAL_IDS["cls_token_id"]
+    ids[np.arange(pairs), lengths - 1] = SPECIAL_IDS["sep_token_id"]
+    swap = (rng.random((pairs, width)) < 0.3) & (cols > 0) & (cols < lengths[:, None] - 1)
+    pred_ids = np.where(swap, rng.integers(1000, vocab, (pairs, width)), ids)
+    return {"input_ids": pred_ids, "attention_mask": mask.copy()}, {"input_ids": ids, "attention_mask": mask}
+
+
+def phase_bertscore(torch, np, ka, npz: str, corpus, batch: int = 100) -> dict:
+    from torchmetrics_tpu_torch.functional.text.bert import _compute_idf, _greedy_cosine_matching, _idf_weights, bert_score
+    from torchmetrics_tpu_torch.text import BERTScore
+    from torchmetrics_tpu_torch.text._bert_encoder import BertEncoderExtractor
+
+    preds, target = corpus
+    n = target["input_ids"].shape[0]
+    encoder = BertEncoderExtractor(npz)  # float32, on the card
+    encoder(target["input_ids"][:8], target["attention_mask"][:8])  # first call: lazy module loading, not counted
+    metric = BERTScore(model=encoder)
+    sl = lambda enc, a: {k: v[a:a + batch] for k, v in enc.items()}  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ka.attention.launches = ka.layernorm_residual.launches = 0
+    t0 = time.perf_counter()
+    forwards = 0
+    for u, start in enumerate(range(0, n, batch)):
+        if u % 2 == 0:
+            metric(sl(preds, start), sl(target, start))  # scores its batch: two encoder forwards
+            forwards += 1
+        else:
+            metric.update(sl(preds, start), sl(target, start))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = (ka.attention.launches, ka.layernorm_residual.launches)
+    out = metric.compute()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"attention": ka.attention.launches, "layernorm_residual": ka.layernorm_residual.launches}
+    peak = torch.cuda.max_memory_allocated()
+    encoder_forwards = 2 * (forwards + 1)
+    layers = BERT_BASE["num_layers"]  # one B4 and two B5 per layer of each encoder forward
+    check(launches["attention"] == layers * encoder_forwards and launches["layernorm_residual"] == 2 * layers * encoder_forwards,
+          f"launches {launches} for {encoder_forwards} encoder forwards")
+    compute_launches = [launches["attention"] - before[0], launches["layernorm_residual"] - before[1]]
+    check(compute_launches == [2 * layers, 4 * layers], f"compute launched {compute_launches}, expected two forwards")
+
+    idf_metric = BERTScore(model=encoder, idf=True)
+    for start in range(0, n, batch):
+        idf_metric.update(sl(preds, start), sl(target, start))
+    ka.attention.launches = ka.layernorm_residual.launches = 0
+    out_idf = idf_metric.compute()
+    check([ka.attention.launches, ka.layernorm_residual.launches] == [2 * layers, 4 * layers], "idf compute launches")
+
+    # the oracle: the literal unfused float32 graph on the card, scored by the same matcher
+    oracle = BertEncoderExtractor(npz, unfused=True)
+    dev = encoder.device
+    on = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    pm, tm = on(preds["attention_mask"]), on(target["attention_mask"])
+    pe, te = oracle(preds["input_ids"], pm), oracle(target["input_ids"], tm)
+    idf_map = _compute_idf(target["input_ids"], target["attention_mask"])
+    errs = {}
+    for label, got, (pw, tw) in (
+        ("idf_off", out, (pm.float(), tm.float())),
+        ("idf_on", out_idf, (on(_idf_weights(preds["input_ids"], preds["attention_mask"], idf_map)),
+                             on(_idf_weights(target["input_ids"], target["attention_mask"], idf_map)))),
+    ):
+        want = dict(zip(("precision", "recall", "f1"), _greedy_cosine_matching(pe, pm, te, tm, pw, tw)))
+        for key in want:
+            check(got[key].shape == (n,) and bool(torch.isfinite(got[key]).all()), f"{label} {key} shape/finite")
+        errs[label] = max(float((got[k] - want[k]).abs().max()) for k in want)
+        check(errs[label] <= BERTSCORE_ATOL, f"BERTScore {label} vs unfused oracle: {errs[label]}")
+    del oracle, pe, te
+    torch.cuda.empty_cache()
+    profile = device_time_by_kernel(torch, lambda: bert_score(preds, target, model=encoder), top=8)
+    result = {
+        "phase": "bertscore_wmt", "pairs": n, "batch": batch, "tokens_per_side": int(target["attention_mask"].sum()),
+        "f1_mean": float(out["f1"].mean()), "f1_mean_idf": float(out_idf["f1"].mean()),
+        "max_abs_err_vs_unfused": errs, "tolerance": f"|err| <= {BERTSCORE_ATOL} on precision, recall, F1",
+        "launches": launches, "encoder_forwards": encoder_forwards, "compute_launches": compute_launches,
+        "seconds": t2 - t0, "pairs_per_s": n / (t2 - t0), "updates_seconds": t1 - t0, "compute_seconds": t2 - t1,
+        "peak_mem_bytes": peak, "compute_profile": profile,
+    }
+    emit(result)
+    return result
+
+
+def phase_infolm(torch, np, ka, npz: str, corpus) -> dict:
+    from torchmetrics_tpu_torch.functional.text import infolm
+    from torchmetrics_tpu_torch.text import InfoLM
+    from torchmetrics_tpu_torch.text._bert_encoder import BertMLMExtractor
+
+    preds, target = corpus
+    pairs, width = target["input_ids"].shape
+    kw = dict(idf=True, information_measure="kl_divergence", temperature=0.25, max_length=width,
+              special_tokens_map=SPECIAL_IDS, return_sentence_level_score=True)
+    mlm = BertMLMExtractor(npz)
+    mlm.logits_at(target["input_ids"][:4], target["attention_mask"][:4], 1)  # first call, not counted
+    metric = InfoLM(model=mlm, **kw)
+    metric.update(preds, target)
+    torch.cuda.synchronize()
+    ka.attention.launches = ka.layernorm_residual.launches = 0
+    t0 = time.perf_counter()
+    corpus_score, sentences = metric.compute()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"attention": ka.attention.launches, "layernorm_residual": ka.layernorm_residual.launches}
+    layers = BERT_BASE["num_layers"]
+    check(launches == {"attention": 2 * width * layers, "layernorm_residual": 4 * width * layers},
+          f"InfoLM launches {launches} for 2 sides x {width} positions")
+    want_corpus, want = infolm(preds, target, model=BertMLMExtractor(npz, unfused=True), **kw)
+    err = float((sentences - want).abs().max())
+    check(sentences.shape == (pairs,) and bool(torch.isfinite(sentences).all()), "InfoLM sentence scores")
+    check(err <= INFOLM_RTOL * float(want.abs().max()) + INFOLM_ATOL, f"InfoLM vs unfused oracle: {err}")
+    result = {
+        "phase": "infolm_pairs", "pairs": pairs, "max_length": width, "measure": "kl_divergence", "idf": True,
+        "infolm": float(corpus_score), "unfused": float(want_corpus), "max_abs_err_vs_unfused": err,
+        "sentence_range": [float(sentences.min()), float(sentences.max())],
+        "tolerance": f"|err| <= {INFOLM_RTOL} * max|ref| + {INFOLM_ATOL}",
+        "launches": launches, "compute_seconds": seconds, "pairs_per_s": pairs / seconds,
+    }
+    emit(result)
+    return result
+
+
+def phase_text_timing(torch, ka, dev, gen, mask, smi: str) -> dict:
+    """CUDA-event medians of B4 and B5 at one bertscore_wmt forward's shapes, per launch and per forward."""
+    import torch.nn.functional as F
+
+    bsz, length = mask.shape
+    hidden, heads = BERT_BASE["hidden_size"], BERT_BASE["num_heads"]
+    q, k, v = (torch.randn((bsz, length, hidden), generator=gen, device=dev) for _ in range(3))
+    split = lambda t: t.view(bsz, length, heads, hidden // heads).transpose(1, 2)  # noqa: E731
+    bias4 = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
+    scale, shift = torch.rand(hidden, generator=gen, device=dev) + 0.5, 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    rows = {}
+    att_bound, att_by = bound_ms(ka.attention_cost(q, k, v, mask, num_heads=heads), F32_FLOPS_PER_S)
+    rows["attention"] = {
+        "count": BERT_BASE["num_layers"], "bound_ms": att_bound, "bound_by": att_by,
+        "ms": median_ms(torch, lambda: ka.attention(q, k, v, mask, num_heads=heads), reps=10),
+        "plain_ms": median_ms(torch, lambda: ka.attention_plain(q, k, v, mask, num_heads=heads), reps=3, warmup=1),
+        "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=bias4), reps=10),
+    }
+    ln_bound, ln_by = bound_ms(ka.layernorm_residual_cost(q, k, scale, shift), F32_FLOPS_PER_S)
+    rows["layernorm_residual"] = {
+        "count": 2 * BERT_BASE["num_layers"], "bound_ms": ln_bound, "bound_by": ln_by,
+        "ms": median_ms(torch, lambda: ka.layernorm_residual(q, k, scale, shift, eps=1e-12), reps=20),
+        "plain_ms": median_ms(torch, lambda: ka.layernorm_residual_plain(q, k, scale, shift, eps=1e-12), reps=5),
+        "library_ms": median_ms(torch, lambda: F.layer_norm(q + k, (hidden,), scale, shift, 1e-12), reps=20),
+    }
+    per_forward = {
+        name: {**{key: r[key] * r["count"] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+               "launches_per_forward": r["count"], "bound_by": r["bound_by"]}
+        for name, r in rows.items()
+    }
+    emit({"phase": "text_timing", "per_launch": rows, "per_forward": per_forward, "card": smi,
+          "at": f"one bertscore_wmt encoder forward: ({bsz}, {length}, {hidden}), {heads} heads, float32",
+          "library": {"attention": "F.scaled_dot_product_attention, additive float mask, on head-split views",
+                      "layernorm_residual": "F.layer_norm(x + h), two calls"}})
+    return per_forward
 
 
 def main() -> int:
@@ -536,6 +830,7 @@ def main() -> int:
     # the kernel modules by path: `_kernels` exports a function named like its module
     ce = importlib.import_module("torchmetrics_tpu_torch._kernels.conv_epilogue")
     lh = importlib.import_module("torchmetrics_tpu_torch._kernels.lpips_head")
+    ka = importlib.import_module("torchmetrics_tpu_torch._kernels.attention")
     confmat_cuda, confmat_plain = kernel.confusion_matrix_cuda, kernel.confusion_matrix_plain
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -544,10 +839,16 @@ def main() -> int:
 
     # ------------------------------------------------------------------ build
     t0 = time.perf_counter()
-    modules = {"confmat": kernel, "conv_epilogue": ce, "lpips_head": lh}
-    infos = dict(zip(modules, nvcc.build_all([m.SOURCE for m in modules.values()])))  # one nvcc each, at once
-    for module in modules.values():
-        module._library()
+    libraries = {
+        "confmat": (kernel.SOURCE, kernel._library),
+        "conv_epilogue": (ce.SOURCE, ce._library),
+        "lpips_head": (lh.SOURCE, lh._library),
+        "attention": (ka.ATTENTION_SOURCE, ka._attention_library),
+        "layernorm_residual": (ka.LAYERNORM_SOURCE, ka._layernorm_library),
+    }
+    infos = dict(zip(libraries, nvcc.build_all([source for source, _ in libraries.values()])))  # one nvcc each, at once
+    for _, load in libraries.values():
+        load()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -556,11 +857,7 @@ def main() -> int:
         "phase": "build",
         "seconds": round(time.perf_counter() - t0, 3),
         "libraries": {
-            name: {
-                "nvcc_seconds": round(info["seconds"], 3),
-                "built": info["built"],
-                "ptxas": [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln],
-            }
+            name: {"nvcc_seconds": round(info["seconds"], 3), "built": info["built"], **ptxas_summary(info["log"])}
             for name, info in infos.items()
         },
         "torch": torch.__version__,
@@ -587,7 +884,6 @@ def main() -> int:
         (100_000, 300, torch.int64, "float", "out_of_range"),
     ]
     max_abs_err = 0.0
-    results = []
     for n, c, dtype, wkind, labels in cases:
         lo, hi = (-2, c + 2) if labels == "out_of_range" else (0, c)
         t = torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
@@ -615,9 +911,8 @@ def main() -> int:
         check(ok, f"kernel != plain at {case}: max abs err {err}")
         check(total_ok, f"kernel total != count of valid in-range rows at {case}")
         max_abs_err = max(max_abs_err, err)
-        results.append({"case": case, "max_abs_err": err})
     emit({
-        "phase": "kernel_vs_plain", "cases": results, "max_abs_err": max_abs_err,
+        "phase": "kernel_vs_plain", "cases": len(cases), "max_abs_err": max_abs_err,
         "tolerance": {"counts": "exact", "float32_weights": {"rtol": FLOAT_RTOL, "atol": FLOAT_ATOL}},
     })
 
@@ -777,6 +1072,24 @@ def main() -> int:
     # ---------------------------------------------------------- image_timing
     image = phase_image_timing(torch, ce, lh, calls, taps["alex"], dev, gen, smi)
 
+    # ------------------------------------------------- text: kernels vs plain
+    rng = np.random.default_rng(args.seed)
+    # WMT16 newstest2016 de-en: 2,999 pairs; wordpiece lengths 10-100, mean ~40, padded to 128
+    wmt = token_corpus(np, rng, pairs=2999, width=128, min_len=10, max_len=100, mean_len=40.0,
+                       vocab=BERT_BASE["vocab_size"])
+    wmt_mask = torch.as_tensor(wmt[1]["attention_mask"], device=dev)
+    att_checks = phase_attention_vs_plain(torch, ka, dev, gen, wmt_mask)
+    ln_checks = phase_layernorm_vs_plain(torch, ka, dev, gen, rows=wmt[1]["input_ids"].size)
+    # ------------------------------------------- bertscore_wmt, infolm_pairs
+    with tempfile.TemporaryDirectory() as folder:
+        npz = bert_base_npz(torch, np, args.seed, folder)
+        bert = phase_bertscore(torch, np, ka, npz, wmt)
+        pairs = token_corpus(np, rng, pairs=128, width=64, min_len=10, max_len=64, mean_len=30.0,
+                             vocab=BERT_BASE["vocab_size"])
+        info = phase_infolm(torch, np, ka, npz, pairs)
+    # ----------------------------------------------------------- text_timing
+    text = phase_text_timing(torch, ka, dev, gen, wmt_mask, smi)
+
     big = shapes["ade20k_update"]
     image_kernels = [
         ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"], conv_checks["worst"]["mm_abs"],
@@ -786,6 +1099,14 @@ def main() -> int:
         ("lpips_head", ":60", lpips["launches"], head_checks["max_abs_err"],
          "torchmetrics_tpu/_kernels/lpips_head.py", "lpips_head.cu", "one alex LPIPS forward (5 taps), 50 pairs of 256x256"),
     ]
+    text_at = "one bertscore_wmt encoder forward (2999, 128, 768), 12 heads, float32"
+    image_kernels += [
+        ("attention", ":57", bert["launches"]["attention"] + info["launches"]["attention"], att_checks["max_abs_err"],
+         "torchmetrics_tpu/_kernels/attention.py", "attention.cu", text_at + ": 12 launches"),
+        ("layernorm_residual", ":141", bert["launches"]["layernorm_residual"] + info["launches"]["layernorm_residual"],
+         ln_checks["max_abs_err"], "torchmetrics_tpu/_kernels/attention.py", "layernorm_residual.cu", text_at + ": 24 launches"),
+    ]
+    timings = {**image, **text}
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "confmat",
@@ -807,11 +1128,11 @@ def main() -> int:
         "replaces": tpu_file + line,
         "launches": launches,
         "max_abs_err": err,
-        "ms": image[name]["ms"],
-        "plain_ms": image[name]["plain_ms"],
-        "bound_ms": image[name]["bound_ms"],
-        "bound_by": image[name]["bound_by"],
-        "library_ms": image[name]["library_ms"],
+        "ms": timings[name]["ms"],
+        "plain_ms": timings[name]["plain_ms"],
+        "bound_ms": timings[name]["bound_ms"],
+        "bound_by": timings[name]["bound_by"],
+        "library_ms": timings[name]["library_ms"],
         "at": at,
     } for name, line, launches, err, tpu_file, source, at in image_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}})

@@ -30,12 +30,12 @@ from torchmetrics_tpu_torch.image._inception import (
     InceptionFeatureExtractor,
     InceptionV3,
     _resize_bilinear_tf1,
-    build_on_cpu,
     fold_batchnorm,
     init_weights_,
 )
 from torchmetrics_tpu_torch.utilities import state_from_jax
 from torchmetrics_tpu_torch.utilities.convert import (
+    build_on_cpu,
     inception_state_dict_from_variables,
     state_dict_from_variables,
     variables_from_state_dict,

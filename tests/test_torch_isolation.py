@@ -35,6 +35,16 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "lp = tt.LearnedPerceptualImagePatchSimilarity(net_type='squeeze', device='cpu')\n"
         "lp.update(torch.rand(2, 3, 32, 32) * 2 - 1, torch.rand(2, 3, 32, 32) * 2 - 1)\n"
         "assert bool(torch.isfinite(lp.compute()))\n"
+        "import os, tempfile, numpy as np\n"
+        "from torchmetrics_tpu_torch.text._bert_encoder import BertConfig, BertEncoderExtractor, _BertWithHead, init_bert_weights_\n"
+        "from torchmetrics_tpu_torch.utilities.convert import bert_variables_from_state_dict, build_on_cpu\n"
+        "cfg = BertConfig(vocab_size=50, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64, max_position=16)\n"
+        "npz = os.path.join(tempfile.mkdtemp(), 'bert.npz')\n"
+        "np.savez(npz, **bert_variables_from_state_dict(init_bert_weights_(build_on_cpu(_BertWithHead, cfg), 0).state_dict(), cfg))\n"
+        "bs = tt.BERTScore(model=BertEncoderExtractor(npz, device='cpu'), max_length=8, device='cpu')\n"
+        "enc = {'input_ids': np.array([[1, 7, 9, 2, 0]]), 'attention_mask': np.array([[1, 1, 1, 1, 0]])}\n"
+        "bs.update(enc, enc)\n"
+        "assert abs(float(bs.compute()['f1'][0]) - 1.0) < 1e-5\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
         "print('ok')\n"
     )

@@ -27,9 +27,9 @@ from torchmetrics_tpu.image._lpips import LPIPSExtractor as JaxExtractor
 from torchmetrics_tpu.image._lpips import LPIPSNet as JaxLPIPSNet
 from torchmetrics_tpu_torch.functional.image import learned_perceptual_image_patch_similarity
 from torchmetrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity
-from torchmetrics_tpu_torch.image._inception import build_on_cpu, init_weights_
+from torchmetrics_tpu_torch.image._inception import init_weights_
 from torchmetrics_tpu_torch.image._lpips import LPIPSExtractor, LPIPSNet
-from torchmetrics_tpu_torch.utilities.convert import lpips_state_dict_from_variables, variables_from_state_dict
+from torchmetrics_tpu_torch.utilities.convert import build_on_cpu, lpips_state_dict_from_variables, variables_from_state_dict
 
 lh = importlib.import_module("torchmetrics_tpu_torch._kernels.lpips_head")
 NET_TYPES = ("vgg", "alex", "squeeze")

@@ -2,13 +2,21 @@
 
 - :func:`conv_bias_act`: ``relu(conv + bias)`` for the BN-folded InceptionV3
   (kernel B2a for pointwise convs, B2b after the library's spatial convs);
-- :func:`lpips_head`: one LPIPS ``lin`` head (kernel B3).
+- :func:`lpips_head`: one LPIPS ``lin`` head (kernel B3);
+- :func:`attention`: BERT's masked self-attention core (kernel B4);
+- :func:`layernorm_residual`: ``LayerNorm(x + h)`` after each BERT block (kernel B5).
 
 CPU tensors take the plain PyTorch versions; CUDA tensors launch the kernels,
 built at first use from ``torchmetrics_tpu_torch/csrc/``. There is no switch
 between the two and no fallback.
 """
 
+from torchmetrics_tpu_torch._kernels.attention import (
+    attention,
+    attention_cost,
+    layernorm_residual,
+    layernorm_residual_cost,
+)
 from torchmetrics_tpu_torch._kernels.conv_epilogue import (
     KernelCost,
     bias_relu_cost,
@@ -19,9 +27,13 @@ from torchmetrics_tpu_torch._kernels.lpips_head import lpips_head, lpips_head_co
 
 __all__ = [
     "KernelCost",
+    "attention",
+    "attention_cost",
     "bias_relu_cost",
     "conv_bias_act",
     "conv_bias_act_cost",
+    "layernorm_residual",
+    "layernorm_residual_cost",
     "lpips_head",
     "lpips_head_cost",
 ]

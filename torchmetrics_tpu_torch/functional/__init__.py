@@ -1,4 +1,4 @@
-"""Functional metrics ported so far (classification: stat scores, accuracy, confusion matrix; image: LPIPS)."""
+"""Functional metrics ported so far (classification: stat scores, accuracy, confusion matrix; image: LPIPS; text: BERTScore, InfoLM)."""
 
 from torchmetrics_tpu_torch.functional.classification import (
     accuracy,
@@ -15,6 +15,7 @@ from torchmetrics_tpu_torch.functional.classification import (
     stat_scores,
 )
 from torchmetrics_tpu_torch.functional.image import learned_perceptual_image_patch_similarity
+from torchmetrics_tpu_torch.functional.text import bert_score, infolm
 
 __all__ = [
     "accuracy",
@@ -30,4 +31,6 @@ __all__ = [
     "multiclass_stat_scores",
     "multilabel_stat_scores",
     "learned_perceptual_image_patch_similarity",
+    "bert_score",
+    "infolm",
 ]

@@ -31,7 +31,7 @@ from torch import Tensor, nn
 from torchmetrics_tpu_torch._kernels.conv_epilogue import conv_bias_act
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
-from torchmetrics_tpu_torch.utilities.convert import inception_state_dict_from_variables, load_variables_npz
+from torchmetrics_tpu_torch.utilities.convert import build_on_cpu, inception_state_dict_from_variables, load_variables_npz
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 FEATURES = ("64", "192", "768", "2048", "logits_unbiased")
@@ -273,13 +273,6 @@ def init_weights_(module: nn.Module, seed: int = 0) -> nn.Module:
                 sub.running_mean.zero_()
                 sub.running_var.fill_(1.0)
     return module
-
-
-def build_on_cpu(cls, *args, **kwargs) -> nn.Module:
-    """Construct ``cls(*args, **kwargs)`` without running torch's default initialisers (or its global RNG)."""
-    with torch.device("meta"):
-        module = cls(*args, **kwargs)
-    return module.to_empty(device="cpu")
 
 
 def fold_batchnorm(state: Dict[str, Tensor], epsilon: float = _BN_EPS) -> Dict[str, Tensor]:

@@ -22,10 +22,10 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from torchmetrics_tpu_torch._kernels.lpips_head import lpips_head
-from torchmetrics_tpu_torch.image._inception import build_on_cpu, init_weights_
+from torchmetrics_tpu_torch.image._inception import init_weights_
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
-from torchmetrics_tpu_torch.utilities.convert import load_variables_npz, lpips_state_dict_from_variables
+from torchmetrics_tpu_torch.utilities.convert import build_on_cpu, load_variables_npz, lpips_state_dict_from_variables
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 # ImageNet scaling constants used by LPIPS (reference ScalingLayer)

@@ -9,7 +9,7 @@ Trunk weights come as the JAX package's flat ``.npz`` variables; see below.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +53,13 @@ _BN_TO_TORCH = {
     ("batch_stats", "var"): "running_var",
 }
 _BN_TO_FLAX = {v: k for k, v in _BN_TO_TORCH.items()}
+
+
+def build_on_cpu(cls, *args, **kwargs) -> torch.nn.Module:
+    """Construct ``cls(*args, **kwargs)`` without running torch's default initialisers (or its global RNG)."""
+    with torch.device("meta"):
+        module = cls(*args, **kwargs)
+    return module.to_empty(device="cpu")
 
 
 def load_variables_npz(path: str) -> Dict[str, np.ndarray]:
@@ -120,3 +127,73 @@ def inception_state_dict_from_variables(flat: Mapping[str, np.ndarray]) -> Dict[
 def lpips_state_dict_from_variables(flat: Mapping[str, np.ndarray]) -> Dict[str, Tensor]:
     """LPIPS trunk + ``lin`` heads as the port's ``state_dict``; like the JAX package, only ``params`` are read."""
     return state_dict_from_variables(flat, collections=("params",))
+
+
+# BERT (``tools/convert_weights.py::convert_bert_state_dict``) adds three kinds of
+# entry to the flat layout: scalar ``config/*`` entries, flax ``nn.Embed`` tables
+# (``embedding``, the same ``(num, features)`` layout as ``nn.Embedding.weight``)
+# and flax ``nn.LayerNorm`` ``scale``/``bias`` under the modules named below.
+_BERT_LAYERNORMS = ("ln", "embeddings_ln", "transform_ln")
+_BERT_CONFIG_KEYS = (
+    "vocab_size", "hidden_size", "num_layers", "num_heads", "intermediate_size", "max_position", "type_vocab",
+)
+
+
+def bert_state_dict_from_variables(flat: Mapping[str, np.ndarray]) -> Tuple[Dict[str, Tensor], Any]:
+    """A converted BERT ``.npz`` mapping as the port's ``_BertWithHead`` ``state_dict`` and its ``BertConfig``.
+
+    ``config/*`` scalars become the config (``with_mlm_head`` 0 when absent,
+    as in the JAX package); ``embedding`` maps to ``weight`` as it is, a
+    LayerNorm's ``scale`` to ``weight``, a Dense ``kernel`` ``(in, out)`` to
+    ``weight`` ``(out, in)``, ``bias`` to ``bias``.
+    """
+    from torchmetrics_tpu_torch.text._bert_encoder import BertConfig
+
+    state: Dict[str, Tensor] = {}
+    for key, value in flat.items():
+        if key.startswith("config/"):
+            continue
+        collection, path = _route(key)
+        if collection != "params" or len(path) < 2:
+            raise KeyError(f"Cannot map BERT variable {key!r} onto a torch parameter")
+        *modules, leaf = path
+        arr = np.asarray(value)
+        if leaf == "embedding":
+            name = "weight"
+        elif leaf == "scale" and modules[-1] in _BERT_LAYERNORMS:
+            name = "weight"
+        elif leaf == "kernel":
+            name, arr = "weight", arr.T
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"Cannot map BERT variable {key!r} onto a torch parameter")
+        state[".".join([*modules, name])] = torch.from_numpy(np.array(arr))  # a writable copy
+    config = BertConfig(
+        **{name: int(flat[f"config/{name}"]) for name in _BERT_CONFIG_KEYS},
+        with_mlm_head=bool(int(flat.get("config/with_mlm_head", 0))),
+    )
+    return state, config
+
+
+def bert_variables_from_state_dict(state: Mapping[str, Tensor], config: Any) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`bert_state_dict_from_variables`: the flat ``.npz`` mapping, ``config/*`` included."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        *modules, name = key.split(".")
+        arr = value.detach().cpu().numpy()
+        if name == "weight" and modules[-1].endswith("_embeddings"):
+            leaf = "embedding"
+        elif name == "weight" and modules[-1] in _BERT_LAYERNORMS:
+            leaf = "scale"
+        elif name == "weight":
+            leaf, arr = "kernel", arr.T
+        elif name == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"Cannot map state entry {key!r} onto a BERT variable")
+        out["/".join(["params", *modules, leaf])] = np.ascontiguousarray(arr)
+    for name in _BERT_CONFIG_KEYS:
+        out[f"config/{name}"] = np.asarray(getattr(config, name))
+    out["config/with_mlm_head"] = np.asarray(int(config.with_mlm_head))
+    return out

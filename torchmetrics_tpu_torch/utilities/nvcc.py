@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Sequence
@@ -63,19 +64,26 @@ def build_all(sources: Sequence[Path]) -> List[Dict[str, Any]]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log = tempfile.TemporaryFile("w+")  # a file, not a pipe: nothing blocks while another build is awaited
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
         result = {"path": str(path), "seconds": 0.0, "built": True, "log": ""}
         results.append(result)
-        running.append((proc, cmd, tmp, path, result, time.perf_counter()))
+        running.append((proc, log, cmd, tmp, path, result, time.perf_counter()))
     failures = []
-    for proc, cmd, tmp, path, result, t0 in running:
-        result["log"], _ = proc.communicate()
-        result["seconds"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{result['log']}")
-        else:
-            os.replace(tmp, path)  # atomic: a process building at the same time never loads a half-written file
+    while running:  # each compile is timed to its own exit, whatever order they finish in
+        time.sleep(0.02)
+        for item in [r for r in running if r[0].poll() is not None]:
+            proc, log, cmd, tmp, path, result, t0 = item
+            result["seconds"] = time.perf_counter() - t0
+            running.remove(item)
+            with log:
+                log.seek(0)
+                result["log"] = log.read()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{result['log']}")
+            else:
+                os.replace(tmp, path)  # atomic: a process building at the same time never loads a half-written file
     if failures:
         raise RuntimeError("\n".join(failures))
     return results
