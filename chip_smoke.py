@@ -9,7 +9,10 @@ false or the package is not beside it.
 
 Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 
-1. ``build``: compile the five kernel libraries, print the card's name and power limit;
+1. ``build``: compile the five kernel libraries (the build line gives each library's
+   ``nvcc`` time, kernel count, most registers and largest spill, and, for the
+   kernels redesigned for Hopper, each one's registers, spills and dynamic shared
+   memory), print the card's name and power limit;
 2. ``kernel_vs_plain``: the confmat kernel against its plain PyTorch version on the card,
    counts exactly, float32 weights within a stated tolerance;
 3. ``imagenet_val``: torchvision's classification evaluation (50,000 samples,
@@ -37,7 +40,7 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
    (``torch.profiler``) and the share of its wall time the card sat idle;
 10. ``image_timing``: CUDA-event medians of B2a, B2b and B3 at their main-path
     shapes, beside their bounds, plain versions and library calls, summed over
-    one forward;
+    one forward, and B2a by activation size (73x73, 35x35, 17x17, 8x8);
 11. ``attention_vs_plain``: kernel B4 (masked attention) against its plain version
     at the path's shapes, (2999, 128, 768)/12 heads of ``compute`` and
     (100, 128, 768) of a ``forward``, with the WMT corpus's ragged masks, at
@@ -54,7 +57,8 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
     MLM head over 128 pairs of up to 64 wordpieces, launch counts exact, against
     the unfused MLM on the card;
 15. ``text_timing``: CUDA-event medians of B4 and B5 at one BERTScore encoder
-    forward's shapes, beside their bounds, plain versions and library calls;
+    forward's shapes, beside their bounds, plain versions and library calls, and
+    of B4 on bf16 inputs beside bf16 ``scaled_dot_product_attention``;
 
 then the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
@@ -80,6 +84,7 @@ FLOAT_RTOL = 1e-4  # float32 cell sums of up to ~1000 weights, atomics vs blocke
 FLOAT_ATOL = 1e-4
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores: B2b's and B3's arithmetic
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak: B4's float32 products, three passes (3xTF32)
 GEMM_F32_RTOL = 1e-5  # of the output's scale: float32 sums of up to 2048 products, in another order
 GEMM_BF16_ULP = 2.0**-7  # of each value: the float32 sums differ, so one bf16 rounding may flip
 HEAD_RTOL = 1e-5  # the JAX package's own tolerance for the LPIPS head
@@ -147,6 +152,25 @@ def ptxas_summary(log: str) -> dict:
     return {"kernels": len(regs), "max_registers": max(regs, default=0), "max_spill_bytes": max(spills, default=0)}
 
 
+def ptxas_kernels(log: str, pattern: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name matches ``pattern`` (``Name<arg>``), from ptxas -v."""
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            short = re.search(pattern + r"ILi(\d+)E", entry.group(1))
+            name = f"{short.group(1)}<{short.group(2)}>" if short else None
+            continue
+        if name is not None:
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                found.setdefault(name, {})["spill_bytes"] = int(spill.group(1))
+            if regs:
+                found.setdefault(name, {})["registers"] = int(regs.group(1))
+    return found
+
+
 def bound_ms(cost, flops_per_s: float):
     """The least time for a call's work: the larger of its operations over peak and its bytes over HBM rate."""
     t_ops = cost.flops / flops_per_s * 1e3
@@ -183,7 +207,7 @@ def device_time_by_kernel(torch, fn, top: int = 10) -> dict:
     return {  # no rows: the profiler saw no device time here, and the CUDA-event timings stand alone
         "wall_ms": wall, "device_busy_ms": busy if rows else None,
         "idle_share": 1.0 - busy / wall if rows else None, "kernels": len(rows),
-        "top": [{"kernel": name[:90], "ms": ms, "calls": calls} for name, ms, calls in rows[:top]],
+        "top": [{"kernel": name[:64], "ms": ms, "calls": calls} for name, ms, calls in rows[:top]],
     }
 
 
@@ -267,7 +291,7 @@ def rows_shape(call):
 def phase_conv_epilogue_vs_plain(torch, ce, calls, dev, gen) -> dict:
     pointwise = sorted({gemm_shape(c) for c in calls if is_pointwise(c)})
     spatial = sorted({rows_shape(c) for c in calls if not is_pointwise(c)})
-    # odd tails: element path (K or N not a multiple of 8) and the 16-byte path with ragged M and N
+    # odd tails: element path (K or N not a multiple of 8) and the TMA path with ragged M, K and N
     tails = [(1001, 70, 33), (129, 8, 5), (77, 1280, 447), (3, 3, 7), (1001, 64, 40), (77, 1288, 72)]
     cases, worst = [], {"mm_abs": 0.0, "mm_rel": 0.0, "br_abs": 0.0}
     for m, k, n in pointwise + tails:
@@ -511,7 +535,7 @@ def phase_image_timing(torch, ce, lh, calls, lpips_taps, dev, gen, smi: str) -> 
         b = (0.1 * torch.randn(n, generator=gen, device=dev)).bfloat16()
         bound, by = bound_ms(ce.conv_bias_act_cost(meta(call[0]), meta(call[1]), meta((n,))), BF16_FLOPS_PER_S)
         rows["conv_mm_bias_relu"].append({
-            "shape": [m, k, n], "count": count, "bound_ms": bound, "bound_by": by,
+            "shape": [m, k, n], "hw": f"{call[0][2]}x{call[0][3]}", "count": count, "bound_ms": bound, "bound_by": by,
             "ms": median_ms(torch, lambda: ce.matmul_bias_relu(x, w, b), reps=30),
             "plain_ms": median_ms(torch, lambda: ce.matmul_bias_relu_plain(x, w, b), reps=10),
             "library_ms": median_ms(torch, lambda: torch.addmm(b, x, w.T).relu_(), reps=30),
@@ -546,7 +570,17 @@ def phase_image_timing(torch, ce, lh, calls, lpips_taps, dev, gen, smi: str) -> 
         by_bytes = sum(r["bound_ms"] * r["count"] for r in kernel_rows if r["bound_by"] == "bytes")
         total["bound_by"] = "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations"
         totals[name] = total
-    emit({"phase": "image_timing", "per_forward": totals, "card": smi,
+    groups = {}  # B2a by activation size: 73x73 (K 64), 35x35 (K 192-288), 17x17 (K 768), 8x8 (K 1280-2048)
+    for r in rows["conv_mm_bias_relu"]:
+        group = groups.setdefault(r["hw"], {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "K": set(), "N": set()})
+        group["launches"] += r["count"]
+        group["K"].add(r["shape"][1])
+        group["N"].add(r["shape"][2])
+        for key in ("ms", "bound_ms", "library_ms"):
+            group[key] += r[key] * r["count"]
+    for group in groups.values():
+        group["K"], group["N"] = sorted(group["K"]), sorted(group["N"])
+    emit({"phase": "image_timing", "per_forward": totals, "conv_mm_bias_relu_by_group": groups, "card": smi,
           "at": {"conv": "one InceptionV3 forward, batch 200, bf16", "lpips_head": "one alex LPIPS forward, 50 pairs of 256x256"}})
     return totals
 
@@ -783,13 +817,27 @@ def phase_text_timing(torch, ka, dev, gen, mask, smi: str) -> dict:
     bias4 = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
     scale, shift = torch.rand(hidden, generator=gen, device=dev) + 0.5, 0.1 * torch.randn(hidden, generator=gen, device=dev)
     rows = {}
-    att_bound, att_by = bound_ms(ka.attention_cost(q, k, v, mask, num_heads=heads), F32_FLOPS_PER_S)
+    # B4 float32 runs its products on the tensor cores in three TF32 passes: 3x the operations at the TF32
+    # peak, which stays under the bytes; the float32 FMA bound of the earlier kernel is kept beside it
+    cost = ka.attention_cost(q, k, v, mask, num_heads=heads)
+    att_bound, att_by = bound_ms(cost._replace(flops=3 * cost.flops), TF32_FLOPS_PER_S)
     rows["attention"] = {
         "count": BERT_BASE["num_layers"], "bound_ms": att_bound, "bound_by": att_by,
+        "bound_ms_fma": bound_ms(cost, F32_FLOPS_PER_S)[0],
         "ms": median_ms(torch, lambda: ka.attention(q, k, v, mask, num_heads=heads), reps=10),
         "plain_ms": median_ms(torch, lambda: ka.attention_plain(q, k, v, mask, num_heads=heads), reps=3, warmup=1),
         "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=bias4), reps=10),
     }
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    bias4b = bias4.bfloat16()
+    rows["attention_bf16"] = {  # compute_dtype=torch.bfloat16; not on the float32 main path
+        "count": BERT_BASE["num_layers"],
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(ka.attention_cost(qb, kb, vb, mask, num_heads=heads), BF16_FLOPS_PER_S))),
+        "ms": median_ms(torch, lambda: ka.attention(qb, kb, vb, mask, num_heads=heads), reps=10),
+        "plain_ms": median_ms(torch, lambda: ka.attention_plain(qb, kb, vb, mask, num_heads=heads), reps=3, warmup=1),
+        "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(split(qb), split(kb), split(vb), attn_mask=bias4b), reps=10),
+    }
+    del qb, kb, vb
     ln_bound, ln_by = bound_ms(ka.layernorm_residual_cost(q, k, scale, shift), F32_FLOPS_PER_S)
     rows["layernorm_residual"] = {
         "count": 2 * BERT_BASE["num_layers"], "bound_ms": ln_bound, "bound_by": ln_by,
@@ -802,8 +850,10 @@ def phase_text_timing(torch, ka, dev, gen, mask, smi: str) -> dict:
                "launches_per_forward": r["count"], "bound_by": r["bound_by"]}
         for name, r in rows.items()
     }
+    per_forward["attention"]["bound_ms_fma"] = rows["attention"]["bound_ms_fma"] * rows["attention"]["count"]
     emit({"phase": "text_timing", "per_launch": rows, "per_forward": per_forward, "card": smi,
-          "at": f"one bertscore_wmt encoder forward: ({bsz}, {length}, {hidden}), {heads} heads, float32",
+          "at": f"one bertscore_wmt encoder forward: ({bsz}, {length}, {hidden}), {heads} heads, float32 (attention_bf16: bf16)",
+          "bound": {"attention": "max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s TF32); bound_ms_fma: flops / 67 TFLOP/s"},
           "library": {"attention": "F.scaled_dot_product_attention, additive float mask, on head-split views",
                       "layernorm_residual": "F.layer_norm(x + h), two calls"}})
     return per_forward
@@ -853,6 +903,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    # the kernels redesigned for Hopper: registers and spills from ptxas, dynamic shared memory from the library
+    redesigned = ptxas_kernels(infos["conv_epilogue"]["log"], "(mm_bias_relu_tma)")
+    for key, value in redesigned.items():
+        value["smem_bytes"] = ce._library().tm_mm_bias_relu_tma_smem(int(key.split("<")[1][:-1]))
+    for key, value in ptxas_kernels(infos["attention"]["log"], "(attention_tf32x3|attention_bf16)").items():
+        value["smem_bytes"] = ka._attention_library().tm_attention_smem(int("bf16" in key), int(key.split("<")[1][:-1]))
+        redesigned[key] = value
     emit({
         "phase": "build",
         "seconds": round(time.perf_counter() - t0, 3),
@@ -860,6 +917,7 @@ def main() -> int:
             name: {"nvcc_seconds": round(info["seconds"], 3), "built": info["built"], **ptxas_summary(info["log"])}
             for name, info in infos.items()
         },
+        "redesigned_kernels": redesigned,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "device": device_name,

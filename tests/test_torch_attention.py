@@ -14,6 +14,7 @@ oracle (``_xla_attention``), whose answer the port follows.
 """
 
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,3 +126,88 @@ def test_costs_are_the_jax_packages():
     t = torch.empty(3, 128, 768, dtype=torch.bfloat16, device="meta")
     got = ka.layernorm_residual_cost(t, t, torch.ones(768), torch.zeros(768))
     assert (got.flops, got.bytes_accessed) == (want.flops, want.bytes_accessed)
+
+
+# -------------------------------------------- the card kernel's number formats, emulated
+
+ATT_F32_RTOL = 1e-5  # chip_smoke.py's tolerance for B4 in float32: of the output's scale
+
+
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on the CPU: round float32 to 10 mantissa bits, to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """``a @ b`` as B4 forms it on the tensor cores: hi = tf32(x), lo = tf32(x - hi), lo*hi + hi*lo + hi*hi in float32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_1xtf32(a, b):
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def _attention_with(mm, q, k, v, mask, num_heads):
+    """Masked attention per head with products ``mm``; scale, -1e9 bias and softmax in float32 after them."""
+    bsz, length, hidden = q.shape
+    d = hidden // num_heads
+    split = lambda t: t.reshape(bsz, length, num_heads, d).transpose(1, 2)  # noqa: E731
+    scores = mm(split(q), split(k).transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    scores = scores + (1.0 - mask[:, None, None, :]) * -1e9
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    ctx = mm(p, split(v)) / p.sum(dim=-1, keepdim=True)
+    return ctx.transpose(1, 2).reshape(bsz, length, hidden)
+
+
+@pytest.mark.parametrize(("bsz", "length", "hidden", "heads"), [(4, 37, 96, 4), (2, 128, 768, 12)])
+def test_3xtf32_products_hold_the_float32_tolerance(bsz, length, hidden, heads):
+    """B4's float32 design, on the CPU: 3xTF32 products stay within ATT_F32_RTOL of a float64 oracle; one TF32 pass does not.
+
+    Ragged masks as padded sentences give, with row 0 fully masked: that row is
+    still the mean of V over the L keys.
+    """
+    rng = np.random.default_rng(length + hidden)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bsz, length, hidden)).astype(np.float32)) for _ in range(3))
+    lens = rng.integers(max(1, length // 10), length + 1, bsz)
+    mask = torch.from_numpy((np.arange(length)[None, :] < lens[:, None]).astype(np.float32))
+    mask[0] = 0.0
+    want = ka.attention_plain(q.double(), k.double(), v.double(), mask.double(), num_heads=heads).float()
+    scale = float(want.abs().max())
+    got = _attention_with(_mm_3xtf32, q, k, v, mask, heads)
+    assert float((got - want).abs().max()) <= ATT_F32_RTOL * scale
+    assert float((got[0] - v[0].mean(dim=0)).abs().max()) <= ATT_F32_RTOL * scale
+    one_pass = _attention_with(_mm_1xtf32, q, k, v, mask, heads)
+    assert float((one_pass - want).abs().max()) > 10 * ATT_F32_RTOL * scale  # plain TF32 would break "highest"
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2**-11, 1.0 + 3 * 2**-11, -(1.0 + 2**-11), 1.0 + 2**-12, 3.0], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2**-10, 1.0 + 2 * 2**-10, -(1.0 + 2**-10), 1.0, 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32_rna(x), want)
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(np.float32))
+    hi = _tf32_rna(y)
+    assert float(((y - hi) / y).abs().max()) <= 2**-11 and float(((y - hi - _tf32_rna(y - hi)) / y).abs().max()) <= 2**-21
+
+
+@pytest.mark.parametrize(("bsz", "length", "hidden", "heads"), [(4, 37, 96, 4), (2, 128, 768, 12)])
+def test_bf16_design_with_p_in_two_parts_holds_one_bf16_step(bsz, length, hidden, heads):
+    """B4's bf16 design: exact Q K^T, P as two bf16 parts for P V; within one bf16 step of the float32 plain version."""
+    rng = np.random.default_rng(length)
+    q, k, v = (torch.from_numpy(_bf16_exact(rng, (bsz, length, hidden))) for _ in range(3))
+    lens = rng.integers(max(1, length // 10), length + 1, bsz)
+    mask = torch.from_numpy((np.arange(length)[None, :] < lens[:, None]).astype(np.float32))
+    mask[0] = 0.0
+
+    def mm(a, b):
+        if a.shape[-1] == b.shape[-2] == length:  # P V: P in two bf16 parts, V exact in bf16
+            a_hi = a.bfloat16().float()
+            return a_hi @ b + (a - a_hi).bfloat16().float() @ b
+        return a @ b  # bf16 products are exact in float32
+
+    got = _attention_with(mm, q, k, v, mask, heads).bfloat16().float()
+    want = ka.attention_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, num_heads=heads).float()
+    scale = float(want.abs().max())
+    assert bool(((got - want).abs() <= 2**-7 * want.abs() + ATT_F32_RTOL * scale).all())

@@ -177,3 +177,45 @@ def test_modules_import_and_run_without_nvcc():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize(
+    ("dtype", "m", "k", "n", "aligned", "route"),
+    [
+        (BF16, 245000, 192, 64, True, "tma_wgmma"),  # 35x35, batch 200
+        (BF16, 12800, 2048, 448, True, "tma_wgmma"),  # 8x8: two column tiles
+        (BF16, 77, 1288, 72, True, "tma_wgmma"),  # ragged M and K: TMA zero-fills the boxes
+        (BF16, 1, 8, 8, True, "tma_wgmma"),
+        (BF16, 1001, 70, 33, True, "element"),  # K % 8 != 0: rows are not 16-byte strided
+        (BF16, 129, 8, 5, True, "element"),  # N % 8 != 0: no 8-column stores
+        (BF16, 1001, 64, 40, False, "element"),  # a base off 16 bytes
+        (F32, 245000, 192, 64, True, "fma_f32"),
+        (F32, 1001, 70, 33, False, "fma_f32"),
+    ],
+)
+def test_gemm_route_by_dtype_shape_and_alignment(dtype, m, k, n, aligned, route):
+    assert ce._mm_route(dtype, m, k, n, aligned) == route
+
+
+def test_every_inception_pointwise_conv_takes_the_tma_route():
+    """All 40 pointwise convs of one InceptionV3 forward meet the TMA kernel's conditions at batch 200."""
+    from torchmetrics_tpu_torch.image._inception import BasicConv2d, InceptionV3
+
+    with torch.device("meta"):
+        net = InceptionV3(dtype=torch.bfloat16, fuse_bn=True)
+    convs = [mod.Conv_0 for mod in net.modules() if isinstance(mod, BasicConv2d)]
+    pointwise = [c for c in convs if c.kernel_size == (1, 1) and c.stride == (1, 1) and c.padding == (0, 0)]
+    assert len(convs) == 94 and len(pointwise) == 40
+    for conv in pointwise:
+        n, k = conv.weight.shape[:2]
+        assert ce._mm_route(BF16, 200 * 73 * 73, k, n, True) == "tma_wgmma", (k, n)
+
+
+@pytest.mark.parametrize(("m", "n"), [(2**31, 64), (64, 2**31)])
+def test_gemm_route_refuses_rows_past_a_32_bit_box_coordinate(m, n):
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ce._mm_route(BF16, m, 64, n, True)
+    assert ce._mm_route(BF16, m, 64, n + 1, True) == "element"  # the element kernel's 64-bit indices take it

@@ -129,6 +129,8 @@ def _attention_library() -> Any:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.tm_attention.argtypes = [ptr] * 5 + [i64] * 12 + [ctypes.c_int, ptr]
     lib.tm_attention.restype = ctypes.c_int
+    lib.tm_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tm_attention_smem.restype = ctypes.c_int
     return lib
 
 

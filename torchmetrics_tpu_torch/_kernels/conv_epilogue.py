@@ -99,6 +99,8 @@ def _library() -> Any:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tm_mm_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
     lib.tm_mm_bias_relu.restype = i32
+    lib.tm_mm_bias_relu_tma_smem.argtypes = [i32]
+    lib.tm_mm_bias_relu_tma_smem.restype = i32
     lib.tm_bias_relu.argtypes = [ptr, ptr, i64, i64, i32, i32, i64, ptr]
     lib.tm_bias_relu.restype = i32
     return lib
@@ -114,6 +116,27 @@ def _aligned16(*tensors: Tensor) -> bool:
 
 
 # --------------------------------------------------------------------- B2a
+
+_TMA_MAX_ROWS = 2**31 - 1  # TMA box coordinates are signed 32-bit
+
+
+def _mm_route(dtype: torch.dtype, m: int, k: int, n: int, aligned16: bool) -> str:
+    """Which kernel of ``csrc/conv_epilogue.cu`` takes a B2a call on the card.
+
+    ``"tma_wgmma"``: bf16 with ``K % 8 == 0``, ``N % 8 == 0`` and 16-byte
+    aligned ``x``, ``w`` and ``out`` (TMA needs 16-byte row strides and bases;
+    the epilogue stores 8 columns at once), which every InceptionV3 shape is.
+    ``"element"``: any other bf16 call. ``"fma_f32"``: float32. Raises for a
+    TMA-shaped call whose rows a 32-bit box coordinate cannot reach.
+    """
+    if dtype == torch.float32:
+        return "fma_f32"
+    if not (k % 8 == 0 and n % 8 == 0 and aligned16):
+        return "element"
+    if m > _TMA_MAX_ROWS or n > _TMA_MAX_ROWS:
+        raise ValueError(f"matmul_bias_relu: ({m}, {k}) x ({n}, {k}) is past the TMA kernel's 2**31 - 1 rows")
+    return "tma_wgmma"
+
 
 def matmul_bias_relu_plain(x2d: Tensor, w2d: Tensor, bias: Tensor) -> Tensor:
     """``relu(x2d @ w2d.T + bias)`` accumulated in float32 and rounded once to ``x2d``'s dtype."""
@@ -147,11 +170,11 @@ def matmul_bias_relu(x2d: Tensor, w2d: Tensor, bias: Tensor, out: Optional[Tenso
         return out
     if k == 0:
         raise ValueError(f"{name}: K must be positive")
-    vec = x2d.dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and _aligned16(x2d, w2d, out)
+    route = _mm_route(x2d.dtype, m, k, n, _aligned16(x2d, w2d, out))
     with torch.cuda.device(x2d.device):
         err = _library().tm_mm_bias_relu(
             x2d.data_ptr(), w2d.data_ptr(), bias.data_ptr(), out.data_ptr(), m, k, n,
-            _DTYPES[x2d.dtype], int(vec), torch.cuda.current_stream(x2d.device).cuda_stream,
+            _DTYPES[x2d.dtype], int(route == "tma_wgmma"), torch.cuda.current_stream(x2d.device).cuda_stream,
         )
     nvcc.raise_on_error(_library(), err, name)
     matmul_bias_relu.launches += 1
