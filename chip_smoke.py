@@ -11,7 +11,7 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 
 1. ``build``: compile the five kernel libraries (the build line gives each library's
    ``nvcc`` time, kernel count, most registers and largest spill, and, for the
-   kernels redesigned for Hopper, each one's registers, spills and dynamic shared
+   kernels redesigned for Hopper, each one's registers, spills and shared
    memory), print the card's name and power limit;
 2. ``kernel_vs_plain``: the confmat kernel against its plain PyTorch version on the card,
    counts exactly, float32 weights within a stated tolerance;
@@ -22,47 +22,54 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 4. ``ade20k_full``: 847-class semantic segmentation, 8 updates of 16 label maps
    of 512x512 with void pixels under ``ignore_index=-1``, checked exactly
    against the plain version on the card;
-5. ``timing``: CUDA-event medians of the confmat kernel, its plain version and
-   ``torch.bincount`` at the main path's two shapes, beside the bytes bound;
-6. ``conv_epilogue_vs_plain``: kernels B2a (GEMM + bias + ReLU) and B2b
+5. ``timing``: the confmat kernel at the main path's two shapes, added into a
+   state (``queued_ms``) and as a fresh matrix, beside the bytes bound with and
+   without the matrix, its plain version and ``torch.bincount``;
+6. ``confmat_distributions``: the confmat kernel and the one-atomic-per-row
+   design it replaced at one ADE20K-Full update on three label laws (the
+   ade20k_full maps, uniform pairs, 16x16-coherent maps), exact, timed;
+7. ``conv_epilogue_vs_plain``: kernels B2a (GEMM + bias + ReLU) and B2b
    (bias + ReLU) against their plain versions at every distinct shape of one
    InceptionV3 forward at batch 200, bf16 and float32, plus odd tails;
-7. ``lpips_head_vs_plain``: kernel B3 at every tap shape of the alex, vgg and
-   squeeze trunks at 256x256, 50 pairs;
-8. ``fid_cifar10_10k``: ``FrechetInceptionDistance(feature=2048)`` over 10,000
+8. ``lpips_head_vs_plain``: kernel B3 at every tap shape of the alex, vgg and
+   squeeze trunks at 256x256, 50 pairs, on float32 and bf16 maps, each call
+   repeated for identical bits;
+9. ``fid_cifar10_10k``: ``FrechetInceptionDistance(feature=2048)`` over 10,000
    real and 10,000 perturbed uint8 3x32x32 images in updates of 200, launch
    counts exact, the bf16 fused trunk against the float32 unfused one, the
    FID against a float64 host recomputation from the metric's states;
-9. ``lpips_pairs``: ``LearnedPerceptualImagePatchSimilarity()`` (alex) over
-   1,000 pairs of 3x256x256 images in batches of 50, one batch each of vgg
-   and squeeze, launch counts exact, against ``LPIPSNet(unfused=True)``.
-   Phases 8 and 9 also give one update's device time by kernel
-   (``torch.profiler``) and the share of its wall time the card sat idle;
-10. ``image_timing``: CUDA-event medians of B2a, B2b and B3 at their main-path
+10. ``lpips_pairs``: ``LearnedPerceptualImagePatchSimilarity()`` (alex) over
+    1,000 pairs of 3x256x256 images in batches of 50, one batch each of vgg
+    and squeeze, launch counts exact, against ``LPIPSNet(unfused=True)``; the
+    head stage alone must run B3 5 times and no copy, fill or division kernel.
+    Phases 9 and 10 also give one update's device time by kernel
+    (``torch.profiler``) and the share of its wall time the card sat idle;
+11. ``image_timing``: CUDA-event medians of B2a, B2b and B3 at their main-path
     shapes, beside their bounds, plain versions and library calls, summed over
-    one forward, and B2a by activation size (73x73, 35x35, 17x17, 8x8);
-11. ``attention_vs_plain``: kernel B4 (masked attention) against its plain version
+    one forward (B3 on bf16 maps, float32 beside), and B2a by activation size
+    (73x73, 35x35, 17x17, 8x8);
+12. ``attention_vs_plain``: kernel B4 (masked attention) against its plain version
     at the path's shapes, (2999, 128, 768)/12 heads of ``compute`` and
     (100, 128, 768) of a ``forward``, with the WMT corpus's ragged masks, at
     L 1, 37 and 509, at hidden 96/4 heads, with fully masked rows, float32
     and bf16; a view that is not 4-element aligned is refused;
-12. ``layernorm_residual_vs_plain``: kernel B5 at the path's (383872, 768) and at
+13. ``layernorm_residual_vs_plain``: kernel B5 at the path's (383872, 768) and at
     C 70, 1000, 1024 and 2000, float32, bf16 and mixed inputs;
-13. ``bertscore_wmt``: ``BERTScore(model=BertEncoderExtractor(npz))`` on seeded
+14. ``bertscore_wmt``: ``BERTScore(model=BertEncoderExtractor(npz))`` on seeded
     random bert-base-uncased weights over 2,999 pre-tokenized pairs (the size of
     WMT16 newstest2016 de-en) in updates of 100, half by ``forward``, then
     ``compute``, with ``idf`` off and on: launch counts exact, scores against the
     unfused float32 encoder on the card, one ``compute``'s device time by kernel;
-14. ``infolm_pairs``: ``InfoLM`` (KL, idf, temperature 0.25) on the same weights'
+15. ``infolm_pairs``: ``InfoLM`` (KL, idf, temperature 0.25) on the same weights'
     MLM head over 128 pairs of up to 64 wordpieces, launch counts exact, against
     the unfused MLM on the card;
-15. ``text_timing``: CUDA-event medians of B4 and B5 at one BERTScore encoder
+16. ``text_timing``: CUDA-event medians of B4 and B5 at one BERTScore encoder
     forward's shapes, beside their bounds, plain versions and library calls, and
     of B4 on bf16 inputs beside bf16 ``scaled_dot_product_attention``;
 
 then the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
-checkpoint can be downloaded.
+checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
 
 from __future__ import annotations
@@ -107,8 +114,19 @@ BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
 SPECIAL_IDS = {"pad_token_id": 0, "cls_token_id": 101, "sep_token_id": 102, "mask_token_id": 103}  # its vocab's
 
 
+def _float32_digits(obj):
+    """Floats to 7 significant digits, a float32's precision: CUDA events and the kernels' outputs are float32."""
+    if isinstance(obj, float):
+        return float(f"{obj:.7g}")
+    if isinstance(obj, dict):
+        return {k: _float32_digits(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_float32_digits(v) for v in obj]
+    return obj
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(_float32_digits(obj)), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -123,6 +141,28 @@ def median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for start, end in zip(starts, ends):
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def queued_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median device time of ``fn`` with the host's launches queued ahead of the card.
+
+    A spin kernel (``torch.cuda._sleep``) holds the stream while every call
+    and its two events are enqueued, so each pair of events brackets the
+    kernels alone: for a call shorter than its host-side launch cost,
+    :func:`median_ms` measures the host instead.
+    """
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(int(reps * 2e5))  # ~0.1 ms a call at the H100's clock: more than a wrapper's host cost
     for start, end in zip(starts, ends):
         start.record()
         fn()
@@ -152,22 +192,32 @@ def ptxas_summary(log: str) -> dict:
     return {"kernels": len(regs), "max_registers": max(regs, default=0), "max_spill_bytes": max(spills, default=0)}
 
 
-def ptxas_kernels(log: str, pattern: str) -> dict:
-    """Registers and spill bytes of each kernel whose mangled name matches ``pattern`` (``Name<arg>``), from ptxas -v."""
-    found, name = {}, None
+def ptxas_templates(log: str, name: str) -> dict:
+    """Registers, spill bytes and static shared memory of each instantiation of kernel template ``name``, from ptxas -v.
+
+    Keys are ``name<args>`` with the template arguments read from the mangled
+    name: ``f`` float32, ``i``/``l`` int32/int64 labels, ``Bf16`` bf16, ``Li<n>E`` n.
+    """
+    names = {"f": "f32", "i": "i32", "l": "i64"}
+    found, key = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            short = re.search(pattern + r"ILi(\d+)E", entry.group(1))
-            name = f"{short.group(1)}<{short.group(2)}>" if short else None
+            args = re.search(name + r"I(.*?)EEv", entry.group(1))
+            key = None
+            if args:
+                tokens = re.findall(r"Li(\d+)E|N\S*?4Bf16E|([fil])", args.group(1) + "E")
+                key = f"{name}<{','.join(num or names.get(tag, 'bf16') for num, tag in tokens)}>"
             continue
-        if name is not None:
+        if key is not None:
             spill = re.search(r"(\d+) bytes spill stores", line)
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             if spill:
-                found.setdefault(name, {})["spill_bytes"] = int(spill.group(1))
+                found.setdefault(key, {})["spill_bytes"] = int(spill.group(1))
             if regs:
-                found.setdefault(name, {})["registers"] = int(regs.group(1))
+                found.setdefault(key, {})["registers"] = int(regs.group(1))
+                found[key]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
     return found
 
 
@@ -337,6 +387,73 @@ def phase_conv_epilogue_vs_plain(torch, ce, calls, dev, gen) -> dict:
     return {"cases": cases, "worst": worst, "pointwise": pointwise, "spatial": spatial}
 
 
+def label_maps(torch, dev, gen, kind: str, classes: int = 847, maps: int = 16, side: int = 512):
+    """One ADE20K-Full update's ``(preds, target, valid)`` (16 maps of 512x512), formatted as the metric does.
+
+    ``ade20k``: the ade20k_full phase's law (10% void, 70% of the rest right,
+    pixels i.i.d.); ``uniform``: i.i.d. pairs, no void; ``coherent``: each
+    label constant over 16x16 patches, 70% of the patches right, as real
+    segmentation maps are spatially coherent.
+    """
+    n = maps * side * side
+    draw = lambda shape: torch.randint(0, classes, shape, generator=gen, device=dev)  # noqa: E731
+    if kind == "ade20k":
+        t = draw((n,))
+        void = torch.rand(n, generator=gen, device=dev) < 0.10
+        t[void] = -1
+        right = (torch.rand(n, generator=gen, device=dev) < 0.70) & ~void
+        p = torch.where(right, t, draw((n,)))
+    elif kind == "uniform":
+        t, p = draw((n,)), draw((n,))
+    else:
+        patches = (maps, side // 16, side // 16)
+        tp = draw(patches)
+        pp = torch.where(torch.rand(patches, generator=gen, device=dev) < 0.70, tp, draw(patches))
+        t, p = (x.repeat_interleave(16, 1).repeat_interleave(16, 2).reshape(-1) for x in (tp, pp))
+    valid = t != -1
+    return torch.where(valid, p, 0), torch.where(valid, t, 0), valid
+
+
+def phase_confmat_distributions(torch, kernel, dev, gen) -> dict:
+    """B1 and the one-atomic-per-row design it replaced, at one ADE20K-Full update on three label laws.
+
+    Both add into a state; both must equal the plain version exactly (the new
+    kernel over two calls into one matrix). The old kernel's times across the
+    laws show what set its pace; the new one's, how far it still depends on the data.
+    """
+    lib, c = kernel._library(), 847
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def row_atomics(p, t, valid, out):  # the replaced kernel's own launch: 256 threads, up to 8 blocks an SM
+        n = p.numel()
+        err = lib.tm_confmat_row_atomics(p.data_ptr(), t.data_ptr(), valid.data_ptr(), n, c, 1, 1, 0, out.data_ptr(),
+                                         min(8 * sms, -(-n // 256)), torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"row-atomics baseline launch failed: {err}")
+
+    laws = {}
+    for kind in ("ade20k", "uniform", "coherent"):
+        p, t, valid = label_maps(torch, dev, gen, kind, c)
+        ref = kernel.confusion_matrix_plain(p, t, c, valid)
+        state, old = torch.zeros_like(ref), torch.zeros_like(ref)
+        for _ in range(2):
+            kernel.confusion_matrix_cuda(p, t, c, valid, out=state)
+        row_atomics(p, t, valid, old)
+        torch.cuda.synchronize()
+        check(torch.equal(state, 2 * ref), f"B1 {kind}: two calls with out= != twice the plain version")
+        check(torch.equal(old, ref), f"B1 row-atomics baseline {kind} != plain version")
+        laws[kind] = {
+            "diagonal_share": float(ref.diagonal().sum() / ref.sum()),
+            "ms": queued_ms(torch, lambda: kernel.confusion_matrix_cuda(p, t, c, valid, out=state), reps=50),
+            "old_ms": queued_ms(torch, lambda: row_atomics(p, t, valid, state), reps=50),
+        }
+        del p, t, valid
+    n = 16 * 512 * 512
+    emit({"phase": "confmat_distributions", "n": n, "classes": c, "labels": "int64 + bool mask", "laws": laws,
+          "bound_ms": n * 17 / HBM_BYTES_PER_S * 1e3, "check": "exact, two calls with out= and the baseline",
+          "ms": "queued_ms into a state; old_ms: the one-atomic-per-row kernel"})
+    return laws
+
+
 def lpips_tap_shapes(torch, dev, net_type: str, pairs: int, side: int) -> list:
     """``(B, H, W, C)`` of each LPIPS tap's half for ``pairs`` image pairs of ``side`` x ``side``."""
     from torchmetrics_tpu_torch.image._inception import init_weights_
@@ -351,24 +468,40 @@ def lpips_tap_shapes(torch, dev, net_type: str, pairs: int, side: int) -> list:
 
 
 def phase_lpips_head_vs_plain(torch, lh, tap_shapes: dict, dev, gen) -> dict:
+    """B3 at every tap shape, on float32 and on bf16 maps (the trunk's dtype), against its plain version;
+    two calls on the same inputs must give the same bits (one cluster a row, fixed-order sums).
+
+    ``"odd"`` shapes (C not a multiple of a 16-byte vector) and ``"misaligned"``
+    ones (maps one element past a 16-byte boundary) take the kernel's
+    element-wise loads.
+    """
     cases, worst_rel, worst_abs = 0, 0.0, 0.0
     for net_type, shapes in tap_shapes.items():
         for shape in shapes:
             f0 = torch.randn(shape, generator=gen, device=dev).relu_()
             f1 = (f0 + 0.3 * torch.randn(shape, generator=gen, device=dev)).relu_()
             w = torch.rand(shape[-1], generator=gen, device=dev)
-            got = lh.lpips_head(f0, f1, w)
-            ref = lh.lpips_head_plain(f0, f1, w)
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            rel = float((err / ref.abs()).max())
-            name = f"B3 {net_type} {shape}"
-            check(bool((err <= HEAD_RTOL * ref.abs() + 1e-7).all()), f"{name}: max rel err {rel}")
-            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, float(err.max()))
-            cases += 1
+            for dtype in (torch.float32, torch.bfloat16):
+                a, b = f0.to(dtype), f1.to(dtype)
+                if net_type == "misaligned":
+                    a, b = (torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(shape).copy_(x) for x in (a, b))
+                got = lh.lpips_head(a, b, w)
+                again = lh.lpips_head(a, b, w)
+                ref = lh.lpips_head_plain(a, b, w)
+                torch.cuda.synchronize()
+                err = (got - ref).abs()
+                rel = float((err / ref.abs()).max())
+                name = f"B3 {net_type} {shape} {str(dtype).split('.')[-1]}"
+                check(bool((err <= HEAD_RTOL * ref.abs() + 1e-7).all()), f"{name}: max rel err {rel}")
+                check(torch.equal(got, again), f"{name}: two calls differ in their bits")
+                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, float(err.max()))
+                cases += 1
+                del a, b
+            del f0, f1
     emit({
-        "phase": "lpips_head_vs_plain", "cases": cases, "max_rel_err": worst_rel, "max_abs_err": worst_abs,
-        "tolerance": f"|err| <= {HEAD_RTOL} * |ref| + 1e-7 (the JAX package's rtol)",
+        "phase": "lpips_head_vs_plain", "cases": cases, "dtypes": ["float32", "bfloat16"], "max_rel_err": worst_rel,
+        "max_abs_err": worst_abs, "bit_identical_repeats": cases,
+        "tolerance": f"|err| <= {HEAD_RTOL} * |ref| + 1e-7 (the JAX package's rtol); repeats: identical bits",
     })
     return {"max_rel_err": worst_rel, "max_abs_err": worst_abs}
 
@@ -501,11 +634,28 @@ def phase_lpips(torch, lh, dev, gen, n_pairs: int = 1000, batch: int = 50, side:
     got_sum = float(metric.sum_scores)
     check(abs(got_sum - oracle_sum) <= HEAD_RTOL * abs(oracle_sum), f"alex sum {got_sum} vs unfused {oracle_sum}")
     profile = device_time_by_kernel(torch, lambda: metric.update(img0[:batch], img1[:batch]))
+    # the head stage alone, on one update's bf16 taps: B3 reads them as they are, so no copy,
+    # fill or division kernel runs beside its 5 launches (only the sum of the taps' distances)
+    lpnet, taps = metric.net.net, []
+    hook = lpnet.net.register_forward_hook(lambda mod, args, out: taps.extend(out))
+    try:
+        metric.net(img0[:batch], img1[:batch])
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        heads = device_time_by_kernel(torch, lambda: lpnet.heads(taps, batch), top=20)
+    names = [(row["kernel"], row["calls"]) for row in heads["top"]]
+    b3_calls = sum(calls for name, calls in names if "lpips_head_kernel" in name)
+    extra = [name for name, _ in names if any(word in name.lower() for word in ("copy", "fill", "div"))]
+    check(heads["kernels"] == 0 or (b3_calls == 5 and not extra), f"head stage kernels {names}")
     result = {
         "phase": "lpips_pairs", "pairs": n_pairs, "batch": batch, "net_type": "alex", "lpips": float(score),
         "unfused_mean": oracle_sum / n_pairs, "rel_err": abs(got_sum - oracle_sum) / abs(oracle_sum),
         "launches": launches, "seconds": seconds, "pairs_per_s": n_pairs / seconds, "peak_mem_bytes": peak,
-        "update_profile": profile, "others": {},
+        "update_profile": profile,
+        "head_stage": {"tap_dtypes": sorted({str(t.dtype).split(".")[-1] for t in taps}), "device_busy_ms": heads["device_busy_ms"],
+                       "kernels": [[name[:40], calls] for name, calls in names], "copy_fill_div_kernels": len(extra)},
+        "others": {},
     }
     for net_type, taps in (("vgg", 5), ("squeeze", 7)):
         other = LearnedPerceptualImagePatchSimilarity(net_type=net_type)
@@ -550,20 +700,26 @@ def phase_image_timing(torch, ce, lh, calls, lpips_taps, dev, gen, smi: str) -> 
             "plain_ms": median_ms(torch, lambda: ce.bias_relu_plain(y, b), reps=10),
             "library_ms": median_ms(torch, lambda: torch.add(y, b).relu_(), reps=30),
         })
-    for shape in lpips_taps:
+    for shape in lpips_taps:  # the trunk's bf16 maps, as the main path hands them over; float32 beside
         f0 = torch.randn(shape, generator=gen, device=dev).relu_()
         f1 = (f0 + 0.3 * torch.randn(shape, generator=gen, device=dev)).relu_()
         w = torch.rand(shape[-1], generator=gen, device=dev)
-        bound, by = bound_ms(lh.lpips_head_cost(f0, f1, w), F32_FLOPS_PER_S)
+        b0, b1 = f0.bfloat16(), f1.bfloat16()
+        bound, by = bound_ms(lh.lpips_head_cost(b0, b1, w), F32_FLOPS_PER_S)
         rows["lpips_head"].append({
             "shape": list(shape), "count": 1, "bound_ms": bound, "bound_by": by,
-            "ms": median_ms(torch, lambda: lh.lpips_head(f0, f1, w), reps=30),
-            "plain_ms": median_ms(torch, lambda: lh.lpips_head_plain(f0, f1, w), reps=10),
+            "ms": queued_ms(torch, lambda: lh.lpips_head(b0, b1, w)),
+            "call_ms": median_ms(torch, lambda: lh.lpips_head(b0, b1, w), reps=30),
+            "plain_ms": median_ms(torch, lambda: lh.lpips_head_plain(b0, b1, w), reps=10),
             "library_ms": None,
+            "f32_ms": queued_ms(torch, lambda: lh.lpips_head(f0, f1, w)),
+            "f32_call_ms": median_ms(torch, lambda: lh.lpips_head(f0, f1, w), reps=30),
+            "f32_bound_ms": bound_ms(lh.lpips_head_cost(f0, f1, w), F32_FLOPS_PER_S)[0],
         })
     totals = {}
     for name, kernel_rows in rows.items():
-        total = {key: sum(r[key] * r["count"] for r in kernel_rows) for key in ("ms", "plain_ms", "bound_ms")}
+        keys = [k for k in kernel_rows[0] if k.endswith("ms") and k != "library_ms"]
+        total = {key: sum(r[key] * r["count"] for r in kernel_rows) for key in keys}
         lib = [r["library_ms"] for r in kernel_rows]
         total["library_ms"] = None if None in lib else sum(v * r["count"] for v, r in zip(lib, kernel_rows))
         total["launches_per_forward"] = sum(r["count"] for r in kernel_rows)
@@ -580,8 +736,12 @@ def phase_image_timing(torch, ce, lh, calls, lpips_taps, dev, gen, smi: str) -> 
             group[key] += r[key] * r["count"]
     for group in groups.values():
         group["K"], group["N"] = sorted(group["K"]), sorted(group["N"])
-    emit({"phase": "image_timing", "per_forward": totals, "conv_mm_bias_relu_by_group": groups, "card": smi,
-          "at": {"conv": "one InceptionV3 forward, batch 200, bf16", "lpips_head": "one alex LPIPS forward, 50 pairs of 256x256"}})
+    emit({"phase": "image_timing", "per_forward": totals, "conv_mm_bias_relu_by_group": groups,
+          "lpips_head_by_tap": [{k: r[k] for k in ("shape", "ms", "f32_ms", "bound_ms")} for r in rows["lpips_head"]],
+          "card": smi,
+          "at": {"conv": "one InceptionV3 forward, batch 200, bf16",
+                 "lpips_head": "one alex LPIPS forward, 50 pairs of 256x256, bf16 maps (f32_*: float32 maps); "
+                               "ms: queued_ms (device time), call_ms: median_ms (one call's CUDA events)"}})
     return totals
 
 
@@ -904,12 +1064,18 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     # the kernels redesigned for Hopper: registers and spills from ptxas, dynamic shared memory from the library
-    redesigned = ptxas_kernels(infos["conv_epilogue"]["log"], "(mm_bias_relu_tma)")
+    redesigned = ptxas_templates(infos["conv_epilogue"]["log"], "mm_bias_relu_tma")
     for key, value in redesigned.items():
         value["smem_bytes"] = ce._library().tm_mm_bias_relu_tma_smem(int(key.split("<")[1][:-1]))
-    for key, value in ptxas_kernels(infos["attention"]["log"], "(attention_tf32x3|attention_bf16)").items():
-        value["smem_bytes"] = ka._attention_library().tm_attention_smem(int("bf16" in key), int(key.split("<")[1][:-1]))
-        redesigned[key] = value
+    for template in ("attention_tf32x3", "attention_bf16"):
+        for key, value in ptxas_templates(infos["attention"]["log"], template).items():
+            value["smem_bytes"] = ka._attention_library().tm_attention_smem(int("bf16" in key), int(key.split("<")[1][:-1]))
+            redesigned[key] = value
+    # B1 and B3: the instantiations the main paths run, int64 labels under a mask and bf16 maps in
+    # 16-byte vectors (1-3 a lane); their dynamic shared memory is 4 * C bytes
+    main_path = {"confmat_kernel<i64,1>", *(f"lpips_head_kernel<bf16,8,{k}>" for k in (1, 2, 3))}
+    for lib_name, template in (("confmat", "confmat_kernel"), ("lpips_head", "lpips_head_kernel")):
+        redesigned.update({k: v for k, v in ptxas_templates(infos[lib_name]["log"], template).items() if k in main_path})
     emit({
         "phase": "build",
         "seconds": round(time.perf_counter() - t0, 3),
@@ -917,7 +1083,10 @@ def main() -> int:
             name: {"nvcc_seconds": round(info["seconds"], 3), "built": info["built"], **ptxas_summary(info["log"])}
             for name, info in infos.items()
         },
-        "redesigned_kernels": redesigned,
+        "redesigned_kernels": {k: [v.get("registers"), v.get("spill_bytes"), v.get("smem_bytes", v.get("static_smem_bytes"))]
+                               for k, v in redesigned.items()},
+        "redesigned_fields": ["registers", "spill_bytes", "smem_bytes (confmat_kernel, lpips_head_kernel: static, "
+                              "plus 4 * C dynamic: diagonal counters; head weights)"],
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "device": device_name,
@@ -940,17 +1109,21 @@ def main() -> int:
         (100_000, 300, torch.int64, None, "out_of_range"),
         (100_000, 300, torch.int32, "mask", "out_of_range"),
         (100_000, 300, torch.int64, "float", "out_of_range"),
+        # views 3 and 1 rows into their arrays: the kernel's scalar head before its 16-byte loads
+        (100_003, 300, torch.int64, "mask", "offset_3"),
+        (100_001, 300, torch.int32, "float", "offset_1"),
     ]
     max_abs_err = 0.0
     for n, c, dtype, wkind, labels in cases:
         lo, hi = (-2, c + 2) if labels == "out_of_range" else (0, c)
-        t = torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
-        p = t.clone() if labels == "diagonal" else torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
+        skip = int(labels.split("_")[1]) if labels.startswith("offset") else 0
+        t = torch.randint(lo, hi, (n + skip,), generator=gen, device=dev, dtype=dtype)[skip:]
+        p = t.clone() if labels == "diagonal" else torch.randint(lo, hi, (n + skip,), generator=gen, device=dev, dtype=dtype)[skip:]
         w = None
         if wkind == "mask":
-            w = torch.rand(n, generator=gen, device=dev) < 0.9
+            w = (torch.rand(n + skip, generator=gen, device=dev) < 0.9)[skip:]
         elif wkind == "float":
-            w = torch.rand(n, generator=gen, device=dev)
+            w = torch.rand(n + skip, generator=gen, device=dev)[skip:]
         got = confmat_cuda(p, t, c, w)
         ref = confmat_plain(p, t, c, w)
         torch.cuda.synchronize()
@@ -1074,13 +1247,18 @@ def main() -> int:
         state = torch.zeros((c, c), dtype=torch.int32, device=dev)
         out = confmat_cuda(p, t, c, valid)
         plain_reps = 20 if n < 100_000 else 5
-        nbytes = n * (2 * p.element_size() + valid.element_size()) + c * c * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        ms = median_ms(torch, lambda: confmat_cuda(p, t, c, valid), reps=50)
+        label_bytes = n * (2 * p.element_size() + valid.element_size())
+        # the main path adds into the metric's state: the labels are read once and only touched cells
+        # change; a fresh matrix (the functional API) also zeroes and writes all C * C * 4 bytes
+        bound = label_bytes / HBM_BYTES_PER_S * 1e3
+        ms = queued_ms(torch, lambda: confmat_cuda(p, t, c, valid, out=state), reps=50)
         shapes[name] = {
             "n": n, "classes": c, "labels": str(p.dtype).split(".")[-1], "weights": "bool mask",
             "ms": ms,
+            "call_ms": median_ms(torch, lambda: confmat_cuda(p, t, c, valid, out=state), reps=50),
+            "fresh_call_ms": median_ms(torch, lambda: confmat_cuda(p, t, c, valid), reps=50),
             "bound_ms": bound,
+            "bound_ms_fresh": (label_bytes + c * c * 4) / HBM_BYTES_PER_S * 1e3,
             "bound_share": bound / ms,
             "zeros_ms": median_ms(torch, lambda: torch.zeros((c, c), dtype=torch.int32, device=dev), reps=50),
             "state_add_ms": median_ms(torch, lambda: state.add_(out), reps=50),
@@ -1108,10 +1286,13 @@ def main() -> int:
     }
     emit({
         "phase": "timing", "shapes": shapes, "wall_ms_per_call": per_metric,
+        "ms": "queued_ms, out= the state (device time); call_ms / fresh_call_ms: median_ms, with / without out=",
         "imagenet_val": {"batches_per_s": n_batches / imagenet_s, "samples_per_s": n_val / imagenet_s},
         "ade20k_full": {"updates_per_s": n_updates / ade_s, "pixels_per_s": pixels / ade_s},
         "card": smi,
     })
+
+    phase_confmat_distributions(torch, kernel, dev, gen)
 
     # ------------------------------------------ image trunks: shapes, kernels
     probe = InceptionFeatureExtractor(feature="2048")  # seeded random weights; shapes only
@@ -1120,7 +1301,8 @@ def main() -> int:
     del probe
     conv_checks = phase_conv_epilogue_vs_plain(torch, ce, calls, dev, gen)
     taps = {net_type: lpips_tap_shapes(torch, dev, net_type, pairs=50, side=256) for net_type in ("alex", "vgg", "squeeze")}
-    head_checks = phase_lpips_head_vs_plain(torch, lh, taps, dev, gen)
+    odd = {"odd": [(3, 5, 7, 35), (2, 9, 9, 5), (7, 3, 3, 1000)], "misaligned": [(4, 15, 15, 384), (2, 31, 31, 64)]}
+    head_checks = phase_lpips_head_vs_plain(torch, lh, {**taps, **odd}, dev, gen)
 
     # ------------------------------------------------------- fid_cifar10_10k
     with tempfile.TemporaryDirectory() as folder:
@@ -1155,7 +1337,8 @@ def main() -> int:
         ("bias_relu", ":96", fid["launches"]["bias_relu"], conv_checks["worst"]["br_abs"],
          "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu", "one InceptionV3 forward (54 spatial convs), batch 200, bf16"),
         ("lpips_head", ":60", lpips["launches"], head_checks["max_abs_err"],
-         "torchmetrics_tpu/_kernels/lpips_head.py", "lpips_head.cu", "one alex LPIPS forward (5 taps), 50 pairs of 256x256"),
+         "torchmetrics_tpu/_kernels/lpips_head.py", "lpips_head.cu",
+         "one alex LPIPS forward (5 taps), 50 pairs of 256x256, bf16 maps, queued_ms"),
     ]
     text_at = "one bertscore_wmt encoder forward (2999, 128, 768), 12 heads, float32"
     image_kernels += [
@@ -1178,7 +1361,8 @@ def main() -> int:
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": big["library_ms"],
-        "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask",
+        "bound_ms_fresh": big["bound_ms_fresh"],
+        "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask, into the state, queued_ms",
     }] + [{
         "name": name,
         "route": "cuda",

@@ -204,3 +204,59 @@ def test_validation_raises_like_jax(name, arrays, kwargs, error):
 def test_data_helpers(name, kwargs, make):
     x = make(np.random.default_rng(19))
     assert_same(getattr(torch_data, name)(torch.from_numpy(x), **kwargs), getattr(jax_data, name)(jnp.asarray(x), **kwargs))
+
+
+@pytest.mark.parametrize("full_state_update", [False, True], ids=["reduce_state", "full_state"])
+def test_multiclass_confusion_matrix_class_counts_into_its_state(full_state_update):
+    """C = 300 (the kernel route): update, forward in both modes, reset and merge_state match the JAX class,
+    the counts go into the state tensor itself, and a batch that fails validation changes nothing."""
+    import torchmetrics_tpu.classification as JC
+    import torchmetrics_tpu_torch.classification as TC
+
+    # the forward mode is a class constant in both packages
+    jax_cls = type("J", (JC.MulticlassConfusionMatrix,), {"full_state_update": full_state_update})
+    torch_cls = type("T", (TC.MulticlassConfusionMatrix,), {"full_state_update": full_state_update})
+
+    def pair():
+        jm = jax_cls(num_classes=C_LARGE, ignore_index=-1)
+        return jm, torch_cls(num_classes=C_LARGE, ignore_index=-1, device="cpu")
+
+    data = [multiclass_inputs(40 + s, c=C_LARGE, labels=s % 2 == 1, ignore_index=-1) for s in range(3)]
+    jm, tm = pair()
+    state = tm.confmat
+    jm.update(*map(jnp.asarray, data[0]))
+    tm.update(*map(torch.from_numpy, data[0]))
+    assert tm.confmat is state  # added in place, not rebound to a fresh matrix
+    assert_same(tm(*map(torch.from_numpy, data[1])), jm(*map(jnp.asarray, data[1])))
+    jm.update(*map(jnp.asarray, data[2]))
+    tm.update(*map(torch.from_numpy, data[2]))
+    assert tm.update_count == jm.update_count == 3
+    assert_same(tm.compute(), jm.compute())
+
+    _, target = multiclass_inputs(50, c=C_LARGE)
+    preds = np.random.default_rng(50).normal(size=(N, C_LARGE + 1)).astype(np.float32)  # one score too many
+    with pytest.raises(ValueError):
+        jm.update(jnp.asarray(preds), jnp.asarray(target))
+    before = tm.confmat.clone()
+    for call in (tm.update, tm):
+        with pytest.raises(ValueError):
+            call(torch.from_numpy(preds), torch.from_numpy(target))
+        assert torch.equal(tm.confmat, before)
+    assert_same(tm.compute(), jm.compute())
+
+    other_j, other_t = pair()
+    for arrays in data[:2]:
+        other_j.update(*map(jnp.asarray, arrays))
+        other_t.update(*map(torch.from_numpy, arrays))
+    jm.merge_state(other_j)
+    tm.merge_state(other_t)
+    assert_same(tm.compute(), jm.compute())
+    tm.update(*map(torch.from_numpy, data[0]))  # streams on after the merge
+    jm.update(*map(jnp.asarray, data[0]))
+    assert_same(tm.compute(), jm.compute())
+
+    jm.reset()
+    tm.reset()
+    assert int(tm.confmat.sum()) == 0
+    assert_same(tm(*map(torch.from_numpy, data[2])), jm(*map(jnp.asarray, data[2])))
+    assert_same(tm.compute(), jm.compute())

@@ -129,3 +129,60 @@ def test_module_imports_and_runs_without_nvcc():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("weights", ["none", "mask", "float"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_out_adds_into_the_given_matrix(weights, dtype):
+    """``out=`` (a metric's state) gets ``out_before + fresh`` and is returned, not a copy."""
+    rng = np.random.default_rng(21)
+    n, c = 900, 300
+    p, t = (torch.from_numpy(_labels(rng, n, c, lo=-1, hi=c + 1)).to(dtype) for _ in range(2))
+    w = {"none": None, "mask": torch.from_numpy(rng.random(n) < 0.7), "float": torch.from_numpy(rng.random(n).astype(np.float32))}[weights]
+    fresh = kernel.confusion_matrix_cuda(p, t, c, w)
+    before = torch.from_numpy(rng.integers(0, 5, (c, c))).to(fresh.dtype)
+    out = before.clone()
+    got = kernel.confusion_matrix_cuda(p, t, c, w, out=out)
+    assert got is out
+    if weights == "float":
+        torch.testing.assert_close(out, before + fresh, rtol=1e-6, atol=1e-6)
+    else:
+        assert torch.equal(out, before + fresh)
+    again = kernel.confusion_matrix_plain(p, t, c, w, out=out.clone())
+    torch.testing.assert_close(again, before + 2 * fresh, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    ("weights", "out"),
+    [
+        (None, torch.zeros((300, 300), dtype=torch.int64)),  # wrong dtype: counts are int32
+        (None, torch.zeros((300, 300), dtype=torch.float32)),
+        (torch.ones(50), torch.zeros((300, 300), dtype=torch.int32)),  # float weights sum in float32
+        (torch.ones(50, dtype=torch.bool), torch.zeros((300, 301), dtype=torch.int32)),  # wrong shape
+        (None, torch.zeros((300, 300), dtype=torch.int32, device="meta")),  # wrong device
+        (None, torch.zeros((300, 300), dtype=torch.int32).t()),  # not contiguous
+    ],
+)
+def test_out_is_checked_before_anything_is_added(weights, out):
+    p = torch.randint(0, 300, (50,))
+    before = out.clone() if out.device.type == "cpu" else None
+    with pytest.raises(ValueError):
+        kernel.confusion_matrix_cuda(p, p, 300, weights, out=out)
+    if before is not None:
+        assert torch.equal(out, before)
+    assert kernel.confusion_matrix_cuda.launches == 0
+
+
+@pytest.mark.parametrize(
+    ("arrays", "n", "head"),
+    [
+        ([(4096, 8), (8192, 8), (12288, 1)], 1000, 0),  # fresh allocations: all aligned from row 0
+        ([(4096 + 24, 8), (8192 + 24, 8), (12288 + 3, 1)], 1000, 5),  # a slice 3 rows in: aligned again 5 rows on
+        ([(4096 + 8, 8), (8192 + 8, 8)], 1000, 1),  # int64 labels both one row in: row 1 aligns both
+        ([(4096 + 4, 4), (8192 + 4, 4), (12288 + 4, 4)], 1000, 3),  # int32 + float32 weights, one row in
+        ([(4096 + 8, 8), (8192, 8)], 1000, 1000),  # labels one row apart: no common boundary, every row scalar
+        ([(4096 + 24, 8), (8192 + 24, 8), (12288 + 3, 1)], 3, 3),  # fewer rows than the head
+    ],
+)
+def test_vector_head(arrays, n, head):
+    assert kernel.vector_head(n, arrays) == head

@@ -102,6 +102,31 @@ def test_lpips_bf16_trunk_matches_jax(weights):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2)
 
 
+@pytest.mark.parametrize("net_type", NET_TYPES)
+def test_fused_bf16_network_hands_the_head_its_trunk_maps(weights, net_type, monkeypatch):
+    """The fused path gives the head the trunk's bf16 maps (no float32 copies); the head widens them exactly,
+    so the fused network equals the unfused one at the head's tolerance, and the JAX network at bf16's."""
+    import torchmetrics_tpu_torch.image._lpips as port_lpips
+
+    seen = []
+
+    def recording_head(f0, f1, weight):
+        seen.append((f0.dtype, f1.dtype))
+        return lh.lpips_head(f0, f1, weight)
+
+    monkeypatch.setattr(port_lpips, "lpips_head", recording_head)
+    img0, img1 = _images(seed=20 + len(net_type))
+    npz = weights[net_type]["npz"]
+    fused = LPIPSExtractor(net_type=net_type, weights_path=npz, device="cpu")(torch.from_numpy(img0), torch.from_numpy(img1))
+    assert seen and set(seen) == {(torch.bfloat16, torch.bfloat16)}
+    unfused = LPIPSExtractor(net_type=net_type, weights_path=npz, unfused=True, device="cpu")(
+        torch.from_numpy(img0), torch.from_numpy(img1)
+    )
+    np.testing.assert_allclose(fused.numpy(), unfused.numpy(), rtol=1e-5, atol=1e-7)
+    want = JaxExtractor(net_type=net_type, weights_path=npz)(jnp.asarray(img0), jnp.asarray(img1))
+    np.testing.assert_allclose(fused.numpy(), np.asarray(want), rtol=2e-2)
+
+
 @pytest.mark.parametrize("reduction", ["mean", "sum"])
 def test_metric_and_functional_match_jax(weights, reduction):
     npz = weights["alex"]["npz"]

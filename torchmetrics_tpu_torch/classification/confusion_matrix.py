@@ -1,7 +1,8 @@
 """Modular confusion-matrix metrics (reference ``torchmetrics/classification/confusion_matrix.py``).
 
-The ``confmat`` state is updated in place; ``compute`` returns a copy, so a
-value already handed out does not change under later updates.
+The ``confmat`` state is updated in place (``MulticlassConfusionMatrix`` has
+its counts added straight into it); ``compute`` returns a copy, so a value
+already handed out does not change under later updates.
 """
 
 from __future__ import annotations
@@ -120,7 +121,8 @@ class MulticlassConfusionMatrix(Metric):
         if self.validate_args:
             _multiclass_confusion_matrix_tensor_validation(preds, target, self.num_classes, self.ignore_index)
         preds, target, valid = _multiclass_confusion_matrix_format(preds, target, self.ignore_index)
-        self.confmat += _multiclass_confusion_matrix_update(preds, target, valid, self.num_classes)
+        # counted straight into the state (by the kernel from 256 classes on)
+        _multiclass_confusion_matrix_update(preds, target, valid, self.num_classes, out=self.confmat)
 
     def compute(self) -> Tensor:
         return _multiclass_confusion_matrix_compute(self.confmat.clone(), self.normalize)

@@ -95,17 +95,25 @@ def _binary_confusion_matrix_format(
 _KERNEL_MIN_CLASSES = 256  # below this the one-hot product is at least as fast
 
 
-def _confusion_matrix_update(preds: Tensor, target: Tensor, valid: Tensor, num_classes: int) -> Tensor:
+def _confusion_matrix_update(
+    preds: Tensor, target: Tensor, valid: Tensor, num_classes: int, out: Optional[Tensor] = None
+) -> Tensor:
     """Int32 confusion-matrix counts: rows=true class, cols=pred class.
 
     Small ``C``: one-hot product. Large ``C``: :func:`confusion_matrix_cuda`
     with ``valid`` as its bool mask, which never builds the ``(N, C)`` one-hots.
+    With ``out`` (a metric's ``(C, C)`` int32 state) the counts are added into
+    it and it is returned: at large ``C`` by the kernel itself, so no fresh
+    matrix is zeroed and no ``+=`` runs beside it.
     """
     if num_classes >= _KERNEL_MIN_CLASSES:
-        return confusion_matrix_cuda(preds.reshape(-1), target.reshape(-1), num_classes, weights=valid.reshape(-1))
+        return confusion_matrix_cuda(
+            preds.reshape(-1), target.reshape(-1), num_classes, weights=valid.reshape(-1), out=out
+        )
     t_oh = _one_hot(target, num_classes, torch.float32) * valid[..., None]
     p_oh = _one_hot(preds, num_classes, torch.float32)
-    return torch.einsum("nc,nd->cd", t_oh, p_oh).to(torch.int32)
+    counts = torch.einsum("nc,nd->cd", t_oh, p_oh).to(torch.int32)
+    return counts if out is None else out.add_(counts)
 
 
 def _binary_confusion_matrix_update(preds: Tensor, target: Tensor, valid: Tensor) -> Tensor:
@@ -191,8 +199,10 @@ def _multiclass_confusion_matrix_format(
     return preds, target, valid
 
 
-def _multiclass_confusion_matrix_update(preds: Tensor, target: Tensor, valid: Tensor, num_classes: int) -> Tensor:
-    return _confusion_matrix_update(preds, target, valid, num_classes)
+def _multiclass_confusion_matrix_update(
+    preds: Tensor, target: Tensor, valid: Tensor, num_classes: int, out: Optional[Tensor] = None
+) -> Tensor:
+    return _confusion_matrix_update(preds, target, valid, num_classes, out)
 
 
 def _multiclass_confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) -> Tensor:

@@ -164,15 +164,19 @@ class LPIPSNet(nn.Module):
         # one trunk pass over the concatenated pair batch; each tap's halves are
         # channels_last views, so their (B, H, W, C) permutes need no copy
         x = torch.cat([(img0 - shift) / scale, (img1 - shift) / scale]).contiguous(memory_format=torch.channels_last)
-        feats = self.net(x)
+        return self.heads(self.net(x), n)
+
+    def heads(self, feats: List[Tensor], n: int) -> Tensor:
+        """``(n,)`` distances from the trunk's taps over the pair batch: pair ``i`` is rows ``i`` and ``n + i``."""
         total = 0.0
         with full_fp32():  # the head's 1x1 conv at precision "highest"
             for i, f in enumerate(feats):
-                # distances accumulate in float32 whatever the trunk's dtype
-                f0, f1 = f[:n].float(), f[n:].float()
+                # distances accumulate in float32 whatever the trunk's dtype; the head
+                # kernel reads the trunk's dtype itself, the oracle casts first
+                f0, f1 = f[:n], f[n:]
                 lin = getattr(self, f"lin{i}")
                 if self.unfused:
-                    d = (_normalize_tensor(f0) - _normalize_tensor(f1)) ** 2
+                    d = (_normalize_tensor(f0.float()) - _normalize_tensor(f1.float())) ** 2
                     total = total + F.conv2d(d, lin.weight.float()).mean(dim=(1, 2, 3))
                 else:
                     total = total + lpips_head(f0.permute(0, 2, 3, 1), f1.permute(0, 2, 3, 1), lin.weight)
