@@ -19,6 +19,22 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
    1000 classes, batches of 1024) through ``MulticlassAccuracy`` top-1/top-5
    and ``MulticlassConfusionMatrix``, half by ``forward``, half by ``update``,
    checked exactly against ``numpy`` on the host;
+3a. ``confmat_exact_2p24``: 2**24 + 3 rows, all (1, 1), in one update of
+   ``BinaryConfusionMatrix`` and ``MulticlassConfusionMatrix`` at 3 and 300
+   classes (B1): exactly 16,777,219 in cell (1, 1);
+3b. ``classification_collection``: BASELINE config 2 on the same deployment, a
+   ``MetricCollection`` of micro accuracy, macro precision/recall/F1, binned
+   (100 thresholds) and exact AUROC and two confusion matrices, half by
+   ``forward``, half by ``update``: counts exact against ``numpy``, ratios and
+   AUROC (binned against ``numpy`` on the same thresholds, exact against a
+   float64 rank sum) within stated tolerances, the compute groups of the CPU
+   tests, B1 launched once an ``update`` batch and once a confusion-matrix
+   member a ``forward`` batch, results equal to the metrics outside a
+   collection; batches/s, update and forward ms, each AUROC's ``compute`` ms,
+   peak memory;
+3c. ``aggregation``: Mean, Sum, Max, Cat and ``RunningMean(window=5)`` over 49
+   batches of losses made on the card, one with NaNs under
+   ``nan_strategy="ignore"``, against float64 on the host;
 4. ``ade20k_full``: 847-class semantic segmentation, 8 updates of 16 label maps
    of 512x512 with void pixels under ``ignore_index=-1``, checked exactly
    against the plain version on the card;
@@ -81,13 +97,15 @@ import json
 import os
 import re
 import statistics
+import multiprocessing
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
-FLOAT_RTOL = 1e-4  # float32 cell sums of up to ~1000 weights, atomics vs blocked GEMM order: k * 2**-24 ~ 6e-5
+FLOAT_RTOL = 1e-4  # float32 cell sums of up to ~1000 weights: the kernel's atomics vs the plain float64 bincount
 FLOAT_ATOL = 1e-4
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores: B2b's and B3's arithmetic
@@ -112,6 +130,13 @@ INFOLM_RTOL, INFOLM_ATOL = 1e-4, 1e-5
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072,
                  max_position=512, type_vocab=2)  # bert-base-uncased's published config
 SPECIAL_IDS = {"pad_token_id": 0, "cls_token_id": 101, "sep_token_id": 102, "mask_token_id": 103}  # its vocab's
+# classification_collection: macro precision/recall/F1 and the normalized confusion matrix against float64 numpy
+# (float32 divisions and a 1000-term float32 mean); binned AUROC against numpy on the same thresholds (float32
+# rates and a 100-step trapezoid); exact AUROC against a float64 Mann-Whitney rank sum, ties averaged
+COLLECTION_RATIO_ATOL = 1e-6
+BINNED_AUROC_ATOL = 1e-6
+EXACT_AUROC_ATOL = 1e-5
+AGG_RTOL = 1e-6  # aggregation: float32 sums of 16 and 49 positive terms against float64
 
 
 def _float32_digits(obj):
@@ -452,6 +477,243 @@ def phase_confmat_distributions(torch, kernel, dev, gen) -> dict:
           "bound_ms": n * 17 / HBM_BYTES_PER_S * 1e3, "check": "exact, two calls with out= and the baseline",
           "ms": "queued_ms into a state; old_ms: the one-atomic-per-row kernel"})
     return laws
+
+
+def phase_confmat_exact_2p24(torch, kernel, dev) -> int:
+    """2**24 + 3 rows, all (1, 1), in one update: every confusion matrix must hold exactly 16,777,219 in cell (1, 1).
+
+    Binary and 3 classes take the integer ``bincount`` route, 300 classes
+    kernel B1; a float32 count would round there. Returns B1's launches.
+    """
+    from torchmetrics_tpu_torch.classification import BinaryConfusionMatrix, MulticlassConfusionMatrix
+
+    n = 2**24 + 3
+    ones = torch.ones(n, dtype=torch.int64, device=dev)
+    kernel.confusion_matrix_cuda.launches = 0
+    cells = {}
+    for name, metric in (("binary", BinaryConfusionMatrix()), ("multiclass_3", MulticlassConfusionMatrix(num_classes=3)),
+                         ("multiclass_300", MulticlassConfusionMatrix(num_classes=300))):
+        metric.update(ones, ones)
+        cm = metric.compute()
+        check(cm.device == dev and cm.dtype == torch.int32, f"{name}: {cm.device} {cm.dtype}")
+        cells[name] = int(cm[1, 1])
+        check(cells[name] == n == 16_777_219 and int(cm.sum()) == n, f"{name}: cell (1, 1) {cells[name]} != {n}")
+    launches = kernel.confusion_matrix_cuda.launches
+    check(launches == 1, f"B1 launches {launches} != 1 (the 300-class update)")
+    emit({"phase": "confmat_exact_2p24", "rows": n, "cell_1_1": cells, "confmat_launches": launches,
+          "check": "exact: 16,777,219 in cell (1, 1)"})
+    return launches
+
+
+def _host_binned_auroc(probs, target, thresholds):
+    """Macro AUROC of (T, C) binned counts in float64: a score counts at a threshold it reaches (>=)."""
+    import numpy as np
+
+    n, c = probs.shape
+    sorted_cols = np.sort(probs, axis=0)
+    tpr, fpr = np.empty((len(thresholds), c)), np.empty((len(thresholds), c))
+    for k in range(c):
+        pos = np.sort(probs[target == k, k])
+        above_all = n - np.searchsorted(sorted_cols[:, k], thresholds, side="left")
+        tp = len(pos) - np.searchsorted(pos, thresholds, side="left")
+        fp = above_all - tp
+        tpr[:, k] = tp / len(pos) if len(pos) else 0.0
+        fpr[:, k] = fp / (n - len(pos)) if n - len(pos) else 0.0
+    tpr, fpr = tpr[::-1], fpr[::-1]  # thresholds descending: the ROC runs from (0, 0) up
+    areas = ((tpr[1:] + tpr[:-1]) / 2 * np.diff(fpr, axis=0)).sum(0)
+    return float(areas.mean())
+
+
+def _host_rank_sum_aurocs(probs, target, first_class: int):
+    """Per-class AUROC of the columns ``probs[:, j]`` (class ``first_class + j``) as the Mann-Whitney statistic:
+    float64 ranks, ties averaged (``scipy.stats.rankdata``)."""
+    import numpy as np
+    from scipy.stats import rankdata
+
+    ranks = rankdata(probs.astype(np.float64), axis=0)
+    areas = []
+    for j in range(probs.shape[1]):
+        pos = target == first_class + j
+        n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+        areas.append((ranks[pos, j].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+    return areas
+
+
+def phase_classification_collection(torch, np, kernel, dev, gen, smi: str, n_val: int = 50_000, c: int = 1000,
+                                    batch: int = 1024) -> dict:
+    """BASELINE config 2 on imagenet_val: a ``MetricCollection`` of accuracy, precision, recall, F1, binned and
+    exact AUROC and two confusion matrices over 50,000 samples of 1000 classes, batches of 1024, half by
+    ``forward``, half by ``update``. Checked against the host, the same metrics outside a collection, the
+    compute groups of the CPU tests and B1's launch count. Returns the phase's numbers and B1's launches.
+    """
+    import torchmetrics_tpu_torch as tt
+
+    n_thresholds = 100
+
+    def members():
+        return {
+            "acc": tt.MulticlassAccuracy(num_classes=c, average="micro"),
+            "precision": tt.MulticlassPrecision(num_classes=c),
+            "recall": tt.MulticlassRecall(num_classes=c),
+            "f1": tt.MulticlassF1Score(num_classes=c),
+            "auroc_binned": tt.MulticlassAUROC(num_classes=c, thresholds=n_thresholds),
+            "auroc_exact": tt.MulticlassAUROC(num_classes=c),
+            "cm": tt.MulticlassConfusionMatrix(num_classes=c),
+            "cm_true": tt.MulticlassConfusionMatrix(num_classes=c, normalize="true"),
+        }
+
+    logits = torch.randn((n_val, c), generator=gen, device=dev)
+    target = torch.randint(0, c, (n_val,), generator=gen, device=dev)
+    hit = torch.rand(n_val, generator=gen, device=dev) < 0.76
+    logits[torch.arange(n_val, device=dev)[hit], target[hit]] += 10.0
+    starts = list(range(0, n_val, batch))
+    mc = tt.MetricCollection(members())
+    check(all(m.device == dev for m in mc.values()), "a member's states are not on the card")
+    # the metrics' own probabilities (the same softmax on the same batch shapes), for the host references,
+    # which run in worker processes on the host's other cores while the card streams
+    probs = torch.cat([torch.softmax(logits[s:s + batch], dim=1) for s in starts]).cpu().numpy()
+    host_t = target.cpu().numpy()
+    thresholds = mc["auroc_binned"].thresholds.cpu().numpy()
+    step = -(-c // 4)  # four workers, a quarter of the classes each
+    chunks = [(lo, min(lo + step, c)) for lo in range(0, c, step)]
+    with ProcessPoolExecutor(max_workers=len(chunks), mp_context=multiprocessing.get_context("spawn")) as pool:
+        rank_sum_parts = [pool.submit(_host_rank_sum_aurocs, probs[:, lo:hi], host_t, lo) for lo, hi in chunks]
+        binned_future = pool.submit(_host_binned_auroc, probs, host_t, thresholds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.confusion_matrix_cuda.launches = 0
+        call_ms = {"forward": [], "update": []}
+        t0 = time.perf_counter()
+        for b, start in enumerate(starts):
+            p, t = logits[start:start + batch], target[start:start + batch]
+            t_call = time.perf_counter()
+            if b % 2 == 0:
+                mc(p, t)
+            else:
+                mc.update(p, t)
+            torch.cuda.synchronize()
+            call_ms["forward" if b % 2 == 0 else "update"].append((time.perf_counter() - t_call) * 1e3)
+        stream_s = time.perf_counter() - t0
+        launches = kernel.confusion_matrix_cuda.launches
+        n_forward = len(call_ms["forward"])
+        compute_ms = {}
+        for name in ("auroc_binned", "auroc_exact"):
+            t0 = time.perf_counter()
+            mc[name].compute()
+            torch.cuda.synchronize()
+            compute_ms[name] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        res = mc.compute()
+        torch.cuda.synchronize()
+        compute_ms["collection_rest"] = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        # the same metrics outside a collection, by update only: identical states, so identical results
+        alone = members()
+        for start in starts:
+            for m in alone.values():
+                m.update(logits[start:start + batch], target[start:start + batch])
+        for name, m in alone.items():
+            check(torch.equal(m.compute(), res[name]), f"{name}: collection result != the metric outside a collection")
+        exact_ref = float(np.mean([area for part in rank_sum_parts for area in part.result()]))
+        binned_ref = binned_future.result()
+    n_update = len(starts) - n_forward
+    expected_groups = {0: ["acc", "f1", "precision", "recall"], 1: ["auroc_binned"], 2: ["auroc_exact"],
+                       3: ["cm", "cm_true"]}
+    check(mc.compute_groups == expected_groups, f"compute groups {mc.compute_groups}")
+    check(launches == n_update + 2 * n_forward,
+          f"B1 launches {launches} != {n_update} updates (group head) + 2 x {n_forward} forwards")
+    check(all(v.device == dev for v in res.values()), "a result left the card")
+
+    # host references: counts and ratios from numpy, AUROC in float64 on the metrics' own probabilities
+    pred1 = probs.argmax(1)
+    cm_ref = np.bincount(host_t * c + pred1, minlength=c * c).reshape(c, c)
+    check(np.array_equal(res["cm"].cpu().numpy(), cm_ref), "confusion matrix != host bincount")
+    tp = np.diag(cm_ref).astype(np.float64)
+    fp, fn = cm_ref.sum(0) - tp, cm_ref.sum(1) - tp
+    head = mc._modules["acc"]
+    for state, want in (("tp", tp), ("fp", fp), ("fn", fn)):
+        check(np.array_equal(getattr(head, state).cpu().numpy(), want), f"stat-scores {state} != host")
+    check(float(res["acc"]) == float(np.float32(tp.sum()) / np.float32(n_val)), "micro accuracy != host")
+    present = (tp + fp + fn) > 0
+    with np.errstate(invalid="ignore", divide="ignore"):
+        macro = {
+            "precision": np.where(tp + fp > 0, tp / (tp + fp), 0.0),
+            "recall": np.where(tp + fn > 0, tp / (tp + fn), 0.0),
+            "f1": np.where(2 * tp + fp + fn > 0, 2 * tp / (2 * tp + fp + fn), 0.0),
+        }
+    ratio_err = 0.0
+    for name, per_class in macro.items():
+        err = abs(float(res[name]) - float(per_class[present].mean()))
+        ratio_err = max(ratio_err, err)
+        check(err <= COLLECTION_RATIO_ATOL, f"macro {name} {float(res[name])} vs host: {err}")
+    row_sums = cm_ref.sum(1, keepdims=True)
+    cm_true_ref = np.where(row_sums > 0, cm_ref / np.maximum(row_sums, 1), 0.0)
+    cm_true_err = float(np.abs(res["cm_true"].cpu().numpy() - cm_true_ref).max())
+    check(cm_true_err <= COLLECTION_RATIO_ATOL, f"normalized confusion matrix vs host: {cm_true_err}")
+    binned_err = abs(float(res["auroc_binned"]) - binned_ref)
+    check(binned_err <= BINNED_AUROC_ATOL, f"binned AUROC vs numpy: {binned_err}")
+    exact_err = abs(float(res["auroc_exact"]) - exact_ref)
+    check(exact_err <= EXACT_AUROC_ATOL, f"exact AUROC vs rank sum: {exact_err}")
+
+    # one binned update's temporaries: the (N, C, T) compares and their int64 sums
+    p, t = logits[:batch], target[:batch]
+    binned_only = tt.MulticlassAUROC(num_classes=c, thresholds=n_thresholds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    binned_only.update(p, t)
+    torch.cuda.synchronize()
+    binned_update_peak = torch.cuda.max_memory_allocated() - base
+    state = torch.zeros((c, c), dtype=torch.int32, device=dev)
+    out = {
+        "phase": "classification_collection", "samples": n_val, "classes": c, "batch": batch,
+        "batches": len(starts), "forward_batches": n_forward, "update_batches": n_update,
+        "compute_groups": mc.compute_groups, "confmat_launches": launches,
+        "results": {k: float(v) for k, v in res.items() if v.numel() == 1},
+        "max_err": {"macro_ratios": ratio_err, "cm_true": cm_true_err, "auroc_binned": binned_err,
+                    "auroc_exact": exact_err},
+        "tolerance": {"counts": "exact", "micro_accuracy": "exact", "macro_ratios": COLLECTION_RATIO_ATOL,
+                      "auroc_binned_vs_numpy": BINNED_AUROC_ATOL, "auroc_exact_vs_rank_sum": EXACT_AUROC_ATOL},
+        "seconds": stream_s, "batches_per_s": len(starts) / stream_s, "samples_per_s": n_val / stream_s,
+        "update_ms": statistics.median(call_ms["update"]), "forward_ms": statistics.median(call_ms["forward"]),
+        "first_call_ms": call_ms["forward"][0], "compute_ms": compute_ms,
+        "peak_mem_bytes": peak, "binned_auroc_update_peak_bytes": binned_update_peak,
+        # what a copy of one member's 4 MB (1000, 1000) int32 state would cost, were group states copied
+        "state_clone_ms_4mb": median_ms(torch, lambda: state.clone(), reps=50),
+        "card": smi,
+    }
+    emit(out)
+    return out
+
+
+def phase_aggregation(torch, np, dev, gen) -> None:
+    """Mean, Sum, Max, Cat and RunningMean(window=5) over 49 batches of 16 per-sample losses made on the card,
+    one batch with NaNs, under ``nan_strategy="ignore"``; each within ``AGG_RTOL`` of float64 on the host."""
+    import torchmetrics_tpu_torch as tt
+
+    losses = torch.rand((49, 16), generator=gen, device=dev) * 3.0 + 0.05
+    losses[7, ::5] = float("nan")
+    metrics = {
+        "mean": tt.MeanMetric(nan_strategy="ignore"), "sum": tt.SumMetric(nan_strategy="ignore"),
+        "max": tt.MaxMetric(nan_strategy="ignore"), "cat": tt.CatMetric(nan_strategy="ignore"),
+        "running_mean": tt.RunningMean(window=5, nan_strategy="ignore"),
+    }
+    for b in range(losses.shape[0]):
+        for name, m in metrics.items():
+            m(losses[b]) if b % 2 == 0 else m.update(losses[b])
+    got = {name: m.compute() for name, m in metrics.items()}
+    check(all(v.device == dev for v in got.values()), "an aggregate left the card")
+    host = losses.cpu().numpy().astype(np.float64)
+    kept = host[~np.isnan(host)]
+    window = host[-5:][~np.isnan(host[-5:])]
+    want = {"mean": kept.mean(), "sum": kept.sum(), "max": kept.max(), "running_mean": window.mean()}
+    errs = {name: abs(float(got[name]) - w) / abs(w) for name, w in want.items()}
+    cat = got["cat"].cpu().numpy().astype(np.float64)
+    errs["cat"] = float(np.abs(cat - kept).max() / np.abs(kept).max()) if cat.shape == kept.shape else float("inf")
+    for name, err in errs.items():
+        check(err <= AGG_RTOL, f"{name}: relative error {err} > {AGG_RTOL}")
+    emit({"phase": "aggregation", "batches": losses.shape[0], "values": int(kept.size), "nan_values": int(np.isnan(host).sum()),
+          "results": {k: float(v) for k, v in got.items() if v.numel() == 1}, "max_rel_err": errs, "rtol": AGG_RTOL})
 
 
 def lpips_tap_shapes(torch, dev, net_type: str, pairs: int, side: int) -> list:
@@ -1044,7 +1306,7 @@ def main() -> int:
     confmat_cuda, confmat_plain = kernel.confusion_matrix_cuda, kernel.confusion_matrix_plain
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's one-hot products stay in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' float32 matrix products stay in full float32
     device_name = torch.cuda.get_device_name(0)
 
     # ------------------------------------------------------------------ build
@@ -1198,6 +1460,11 @@ def main() -> int:
         "seconds": imagenet_s, "batches_per_s": n_batches / imagenet_s, "samples_per_s": n_val / imagenet_s,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     })
+
+    # ----------------------- confmat_exact_2p24, classification_collection, aggregation
+    exact_launches = phase_confmat_exact_2p24(torch, kernel, dev)
+    collection = phase_classification_collection(torch, np, kernel, dev, gen, smi)
+    phase_aggregation(torch, np, dev, gen)
 
     # ------------------------------------------------------------ ade20k_full
     c_ade, maps, side, n_updates = 847, 16, 512, 8
@@ -1354,7 +1621,7 @@ def main() -> int:
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
-        "launches": imagenet_launches + ade_launches,
+        "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

@@ -260,3 +260,29 @@ def test_multiclass_confusion_matrix_class_counts_into_its_state(full_state_upda
     assert int(tm.confmat.sum()) == 0
     assert_same(tm(*map(torch.from_numpy, data[2])), jm(*map(jnp.asarray, data[2])))
     assert_same(tm.compute(), jm.compute())
+
+
+@pytest.mark.parametrize(
+    ("name", "kwargs"),
+    [("BinaryConfusionMatrix", {}), ("MulticlassConfusionMatrix", {"num_classes": 3}),
+     ("MulticlassConfusionMatrix", {"num_classes": C_LARGE})],
+    ids=["binary", "multiclass_3", f"multiclass_{C_LARGE}"],
+)
+def test_confusion_matrix_counts_past_2_pow_24_in_one_cell(name, kwargs):
+    """2**24 + 3 rows, all (1, 1), in one update: the cell holds exactly 16,777,219.
+
+    A float32 count rounds there (the JAX package gives 16,777,216), so this is
+    held against the exact count, not against the JAX package.
+    """
+    import torchmetrics_tpu_torch.classification as TC
+
+    n = 2**24 + 3
+    ones = torch.ones(n, dtype=torch.int64)
+    metric = getattr(TC, name)(device="cpu", **kwargs)
+    metric.update(ones, ones)
+    cm = metric.compute()
+    assert cm.dtype == torch.int32 and int(cm[1, 1]) == n == 16_777_219
+    assert int(cm.sum()) == n
+    functional = (TF.binary_confusion_matrix(ones, ones) if name.startswith("Binary")
+                  else TF.multiclass_confusion_matrix(ones, ones, **kwargs))
+    assert int(functional[1, 1]) == n

@@ -35,6 +35,15 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "lp = tt.LearnedPerceptualImagePatchSimilarity(net_type='squeeze', device='cpu')\n"
         "lp.update(torch.rand(2, 3, 32, 32) * 2 - 1, torch.rand(2, 3, 32, 32) * 2 - 1)\n"
         "assert bool(torch.isfinite(lp.compute()))\n"
+        "mc = tt.MetricCollection({'acc': tt.MulticlassAccuracy(num_classes=3, device='cpu'),\n"
+        "                          'f1': tt.MulticlassF1Score(num_classes=3, device='cpu'),\n"
+        "                          'auroc': tt.MulticlassAUROC(num_classes=3, thresholds=5, device='cpu'),\n"
+        "                          'roc': tt.MulticlassROC(num_classes=3, device='cpu', cat_state_capacity=8)})\n"
+        "out = mc(torch.tensor([[0.8, 0.1, 0.1], [0.2, 0.7, 0.1]]), torch.tensor([0, 2]))\n"
+        "assert sorted(out) == ['acc', 'auroc', 'f1', 'roc'] and mc.compute_groups[0] == ['acc', 'f1']\n"
+        "rm = tt.RunningMean(window=2, device='cpu')\n"
+        "rm.update(1.0); rm.update(3.0); rm.update(5.0)\n"
+        "assert float(rm.compute()) == 4.0\n"
         "import os, tempfile, numpy as np\n"
         "from torchmetrics_tpu_torch.text._bert_encoder import BertConfig, BertEncoderExtractor, _BertWithHead, init_bert_weights_\n"
         "from torchmetrics_tpu_torch.utilities.convert import bert_variables_from_state_dict, build_on_cpu\n"

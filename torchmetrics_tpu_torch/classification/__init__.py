@@ -1,4 +1,4 @@
-"""Classification metrics ported so far: stat scores, accuracy, confusion matrix."""
+"""Classification metrics ported so far: stat scores, accuracy, confusion matrix, precision/recall/F-beta, PR curve, ROC, AUROC."""
 
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
@@ -6,12 +6,40 @@ from torchmetrics_tpu_torch.classification.accuracy import (
     MulticlassAccuracy,
     MultilabelAccuracy,
 )
+from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.classification.f_beta import (
+    BinaryF1Score,
+    BinaryFBetaScore,
+    F1Score,
+    FBetaScore,
+    MulticlassF1Score,
+    MulticlassFBetaScore,
+    MultilabelF1Score,
+    MultilabelFBetaScore,
+)
+from torchmetrics_tpu_torch.classification.precision_recall import (
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelPrecision,
+    MultilabelRecall,
+    Precision,
+    Recall,
+)
+from torchmetrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+    PrecisionRecallCurve,
+)
+from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -32,4 +60,32 @@ __all__ = [
     "BinaryStatScores",
     "MulticlassStatScores",
     "MultilabelStatScores",
+    "AUROC",
+    "BinaryAUROC",
+    "MulticlassAUROC",
+    "MultilabelAUROC",
+    "F1Score",
+    "BinaryF1Score",
+    "MulticlassF1Score",
+    "MultilabelF1Score",
+    "FBetaScore",
+    "BinaryFBetaScore",
+    "MulticlassFBetaScore",
+    "MultilabelFBetaScore",
+    "Precision",
+    "BinaryPrecision",
+    "MulticlassPrecision",
+    "MultilabelPrecision",
+    "Recall",
+    "BinaryRecall",
+    "MulticlassRecall",
+    "MultilabelRecall",
+    "PrecisionRecallCurve",
+    "BinaryPrecisionRecallCurve",
+    "MulticlassPrecisionRecallCurve",
+    "MultilabelPrecisionRecallCurve",
+    "ROC",
+    "BinaryROC",
+    "MulticlassROC",
+    "MultilabelROC",
 ]

@@ -74,7 +74,7 @@ class BinaryConfusionMatrix(Metric):
         if self.validate_args:
             _binary_confusion_matrix_tensor_validation(preds, target, self.ignore_index)
         preds, target, valid = _binary_confusion_matrix_format(preds, target, self.threshold, self.ignore_index)
-        self.confmat += _binary_confusion_matrix_update(preds, target, valid)
+        _binary_confusion_matrix_update(preds, target, valid, out=self.confmat)
 
     def compute(self) -> Tensor:
         return _binary_confusion_matrix_compute(self.confmat.clone(), self.normalize)

@@ -1,0 +1,373 @@
+"""MetricCollection with automatic compute groups.
+
+Port of ``torchmetrics_tpu/collections.py`` (parity target: reference
+``torchmetrics/collections.py``). The collection is an ``nn.Module`` whose
+submodules are its members, so ``.to()`` moves every member's states.
+
+Compute groups are found as in the JAX package: the first update runs every
+member, then members whose states are equal (same names, update counts,
+shapes, dtypes and ``allclose`` values) are merged into groups until nothing
+changes. From then on only each group's head runs ``update``, and the other
+members are given the head's states.
+
+States here are mutable tensors, updated in place. The members of a group
+hold the head's tensors themselves (no copy on the update path), and the
+metric runtime keeps any in-place write from reaching another metric: a
+metric whose states are held by others copies them before its own next
+``update`` (copy on write, ``Metric._states_aliased``). So a member's
+``forward``, a user's direct ``collection[name].update(...)``, or a
+full-state ``forward`` of the head never counts a batch twice; ``reset``,
+``load_state_dict``, ``merge_state`` and ``unsync`` rebind states and never
+write into them. Only the head's own ``update`` inside
+:meth:`MetricCollection.update` writes into the shared tensors, and the
+members are meant to see that. Ring-buffer states get one copy per member
+(copy on write as well), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from copy import deepcopy
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
+
+__all__ = ["MetricCollection"]
+
+
+def _state_equal(a: Any, b: Any) -> bool:
+    """Equal states for compute groups (JAX ``collections.py:32-47``): shape, dtype and float32 ``allclose``."""
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(_state_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, list) != isinstance(b, list):
+        return False
+    if isinstance(a, RingBuffer) or isinstance(b, RingBuffer):
+        if not (isinstance(a, RingBuffer) and isinstance(b, RingBuffer)):
+            return False
+        if a.capacity != b.capacity or len(a) != len(b):
+            return False
+        return len(a) == 0 or _state_equal(a.values(), b.values())
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return bool(torch.allclose(a.to(torch.float32), b.to(torch.float32)))
+
+
+class MetricCollection(nn.Module):
+    """Dict-like container fanning update/compute over many metrics.
+
+    Reference ``collections.py:34``. Accepts a single metric, a sequence,
+    a mapping, or nested collections.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch import MetricCollection
+        >>> from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassPrecision
+        >>> mc = MetricCollection([MulticlassAccuracy(num_classes=3, device="cpu"),
+        ...                        MulticlassPrecision(num_classes=3, device="cpu")])
+        >>> preds = torch.tensor([0, 2, 1]); target = torch.tensor([0, 1, 1])
+        >>> out = mc(preds, target)
+        >>> sorted(out.keys())
+        ['MulticlassAccuracy', 'MulticlassPrecision']
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+    ) -> None:
+        super().__init__()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups_checked = False
+        self._groups: Dict[int, List[str]] = {}
+        self.add_metrics(metrics, *additional_metrics)
+
+    # ------------------------------------------------------------- construction
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        """Add metrics to the collection (reference ``collections.py:389-454``)."""
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                raise ValueError(f"You have passed extra arguments {remain} which are not `Metric`.")
+        elif additional_metrics:
+            raise ValueError(
+                f"You have passes extra arguments {additional_metrics} which are not compatible"
+                f" with first passed dictionary {metrics} so they will be ignored."
+            )
+
+        if isinstance(metrics, dict):
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"Value {metric} belonging to key {name} is not an instance of"
+                        " `Metric` or `MetricCollection`"
+                    )
+                if isinstance(metric, Metric):
+                    self.add_module(name, metric)
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        self.add_module(f"{name}_{k}", v)
+        elif isinstance(metrics, Sequence):
+            for metric in metrics:
+                if isinstance(metric, MetricCollection):
+                    for name, m in metric.items(keep_base=False):
+                        if name in self._modules:
+                            raise ValueError(f"Encountered two metrics both named {name}")
+                        self.add_module(name, m)
+                elif isinstance(metric, Metric):
+                    name = metric.__class__.__name__
+                    if name in self._modules:
+                        raise ValueError(f"Encountered two metrics both named {name}")
+                    self.add_module(name, metric)
+                else:
+                    raise ValueError(f"Input {metric} to `MetricCollection` is not a instance of `Metric`")
+        else:
+            raise ValueError(
+                "Unknown input to MetricCollection. Expected a `Metric`, sequence of `Metric`s, or a dict."
+            )
+        self._groups_checked = False
+
+    # ------------------------------------------------------------------ update
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Update each metric (group heads only once groups are formed)."""
+        if self._groups_checked:
+            for cg in self._groups.values():
+                head = self._modules[cg[0]]
+                head._states_aliased = False  # the members are meant to see the head's in-place writes
+                head.update(*args, **head._filter_kwargs(**kwargs))
+            self._sync_compute_groups()
+        else:
+            for m in self._modules.values():
+                m.update(*args, **m._filter_kwargs(**kwargs))
+            if self._enable_compute_groups:
+                self._merge_compute_groups()
+            else:
+                self._groups = {i: [name] for i, name in enumerate(self._modules)}
+                self._groups_checked = True
+
+    def _merge_compute_groups(self) -> None:
+        """Pairwise-merge metrics whose states are identical (reference ``collections.py:228-262``)."""
+        if isinstance(self._enable_compute_groups, list):
+            self._groups = {i: [str(n) for n in g] for i, g in enumerate(self._enable_compute_groups)}
+            grouped = {n for g in self._groups.values() for n in g}
+            i = len(self._groups)
+            for name in self._modules:
+                if name not in grouped:
+                    self._groups[i] = [name]
+                    i += 1
+            self._groups_checked = True
+            return
+
+        self._groups = {i: [name] for i, name in enumerate(self._modules)}
+        while True:
+            for cg_idx1, cg_members1 in deepcopy(self._groups).items():
+                for cg_idx2, cg_members2 in deepcopy(self._groups).items():
+                    if cg_idx1 == cg_idx2:
+                        continue
+                    m1 = self._modules[cg_members1[0]]
+                    m2 = self._modules[cg_members2[0]]
+                    if self._equal_metric_states(m1, m2):
+                        self._groups[cg_idx1].extend(self._groups.pop(cg_idx2))
+                        break
+                else:
+                    continue
+                break
+            else:
+                break
+        self._groups = {i: g for i, g in enumerate(self._groups.values())}
+        self._groups_checked = True
+
+    @staticmethod
+    def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
+        """Shape + allclose comparison of two metrics' states (reference ``collections.py:264-287``)."""
+        if not metric1._defaults or not metric2._defaults:
+            return False
+        if metric1._defaults.keys() != metric2._defaults.keys():
+            return False
+        if metric1._update_count != metric2._update_count:
+            return False
+        return all(_state_equal(getattr(metric1, k), getattr(metric2, k)) for k in metric1._defaults)
+
+    def _sync_compute_groups(self) -> None:
+        """Give each member its group head's states: the same tensors, new lists, ring-buffer copies."""
+        for cg in self._groups.values():
+            head = self._modules[cg[0]]
+            for name in cg[1:]:
+                member = self._modules[name]
+                for attr in head._defaults:
+                    state = getattr(head, attr)
+                    if isinstance(state, RingBuffer):
+                        # mutable container: a member needs its own, or the next
+                        # update would append once per member
+                        setattr(member, attr, state.copy())
+                    else:
+                        setattr(member, attr, list(state) if isinstance(state, list) else state)
+                member._update_count = head._update_count
+                member._computed = None
+                member._states_aliased = head._states_aliased = True
+
+    # ----------------------------------------------------------------- compute
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Per-batch value from every metric while accumulating global state."""
+        res = {name: m(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
+        if not self._groups_checked and self._enable_compute_groups:
+            self._merge_compute_groups()
+        return self._flatten_results(res)
+
+    def compute(self) -> Dict[str, Any]:
+        if self._groups_checked:
+            self._sync_compute_groups()
+        res = {name: m.compute() for name, m in self._modules.items()}
+        return self._flatten_results(res)
+
+    def _flatten_results(self, res: Dict[str, Any]) -> Dict[str, Any]:
+        """Flatten dict-valued results and apply prefix/postfix (reference ``collections.py:314-359``)."""
+        out: Dict[str, Any] = {}
+        for name, value in res.items():
+            if isinstance(value, dict):
+                for k, v in value.items():
+                    if k in res or k in out:
+                        k = f"{name}_{k}"
+                    out[k] = v
+            else:
+                out[name] = value
+        return {self._set_name(k): v for k, v in out.items()}
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    # -------------------------------------------------------------- maintenance
+    def reset(self) -> None:
+        for m in self._modules.values():
+            m.reset()
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        mc = deepcopy(self)
+        if prefix is not None:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix is not None:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def persistent(self, mode: bool = True) -> None:
+        for m in self._modules.values():
+            m.persistent(mode)
+
+    def state_dict(self, prefix: str = "", all_states: bool = False) -> Dict[str, Any]:  # type: ignore[override]
+        """Every member's :meth:`Metric.state_dict` under ``{prefix}{name}.``."""
+        destination: Dict[str, Any] = {}
+        for name, m in self._modules.items():
+            m.state_dict(destination, prefix=f"{prefix}{name}.", all_states=all_states)
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True, prefix: str = "") -> None:  # type: ignore[override]
+        """Restore every member's states from ``{prefix}{name}.``-keyed entries."""
+        for name, m in self._modules.items():
+            m.load_state_dict(state_dict, strict=strict, prefix=f"{prefix}{name}.")
+
+    def merge_state(self, incoming: "MetricCollection") -> None:
+        """Merge another collection's state member by member.
+
+        Both collections must hold the same member names with the same metric
+        types; each member merge is ``Metric.merge_state`` (the declared
+        per-state reductions). Everything is checked before any member
+        merges, so a mismatch leaves this collection untouched (JAX
+        ``collections.py:394-422``).
+        """
+        if not isinstance(incoming, MetricCollection):
+            raise TorchMetricsUserError(
+                f"MetricCollection.merge_state needs a MetricCollection, got {type(incoming).__name__}"
+            )
+        if set(incoming._modules) != set(self._modules):
+            missing = sorted(set(self._modules) ^ set(incoming._modules))
+            raise TorchMetricsUserError(
+                f"Cannot merge MetricCollections with different members (mismatched: {missing})"
+            )
+        for name, m in self._modules.items():
+            other = incoming._modules[name]
+            if type(other) is not type(m):
+                raise TorchMetricsUserError(
+                    f"Cannot merge member {name!r}: {type(other).__name__} into {type(m).__name__}"
+                )
+        for name, m in self._modules.items():
+            m.merge_state(incoming._modules[name])
+
+    def sync(self, **kwargs: Any) -> None:
+        for m in self._modules.values():
+            m.sync(**kwargs)
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        for m in self._modules.values():
+            m.unsync(should_unsync)
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        """Current compute-group assignment."""
+        return self._groups
+
+    # -------------------------------------------------------------- dict-like
+    def items(self, keep_base: bool = False, copy_state: bool = True) -> Iterable[Tuple[str, Metric]]:
+        """Members by name; ``copy_state`` is accepted for the reference's signature (copy on write makes it moot)."""
+        if self._groups_checked:
+            self._sync_compute_groups()
+        if keep_base:
+            return self._modules.items()
+        return [(self._set_name(k), v) for k, v in self._modules.items()]
+
+    def keys(self, keep_base: bool = False) -> Iterable[str]:
+        if keep_base:
+            return self._modules.keys()
+        return [self._set_name(k) for k in self._modules]
+
+    def values(self, copy_state: bool = True) -> Iterable[Metric]:
+        if self._groups_checked:
+            self._sync_compute_groups()
+        return self._modules.values()
+
+    def __getitem__(self, key: str) -> Metric:
+        if self._groups_checked:
+            self._sync_compute_groups()
+        return self._modules[key]
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules or key in self.keys()
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "("
+        for name, m in self._modules.items():
+            repr_str += f"\n  {name}: {m!r}"
+        if self.prefix:
+            repr_str += f"\n  prefix={self.prefix}"
+        if self.postfix:
+            repr_str += f"\n  postfix={self.postfix}"
+        return repr_str + "\n)"

@@ -1,4 +1,4 @@
-"""Classification functionals ported so far: stat scores, accuracy, confusion matrix."""
+"""Classification functionals ported so far: stat scores, accuracy, confusion matrix, precision/recall/F-beta, PR curve, ROC, AUROC."""
 
 from torchmetrics_tpu_torch.functional.classification.accuracy import (
     accuracy,
@@ -11,6 +11,44 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     confusion_matrix,
     multiclass_confusion_matrix,
     multilabel_confusion_matrix,
+)
+from torchmetrics_tpu_torch.functional.classification.auroc import (
+    auroc,
+    binary_auroc,
+    multiclass_auroc,
+    multilabel_auroc,
+)
+from torchmetrics_tpu_torch.functional.classification.f_beta import (
+    binary_f1_score,
+    binary_fbeta_score,
+    f1_score,
+    fbeta_score,
+    multiclass_f1_score,
+    multiclass_fbeta_score,
+    multilabel_f1_score,
+    multilabel_fbeta_score,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall import (
+    binary_precision,
+    binary_recall,
+    multiclass_precision,
+    multiclass_recall,
+    multilabel_precision,
+    multilabel_recall,
+    precision,
+    recall,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    binary_precision_recall_curve,
+    multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
+    precision_recall_curve,
+)
+from torchmetrics_tpu_torch.functional.classification.roc import (
+    binary_roc,
+    multiclass_roc,
+    multilabel_roc,
+    roc,
 )
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
@@ -32,4 +70,32 @@ __all__ = [
     "binary_stat_scores",
     "multiclass_stat_scores",
     "multilabel_stat_scores",
+    "auroc",
+    "binary_auroc",
+    "multiclass_auroc",
+    "multilabel_auroc",
+    "binary_f1_score",
+    "binary_fbeta_score",
+    "f1_score",
+    "fbeta_score",
+    "multiclass_f1_score",
+    "multiclass_fbeta_score",
+    "multilabel_f1_score",
+    "multilabel_fbeta_score",
+    "binary_precision",
+    "binary_recall",
+    "multiclass_precision",
+    "multiclass_recall",
+    "multilabel_precision",
+    "multilabel_recall",
+    "precision",
+    "recall",
+    "binary_precision_recall_curve",
+    "multiclass_precision_recall_curve",
+    "multilabel_precision_recall_curve",
+    "precision_recall_curve",
+    "binary_roc",
+    "multiclass_roc",
+    "multilabel_roc",
+    "roc",
 ]

@@ -30,7 +30,6 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.utilities import nvcc
-from torchmetrics_tpu_torch.utilities.data import _one_hot
 
 SOURCE = nvcc.CSRC_DIR / "confmat.cu"
 
@@ -40,9 +39,6 @@ _BLOCKS_PER_SM = 2  # of 512 threads: each block flushes up to C diagonal counte
 _THREADS = 512  # csrc/confmat.cu kThreads
 ROWS_PER_STEP = 8  # rows a thread loads at once
 MAX_CLASSES = 46340  # the kernel's int32 cell indices: C * C < 2**31
-# rows per one-hot product in the plain version: bounds its (rows, C) float
-# one-hots, and keeps each partial count below 2**24, where float32 is exact
-_PLAIN_CHUNK = 1 << 20
 
 
 def _check_inputs(preds: Tensor, target: Tensor, num_classes: int, weights: Optional[Tensor]) -> None:
@@ -94,24 +90,28 @@ def vector_head(n: int, arrays) -> int:
 def confusion_matrix_plain(
     preds: Tensor, target: Tensor, num_classes: int, weights: Optional[Tensor] = None, out: Optional[Tensor] = None
 ) -> Tensor:
-    """``(C, C)`` matrix, rows=target and cols=preds, as masked one-hot products in PyTorch.
+    """``(C, C)`` matrix, rows=target and cols=preds, as a ``bincount`` of ``target * C + preds`` in PyTorch.
 
-    No weights or a bool mask give int32 counts; float32 weights give float32
-    sums. A row whose label lies outside ``[0, C)`` adds nothing. With
-    ``out``, the counts are added into it and it is returned.
+    No weights or a bool mask give int32 counts, exact at any row count;
+    float32 weights give float32 sums (added in float64, then rounded once).
+    A row whose label lies outside ``[0, C)``, or that the mask drops, goes
+    to a spare bin ``C * C`` that is thrown away. With ``out``, the counts
+    are added into it and it is returned.
     """
     _check_inputs(preds, target, num_classes, weights)
     if out is None:
         out = torch.zeros((num_classes, num_classes), dtype=_out_dtype(weights), device=preds.device)
     else:
         _check_out(out, preds, num_classes, weights)
-    for start in range(0, preds.shape[0], _PLAIN_CHUNK):
-        rows = slice(start, start + _PLAIN_CHUNK)
-        t_oh = _one_hot(target[rows], num_classes, torch.float32)
-        if weights is not None:
-            t_oh = t_oh * weights[rows, None].to(torch.float32)
-        part = torch.einsum("nc,nd->cd", t_oh, _one_hot(preds[rows], num_classes, torch.float32))
-        out += part.to(out.dtype)
+    spare = num_classes * num_classes
+    counted = (target >= 0) & (target < num_classes) & (preds >= 0) & (preds < num_classes)
+    if weights is not None and weights.dtype == torch.bool:
+        counted &= weights
+    cells = torch.where(counted, target.to(torch.int64) * num_classes + preds, spare)
+    sums = torch.bincount(
+        cells, weights=None if weights is None or weights.dtype == torch.bool else weights.double(), minlength=spare + 1
+    )
+    out += sums[:spare].reshape(num_classes, num_classes).to(out.dtype)
     return out
 
 

@@ -1,8 +1,9 @@
 """Confusion matrices (port of ``torchmetrics_tpu/functional/classification/confusion_matrix.py``).
 
-Below ``_KERNEL_MIN_CLASSES`` the matrix is a one-hot product
-``target_oh.T @ preds_oh``, a plain matrix product as in the JAX package. From
-there on, :func:`confusion_matrix_cuda` counts it without one-hots: the
+Below ``_KERNEL_MIN_CLASSES`` the matrix is the kernel's plain version, an
+integer ``bincount`` of ``target * C + preds`` (the JAX package's float32
+one-hot product rounds past ``2**24`` rows in a cell; the count here is
+exact). From there on, :func:`confusion_matrix_cuda` counts it: the
 hand-written kernel on a CUDA tensor, its plain version on a CPU tensor.
 """
 
@@ -13,10 +14,9 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.functional.classification._confmat_kernel import confusion_matrix_cuda
+from torchmetrics_tpu_torch.functional.classification._confmat_kernel import confusion_matrix_cuda, confusion_matrix_plain
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
-from torchmetrics_tpu_torch.utilities.data import _one_hot
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
 _ALLOWED_NORMALIZE = ("true", "pred", "all", "none", None)
@@ -92,7 +92,7 @@ def _binary_confusion_matrix_format(
     return preds, target, valid
 
 
-_KERNEL_MIN_CLASSES = 256  # below this the one-hot product is at least as fast
+_KERNEL_MIN_CLASSES = 256  # below this a bincount is at least as fast
 
 
 def _confusion_matrix_update(
@@ -100,24 +100,23 @@ def _confusion_matrix_update(
 ) -> Tensor:
     """Int32 confusion-matrix counts: rows=true class, cols=pred class.
 
-    Small ``C``: one-hot product. Large ``C``: :func:`confusion_matrix_cuda`
-    with ``valid`` as its bool mask, which never builds the ``(N, C)`` one-hots.
-    With ``out`` (a metric's ``(C, C)`` int32 state) the counts are added into
-    it and it is returned: at large ``C`` by the kernel itself, so no fresh
-    matrix is zeroed and no ``+=`` runs beside it.
+    Small ``C``: :func:`confusion_matrix_plain`, an integer ``bincount`` of
+    ``target * C + preds``, exact at any row count. (The JAX package's
+    float32 one-hot product rounds once a cell passes ``2**24`` in one
+    update.) Large ``C``: :func:`confusion_matrix_cuda`, the kernel on a
+    CUDA tensor. Both take ``valid`` as a bool mask, and a row whose label
+    lies outside ``[0, C)`` adds nothing. With ``out`` (a metric's ``(C, C)``
+    int32 state) the counts are added into it and it is returned, so no
+    fresh matrix is zeroed and no ``+=`` runs beside it.
     """
-    if num_classes >= _KERNEL_MIN_CLASSES:
-        return confusion_matrix_cuda(
-            preds.reshape(-1), target.reshape(-1), num_classes, weights=valid.reshape(-1), out=out
-        )
-    t_oh = _one_hot(target, num_classes, torch.float32) * valid[..., None]
-    p_oh = _one_hot(preds, num_classes, torch.float32)
-    counts = torch.einsum("nc,nd->cd", t_oh, p_oh).to(torch.int32)
-    return counts if out is None else out.add_(counts)
+    count = confusion_matrix_cuda if num_classes >= _KERNEL_MIN_CLASSES else confusion_matrix_plain
+    return count(preds.reshape(-1), target.reshape(-1), num_classes, weights=valid.reshape(-1), out=out)
 
 
-def _binary_confusion_matrix_update(preds: Tensor, target: Tensor, valid: Tensor) -> Tensor:
-    return _confusion_matrix_update(preds, target, valid, 2)
+def _binary_confusion_matrix_update(
+    preds: Tensor, target: Tensor, valid: Tensor, out: Optional[Tensor] = None
+) -> Tensor:
+    return _confusion_matrix_update(preds, target, valid, 2, out)
 
 
 def _binary_confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) -> Tensor:

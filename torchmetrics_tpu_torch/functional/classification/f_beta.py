@@ -1,0 +1,228 @@
+"""F-beta and F1 (port of ``torchmetrics_tpu/functional/classification/f_beta.py``).
+
+Parity target: reference ``torchmetrics/functional/classification/f_beta.py``. Each
+metric is the stat-scores pipeline of ``_derived.py`` followed by its own reduction.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from torch import Tensor
+
+from torchmetrics_tpu_torch.functional.classification._derived import _binary_stats, _multiclass_stats, _multilabel_stats
+from torchmetrics_tpu_torch.utilities.compute import _adjust_weights_safe_divide, _safe_divide
+from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
+
+
+def _fbeta_reduce(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    beta: float,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+    top_k: int = 1,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Reference ``f_beta.py:24-60``: ``(1+b²)tp / ((1+b²)tp + b²·fn + fp)``."""
+    beta2 = beta**2
+    if average == "binary":
+        return _safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
+    if average == "micro":
+        dim = 0 if multidim_average == "global" else 1
+        tp = tp.sum(dim=dim)
+        fn = fn.sum(dim=dim)
+        fp = fp.sum(dim=dim)
+        return _safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
+    fbeta_score = _safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
+    return _adjust_weights_safe_divide(fbeta_score, average, multilabel, tp, fp, fn, zero_division)
+
+
+def _validate_beta(beta: float) -> None:
+    if not (isinstance(beta, float) and beta > 0):
+        raise ValueError(f"Expected argument `beta` to be a float larger than 0, but got {beta}.")
+
+
+def binary_fbeta_score(
+    preds: Tensor,
+    target: Tensor,
+    beta: float,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Binary F-beta.
+
+    Example:
+        >>> 
+        >>> from torchmetrics_tpu_torch.functional.classification import binary_fbeta_score
+        >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
+        >>> preds = torch.tensor([0.11, 0.22, 0.84, 0.73, 0.33, 0.92])
+        >>> binary_fbeta_score(preds, target, beta=2.0)
+        tensor(0.6667)
+    """
+    if validate_args:
+        _validate_beta(beta)
+    tp, fp, tn, fn = _binary_stats(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    return _fbeta_reduce(tp, fp, tn, fn, beta, average="binary", multidim_average=multidim_average,
+                         zero_division=zero_division)
+
+
+def multiclass_fbeta_score(
+    preds: Tensor,
+    target: Tensor,
+    beta: float,
+    num_classes: int,
+    average: Optional[str] = "macro",
+    top_k: int = 1,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Multiclass F-beta."""
+    if validate_args:
+        _validate_beta(beta)
+    tp, fp, tn, fn = _multiclass_stats(
+        preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
+    )
+    return _fbeta_reduce(tp, fp, tn, fn, beta, average=average, multidim_average=multidim_average, top_k=top_k,
+                         zero_division=zero_division)
+
+
+def multilabel_fbeta_score(
+    preds: Tensor,
+    target: Tensor,
+    beta: float,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Multilabel F-beta."""
+    if validate_args:
+        _validate_beta(beta)
+    tp, fp, tn, fn = _multilabel_stats(
+        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+    )
+    return _fbeta_reduce(tp, fp, tn, fn, beta, average=average, multidim_average=multidim_average, multilabel=True,
+                         zero_division=zero_division)
+
+
+def binary_f1_score(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Binary F1 (F-beta with beta=1)."""
+    return binary_fbeta_score(
+        preds, target, 1.0, threshold, multidim_average, ignore_index, validate_args, zero_division
+    )
+
+
+def multiclass_f1_score(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    average: Optional[str] = "macro",
+    top_k: int = 1,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Multiclass F1."""
+    return multiclass_fbeta_score(
+        preds, target, 1.0, num_classes, average, top_k, multidim_average, ignore_index, validate_args, zero_division
+    )
+
+
+def multilabel_f1_score(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Multilabel F1."""
+    return multilabel_fbeta_score(
+        preds, target, 1.0, num_labels, threshold, average, multidim_average, ignore_index, validate_args,
+        zero_division,
+    )
+
+
+def fbeta_score(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    beta: float = 1.0,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Task dispatcher for F-beta."""
+    from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
+
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary_fbeta_score(
+            preds, target, beta, threshold, multidim_average, ignore_index, validate_args, zero_division
+        )
+    if task == ClassificationTask.MULTICLASS:
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+        return multiclass_fbeta_score(
+            preds, target, beta, num_classes, average, top_k, multidim_average, ignore_index, validate_args,
+            zero_division,
+        )
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_fbeta_score(
+            preds, target, beta, num_labels, threshold, average, multidim_average, ignore_index, validate_args,
+            zero_division,
+        )
+    raise ValueError(f"Not handled value: {task}")
+
+
+def f1_score(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Task dispatcher for F1."""
+    return fbeta_score(
+        preds, target, task, 1.0, threshold, num_classes, num_labels, average, multidim_average, top_k,
+        ignore_index, validate_args, zero_division,
+    )

@@ -10,7 +10,13 @@ states) registered with :meth:`Metric.add_state` on an explicit device:
   stream holds one copy of each state and no per-update allocation for it;
 - ``_reduce_states`` (cross-batch merge in ``forward`` and ``merge_state``)
   and ``sync`` (cross-process merge over ``torch.distributed``) apply the same
-  per-state ``dist_reduce_fx``.
+  per-state ``dist_reduce_fx``;
+- with ``cat_state_capacity=N`` every list state declared with ``"cat"`` or
+  ``None`` is a :class:`RingBuffer` of ``N`` rows instead of an unbounded list;
+- a ``MetricCollection`` lets the members of a compute group hold the group
+  head's state tensors; such a metric copies its states before its next own
+  ``update`` writes into them (copy on write), so an in-place write never
+  reaches another metric.
 
 A metric built without ``device=`` keeps its states on ``cuda`` and raises
 where no GPU is present; it never falls back to the CPU on its own.
@@ -38,8 +44,9 @@ from torchmetrics_tpu_torch.utilities.distributed import distributed_available a
 from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
+from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
 
-State = Union[Tensor, List[Tensor]]
+State = Union[Tensor, List[Tensor], RingBuffer]
 
 _STR_REDUCTIONS = {
     "sum": dim_zero_sum,
@@ -126,6 +133,15 @@ class Metric(nn.Module, ABC):
             raise ValueError(
                 f"Expected keyword argument `compute_with_cache` to be a `bool` but got {self.compute_with_cache}"
             )
+        # bound append-mode ("cat") states to a fixed-capacity ring buffer instead of an unbounded list
+        self.cat_state_capacity = kwargs.pop("cat_state_capacity", None)
+        if self.cat_state_capacity is not None and not (
+            isinstance(self.cat_state_capacity, int) and self.cat_state_capacity > 0
+        ):
+            raise ValueError(
+                "Expected keyword argument `cat_state_capacity` to be `None` or a positive integer"
+                f" but got {self.cat_state_capacity}"
+            )
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -145,6 +161,8 @@ class Metric(nn.Module, ABC):
 
         self._is_synced = False
         self._cache: Optional[Dict[str, State]] = None
+        # set by a MetricCollection while other metrics hold these state tensors
+        self._states_aliased = False
 
     # ------------------------------------------------------------------ state
     @property
@@ -176,20 +194,37 @@ class Metric(nn.Module, ABC):
         """Register a metric state (reference ``metric.py:195-272``).
 
         ``default`` is a tensor (accumulator mode, moved to the metric's
-        device) or an empty list (append/"cat" mode). ``dist_reduce_fx``
-        declares the merge used by both cross-batch accumulation and
-        distributed sync: ``"sum" | "mean" | "max" | "min" | "cat" | None | callable``.
+        device), an empty list (append/"cat" mode) or an empty
+        :class:`RingBuffer`. ``dist_reduce_fx`` declares the merge used by
+        both cross-batch accumulation and distributed sync:
+        ``"sum" | "mean" | "max" | "min" | "cat" | None | callable``.
+        With ``cat_state_capacity`` set, a list state reduced by ``"cat"`` or
+        ``None`` becomes a ring buffer of that capacity (JAX ``metric.py:285-301``).
         """
         if not name.isidentifier():
             raise ValueError(f"Argument `name` must be a valid python attribute name, but got {name}")
         is_list = isinstance(default, list)
-        if not (isinstance(default, Tensor) or (is_list and len(default) == 0)):
+        is_ring = isinstance(default, RingBuffer)
+        if not (isinstance(default, Tensor) or (is_list and len(default) == 0) or is_ring):
             raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
         if dist_reduce_fx is not None and not (dist_reduce_fx in _STR_REDUCTIONS or callable(dist_reduce_fx)):
             raise ValueError(
                 "`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]"
             )
-        if is_list:
+        if is_ring:
+            if dist_reduce_fx != "cat":
+                raise ValueError(
+                    f"RingBuffer states require `dist_reduce_fx='cat'`, but state {name!r} declared {dist_reduce_fx!r}"
+                )
+            if len(default):
+                raise ValueError(f"RingBuffer default for state {name!r} must be empty")
+            default = RingBuffer(default.capacity, self._device)
+        elif is_list and self.cat_state_capacity is not None and dist_reduce_fx in ("cat", None):
+            default, is_ring = RingBuffer(self.cat_state_capacity, self._device), True
+        if is_ring:
+            setattr(self, name, default.copy_empty())
+            self._defaults[name] = default
+        elif is_list:
             setattr(self, name, [])
             self._defaults[name] = []
         else:
@@ -293,7 +328,11 @@ class Metric(nn.Module, ABC):
                 reduced = torch.maximum(global_state, local_state)
             elif reduce_fn == "min":
                 reduced = torch.minimum(global_state, local_state)
+            elif reduce_fn in ("cat", None) and isinstance(global_state, RingBuffer):
+                reduced = global_state.copy().extend(local_state)
             elif reduce_fn in ("cat", None) and isinstance(global_state, list):
+                if isinstance(local_state, RingBuffer):  # merged in from a metric built with a capacity
+                    local_state = [local_state.values()] if len(local_state) else []
                 reduced = global_state + list(local_state)
             elif reduce_fn is None and isinstance(global_state, Tensor):
                 default = self._defaults[attr]
@@ -321,6 +360,8 @@ class Metric(nn.Module, ABC):
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
             self._computed = None
+            if self._states_aliased:
+                self._unshare_states()
             self._update_count += 1
             update(*args, **kwargs)
             if self.compute_on_cpu:
@@ -328,11 +369,27 @@ class Metric(nn.Module, ABC):
 
         return wrapped_func
 
+    def _unshare_states(self) -> None:
+        """Take private copies of the tensor states other metrics of a compute group hold (copy on write).
+
+        Lists get a list of their own (their tensors are never written in
+        place); a ring buffer from the group is already a copy on write.
+        """
+        for attr in self._defaults:
+            cur = getattr(self, attr)
+            if isinstance(cur, Tensor):
+                setattr(self, attr, cur.clone())
+            elif isinstance(cur, list):
+                setattr(self, attr, list(cur))
+        self._states_aliased = False
+
     def _move_list_states_to_cpu(self) -> None:
         """Offload append-mode (list) states to host memory after each update (reference ``metric.py:483-488``)."""
         for attr in self._defaults:
             value = getattr(self, attr)
-            if isinstance(value, list):
+            if isinstance(value, RingBuffer):
+                value.to_device("cpu")
+            elif isinstance(value, list):
                 setattr(self, attr, [v.to("cpu") for v in value])
 
     def _wrap_compute(self, compute: Callable) -> Callable:
@@ -393,11 +450,18 @@ class Metric(nn.Module, ABC):
         self._is_synced = True
 
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
-        """Reference ``metric.py:427-457``: pre-concat lists, gather, reduce."""
+        """Reference ``metric.py:427-457``: pre-concat lists, gather, reduce.
+
+        A ring buffer gathers its live rows, like a pre-concatenated list (JAX
+        ``metric.py:989``); after the sync the state is their concatenation
+        over the ranks, rank by rank.
+        """
         input_dict = {attr: getattr(self, attr) for attr in self._reductions}
         for attr, value in input_dict.items():
+            if isinstance(value, RingBuffer):
+                input_dict[attr] = [value.values()] if value.num_valid else []
             # pre-concatenate list states to minimize the number of all_gathers
-            if isinstance(value, list) and len(value) >= 1:
+            elif isinstance(value, list) and len(value) >= 1:
                 input_dict[attr] = [dim_zero_cat(value)]
         for attr, reduction_fn in self._reductions.items():
             value = input_dict[attr]
@@ -408,7 +472,7 @@ class Metric(nn.Module, ABC):
             if isinstance(gathered, list) and len(gathered) == 0:
                 setattr(self, attr, [])
                 continue
-            if isinstance(gathered[0], Tensor) and not isinstance(getattr(self, attr), list):
+            if isinstance(gathered[0], Tensor) and not isinstance(getattr(self, attr), (list, RingBuffer)):
                 if len({g.shape for g in gathered}) == 1:
                     gathered = torch.stack(gathered)
             fn = _STR_REDUCTIONS.get(reduction_fn, reduction_fn) if isinstance(reduction_fn, str) else reduction_fn
@@ -498,10 +562,14 @@ class Metric(nn.Module, ABC):
             self._reset_state_to_default(attr)
         self._cache = None
         self._is_synced = False
+        self._states_aliased = False
 
     def _reset_state_to_default(self, attr: str) -> None:
         default = self._defaults[attr]
-        setattr(self, attr, [] if isinstance(default, list) else default.clone())
+        if isinstance(default, RingBuffer):
+            setattr(self, attr, default.copy_empty())
+        else:
+            setattr(self, attr, [] if isinstance(default, list) else default.clone())
 
     def clone(self) -> "Metric":
         """Deep copy of the metric (reference ``metric.py:690-692``)."""
@@ -510,15 +578,19 @@ class Metric(nn.Module, ABC):
     # ----------------------------------------------------------- persistence
     def _to_state(self, value: Any) -> State:
         """A private copy of ``value`` on the metric's device (states are mutated in place)."""
+        if isinstance(value, RingBuffer):
+            return value.copy().to_device(self._device)
         if isinstance(value, list):
             return [torch.as_tensor(v, device=self._device).clone() for v in value]
         return torch.as_tensor(value, device=self._device).clone()
 
     def _copy_state_dict(self) -> Dict[str, State]:
-        return {
-            attr: [v.clone() for v in cur] if isinstance(cur, list) else cur.clone()
-            for attr, cur in self.metric_state.items()
-        }
+        def _copy(cur: State) -> State:
+            if isinstance(cur, RingBuffer):
+                return cur.copy()
+            return [v.clone() for v in cur] if isinstance(cur, list) else cur.clone()
+
+        return {attr: _copy(cur) for attr, cur in self.metric_state.items()}
 
     def _restore_state(self, cache: Dict[str, State]) -> None:
         for attr, val in cache.items():
@@ -540,13 +612,15 @@ class Metric(nn.Module, ABC):
 
         ``all_states=True`` includes every registered state regardless of its
         ``persistent`` flag. Values are copies, since live states are
-        updated in place.
+        updated in place. A ring buffer saves its live rows as one tensor.
         """
         destination = {} if destination is None else destination
         for key, current in self.metric_state.items():
             if not (all_states or self._persistent[key]):
                 continue
-            if isinstance(current, list):
+            if isinstance(current, RingBuffer):
+                destination[prefix + key] = current.values().detach().clone()
+            elif isinstance(current, list):
                 destination[prefix + key] = [v.detach().clone() for v in current]
             else:
                 destination[prefix + key] = current.detach().clone()
@@ -557,7 +631,12 @@ class Metric(nn.Module, ABC):
         for key in self._defaults:
             if prefix + key in state_dict:
                 val = self._to_state(state_dict[prefix + key])
-                if isinstance(self._defaults[key], list) and isinstance(val, Tensor):
+                if isinstance(self._defaults[key], RingBuffer):
+                    ring = self._defaults[key].copy_empty()
+                    if not isinstance(val, Tensor) or val.numel():
+                        ring.extend(val)
+                    val = ring
+                elif isinstance(self._defaults[key], list) and isinstance(val, Tensor):
                     # one concatenated array loaded into a list state
                     val = [val] if val.numel() else []
                 setattr(self, key, val)
@@ -587,12 +666,17 @@ class Metric(nn.Module, ABC):
     def _apply(self, fn: Callable, recurse: bool = True) -> "Metric":
         """Carry ``.to()``/``.cuda()``/``.cpu()`` over to the states, their defaults and the cached values."""
         this = super()._apply(fn, recurse)
+        this._device = fn(torch.zeros(1, device=this._device)).device
         for attr, default in self._defaults.items():
             cur = getattr(this, attr)
-            setattr(this, attr, [fn(v) for v in cur] if isinstance(cur, list) else fn(cur))
+            if isinstance(cur, RingBuffer):
+                cur._apply(fn, this._device)
+            else:
+                setattr(this, attr, [fn(v) for v in cur] if isinstance(cur, list) else fn(cur))
             if isinstance(default, Tensor):
                 this._defaults[attr] = fn(default)
-        this._device = fn(torch.zeros(1, device=this._device)).device
+            elif isinstance(default, RingBuffer):
+                default.device = this._device
         if isinstance(this._computed, Tensor):
             this._computed = fn(this._computed)
         if isinstance(this._forward_cache, Tensor):
@@ -614,7 +698,9 @@ class Metric(nn.Module, ABC):
         """Id+state hash (reference ``metric.py:913-936``)."""
         hash_vals = [self.__class__.__name__, id(self)]
         for val in self.metric_state.values():
-            if isinstance(val, list):
+            if isinstance(val, RingBuffer):
+                hash_vals.append(id(val))
+            elif isinstance(val, list):
                 hash_vals.extend(id(v) for v in val)
             else:
                 hash_vals.append(id(val))

@@ -1,4 +1,4 @@
-"""Utility layer: safe math, data ops, distributed gather, checks, enums, state carry-over."""
+"""Utility layer: safe math, data ops, distributed gather, checks, enums, state carry-over, ring buffers."""
 
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
@@ -15,6 +15,7 @@ from torchmetrics_tpu_torch.utilities.data import (
 from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_info, rank_zero_warn
+from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
 
 __all__ = [
     "_check_same_shape",
@@ -34,4 +35,5 @@ __all__ = [
     "rank_zero_debug",
     "rank_zero_info",
     "rank_zero_warn",
+    "RingBuffer",
 ]

@@ -1,6 +1,6 @@
 """Safe math primitives shared by the metric functionals.
 
-Parity target: reference ``torchmetrics/utilities/compute.py:20-68``. Division
+Parity target: reference ``torchmetrics/utilities/compute.py``. Division
 by zero and the logit check are resolved with ``torch.where`` on the device, so
 neither reads a value back to the host.
 """
@@ -51,6 +51,56 @@ def _adjust_weights_safe_divide(
         if not multilabel:
             weights = torch.where(tp + fp + fn == 0, torch.zeros_like(weights), weights)
     return _safe_divide(torch.sum(weights * score, dim=-1), torch.sum(weights, dim=-1), zero_division)
+
+
+def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float, axis: int = -1) -> Tensor:
+    """Trapezoidal area under (x, y) along ``axis``, assuming x already sorted in ``direction``."""
+    dx = torch.diff(x, dim=axis)
+    n = y.shape[axis]
+    y_avg = (y.narrow(axis, 0, n - 1) + y.narrow(axis, 1, n - 1)) / 2.0
+    return torch.sum(y_avg * dx, dim=axis) * direction
+
+
+def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    """Area under a curve; with ``reorder`` the points are first sorted by x (stable).
+
+    As in the JAX package, the direction is the sign of the summed steps
+    rather than the reference's check that x is monotonic.
+    """
+    if reorder:
+        order = torch.argsort(x, stable=True)
+        x, y = x[order], y[order]
+    direction = torch.where(torch.diff(x).sum() >= 0, 1.0, -1.0)
+    return _auc_compute_without_check(x, y, 1.0) * direction
+
+
+def auc(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    """Area under the curve through the points (x, y) (functional ``auc``)."""
+    return _auc_compute(x, y, reorder=reorder)
+
+
+def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
+    """1-D linear interpolation with the reference's semantics (reference ``utilities/compute.py:134-157``).
+
+    The segment of each ``x`` is the count of ``xp`` values at or below it,
+    less one, clamped to the segments; slopes are taken in ``xp``'s own
+    order, and values past either end are extrapolated linearly. This is
+    not ``numpy.interp``, which clamps at the ends and assumes a sorted
+    ``xp``: the macro-averaged curves call it on an ``xp`` that is not
+    monotonic, where the count-based pick is what the reference returns.
+    """
+    x, xp, fp = torch.as_tensor(x), torch.as_tensor(xp), torch.as_tensor(fp)
+    x1 = torch.atleast_1d(x)
+    if xp.shape[0] < 2:  # no segment to interpolate over
+        fill = fp[0] if fp.numel() else torch.tensor(float("nan"), device=x1.device)
+        out = torch.broadcast_to(fill, x1.shape)
+        return out[0] if x.ndim == 0 else out
+    m = _safe_divide(fp[1:] - fp[:-1], xp[1:] - xp[:-1])
+    b = fp[:-1] - m * xp[:-1]
+    indices = torch.sum(x1[:, None] >= xp[None, :], dim=1) - 1
+    indices = torch.clamp(indices, 0, m.shape[0] - 1)
+    out = m[indices] * x1 + b[indices]
+    return out[0] if x.ndim == 0 else out
 
 
 def normalize_logits_if_needed(tensor: Tensor, normalization: Optional[str]) -> Tensor:

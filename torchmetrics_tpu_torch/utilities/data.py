@@ -10,11 +10,17 @@ from typing import List, Optional, Union
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
 
-def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
-    """Concatenate a (possibly list-valued) state along dim 0."""
+
+def dim_zero_cat(x: Union[Tensor, List[Tensor], RingBuffer]) -> Tensor:
+    """Concatenate a (possibly list- or ring-buffer-valued) state along dim 0."""
     if isinstance(x, Tensor):
         return x
+    if isinstance(x, RingBuffer):
+        if not len(x):
+            raise ValueError("No samples to concatenate")
+        return x.values().clone()
     if not x:  # empty list state
         raise ValueError("No samples to concatenate")
     return torch.cat([torch.atleast_1d(el) for el in x], dim=0)
