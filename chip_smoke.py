@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's main paths on one GPU and hold each kernel against its plain version.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA card and ``nvcc``; it builds the five kernel libraries of
-``torchmetrics_tpu_torch/csrc/`` (one ``nvcc`` each, started together). It
+It needs one CUDA card, ``nvcc`` and a C compiler (for the RLE codec); it
+builds the five kernel libraries of ``torchmetrics_tpu_torch/csrc/`` (one
+``nvcc`` each, started together). It
 exits non-zero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is not beside it.
 
@@ -82,6 +83,29 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 16. ``text_timing``: CUDA-event medians of B4 and B5 at one BERTScore encoder
     forward's shapes, beside their bounds, plain versions and library calls, and
     of B4 on bf16 inputs beside bf16 ``scaled_dot_product_attention``;
+17. ``detection_coco_val``: BASELINE config 3, ``MeanAveragePrecision(iou_type="bbox")``
+    on a COCO val2017-shaped stream made on the card (5,000 images, 80 classes,
+    100 detections and 1-50 ground truths an image, ~1% crowd, updates of 16):
+    the 12 summary values against the port's own CPU run of the same updates
+    (1e-6) and, on a 500-image subset, against the numpy pycocotools port of
+    ``tests/unittests/detection/`` (1e-5); ``class_metrics=True`` on the same
+    states; images/s, ``compute`` ms, peak memory, one ``compute``'s device time
+    by kernel and idle share. The host references run in worker processes
+    while the card works through phases 17-21, and are read at the end;
+18. ``detection_segm``: ``iou_type="segm"`` on 100 images of 427x640 masks (20
+    detections, 1-10 ground truths each) against the pycocotools port (1e-4),
+    and the masks' round trip through ``tm_to_coco``/``coco_to_tm`` and the
+    port's C RLE codec, exact;
+19. ``detection_stream``: 1,000 updates of 1 image (100 detections, 20 ground
+    truths), updates/s, the result equal to one update of all 1,000 images;
+20. ``iou_panoptic``: IoU, GIoU, DIoU and CIoU (functional matrices and classes
+    with ``class_metrics``) on 16 images of 100 x 100 boxes against float64
+    numpy (1e-6); ``PanopticQuality`` and ``ModifiedPanopticQuality`` on 8
+    COCO-panoptic-like 512x512 maps, states equal to the CPU run; golden cases
+    158-163 replayed on the card;
+21. ``text_no_model``: ``BERTScore()`` and ``InfoLM()`` built without a model (the
+    hash encoders) on 64 pairs of the bertscore_wmt and infolm_pairs corpora,
+    token ids exact and scores within 1e-6 / 1e-5 of the port's CPU run;
 
 then the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
@@ -1281,6 +1305,545 @@ def phase_text_timing(torch, ka, dev, gen, mask, smi: str) -> dict:
     return per_forward
 
 
+# ------------------------------------------------------------------ detection
+COCO_HW = (480, 640)  # COCO val2017's most common image size (H, W)
+SEGM_HW = (427, 640)  # the phase's mask size, also a COCO val2017 size
+MAP_KEYS = ("map", "map_50", "map_75", "map_small", "map_medium", "map_large",
+            "mar_1", "mar_10", "mar_100", "mar_small", "mar_medium", "mar_large")
+# the card's compute vs the port's CPU compute of the same states: the same float32 arithmetic, the
+# curves' sums of 0/1 in float32 (exact), so the summary means agree to their float64 host rounding
+MAP_CPU_ATOL = 1e-6
+MAP_COCO_ATOL = 1e-5  # vs the numpy pycocotools port (float64 IoUs): the JAX suite's own bbox tolerance
+MAP_SEGM_ATOL = 1e-4  # vs the port in segm mode: the JAX suite's own tolerance (float32 mask IoU at ties)
+IOU_F64_ATOL = 1e-6  # float32 IoU-family matrices and class means vs float64 numpy on the same boxes
+PQ_MEAN_ATOL = 1e-6  # PQ from equal states, card vs CPU: a float32 mean of 133 per-category ratios
+TEXT_DEFAULT_ATOL = {"bertscore": 1e-6, "infolm": 1e-5}  # hash encoders, card vs CPU run of the port
+
+
+def _repo_module(name: str, relpath: str):
+    """A numpy-only module of the repo's tests, loaded by its path (no package ``__init__`` runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def coco_val_data(torch, dev, gen, n_img: int, n_cls: int = 80, dets: int = 100, max_gt: int = 50,
+                  gt_per_image: int = 0) -> dict:
+    """A COCO val2017-shaped detection stream made on the card from the seed.
+
+    ``n_img`` images of 640x480; 1-50 ground truths each, 1 + a geometric law of
+    mean ~6.4 (COCO val2017: 36,781 boxes on 5,000 images, 7.36 each), ~1% crowd;
+    80 classes under a 1/(k+1)^0.9 law (a few frequent classes, as person is in
+    COCO); box sides log-uniform on 6-450 px, so COCO's small (< 32^2), medium and
+    large areas are all filled (~39/25/36%); ``dets`` detections an image (COCO's
+    maxDets 100): half are jittered copies of a ground truth of their image,
+    85% of those with its label, scored higher; the rest anywhere, scored lower.
+    ``gt_per_image`` fixes the ground-truth count instead. Returns flat tensors
+    and the per-image ground-truth counts (on the host).
+    """
+    import math
+
+    h, w = COCO_HW
+    u = lambda n: torch.rand(n, generator=gen, device=dev)  # noqa: E731
+    normal = lambda n: torch.randn(n, generator=gen, device=dev)  # noqa: E731
+    n_gt = torch.clamp(1 + torch.floor(-torch.log(u(n_img)) * 6.9), max=max_gt).long()
+    if gt_per_image:
+        n_gt = torch.full((n_img,), gt_per_image, device=dev)
+    probs = (torch.arange(n_cls, device=dev) + 1.0) ** -0.9
+
+    def labels(n):
+        return torch.multinomial(probs, n, replacement=True, generator=gen).int()
+
+    def boxes(n):
+        side = torch.exp(math.log(6.0) + u(n) * math.log(450.0 / 6.0))
+        ratio = torch.exp((u(n) * 2 - 1) * 0.7).sqrt()
+        bw, bh = torch.clamp(side * ratio, max=w - 1), torch.clamp(side / ratio, max=h - 1)
+        x, y = u(n) * (w - bw), u(n) * (h - bh)
+        return torch.stack([x, y, x + bw, y + bh], dim=1)
+
+    total, n_det = int(n_gt.sum()), n_img * dets
+    gt_boxes, gt_labels, gt_crowd = boxes(total), labels(total), (u(total) < 0.01).int()
+    img = torch.arange(n_det, device=dev) // dets
+    pick = (torch.cumsum(n_gt, 0) - n_gt)[img] + torch.floor(u(n_det) * n_gt[img]).long()
+    g = gt_boxes[pick]
+    gw, gh = g[:, 2] - g[:, 0], g[:, 3] - g[:, 1]
+    cx = (g[:, 0] + g[:, 2]) / 2 + normal(n_det) * 0.1 * gw
+    cy = (g[:, 1] + g[:, 3]) / 2 + normal(n_det) * 0.1 * gh
+    jw, jh = gw * torch.exp(normal(n_det) * 0.15), gh * torch.exp(normal(n_det) * 0.15)
+    x1, y1 = torch.clamp(cx - jw / 2, 0, w - 1), torch.clamp(cy - jh / 2, 0, h - 1)  # inside the image, 1 px at least
+    x2 = torch.maximum(torch.clamp(cx + jw / 2, max=w), x1 + 1)
+    y2 = torch.maximum(torch.clamp(cy + jh / 2, max=h), y1 + 1)
+    jittered = torch.stack([x1, y1, x2, y2], dim=1)
+    hit = u(n_det) < 0.5
+    return {
+        "det_boxes": torch.where(hit[:, None], jittered, boxes(n_det)),
+        "det_scores": torch.sigmoid(normal(n_det) + torch.where(hit, 1.0, -1.5)),
+        "det_labels": torch.where(hit & (u(n_det) < 0.85), gt_labels[pick], labels(n_det)),
+        "gt_boxes": gt_boxes, "gt_labels": gt_labels, "gt_crowd": gt_crowd,
+        "gt_counts": n_gt.tolist(), "dets": dets,
+    }
+
+
+def det_batch(data: dict, lo: int, hi: int, geometry: str = "boxes"):
+    """Images ``lo:hi`` of a stream as the metric's ``(preds, target)`` lists of per-image dicts (views)."""
+    dets, counts = data["dets"], data["gt_counts"]
+    start = sum(counts[:lo])
+    preds, target = [], []
+    for i in range(lo, hi):
+        a, b = i * dets, (i + 1) * dets
+        preds.append({geometry: data[f"det_{geometry}"][a:b], "scores": data["det_scores"][a:b],
+                      "labels": data["det_labels"][a:b]})
+        target.append({geometry: data[f"gt_{geometry}"][start:start + counts[i]],
+                       "labels": data["gt_labels"][start:start + counts[i]], "iscrowd": data["gt_crowd"][start:start + counts[i]]})
+        start += counts[i]
+    return preds, target
+
+
+def on_host(data: dict, lo: int, hi: int) -> dict:
+    """Images ``lo:hi`` of a stream as numpy arrays for a worker process; masks stay behind (the host rebuilds them)."""
+    start, dets = sum(data["gt_counts"][:lo]), data["dets"]
+    stop = start + sum(data["gt_counts"][lo:hi])
+    arrays = {k: v for k, v in data.items() if k not in ("gt_counts", "dets") and not k.endswith("_masks")}
+    out = {k: v[lo * dets:hi * dets].cpu().numpy() for k, v in arrays.items() if k.startswith("det_")}
+    out.update({k: v[start:stop].cpu().numpy() for k, v in arrays.items() if k.startswith("gt_")})
+    return {**out, "gt_counts": data["gt_counts"][lo:hi], "dets": dets}
+
+
+def _host_port_map(arrays: dict, batch: int, threads: int) -> dict:
+    """Worker: the port's MeanAveragePrecision on the CPU over the same images in the same updates."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    torch.set_num_threads(threads)
+    data = {k: torch.from_numpy(v) if hasattr(v, "dtype") else v for k, v in arrays.items()}
+    metric = MeanAveragePrecision(device="cpu")
+    n = len(arrays["gt_counts"])
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch):
+        metric.update(*det_batch(data, lo, min(lo + batch, n)))
+    out = metric.compute()
+    return {"stats": {k: float(out[k]) for k in MAP_KEYS}, "seconds": time.perf_counter() - t0}
+
+
+def rect_masks(xp, params, hw, dev=None):
+    """``(n, H, W)`` bool masks, each the union of two integer rectangles ``params[k] = (y0, y1, x0, x1) x 2``.
+
+    ``xp`` is ``torch`` (with ``dev``) or ``numpy``: both give the same bits.
+    """
+    h, w = hw
+    rows = (xp.arange(h) if dev is None else xp.arange(h, device=dev))[None, :, None]
+    cols = (xp.arange(w) if dev is None else xp.arange(w, device=dev))[None, None, :]
+    p = params[:, :, None, None]
+    first = (rows >= p[:, 0]) & (rows < p[:, 1]) & (cols >= p[:, 2]) & (cols < p[:, 3])
+    return first | ((rows >= p[:, 4]) & (rows < p[:, 5]) & (cols >= p[:, 6]) & (cols < p[:, 7]))
+
+
+def segm_data(torch, dev, gen, n_img: int, dets: int = 20, max_gt: int = 10, n_cls: int = 80) -> dict:
+    """Mask-detection stream on the card: ``n_img`` 427x640 images, 1-10 ground-truth masks and ``dets`` detections each.
+
+    A mask is the union of two integer rectangles (so the host rebuilds it bit
+    for bit from its 8 numbers); a detection is a shifted copy of a ground truth
+    of its image (60%, 85% of those with its label) or a mask anywhere.
+    """
+    h, w = SEGM_HW
+    u = lambda n: torch.rand(n, generator=gen, device=dev)  # noqa: E731
+    n_gt = torch.randint(1, max_gt + 1, (n_img,), generator=gen, device=dev)
+    probs = (torch.arange(n_cls, device=dev) + 1.0) ** -0.9
+
+    def labels(n):
+        return torch.multinomial(probs, n, replacement=True, generator=gen).int()
+
+    def params(n):
+        out = []
+        for _ in range(2):
+            bh, bw = (torch.exp(u(n) * 4.5) * 4).long() + 2, (torch.exp(u(n) * 4.5) * 4).long() + 2
+            y0, x0 = (u(n) * (h - bh)).long(), (u(n) * (w - bw)).long()
+            out += [y0, y0 + bh, x0, x0 + bw]
+        return torch.stack(out, dim=1)
+
+    total, n_det = int(n_gt.sum()), n_img * dets
+    gt_params, gt_labels = params(total), labels(total)
+    img = torch.arange(n_det, device=dev) // dets
+    pick = (torch.cumsum(n_gt, 0) - n_gt)[img] + torch.floor(u(n_det) * n_gt[img]).long()
+    shift = torch.randint(-6, 7, (n_det, 1), generator=gen, device=dev).repeat(1, 8)
+    shift[:, 2:4] = shift[:, 6:8] = torch.randint(-6, 7, (n_det, 1), generator=gen, device=dev)
+    jittered = gt_params[pick] + shift
+    hit = u(n_det) < 0.6
+    det_params = torch.where(hit[:, None], jittered, params(n_det))
+    data = {
+        "det_params": det_params, "det_scores": torch.sigmoid(torch.randn(n_det, generator=gen, device=dev) + hit * 2.0),
+        "det_labels": torch.where(hit & (u(n_det) < 0.85), gt_labels[pick], labels(n_det)),
+        "gt_params": gt_params, "gt_labels": gt_labels, "gt_crowd": torch.zeros(total, dtype=torch.int32, device=dev),
+        "gt_counts": n_gt.tolist(), "dets": dets,
+    }
+    data["det_masks"], data["gt_masks"] = rect_masks(torch, det_params, SEGM_HW, dev), rect_masks(torch, gt_params, SEGM_HW, dev)
+    return data
+
+
+def _host_pycocotools(arrays: dict, iou_type: str) -> dict:
+    """Worker: the numpy pycocotools port (``tests/unittests/detection/pycocotools_port.py``) on the same images."""
+    import numpy as np
+
+    port = _repo_module("pycocotools_port", os.path.join("tests", "unittests", "detection", "pycocotools_port.py"))
+
+    class Params(port.Params):
+        """pycocotools' parameters with the metric's thresholds, as torchmetrics sets them for its pycocotools
+        backend: ``linspace(...).round(2)``. The unrounded ``linspace`` puts some recall points an ulp off
+        the recalls ``k / npig`` that land on them, and moves those samples (~1e-4 in map at 100 images)."""
+
+        def __init__(self):
+            super().__init__()
+            self.iouThrs = np.linspace(0.5, 0.95, 10).round(2)
+            self.recThrs = np.linspace(0.0, 1.00, 101).round(2)
+
+    port.Params = Params
+    if iou_type == "segm":
+        arrays = {**arrays, "det_masks": rect_masks(np, arrays["det_params"], SEGM_HW),
+                  "gt_masks": rect_masks(np, arrays["gt_params"], SEGM_HW)}
+    t0 = time.perf_counter()
+    preds, target = det_batch(arrays, 0, len(arrays["gt_counts"]), "boxes" if iou_type == "bbox" else "masks")
+    stats = port.eval_tm_format(preds, target, iou_type=iou_type)
+    return {"stats": {k: float(stats[k]) for k in MAP_KEYS}, "seconds": time.perf_counter() - t0}
+
+
+def _top_level_imports(relpath: str) -> set:
+    """The top-level packages a repo file imports, read from its source."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)).read())
+    names = {alias.name for node in ast.walk(tree) if isinstance(node, ast.Import) for alias in node.names}
+    names |= {node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom) and node.module}
+    return {name.split(".")[0] for name in names}
+
+
+def _max_key_err(got: dict, want: dict) -> float:
+    return max(abs(float(got[k]) - float(want[k])) for k in MAP_KEYS)
+
+
+def phase_detection_coco_val(torch, np, dev, gen, pool, smi: str, n_img: int = 5000, batch: int = 16,
+                             subset: int = 500) -> dict:
+    """BASELINE config 3: ``MeanAveragePrecision(iou_type="bbox")`` over a COCO val2017-shaped stream on the card.
+
+    The host references start first, in worker processes, and are read at the
+    end of the detection phases: the port's own CPU run of the same 5,000
+    images in the same updates, and the numpy pycocotools port on the first
+    ``subset`` images, which a second metric on the card also evaluates.
+    """
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    port_imports = _top_level_imports(os.path.join("tests", "unittests", "detection", "pycocotools_port.py"))
+    check(port_imports <= {"__future__", "collections", "numpy"}, f"the pycocotools port imports {port_imports}")
+    data = coco_val_data(torch, dev, gen, n_img)
+    pending = {"cpu": pool.submit(_host_port_map, on_host(data, 0, n_img), batch, 5),
+               "pycocotools": pool.submit(_host_pycocotools, on_host(data, 0, subset), "bbox")}
+    metric = MeanAveragePrecision(compute_with_cache=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for lo in range(0, n_img, batch):
+        metric.update(*det_batch(data, lo, min(lo + batch, n_img)))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = metric.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check(all(out[k].device == dev and bool(torch.isfinite(out[k])) and -1 <= float(out[k]) <= 1 for k in MAP_KEYS),
+          "coco_val: a summary value is off the card, not finite or outside [-1, 1]")
+    check(out["classes"].numel() == 80 and 0.05 < float(out["map"]) < 0.95, f"coco_val: map {float(out['map'])}")
+
+    per_class = MeanAveragePrecision(class_metrics=True, compute_with_cache=False)
+    per_class.merge_state(metric)  # the same states
+    t0 = time.perf_counter()
+    pc = per_class.compute()
+    torch.cuda.synchronize()
+    class_ms = (time.perf_counter() - t0) * 1e3
+    valid = pc["map_per_class"] > -1
+    pc_err = max(_max_key_err(pc, out), abs(float(pc["map_per_class"][valid].mean()) - float(out["map"])))
+    check(pc["map_per_class"].shape == (80,) and pc_err <= MAP_CPU_ATOL, f"coco_val class_metrics: {pc_err}")
+
+    sub = MeanAveragePrecision()
+    sub.update(*det_batch(data, 0, subset))
+    sub_out = {k: float(v) for k, v in sub.compute().items() if k in MAP_KEYS}
+    profile = device_time_by_kernel(torch, metric.compute, top=10)
+    gts = sum(data["gt_counts"])
+    return {
+        "phase": "detection_coco_val", "images": n_img, "classes": 80, "detections": n_img * data["dets"],
+        "ground_truths": gts, "crowd": int(data["gt_crowd"].sum()), "batch": batch,
+        "results": {k: float(out[k]) for k in MAP_KEYS}, "subset_results": sub_out, "pending": pending,
+        "max_err": {"class_metrics_run": pc_err},
+        "seconds": stream_s, "images_per_s": n_img / stream_s, "update_ms": stream_s / -(-n_img // batch) * 1e3,
+        "compute_ms": compute_ms, "class_metrics_compute_ms": class_ms, "peak_mem_bytes": peak,
+        "compute_profile": profile, "card": smi,
+    }
+
+
+def phase_detection_stream(torch, dev, gen, n_updates: int = 1000) -> dict:
+    """The JAX package's old streaming shape: 1 image an update, 100 detections and 20 ground truths."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    data = coco_val_data(torch, dev, gen, n_updates, gt_per_image=20)
+    metric, whole = MeanAveragePrecision(), MeanAveragePrecision()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_updates):
+        metric.update(*det_batch(data, i, i + 1))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = metric.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    whole.update(*det_batch(data, 0, n_updates))  # the same images in one update: the same states
+    err = _max_key_err(whole.compute(), out)
+    check(err <= MAP_CPU_ATOL, f"detection_stream: one update vs {n_updates} updates: {err}")
+    return {"phase": "detection_stream", "updates": n_updates, "detections_per_image": data["dets"],
+            "ground_truths_per_image": 20, "map": float(out["map"]), "max_err_vs_one_update": err,
+            "seconds": stream_s, "updates_per_s": n_updates / stream_s, "compute_ms": compute_ms}
+
+
+def phase_detection_segm(torch, np, dev, gen, pool, n_img: int = 100, batch: int = 10) -> dict:
+    """``MeanAveragePrecision(iou_type="segm")`` on 100 images of 427x640 masks; the masks round-trip through COCO json."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    data = segm_data(torch, dev, gen, n_img)
+    pending = {"pycocotools": pool.submit(_host_pycocotools, on_host(data, 0, n_img), "segm")}
+    metric = MeanAveragePrecision(iou_type="segm")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, n_img, batch):
+        metric.update(*det_batch(data, lo, lo + batch, "masks"))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = metric.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as folder:
+        name = os.path.join(folder, "segm")
+        t0 = time.perf_counter()
+        metric.tm_to_coco(name)
+        preds, target = MeanAveragePrecision.coco_to_tm(f"{name}_preds.json", f"{name}_target.json", iou_type="segm")
+        round_trip_s = time.perf_counter() - t0
+    masks = 0
+    for i in range(n_img):
+        for side, entry in (("preds", preds[i]), ("target", target[i])):
+            want = (metric.detection_mask if side == "preds" else metric.groundtruth_mask)[i].cpu().numpy()
+            check(np.array_equal(entry["masks"].numpy().astype(bool), want), f"segm round trip: image {i} {side} masks")
+            masks += len(want)
+    return {"phase": "detection_segm", "images": n_img, "mask_hw": list(SEGM_HW), "detections": n_img * data["dets"],
+            "ground_truths": sum(data["gt_counts"]), "results": {k: float(out[k]) for k in MAP_KEYS},
+            "pending": pending, "round_trip": {"masks": masks, "exact": True, "seconds": round_trip_s},
+            "seconds": stream_s, "compute_ms": compute_ms}
+
+
+def _f64_box_family(np, a, b):
+    """IoU, GIoU, DIoU and CIoU matrices of ``xyxy`` boxes in float64, written from their definitions."""
+    a, b = a.astype(np.float64)[:, None, :], b.astype(np.float64)[None, :, :]
+    area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])  # noqa: E731
+    inter = (np.clip(np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]), 0, None)
+             * np.clip(np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]), 0, None))
+    union = area(a) + area(b) - inter
+    iou = inter / union
+    ew = np.maximum(a[..., 2], b[..., 2]) - np.minimum(a[..., 0], b[..., 0])
+    eh = np.maximum(a[..., 3], b[..., 3]) - np.minimum(a[..., 1], b[..., 1])
+    giou = iou - (ew * eh - union) / (ew * eh)
+    centre = ((a[..., 0] + a[..., 2] - b[..., 0] - b[..., 2]) ** 2 + (a[..., 1] + a[..., 3] - b[..., 1] - b[..., 3]) ** 2) / 4
+    diou = iou - centre / (ew**2 + eh**2)
+    atan = lambda x: np.arctan((x[..., 2] - x[..., 0]) / (x[..., 3] - x[..., 1]))  # noqa: E731
+    v = 4 / np.pi**2 * (atan(a) - atan(b)) ** 2
+    return {"intersection_over_union": iou, "generalized_intersection_over_union": giou,
+            "distance_intersection_over_union": diou, "complete_intersection_over_union": diou - v / (1 - iou + v) * v}
+
+
+def panoptic_maps(torch, dev, gen, n: int, side: int = 512, things=range(1, 81), stuffs=range(92, 145)):
+    """COCO-panoptic-like ``(n, side, side, 2)`` maps: a 16x16 grid of stuff regions, ~15 thing instances painted
+    over it, ~4% void (category 0, unknown); the prediction moves each instance a few pixels, relabels 10% of
+    the stuff cells and 10% of the instances, and drops or invents a few."""
+    things, stuffs = torch.tensor(list(things), device=dev), torch.tensor(list(stuffs), device=dev)
+    pick = lambda pool, shape: pool[torch.randint(0, len(pool), shape, generator=gen, device=dev)]  # noqa: E731
+    grid = pick(stuffs, (n, 16, 16))
+    noisy_grid = torch.where(torch.rand((n, 16, 16), generator=gen, device=dev) < 0.1, pick(stuffs, (n, 16, 16)), grid)
+    cell = side // 16
+    rows = torch.arange(side, device=dev)[None, :, None]
+    cols = torch.arange(side, device=dev)[None, None, :]
+    k = 15
+    y0 = torch.randint(0, side - 40, (n, k), generator=gen, device=dev)
+    x0 = torch.randint(0, side - 40, (n, k), generator=gen, device=dev)
+    hh = torch.randint(16, 160, (n, k), generator=gen, device=dev)
+    ww = torch.randint(16, 160, (n, k), generator=gen, device=dev)
+    cat = pick(things, (n, k))
+    dy, dx = (torch.randint(-4, 5, (n, k), generator=gen, device=dev) for _ in range(2))
+    relabel = torch.rand((n, k), generator=gen, device=dev) < 0.1
+    keep = torch.rand((n, k), generator=gen, device=dev) < 0.9
+    pred_cat = torch.where(relabel, pick(things, (n, k)), cat)
+
+    def paint(stuff_grid, cats, ys, xs, present):
+        c = stuff_grid.repeat_interleave(cell, 1).repeat_interleave(cell, 2)
+        inst = torch.zeros_like(c)
+        for j in range(k):
+            inside = ((rows >= ys[:, j, None, None]) & (rows < (ys + hh)[:, j, None, None]) & (cols >= xs[:, j, None, None])
+                      & (cols < (xs + ww)[:, j, None, None]) & present[:, j, None, None])
+            c = torch.where(inside, cats[:, j, None, None], c)
+            inst = torch.where(inside, j + 1, inst)
+        return torch.stack([c, inst], dim=-1)
+
+    target = paint(grid, cat, y0, x0, torch.ones_like(keep))
+    void = torch.rand((n, 16, 16), generator=gen, device=dev).repeat_interleave(cell, 1).repeat_interleave(cell, 2) < 0.04
+    target[..., 0] = torch.where(void, 0, target[..., 0])
+    preds = paint(noisy_grid, pred_cat, y0 + dy, x0 + dx, keep)
+    return preds, target, set(range(1, 81)), set(range(92, 145))
+
+
+def phase_iou_panoptic(torch, np, dev, gen) -> dict:
+    """The IoU family on 16 images of 100 x 100 boxes against float64 numpy, and PQ / modified PQ on 8 COCO-panoptic-like
+    512x512 maps against the port's CPU run (exactly) and the golden cases 162/163."""
+    import torchmetrics_tpu_torch as tt
+    import torchmetrics_tpu_torch.functional as F
+
+    n_img, n_box, n_cls = 16, 100, 5
+    xy = torch.rand((2, n_img, n_box, 2), generator=gen, device=dev) * 100
+    boxes = torch.cat([xy, xy + torch.rand((2, n_img, n_box, 2), generator=gen, device=dev) * 30 + 2], dim=-1)
+    labels = torch.randint(0, n_cls, (2, n_img, n_box), generator=gen, device=dev)
+    host_boxes, host_labels = boxes.cpu().numpy(), labels.cpu().numpy()
+    classes = {"intersection_over_union": tt.IntersectionOverUnion, "generalized_intersection_over_union":
+               tt.GeneralizedIntersectionOverUnion, "distance_intersection_over_union": tt.DistanceIntersectionOverUnion,
+               "complete_intersection_over_union": tt.CompleteIntersectionOverUnion}
+    errs, results = {}, {}
+    refs = [_f64_box_family(np, host_boxes[0, i], host_boxes[1, i]) for i in range(n_img)]
+    for name, cls in classes.items():
+        err = 0.0
+        for i in range(n_img):
+            mat = getattr(F, name)(boxes[0, i], boxes[1, i], aggregate=False)
+            err = max(err, float(np.abs(mat.cpu().numpy() - refs[i][name]).max()))
+        metric = cls(class_metrics=True)
+        metric.update([{"boxes": boxes[0, i], "labels": labels[0, i]} for i in range(n_img)],
+                      [{"boxes": boxes[1, i], "labels": labels[1, i]} for i in range(n_img)])
+        got = metric.compute()
+        same = [host_labels[0, i][:, None] == host_labels[1, i][None, :] for i in range(n_img)]
+        want = {metric._iou_type: np.concatenate([refs[i][name][same[i]] for i in range(n_img)]).mean()}
+        for c in range(n_cls):
+            col = [refs[i][name][:, host_labels[1, i] == c][same[i][:, host_labels[1, i] == c]] for i in range(n_img)]
+            want[f"{metric._iou_type}/cl_{c}"] = np.concatenate(col).mean()
+        check(sorted(got) == sorted(want), f"{name}: keys {sorted(got)}")
+        err = max(err, *(abs(float(got[k]) - want[k]) for k in want))
+        check(err <= IOU_F64_ATOL, f"{name} vs float64: {err}")
+        errs[name], results[metric._iou_type] = err, float(got[metric._iou_type])
+
+    preds, target, things, stuffs = panoptic_maps(torch, dev, gen, 8)
+    pq_out = {}
+    for cls in (tt.PanopticQuality, tt.ModifiedPanopticQuality):
+        card, host = cls(things=things, stuffs=stuffs), cls(things=things, stuffs=stuffs, device="cpu")
+        t0 = time.perf_counter()
+        for lo in (0, 4):
+            card.update(preds[lo:lo + 4], target[lo:lo + 4])
+        value = card.compute()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for lo in (0, 4):
+            host.update(preds[lo:lo + 4].cpu(), target[lo:lo + 4].cpu())
+        for state in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
+            check(torch.equal(getattr(card, state).cpu(), getattr(host, state)), f"{cls.__name__} {state}: card != CPU")
+        # equal states; the mean over the 133 categories is a float32 sum in the device's own order
+        diff = abs(float(value) - float(host.compute()))
+        check(diff <= PQ_MEAN_ATOL and 0.1 < float(value) < 1.0, f"{cls.__name__} {float(value)}, vs CPU {diff}")
+        pq_out[cls.__name__] = {"value": float(value), "diff_vs_cpu": diff, "ms": ms}
+
+    specs = _repo_module("golden_specs", os.path.join("tests", "helpers", "golden_specs.py")).SPECS
+    pack = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "goldens.npz"))
+    golden_err = {}
+    for idx in (158, 159, 160, 161, 162, 163):
+        spec = specs[idx]
+        got = getattr(F, spec.fn)(*[torch.from_numpy(a).to(dev) for a in spec.make()], **spec.kwargs)
+        want = pack[f"{idx:03d}_{spec.fn}/0"].astype(np.float64)
+        golden_err[idx] = float(abs(got.double().cpu().numpy() - want).max())
+        check(np.allclose(got.double().cpu().numpy(), want, atol=spec.atol, rtol=1e-4), f"golden {idx} {spec.fn}: {golden_err[idx]}")
+    out = {"phase": "iou_panoptic", "boxes": [n_img, n_box, n_box], "results": results, "max_abs_err_vs_float64": errs,
+           "tolerance": IOU_F64_ATOL, "panoptic": {"maps": list(preds.shape), "things": len(things), "stuffs": len(stuffs),
+           **pq_out, "check": f"states equal to the CPU run, value within {PQ_MEAN_ATOL}"}, "golden_max_err": golden_err}
+    emit(out)
+    return out
+
+
+def finish_detection(coco: dict, segm: dict, t_start: float) -> None:
+    """Read the detection phases' host references (worker processes), check them, and print the phases' lines.
+
+    ``t_start`` is when phases 17-21 began: their wall time, waits included, goes on the coco_val line.
+    """
+    pending = coco.pop("pending")
+    cpu, ref = pending["cpu"].result(), pending["pycocotools"].result()
+    cpu_err = _max_key_err(cpu["stats"], coco["results"])
+    check(cpu_err <= MAP_CPU_ATOL, f"coco_val: card vs the port's CPU run: {cpu_err}")
+    ref_err = _max_key_err(ref["stats"], coco.pop("subset_results"))
+    check(ref_err <= MAP_COCO_ATOL, f"coco_val subset vs the pycocotools port: {ref_err}")
+    coco["max_err"].update(cpu_run=cpu_err, pycocotools_port_subset=ref_err)
+    coco["tolerance"] = {"cpu_run": MAP_CPU_ATOL, "pycocotools_port_subset": MAP_COCO_ATOL,
+                         "class_metrics_run": MAP_CPU_ATOL}
+    coco["host_seconds"] = {"cpu_run": cpu["seconds"], "pycocotools_port_subset": ref["seconds"]}
+    coco["phases_17_21_seconds"] = time.perf_counter() - t_start
+    emit(coco)
+    ref = segm.pop("pending")["pycocotools"].result()
+    err = _max_key_err(ref["stats"], segm["results"])
+    check(err <= MAP_SEGM_ATOL, f"segm vs the pycocotools port: {err}")
+    segm["results"] = {k: segm["results"][k] for k in ("map", "map_50", "map_75", "mar_100")}
+    segm.update(max_err_vs_pycocotools_port=err, tolerance=MAP_SEGM_ATOL, host_seconds=ref["seconds"])
+    emit(segm)
+
+
+def _host_text_no_model(kind: str, preds: dict, target: dict) -> dict:
+    """Worker: BERTScore() or InfoLM() without a model on the CPU: its token-id states and its scores."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torchmetrics_tpu_torch.text import BERTScore, InfoLM
+
+    torch.set_num_threads(2)
+    metric = BERTScore(device="cpu") if kind == "bertscore" else InfoLM(device="cpu", return_sentence_level_score=True)
+    metric.update(preds, target)
+    out = metric.compute()
+    scores = out["f1"] if kind == "bertscore" else out[1]
+    return {"ids": [torch.cat(getattr(metric, f"{side}_input_ids")).numpy() for side in ("preds", "target")],
+            "scores": scores.numpy()}
+
+
+def submit_text_no_model(pool, corpora: dict, pairs: int = 64) -> dict:
+    """Start the CPU runs of the no-model text metrics on the first ``pairs`` pairs of each corpus."""
+    head = lambda enc: {k: v[:pairs] for k, v in enc.items()}  # noqa: E731
+    return {kind: pool.submit(_host_text_no_model, kind, head(preds), head(target))
+            for kind, (preds, target) in corpora.items()}
+
+
+def phase_text_no_model(torch, np, corpora: dict, pending: dict, pairs: int = 64) -> None:
+    """``BERTScore()`` and ``InfoLM()`` built without a model (the hash encoders) on the card, against the CPU run."""
+    from torchmetrics_tpu_torch.text import BERTScore, InfoLM
+
+    out = {"phase": "text_no_model", "pairs": pairs}
+    for kind, (preds, target) in corpora.items():
+        metric = BERTScore() if kind == "bertscore" else InfoLM(return_sentence_level_score=True)
+        head = lambda enc: {k: v[:pairs] for k, v in enc.items()}  # noqa: E731
+        metric.update(head(preds), head(target))
+        t0 = time.perf_counter()
+        res = metric.compute()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        scores = res["f1"] if kind == "bertscore" else res[1]
+        host = pending[kind].result()
+        for side, want in zip(("preds", "target"), host["ids"]):
+            check(np.array_equal(torch.cat(getattr(metric, f"{side}_input_ids")).cpu().numpy(), want), f"{kind} {side} ids")
+        err = float(np.abs(scores.cpu().numpy() - host["scores"]).max())
+        check(scores.shape == (pairs,) and bool(torch.isfinite(scores).all()), f"{kind} no-model scores")
+        check(err <= TEXT_DEFAULT_ATOL[kind], f"{kind} no model, card vs CPU: {err}")
+        out[kind] = {"corpus": "bertscore_wmt" if kind == "bertscore" else "infolm_pairs", "mean": float(scores.mean()),
+                     "max_abs_err_vs_cpu": err, "tolerance": TEXT_DEFAULT_ATOL[kind], "ids": "exact", "compute_ms": ms}
+    emit(out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1596,6 +2159,21 @@ def main() -> int:
         info = phase_infolm(torch, np, ka, npz, pairs)
     # ----------------------------------------------------------- text_timing
     text = phase_text_timing(torch, ka, dev, gen, wmt_mask, smi)
+
+    # ------------------- detection, iou_panoptic, the text metrics without a model
+    # the host references run in worker processes while the card works, and are read at the end
+    t_detection = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        corpora = {"bertscore": wmt, "infolm": pairs}
+        text_pending = submit_text_no_model(pool, corpora)
+        coco = phase_detection_coco_val(torch, np, dev, gen, pool, smi)
+        segm = phase_detection_segm(torch, np, dev, gen, pool)
+        emit(phase_detection_stream(torch, dev, gen))
+        phase_iou_panoptic(torch, np, dev, gen)
+        phase_text_no_model(torch, np, corpora, text_pending)
+        finish_detection(coco, segm, t_detection)
+    check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
+          "a module of JAX or of the JAX package was imported")
 
     big = shapes["ade20k_update"]
     image_kernels = [

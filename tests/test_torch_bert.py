@@ -264,15 +264,15 @@ def test_infolm_metric_matches_jax(weights, models, idf):
 # ------------------------------------------------------------------- errors
 
 def test_missing_hash_encoder_and_model_raise(weights):
+    """No model is no longer an error: the hash encoders score, as in the JAX package
+    (held to it in ``tests/test_torch_text_defaults.py``)."""
     enc = _batch(seed=15)
-    with pytest.raises(ValueError, match="hash-embedding encoder is not ported"):
-        bert_score(enc, enc, device="cpu")
-    with pytest.raises(ValueError, match="hash-embedding encoder is not ported"):
-        BERTScore(device="cpu")
-    with pytest.raises(ValueError, match="hash-logit model is not ported"):
-        infolm(enc, enc, device="cpu")
-    with pytest.raises(ValueError, match="hash-logit model is not ported"):
-        InfoLM(device="cpu")
+    got = bert_score(enc, enc, device="cpu")
+    want = jax_bert_score(enc, enc)
+    _close(got["f1"], want["f1"])
+    BERTScore(device="cpu")
+    _close(infolm(enc, enc, device="cpu", max_length=16), jax_infolm(enc, enc, max_length=16), rtol=0)
+    InfoLM(device="cpu")
 
 
 def test_strings_without_a_tokenizer_are_refused(weights):

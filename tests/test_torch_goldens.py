@@ -1,4 +1,4 @@
-"""The classification golden cases replayed through the port's functionals.
+"""The classification and detection golden cases replayed through the port's functionals.
 
 ``tests/goldens/goldens.npz`` holds values frozen from the original
 torchmetrics over the seeded inputs of ``tests/helpers/golden_specs.py``.
@@ -9,7 +9,10 @@ only to the JAX package, at each spec's own ``atol`` (and ``rtol=1e-4``, as the
 JAX package's replay in ``tests/unittests/test_goldens.py``). A curve's output
 is several leaves (``/0`` .. ``/k`` in the pack: precision, recall and
 thresholds, per class for the multiclass and multilabel curves), flattened in
-the order the JAX replay flattens them.
+the order the JAX replay flattens them. The six detection cases (158-163: the
+IoU family, frozen from the JAX package because the reference delegates to
+torchvision, and the two panoptic qualities, frozen from torchmetrics) replay
+the same way.
 """
 
 import json
@@ -35,6 +38,14 @@ SLICE = [
     for name in ("precision", "recall", "fbeta_score", "f1_score", "precision_recall_curve", "roc", "auroc")
 ]
 CASES = [(f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if spec.fn in PORTED + SLICE]
+# detection (cases 158-163): the IoU family's values were frozen from the JAX package ("self"), since the
+# reference delegates to torchvision; the two panoptic qualities' from torchmetrics ("ref")
+DETECTION = {
+    "intersection_over_union": "self", "generalized_intersection_over_union": "self",
+    "distance_intersection_over_union": "self", "complete_intersection_over_union": "self",
+    "panoptic_quality": "ref", "modified_panoptic_quality": "ref",
+}
+DETECTION_CASES = [(f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if spec.fn in DETECTION]
 SLICE_IDS = ["001", "006", "011", "012", "015", "016", "017", "022", "024", "030", "035", "036", "039", "040", "041",
              "047", "052", "056", "057", "060", "061", "064"]
 
@@ -68,3 +79,24 @@ def test_golden(case_id, spec):
             leaf.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
             err_msg=f"{case_id} leaf {li}",
         )
+
+
+def test_the_six_detection_cases_are_in_the_pack():
+    assert [case_id for case_id, _ in DETECTION_CASES] == [
+        "158_intersection_over_union", "159_generalized_intersection_over_union",
+        "160_distance_intersection_over_union", "161_complete_intersection_over_union",
+        "162_panoptic_quality", "163_modified_panoptic_quality",
+    ]
+
+
+@pytest.mark.parametrize(("case_id", "spec"), DETECTION_CASES, ids=[c[0] for c in DETECTION_CASES])
+def test_detection_golden(case_id, spec):
+    pack = np.load(os.path.join(GOLDEN_DIR, "goldens.npz"))
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as fh:
+        meta = {case["id"]: case for case in json.load(fh)["cases"]}[case_id]
+    assert meta["source"] == DETECTION[spec.fn] and meta["n_leaves"] == 1
+    got = getattr(TF, spec.fn)(*[torch.from_numpy(a) for a in spec.make()], **spec.kwargs)
+    golden = pack[f"{case_id}/0"]
+    assert got.shape == golden.shape
+    np.testing.assert_allclose(got.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
+                               err_msg=case_id)

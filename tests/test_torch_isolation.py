@@ -20,9 +20,17 @@ def _run(code_or_args, cwd=ROOT, timeout=180):
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['torchmetrics_tpu'] = None\n"
+        "jax_pkg = os.path.join(os.getcwd(), 'torchmetrics_tpu') + os.sep\n"
+        "opened = []\n"
+        "def audit(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen') and args and isinstance(args[0], (str, bytes)):\n"
+        "        path = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if path.startswith(jax_pkg) or '.native_cache' in path:\n"
+        "            opened.append(path)\n"
+        "sys.addaudithook(audit)\n"
         "import torch\n"
         "import torchmetrics_tpu_torch as tt\n"
         "m = tt.MulticlassConfusionMatrix(num_classes=300, device='cpu')\n"
@@ -54,6 +62,29 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "enc = {'input_ids': np.array([[1, 7, 9, 2, 0]]), 'attention_mask': np.array([[1, 1, 1, 1, 0]])}\n"
         "bs.update(enc, enc)\n"
         "assert abs(float(bs.compute()['f1'][0]) - 1.0) < 1e-5\n"
+        "hb = tt.BERTScore(device='cpu')\n"
+        "hb.update(['the cat sat on the mat'], ['the cat sat on a mat'])\n"
+        "assert 0.5 < float(hb.compute()['f1'][0]) < 1.0\n"
+        "box = lambda *v: torch.tensor([v], dtype=torch.float32)\n"
+        "det = [dict(boxes=box(10, 10, 50, 50), scores=torch.tensor([0.9]), labels=torch.tensor([1]))]\n"
+        "gt = [dict(boxes=box(12, 12, 52, 52), labels=torch.tensor([1]))]\n"
+        "mp = tt.MeanAveragePrecision(device='cpu')\n"
+        "mp.update(det, gt)\n"
+        "assert float(mp.compute()['map_50']) == 1.0\n"
+        "mp.tm_to_coco(os.path.join(tempfile.mkdtemp(), 'coco'))\n"
+        "ms = tt.MeanAveragePrecision(iou_type='segm', device='cpu')\n"
+        "mask = torch.zeros((1, 8, 8), dtype=torch.bool); mask[0, 2:6, 2:6] = True\n"
+        "ms.update([dict(masks=mask, scores=torch.tensor([0.5]), labels=torch.tensor([0]))], [dict(masks=mask, labels=torch.tensor([0]))])\n"
+        "assert float(ms.compute()['map']) == 1.0\n"
+        "ms.tm_to_coco(os.path.join(tempfile.mkdtemp(), 'coco'))\n"
+        "io = tt.IntersectionOverUnion(device='cpu')\n"
+        "io.update(det, gt)\n"
+        "assert abs(float(io.compute()['iou']) - 1444 / 1756) < 1e-6\n"
+        "pq = tt.PanopticQuality(things={0, 1}, stuffs={6, 7}, device='cpu')\n"
+        "pan = torch.tensor([[[[6, 0], [0, 0]], [[0, 0], [1, 0]]]])\n"
+        "pq.update(pan, pan)\n"
+        "assert float(pq.compute()) == 1.0\n"
+        "assert not opened, opened\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
         "print('ok')\n"
     )

@@ -1,0 +1,35 @@
+"""Modular Generalized IoU metric (port of ``torchmetrics_tpu/detection/giou.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from torch import Tensor
+
+from torchmetrics_tpu_torch.detection.iou import IntersectionOverUnion
+from torchmetrics_tpu_torch.functional.detection.giou import _giou_compute, _giou_update
+
+
+class GeneralizedIntersectionOverUnion(IntersectionOverUnion):
+    """Computes Generalized Intersection Over Union (GIoU)."""
+
+    _iou_type: str = "giou"
+    _invalid_val: float = -1.0
+
+    def __init__(
+        self,
+        box_format: str = "xyxy",
+        iou_threshold: Optional[float] = None,
+        class_metrics: bool = False,
+        respect_labels: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(box_format, iou_threshold, class_metrics, respect_labels, **kwargs)
+
+    @staticmethod
+    def _iou_update_fn(*args: Any, **kwargs: Any) -> Tensor:
+        return _giou_update(*args, **kwargs)
+
+    @staticmethod
+    def _iou_compute_fn(*args: Any, **kwargs: Any) -> Tensor:
+        return _giou_compute(*args, **kwargs)

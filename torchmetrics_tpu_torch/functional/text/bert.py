@@ -7,9 +7,9 @@ batched product and masked max on the device. The whole corpus is encoded in
 one call, as in the JAX package (``batch_size`` is accepted and unused), and
 scored untrimmed.
 
-The JAX package's default encoder, a hash embedding drawn with
-``jax.random``'s threefry bits (``_hash_embedding``), is not ported yet: a
-model or ``user_forward_fn`` is required.
+Without a model, each token id gets the JAX package's hash embedding: a unit
+vector of ``jax.random`` normals under ``fold_in(PRNGKey(0), id)``, drawn by
+:mod:`~torchmetrics_tpu_torch.utilities._threefry` once per distinct id.
 """
 
 from __future__ import annotations
@@ -23,14 +23,12 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.metric import _resolve_device
+from torchmetrics_tpu_torch.utilities._threefry import normal_rows
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
+from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 _DEFAULT_MAX_LENGTH = 128
 _EMBED_DIM = 128
-_NO_HASH_ENCODER = (
-    "The default hash-embedding encoder is not ported yet: pass `model` (for example"
-    " `BertEncoderExtractor(weights_path)`), `user_forward_fn`, or `weights_path` to the modular class."
-)
 
 # token -> stable hash id memo shared by every tokenizer instance, bounded so a
 # streaming corpus with unbounded vocabulary cannot grow host memory
@@ -69,6 +67,18 @@ class _HashTokenizer:
             ids[i, : len(row)] = row
             mask[i, : len(row)] = 1
         return {"input_ids": ids, "attention_mask": mask}
+
+
+def _hash_embedding(input_ids: Tensor, attention_mask: Tensor) -> Tensor:
+    """Deterministic pseudo-random unit embedding per token id, zero where the mask is 0: ``(B, L, 128)``.
+
+    The JAX package's ``_hash_embedding``: each id's vector is a pure function
+    of the id, so it is drawn once per distinct id and gathered back.
+    """
+    uniq, inverse = torch.unique(input_ids, return_inverse=True)
+    table = normal_rows(0, uniq, _EMBED_DIM)
+    table = table / torch.linalg.vector_norm(table, dim=-1, keepdim=True)
+    return table[inverse] * attention_mask[..., None]
 
 
 def _pad_encoding(enc, max_length: int) -> Dict[str, np.ndarray]:
@@ -160,8 +170,9 @@ def bert_score(
     ``model(input_ids, attention_mask) -> (B, L, D)`` embeddings, or
     ``user_forward_fn(model, input_ids, attention_mask)``, is the encoder;
     ``user_tokenizer(text, max_length) -> {"input_ids", "attention_mask"}``
-    tokenizes strings (pre-tokenized dicts need none). Token ids go to
-    ``device``, else the model's ``device``, else ``cuda``.
+    tokenizes strings (pre-tokenized dicts need none). Without either, the
+    JAX package's hash embedding is the encoder. Token ids go to ``device``,
+    else the model's ``device``, else ``cuda``.
 
     Example:
         >>> from torchmetrics_tpu_torch.functional.text import bert_score
@@ -173,10 +184,13 @@ def bert_score(
     """
     if rescale_with_baseline:
         raise ValueError("`rescale_with_baseline` requires downloadable baseline files, unavailable in this build.")
-    if user_forward_fn is None and not (model is not None and callable(model)):
-        raise ValueError(_NO_HASH_ENCODER)
-
     tokenizer = user_tokenizer if user_tokenizer is not None else _HashTokenizer(max_length)
+    if user_tokenizer is None and model_name_or_path is not None:
+        rank_zero_warn(
+            "Pretrained checkpoints cannot be downloaded in this environment; `model_name_or_path`"
+            f" ({model_name_or_path!r}) is ignored and a hash-embedding encoder is used. Scores will be"
+            " self-consistent but will not match published BERTScore values."
+        )
     if isinstance(preds, str):
         preds = [preds]
     if isinstance(target, str):
@@ -201,9 +215,12 @@ def bert_score(
     if user_forward_fn is not None:
         pred_emb = user_forward_fn(model, pred_ids, pred_mask)
         tgt_emb = user_forward_fn(model, tgt_ids, tgt_mask)
-    else:
+    elif model is not None and callable(model):
         pred_emb = model(pred_ids, pred_mask)
         tgt_emb = model(tgt_ids, tgt_mask)
+    else:
+        pred_emb = _hash_embedding(pred_ids, pred_mask)
+        tgt_emb = _hash_embedding(tgt_ids, tgt_mask)
     precision, recall, f1 = _greedy_cosine_matching(
         pred_emb, pred_mask, tgt_emb, tgt_mask, on_dev(pred_w), on_dev(tgt_w)
     )

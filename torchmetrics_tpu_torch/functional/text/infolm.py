@@ -8,13 +8,15 @@ loop here; a model with a ``logits_at(ids, mask, index)`` method (such as
 :class:`~torchmetrics_tpu_torch.text._bert_encoder.BertMLMExtractor`) runs its
 head at the masked position only.
 
-The JAX package's default model, hash logits drawn with ``jax.random``'s
-threefry bits (``_default_hash_model``), is not ported yet: a ``model`` is
-required.
+Without a model, the JAX package's hash logits are the masked LM
+(``_default_hash_model``): a row of ``jax.random`` normals under
+``fold_in(PRNGKey(7), id % 2048)`` per token, plus the mean row of the
+sentence, drawn by :mod:`~torchmetrics_tpu_torch.utilities._threefry`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -23,6 +25,8 @@ from torch import Tensor
 
 from torchmetrics_tpu_torch.functional.text.bert import _HashTokenizer
 from torchmetrics_tpu_torch.metric import _resolve_device
+from torchmetrics_tpu_torch.utilities._threefry import normal_rows
+from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 _ALLOWED_INFORMATION_MEASURE = (
     "kl_divergence",
@@ -37,10 +41,7 @@ _ALLOWED_INFORMATION_MEASURE = (
 )
 
 _DEFAULT_SPECIAL_TOKENS = {"pad_token_id": 0, "cls_token_id": 101, "sep_token_id": 102, "mask_token_id": 103}
-_NO_HASH_MODEL = (
-    "The default hash-logit model is not ported yet: pass `model` (for example"
-    " `BertMLMExtractor(weights_path)`), or `weights_path` to the modular class."
-)
+_DEFAULT_VOCAB = 2048
 
 
 class _InformationMeasure:
@@ -107,6 +108,25 @@ class _InformationMeasure:
     @staticmethod
     def _calculate_fisher_rao_distance(p: Tensor, t: Tensor) -> Tensor:
         return 2 * torch.arccos(torch.clamp(torch.sum(torch.sqrt(p * t), dim=-1), 0, 1))
+
+
+@functools.cache
+def _hash_logit_table(device: torch.device) -> Tensor:
+    """Every id's row of hash logits, ``(2048, 2048)`` float32 (16 MB), drawn once per device."""
+    return normal_rows(7, torch.arange(_DEFAULT_VOCAB, device=device), _DEFAULT_VOCAB)
+
+
+def _default_hash_model(input_ids: Tensor, attention_mask: Tensor) -> Tensor:
+    """Deterministic pseudo-logits that are *context-sensitive*: each position
+    gets its own random row plus the mean row of every valid token in the
+    sentence, so the distribution read at a masked position still depends on
+    the surrounding words. The rows are gathered from the table of all 2048 ids."""
+    rows = _hash_logit_table(input_ids.device)[torch.remainder(input_ids, _DEFAULT_VOCAB)]
+    mask = attention_mask.to(torch.float32)
+    context = torch.sum(rows * mask[..., None], dim=1, keepdim=True) / torch.clamp_min(
+        torch.sum(mask, dim=1)[:, None, None], 1.0
+    )
+    return rows + context
 
 
 def _get_token_mask(input_ids: Tensor, pad_token_id: int, sep_token_id: int, cls_token_id: int) -> Tensor:
@@ -186,9 +206,10 @@ def infolm(
     """InfoLM: information measure between masked-LM token distributions.
 
     ``model(input_ids, attention_mask) -> (B, L, vocab)`` logits is the masked
-    LM; ``tokenizer(text, max_length)`` tokenizes strings (pre-tokenized dicts
-    need none). Token ids go to ``device``, else the model's ``device``, else
-    ``cuda``.
+    LM, and without one the JAX package's hash logits are, on ids remapped
+    into their 2048-token vocabulary; ``tokenizer(text, max_length)`` tokenizes
+    strings (pre-tokenized dicts need none). Token ids go to ``device``, else
+    the model's ``device``, else ``cuda``.
     """
     if isinstance(preds, str):
         preds = [preds]
@@ -200,10 +221,15 @@ def infolm(
     special = dict(_DEFAULT_SPECIAL_TOKENS)
     if special_tokens_map:
         special.update(special_tokens_map)
-    if model is None:
-        raise ValueError(_NO_HASH_MODEL)
     tok = tokenizer if tokenizer is not None else _HashTokenizer(max_length)
-    vocab_size = getattr(getattr(model, "config", None), "vocab_size", None)
+    if tokenizer is None and model_name_or_path is not None:
+        rank_zero_warn(
+            "Pretrained checkpoints cannot be downloaded in this environment; `model_name_or_path`"
+            f" ({model_name_or_path!r}) is ignored and a hash-logit model is used. Scores are"
+            " self-consistent but do not match published InfoLM values."
+        )
+    model_fn = model if model is not None else _default_hash_model
+    vocab_size = getattr(getattr(model_fn, "config", None), "vocab_size", None)
     if vocab_size is not None:
         oov = {k: v for k, v in special.items() if v >= vocab_size}
         if oov:
@@ -224,6 +250,11 @@ def infolm(
     tgt_ids, tgt_mask = encode(target)
     if pred_ids.shape[0] != tgt_ids.shape[0]:
         raise ValueError("Number of predicted and reference sententes must be the same!")
+    if model is None:
+        # keep hash ids inside the toy vocab, away from special ids
+        remap = lambda ids: np.where(ids > 0, (ids % (_DEFAULT_VOCAB - 200)) + 200, ids)  # noqa: E731
+        pred_ids = remap(pred_ids)
+        tgt_ids = remap(tgt_ids)
 
     dev = _resolve_device(device if device is not None else getattr(model, "device", None))
     on_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
@@ -234,10 +265,10 @@ def infolm(
         pred_idf = tgt_idf = None
 
     preds_distribution = _get_sentence_distribution(
-        model, on_dev(pred_ids), on_dev(pred_mask), temperature, pred_idf, special
+        model_fn, on_dev(pred_ids), on_dev(pred_mask), temperature, pred_idf, special
     )
     target_distribution = _get_sentence_distribution(
-        model, on_dev(tgt_ids), on_dev(tgt_mask), temperature, tgt_idf, special
+        model_fn, on_dev(tgt_ids), on_dev(tgt_mask), temperature, tgt_idf, special
     )
     sentence_scores = measure(preds_distribution, target_distribution)
     corpus = torch.mean(sentence_scores)

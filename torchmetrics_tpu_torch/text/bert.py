@@ -10,7 +10,6 @@ from torch import Tensor
 
 from torchmetrics_tpu_torch.functional.text.bert import (
     _DEFAULT_MAX_LENGTH,
-    _NO_HASH_ENCODER,
     _HashTokenizer,
     _pad_encoding,
     bert_score,
@@ -32,7 +31,7 @@ class BERTScore(Metric):
     ``weights_path`` (a converted BERT ``.npz``) builds a
     :class:`~torchmetrics_tpu_torch.text._bert_encoder.BertEncoderExtractor`
     on the metric's device; otherwise ``model`` or ``user_forward_fn`` is the
-    encoder (the JAX package's hash-embedding default is not ported yet).
+    encoder, and without either the JAX package's hash embedding is.
     """
 
     is_differentiable = False
@@ -70,8 +69,6 @@ class BERTScore(Metric):
             from torchmetrics_tpu_torch.text._bert_encoder import BertEncoderExtractor
 
             model = BertEncoderExtractor(weights_path, num_layers=num_layers, device=self.device)
-        if model is None and user_forward_fn is None:
-            raise ValueError(_NO_HASH_ENCODER)
         self.model = model
         self.user_tokenizer = user_tokenizer
         self.user_forward_fn = user_forward_fn

@@ -9,7 +9,6 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.functional.text.bert import _HashTokenizer, _pad_encoding
-from torchmetrics_tpu_torch.functional.text.infolm import _NO_HASH_MODEL
 from torchmetrics_tpu_torch.functional.text.infolm import infolm as _infolm_fn
 from torchmetrics_tpu_torch.text.bert import _host
 from torchmetrics_tpu_torch.metric import Metric
@@ -24,8 +23,8 @@ class InfoLM(Metric):
     ``compute`` time. ``weights_path`` (a converted ``BertForMaskedLM``
     ``.npz``) builds a
     :class:`~torchmetrics_tpu_torch.text._bert_encoder.BertMLMExtractor` on the
-    metric's device; otherwise ``model`` is the masked LM (the JAX package's
-    hash-logit default is not ported yet).
+    metric's device; otherwise ``model`` is the masked LM, and without one the
+    JAX package's hash logits are.
     """
 
     is_differentiable = False
@@ -58,8 +57,6 @@ class InfoLM(Metric):
             from torchmetrics_tpu_torch.text._bert_encoder import BertMLMExtractor
 
             model = BertMLMExtractor(weights_path, device=self.device)
-        if model is None:
-            raise ValueError(_NO_HASH_MODEL)
         self.model_name_or_path = model_name_or_path
         self.temperature = temperature
         self.information_measure = information_measure

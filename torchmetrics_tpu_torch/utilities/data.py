@@ -73,3 +73,16 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     else:
         idx = torch.topk(prob_tensor, topk, dim=dim).indices
     return mask.scatter_(dim, idx, 1)
+
+
+def _bucket_size(n: int, minimum: int = 8) -> int:
+    """Round ``n`` up to the next power of two (>= ``minimum``).
+
+    The JAX package pads dynamic extents to these buckets to bound its
+    compiled shapes; the port pads the same way so both packages evaluate
+    identically shaped, identically padded arrays.
+    """
+    b = minimum
+    while b < n:
+        b *= 2
+    return b

@@ -1,4 +1,4 @@
-"""Build the package's CUDA sources with ``nvcc`` at first use and load them with ``ctypes``.
+"""Build the package's CUDA sources with ``nvcc`` (and its C codec with ``cc``) at first use; load them with ``ctypes``.
 
 Every kernel source under ``torchmetrics_tpu_torch/csrc/`` has a plain C
 interface and builds the same way: one shared library per source and flag
@@ -107,3 +107,32 @@ def raise_on_error(lib: Any, err: int, what: str) -> None:
     """Raise if an entry point of ``lib`` returned a CUDA error (its ``cudaError_t``, 0 for success)."""
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: {lib.tm_cuda_error_string(err).decode()}")
+
+
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
+
+
+def load_c(source: Path) -> Any:
+    """Build the plain C ``source`` with the system C compiler if needed and load it with ``ctypes``.
+
+    The library goes to ``_build/`` under a hash of the source and flags,
+    renamed into place atomically, as :func:`build_all` does for CUDA
+    sources. A failed build raises; there is no fallback.
+    """
+    import ctypes
+
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(CC_FLAGS).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    if not path.exists():
+        compiler = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+        if compiler is None:
+            raise FileNotFoundError(f"no C compiler (cc, gcc or $CC) to build {source.name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([compiler, *CC_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{compiler} failed ({proc.returncode}) on {source}:\n{proc.stderr}")
+        os.replace(tmp, path)
+    return ctypes.CDLL(str(path))
