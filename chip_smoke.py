@@ -39,6 +39,26 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 4. ``ade20k_full``: 847-class semantic segmentation, 8 updates of 16 label maps
    of 512x512 with void pixels under ``ignore_index=-1``, checked exactly
    against the plain version on the card;
+4a. ``ade20k_miou``: the same maps through one ``MetricCollection`` of the
+   confusion matrix, macro and per-class Jaccard (mean IoU), MCC and Cohen's
+   kappa: one compute group, B1 once an update (every member once on the
+   first, which finds the groups), values against float64 numpy from the
+   exact matrix and equal to each metric run alone; mIoU, updates/s, peak memory;
+4b. ``classification_rest``: the imagenet_val data through one collection of
+   MCC, kappa and Jaccard (B1), specificity and Hamming, average precision
+   (100 thresholds and exact), recall at precision 0.5, specificity at
+   sensitivity 0.5, ECE and MCE (15 bins) and the hinge loss, each against
+   float64 numpy computed in worker processes while the card streams;
+   batches/s and each metric's ``compute`` ms;
+4c. ``coco_multilabel``: MS-COCO 2014's multilabel evaluation shape (40,504
+   images, 80 labels, ~2.9 positive an image, batches of 256): average
+   precision exact and binned, precision at recall 0.5, the three ranking
+   metrics, exact match, Hamming, Jaccard, MCC and specificity against
+   float64 numpy; images/s and ``compute`` ms;
+4d. ``dice_fairness``: Dice (150 classes, macro) on SceneParse150-shaped maps,
+   counts exact, and the peak memory of its one-hot temporaries;
+   ``BinaryFairness``/``BinaryGroupStatRates`` on CelebA's test shape (19,962
+   samples) with 2 and 4 groups, counts exact;
 5. ``timing``: the confmat kernel at the main path's two shapes, added into a
    state (``queued_ms``) and as a fresh matrix, beside the bytes bound with and
    without the matrix, its plain version and ``torch.bincount``;
@@ -161,6 +181,18 @@ COLLECTION_RATIO_ATOL = 1e-6
 BINNED_AUROC_ATOL = 1e-6
 EXACT_AUROC_ATOL = 1e-5
 AGG_RTOL = 1e-6  # aggregation: float32 sums of 16 and 49 positive terms against float64
+# the rest of classification against float64 numpy on the host. Ratios in [0, 1] of exact integer counts (IoU,
+# specificity, Hamming, binned curves, the operating points, Dice, fairness rates): one float32 division and a
+# float32 mean
+SLICE6_ATOL = 1e-6
+MCC_KAPPA_RTOL = 1e-5  # ade20k_miou: float32 products of ~3e7-pixel sums (s**2 ~ 9e14) and 847-term dot products
+EXACT_AP_ATOL = 1e-5  # exact AP against a float64 sort and cumulative sum: float32 precision at each positive
+# ECE/MCE: float32 per-bin sums (``index_add_``), whose order of adds on the card varies from run to run. The top
+# bin holds ~38,000 confidences just under 1: added one after another in float32 (a resolution of ~4e-3 past
+# 2**15) each would round up, ~5e-5 of the bin's mean in all; the card's adds were measured 2.4e-7 off float64
+# on an H100
+CALIBRATION_ATOL = 2e-5
+SUM_RTOL = 1e-5  # the hinge and ranking means: float32 running sums over 40,000-50,000 samples against float64
 
 
 def _float32_digits(obj):
@@ -738,6 +770,467 @@ def phase_aggregation(torch, np, dev, gen) -> None:
         check(err <= AGG_RTOL, f"{name}: relative error {err} > {AGG_RTOL}")
     emit({"phase": "aggregation", "batches": losses.shape[0], "values": int(kept.size), "nan_values": int(np.isnan(host).sum()),
           "results": {k: float(v) for k, v in got.items() if v.numel() == 1}, "max_rel_err": errs, "rtol": AGG_RTOL})
+
+
+# ---------------------------------------------------------------------------------------------------------------
+# the rest of classification: MCC, kappa and Jaccard on B1, specificity, Hamming, exact match, average precision,
+# the operating points, calibration, hinge, ranking, Dice and fairness; each against float64 numpy on the host
+
+
+def _host_confmat_scores(cm) -> dict:
+    """float64 MCC, Cohen's kappa (no weights), per-class IoU and macro IoU (absent classes dropped) of a
+    confusion matrix, and the per-class macro specificity and Hamming distance of its stat scores."""
+    import numpy as np
+
+    cm = cm.astype(np.float64)
+    tp, rows, cols = np.diag(cm), cm.sum(1), cm.sum(0)
+    s, c = cm.sum(), tp.sum()
+    den = (s * s - cols @ cols) * (s * s - rows @ rows)
+    kappa_w = 1.0 - np.eye(cm.shape[0])
+    union = rows + cols - tp
+    fp, fn = cols - tp, rows - tp
+    tn = s - tp - fp - fn
+    present = tp + fp + fn > 0
+    with np.errstate(invalid="ignore", divide="ignore"):
+        iou = np.where(union > 0, tp / union, 0.0)
+        specificity = np.where(tn + fp > 0, tn / (tn + fp), 0.0)
+        hamming = 1.0 - np.where(tp + fn > 0, tp / (tp + fn), 0.0)
+    return {
+        "mcc": (c * s - rows @ cols) / np.sqrt(den) if den > 0 else 0.0,
+        "kappa": 1.0 - (kappa_w * cm).sum() / (kappa_w * np.outer(rows, cols) / s).sum(),
+        "iou": iou, "miou": iou[union > 0].mean(),
+        "specificity": specificity[present].mean(), "hamming": hamming[present].mean(),
+    }
+
+
+def _host_operating_point(value, other, mask, thresholds):
+    """Max ``value`` where ``mask``, ties to the max ``other``, the first such threshold; 0 and 1e6 where none."""
+    import numpy as np
+
+    if not mask.any():
+        return 0.0, 1e6
+    best = value[mask].max()
+    tie = mask & (value == best)
+    idx = int(np.argmax(tie & (other == other[tie].max())))
+    return float(best), (1e6 if best == 0 else float(thresholds[idx]))
+
+
+def _host_class_curves(scores, positives, thresholds, op: str) -> dict:
+    """Per column of ``scores`` (the card's float32 probabilities) against ``positives``, in float64.
+
+    ``ap_exact``: a stable descending sort and cumulative sums, each distinct score one point, as the
+    reference's exact curve. On the binned ``thresholds`` (a score counts at a threshold it reaches):
+    ``ap_binned``; ``op`` at 0.5, recall at fixed precision (``"rfp"``) or precision at fixed recall
+    (``"pfr"``), with its threshold; and specificity at sensitivity 0.5 with its threshold, read from the ROC
+    in descending thresholds.
+    """
+    import numpy as np
+
+    n, k = scores.shape
+    out = {name: np.empty(k) for name in ("ap_exact", "ap_binned", "op", "op_thr", "sas", "sas_thr")}
+    for j in range(k):
+        s, y = scores[:, j], positives[:, j]
+        order = np.argsort(-s, kind="stable")
+        idx = np.r_[np.nonzero(np.diff(s[order]))[0], n - 1]
+        tps = np.cumsum(y[order])[idx].astype(np.float64)
+        fps = 1 + idx - tps
+        prec = np.r_[(tps / (tps + fps))[::-1], 1.0]
+        rec = np.r_[(tps / tps[-1])[::-1], 0.0]
+        out["ap_exact"][j] = -np.sum((rec[1:] - rec[:-1]) * prec[:-1])
+        n_pos = int(y.sum())
+        tp = (n_pos - np.searchsorted(np.sort(s[y]), thresholds, side="left")).astype(np.float64)
+        fp = n - np.searchsorted(np.sort(s), thresholds, side="left") - tp
+        fn, tn = n_pos - tp, (n - n_pos) - fp
+        p = np.where(tp + fp > 0, tp / np.maximum(tp + fp, 1), 0.0)
+        r = np.where(tp + fn > 0, tp / np.maximum(tp + fn, 1), 0.0)
+        big_p, big_r = np.r_[p, 1.0], np.r_[r, 0.0]
+        out["ap_binned"][j] = -np.sum((big_r[1:] - big_r[:-1]) * big_p[:-1])
+        if op == "rfp":
+            out["op"][j], out["op_thr"][j] = _host_operating_point(r, p, p >= 0.5, thresholds)
+        else:
+            out["op"][j], out["op_thr"][j] = _host_operating_point(p, r, r >= 0.5, thresholds)
+        spec = 1.0 - np.where(fp + tn > 0, fp / np.maximum(fp + tn, 1), 0.0)[::-1]
+        sens = r[::-1]
+        mask = sens >= 0.5
+        if mask.any():
+            out["sas"][j] = spec[mask].max()
+            out["sas_thr"][j] = thresholds[::-1][int(np.argmax(mask & (spec == out["sas"][j])))]
+        else:
+            out["sas"][j], out["sas_thr"][j] = 0.0, 1e6
+    return out
+
+
+def _host_ranking(probs, target) -> dict:
+    """Label-ranking AP, ranking loss and coverage error in float64, tied scores at their average rank."""
+    import numpy as np
+
+    n, labels = probs.shape
+    sums = {"ranking_ap": 0.0, "ranking_loss": 0.0, "coverage": 0.0}
+    for lo in range(0, n, 2048):
+        s, rel = probs[lo:lo + 2048].astype(np.float64), target[lo:lo + 2048] == 1
+        gt = s[:, None, :] > s[:, :, None]  # [b, j, m]: label m scored above label j
+        eq = s[:, None, :] == s[:, :, None]
+        rank_all = gt.sum(-1) + (eq.sum(-1) + 1) / 2
+        rank_rel = (gt & rel[:, None, :]).sum(-1) + ((eq & rel[:, None, :]).sum(-1) + 1) / 2
+        n_rel = rel.sum(1)
+        ratio = np.where(rel, rank_rel / rank_all, 0.0).sum(1)
+        sums["ranking_ap"] += np.where((n_rel > 0) & (n_rel < labels), ratio / np.maximum(n_rel, 1), 1.0).sum()
+        miss = ((gt | eq) & rel[:, :, None] & ~rel[:, None, :]).sum((1, 2))
+        denom = n_rel * (labels - n_rel)
+        sums["ranking_loss"] += np.where(denom > 0, miss / np.maximum(denom, 1), 0.0).sum()
+        min_rel = np.where(rel, s, np.inf).min(1)
+        sums["coverage"] += np.where(n_rel > 0, (s >= min_rel[:, None]).sum(1), 0).sum()
+    return {k: v / n for k, v in sums.items()}
+
+
+def _host_calibration(probs, target, boundaries) -> dict:
+    """Top-1 ECE (l1) and MCE (max) in float64 over the float32 ``boundaries``, right-closed as searchsorted(right)."""
+    import numpy as np
+
+    conf, hit = probs.max(1), (probs.argmax(1) == target).astype(np.float64)
+    n_bins = len(boundaries) - 1
+    idx = np.clip(np.searchsorted(boundaries[1:-1], conf, side="right"), 0, n_bins - 1)
+    counts = np.bincount(idx, minlength=n_bins).astype(np.float64)
+    safe = np.maximum(counts, 1)
+    gap = np.abs(np.bincount(idx, weights=hit, minlength=n_bins) / safe
+                 - np.bincount(idx, weights=conf.astype(np.float64), minlength=n_bins) / safe)
+    return {"l1": float((gap * counts / len(conf)).sum()), "max": float(gap.max())}
+
+
+def _launches_per_update(torch, kernel, mc, batches) -> list:
+    """Stream ``batches`` through ``mc.update``; B1's launches in each update (its count is reset first)."""
+    per_update = []
+    kernel.confusion_matrix_cuda.launches = 0
+    for args in batches:
+        before = kernel.confusion_matrix_cuda.launches
+        mc.update(*args)
+        per_update.append(kernel.confusion_matrix_cuda.launches - before)
+    torch.cuda.synchronize()
+    return per_update
+
+
+def _groups(mc) -> set:
+    return {frozenset(g) for g in mc.compute_groups.values()}
+
+
+def _compute_ms(torch, mc, names) -> dict:
+    """Each member's own ``compute``, on the host clock after a device synchronize."""
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        mc[name].compute()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def phase_ade20k_miou(torch, np, kernel, dev, seg_preds, seg_target, ade_cm, smi: str) -> int:
+    """Mean IoU on ADE20K-Full: the ade20k_full maps (847 classes, 8 updates of 16 maps of 512x512, 10% void under
+    ``ignore_index=-1``) through one ``MetricCollection`` of the confusion matrix, macro and per-class Jaccard, MCC and
+    kappa. One compute group; B1 once an update once the group is known (the first update runs every member, to
+    find the groups). Values against float64 numpy from the exact matrix, and equal to each metric run alone.
+    Returns B1's launches.
+    """
+    import torchmetrics_tpu_torch as tt
+
+    c = 847
+
+    def members():
+        return {
+            "cm": tt.MulticlassConfusionMatrix(num_classes=c, ignore_index=-1),
+            "miou": tt.MulticlassJaccardIndex(num_classes=c, average="macro", ignore_index=-1),
+            "iou": tt.MulticlassJaccardIndex(num_classes=c, average="none", ignore_index=-1),
+            "mcc": tt.MulticlassMatthewsCorrCoef(num_classes=c, ignore_index=-1),
+            "kappa": tt.MulticlassCohenKappa(num_classes=c, ignore_index=-1),
+        }
+
+    mc = tt.MetricCollection(members())
+    updates = [(seg_preds[u], seg_target[u]) for u in range(seg_preds.shape[0])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    per_update = _launches_per_update(torch, kernel, mc, updates)
+    stream_s = time.perf_counter() - t0
+    res = mc.compute()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = sum(per_update)
+    check(_groups(mc) == {frozenset(members())}, f"compute groups {mc.compute_groups}")
+    check(per_update == [len(members())] + [1] * (len(updates) - 1),
+          f"B1 launches per update {per_update}: every member once on the first update, then the group head once")
+    check(torch.equal(res["cm"], ade_cm), "the collection's confusion matrix != the ade20k_full one")
+
+    host = _host_confmat_scores(ade_cm.cpu().numpy())
+    errs = {
+        "miou": abs(float(res["miou"]) - host["miou"]),
+        "iou": float(np.abs(res["iou"].cpu().numpy().astype(np.float64) - host["iou"]).max()),
+        "mcc": abs(float(res["mcc"]) - host["mcc"]) / abs(host["mcc"]),
+        "kappa": abs(float(res["kappa"]) - host["kappa"]) / abs(host["kappa"]),
+    }
+    check(errs["miou"] <= SLICE6_ATOL and errs["iou"] <= SLICE6_ATOL, f"IoU vs float64: {errs}")
+    check(errs["mcc"] <= MCC_KAPPA_RTOL and errs["kappa"] <= MCC_KAPPA_RTOL, f"MCC/kappa vs float64: {errs}")
+    alone = members()
+    for args in updates:
+        for m in alone.values():
+            m.update(*args)
+    for name, m in alone.items():
+        check(torch.equal(m.compute(), res[name]), f"{name}: collection result != the metric outside a collection")
+    emit({
+        "phase": "ade20k_miou", "classes": c, "updates": len(updates), "pixels": int(ade_cm.sum()),
+        "compute_groups": mc.compute_groups, "confmat_launches": launches, "launches_per_update": per_update,
+        "miou": float(res["miou"]), "mcc": float(res["mcc"]), "kappa": float(res["kappa"]),
+        "host_float64": {"miou": host["miou"], "mcc": host["mcc"], "kappa": host["kappa"]},
+        "err": errs, "tolerance": {"iou_abs": SLICE6_ATOL, "mcc_kappa_rel": MCC_KAPPA_RTOL},
+        "seconds": stream_s, "updates_per_s": len(updates) / stream_s, "peak_mem_bytes": peak, "card": smi,
+    })
+    return launches
+
+
+def phase_classification_rest(torch, np, kernel, dev, logits, target, smi: str, batch: int = 1024) -> int:
+    """The rest of classification on the imagenet_val data (50,000 x 1000, batches of 1024) in one
+    ``MetricCollection``: MCC, kappa and Jaccard (one confusion-matrix group, B1), specificity and Hamming (one
+    stat-scores group), average precision binned at 100 thresholds and exact, recall at precision 0.5 and
+    specificity at sensitivity 0.5 (binned, one group with the binned AP), ECE and MCE (15 bins) and the
+    Crammer-Singer hinge loss. Each against float64 numpy on the host, the curves computed in worker processes
+    while the card streams. Returns B1's launches.
+    """
+    import torchmetrics_tpu_torch as tt
+    from torchmetrics_tpu_torch.functional.classification.calibration_error import _bin_boundaries
+
+    n, c = logits.shape
+    mc = tt.MetricCollection({
+        "mcc": tt.MulticlassMatthewsCorrCoef(num_classes=c),
+        "kappa": tt.MulticlassCohenKappa(num_classes=c),
+        "jaccard": tt.MulticlassJaccardIndex(num_classes=c),
+        "specificity": tt.MulticlassSpecificity(num_classes=c),
+        "hamming": tt.MulticlassHammingDistance(num_classes=c),
+        "ap_binned": tt.MulticlassAveragePrecision(num_classes=c, thresholds=100),
+        "ap_exact": tt.MulticlassAveragePrecision(num_classes=c),
+        "recall_at_precision": tt.MulticlassRecallAtFixedPrecision(num_classes=c, min_precision=0.5, thresholds=100),
+        "specificity_at_sensitivity": tt.MulticlassSpecificityAtSensitivity(num_classes=c, min_sensitivity=0.5,
+                                                                              thresholds=100),
+        "ece": tt.MulticlassCalibrationError(num_classes=c, n_bins=15, norm="l1"),
+        "mce": tt.MulticlassCalibrationError(num_classes=c, n_bins=15, norm="max"),
+        "hinge": tt.MulticlassHingeLoss(num_classes=c),
+    })
+    starts = list(range(0, n, batch))
+    probs = torch.cat([torch.softmax(logits[s:s + batch], dim=1) for s in starts]).cpu().numpy()
+    host_t = target.cpu().numpy()
+    thresholds = mc["ap_binned"].thresholds.cpu().numpy()
+    step = -(-c // 4)
+    chunks = [(lo, min(lo + step, c)) for lo in range(0, c, step)]
+    with ProcessPoolExecutor(max_workers=len(chunks), mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = [pool.submit(_host_class_curves, probs[:, lo:hi], host_t[:, None] == np.arange(lo, hi)[None],
+                             thresholds, "rfp") for lo, hi in chunks]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        per_update = _launches_per_update(torch, kernel, mc, [(logits[s:s + batch], target[s:s + batch])
+                                                              for s in starts])
+        stream_s = time.perf_counter() - t0
+        compute_ms = _compute_ms(torch, mc, list(mc.keys()))
+        res = mc.compute()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        curves = {key: np.concatenate([p.result()[key] for p in parts]) for key in parts[0].result()}
+    launches = sum(per_update)
+    want_groups = {frozenset({"mcc", "kappa", "jaccard"}), frozenset({"specificity", "hamming"}),
+                   frozenset({"ap_binned", "recall_at_precision", "specificity_at_sensitivity"}),
+                   frozenset({"ap_exact"}), frozenset({"ece", "mce"}), frozenset({"hinge"})}
+    check(_groups(mc) == want_groups, f"compute groups {mc.compute_groups}")
+    check(per_update == [3] + [1] * (len(starts) - 1),
+          f"B1 launches per update {per_update}: 3 members on the first update, then the group head once")
+
+    cm = np.bincount(host_t * c + logits.argmax(1).cpu().numpy(), minlength=c * c).reshape(c, c)
+    check(np.array_equal(mc._modules["mcc"].confmat.cpu().numpy(), cm), "confusion matrix != host bincount")
+    scores = _host_confmat_scores(cm)
+    calib = _host_calibration(probs, host_t, _bin_boundaries(15).numpy())
+    p_true = probs[np.arange(n), host_t].astype(np.float64)
+    others = probs.copy()
+    others[np.arange(n), host_t] = -np.inf
+    hinge = np.clip(1.0 - (p_true - others.max(1)), 0.0, None).mean()
+    errs = {name: abs(float(res[name]) - scores[key]) for name, key in
+            (("mcc", "mcc"), ("kappa", "kappa"), ("jaccard", "miou"), ("specificity", "specificity"),
+             ("hamming", "hamming"))}
+    errs["ap_binned"] = abs(float(res["ap_binned"]) - curves["ap_binned"].mean())
+    errs["ap_exact"] = abs(float(res["ap_exact"]) - np.nanmean(curves["ap_exact"]))
+    rap, rap_thr = (x.cpu().numpy() for x in res["recall_at_precision"])
+    sas, sas_thr = (x.cpu().numpy() for x in res["specificity_at_sensitivity"])
+    errs["recall_at_precision"] = float(np.abs(rap - curves["op"]).max())
+    errs["specificity_at_sensitivity"] = float(np.abs(sas - curves["sas"]).max())
+    errs["ece"] = abs(float(res["ece"]) - calib["l1"])
+    errs["mce"] = abs(float(res["mce"]) - calib["max"])
+    errs["hinge"] = abs(float(res["hinge"]) - hinge) / hinge
+    tolerance = {name: SLICE6_ATOL for name in errs}
+    tolerance.update({"ap_exact": EXACT_AP_ATOL, "ece": CALIBRATION_ATOL, "mce": CALIBRATION_ATOL,
+                      "hinge": SUM_RTOL})
+    for name, err in errs.items():
+        check(err <= tolerance[name], f"{name} vs float64 numpy: {err} > {tolerance[name]}")
+    check(np.array_equal(rap_thr, curves["op_thr"].astype(np.float32)), "recall@precision thresholds != host")
+    check(np.array_equal(sas_thr, curves["sas_thr"].astype(np.float32)), "specificity@sensitivity thresholds != host")
+    emit({
+        "phase": "classification_rest", "samples": n, "classes": c, "batch": batch, "batches": len(starts),
+        "compute_groups": mc.compute_groups, "confmat_launches": launches, "launches_per_update": per_update[:3],
+        "results": {k: float(v) for k, v in res.items() if isinstance(v, torch.Tensor) and v.numel() == 1},
+        "err": errs, "tolerance": tolerance, "thresholds": "exact",
+        "seconds": stream_s, "batches_per_s": len(starts) / stream_s, "samples_per_s": n / stream_s,
+        "compute_ms": compute_ms, "peak_mem_bytes": peak, "card": smi,
+    })
+    return launches
+
+
+def phase_coco_multilabel(torch, np, dev, gen, smi: str, n_img: int = 40_504, labels: int = 80,
+                          batch: int = 256) -> None:
+    """MS-COCO 2014's multilabel evaluation shape (val2014: 40,504 images, 80 labels, ~2.9 positive an image; logits
+    made from the seed, positives shifted up) in batches of 256, through one ``MetricCollection``: average precision
+    exact and binned, precision at recall 0.5, the three ranking metrics, exact match, Hamming, Jaccard, MCC and
+    specificity. Against float64 numpy on the host, computed in worker processes while the card streams."""
+    import torchmetrics_tpu_torch as tt
+
+    target = (torch.rand((n_img, labels), generator=gen, device=dev) < 2.9 / labels).to(torch.int64)
+    logits = torch.randn((n_img, labels), generator=gen, device=dev) + 4.0 * target - 2.0
+    mc = tt.MetricCollection({
+        "ap_exact": tt.MultilabelAveragePrecision(num_labels=labels),
+        "ap_binned": tt.MultilabelAveragePrecision(num_labels=labels, thresholds=100),
+        "precision_at_recall": tt.MultilabelPrecisionAtFixedRecall(num_labels=labels, min_recall=0.5, thresholds=100),
+        "ranking_ap": tt.MultilabelRankingAveragePrecision(num_labels=labels),
+        "ranking_loss": tt.MultilabelRankingLoss(num_labels=labels),
+        "coverage": tt.MultilabelCoverageError(num_labels=labels),
+        "exact_match": tt.MultilabelExactMatch(num_labels=labels),
+        "hamming": tt.MultilabelHammingDistance(num_labels=labels),
+        "jaccard": tt.MultilabelJaccardIndex(num_labels=labels),
+        "mcc": tt.MultilabelMatthewsCorrCoef(num_labels=labels),
+        "specificity": tt.MultilabelSpecificity(num_labels=labels),
+    })
+    starts = list(range(0, n_img, batch))
+    probs = torch.cat([torch.sigmoid(logits[s:s + batch]) for s in starts]).cpu().numpy()
+    host_t = target.cpu().numpy()
+    thresholds = mc["ap_binned"].thresholds.cpu().numpy()
+    with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = [pool.submit(_host_class_curves, probs[:, lo:lo + 20], host_t[:, lo:lo + 20] == 1, thresholds, "pfr")
+                 for lo in range(0, labels, 20)]
+        ranking = pool.submit(_host_ranking, probs, host_t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for s in starts:
+            mc.update(logits[s:s + batch], target[s:s + batch])
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        compute_ms = _compute_ms(torch, mc, list(mc.keys()))
+        res = mc.compute()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        curves = {key: np.concatenate([p.result()[key] for p in parts]) for key in parts[0].result()}
+        rank = ranking.result()
+    want_groups = {frozenset({"ap_binned", "precision_at_recall"}), frozenset({"hamming", "specificity"}),
+                   frozenset({"jaccard", "mcc"}), frozenset({"ap_exact"}), frozenset({"ranking_ap"}),
+                   frozenset({"ranking_loss"}), frozenset({"coverage"}), frozenset({"exact_match"})}
+    check(_groups(mc) == want_groups, f"compute groups {mc.compute_groups}")
+
+    pred = probs > 0.5
+    pos = host_t == 1
+    tp, fp = (pred & pos).sum(0).astype(np.float64), (pred & ~pos).sum(0).astype(np.float64)
+    fn, tn = (~pred & pos).sum(0).astype(np.float64), (~pred & ~pos).sum(0).astype(np.float64)
+    states = mc._modules["hamming"]
+    for name, want in (("tp", tp), ("fp", fp), ("tn", tn), ("fn", fn)):
+        check(np.array_equal(getattr(states, name).cpu().numpy(), want), f"multilabel stat scores {name} != host")
+    t_all, p_all, n_all, f_all = tp.sum(), fp.sum(), tn.sum(), fn.sum()
+    mcc = (t_all * n_all - p_all * f_all) / np.sqrt((t_all + p_all) * (t_all + f_all) * (n_all + p_all) * (n_all + f_all))
+    want = {
+        "ap_exact": np.nanmean(curves["ap_exact"]), "ap_binned": curves["ap_binned"].mean(),
+        "exact_match": (pred == pos).all(1).mean(), "hamming": (1.0 - (tp + tn) / (tp + tn + fp + fn)).mean(),
+        "jaccard": (tp / (tp + fp + fn)).mean(), "mcc": mcc, "specificity": (tn / (tn + fp)).mean(), **rank,
+    }
+    errs = {name: abs(float(res[name]) - w) for name, w in want.items()}
+    for name in ("ranking_ap", "ranking_loss", "coverage"):
+        errs[name] /= abs(want[name])
+    par, par_thr = (x.cpu().numpy() for x in res["precision_at_recall"])
+    errs["precision_at_recall"] = float(np.abs(par - curves["op"]).max())
+    tolerance = {name: SLICE6_ATOL for name in errs}
+    tolerance.update({"ap_exact": EXACT_AP_ATOL, "ranking_ap": SUM_RTOL, "ranking_loss": SUM_RTOL,
+                      "coverage": SUM_RTOL})
+    for name, err in errs.items():
+        check(err <= tolerance[name], f"coco {name} vs float64 numpy: {err} > {tolerance[name]}")
+    check(np.array_equal(par_thr, curves["op_thr"].astype(np.float32)), "precision@recall thresholds != host")
+    emit({
+        "phase": "coco_multilabel", "images": n_img, "labels": labels, "batch": batch, "batches": len(starts),
+        "positives_per_image": float(pos.sum() / n_img), "compute_groups": mc.compute_groups,
+        "results": {k: float(v) for k, v in res.items() if isinstance(v, torch.Tensor) and v.numel() == 1},
+        "err": errs, "tolerance": tolerance, "seconds": stream_s, "images_per_s": n_img / stream_s,
+        "compute_ms": compute_ms, "peak_mem_bytes": peak, "card": smi,
+    })
+
+
+def phase_dice_fairness(torch, np, dev, gen, smi: str, maps: int = 8, side: int = 512, n: int = 19_962) -> None:
+    """Dice (150 classes, macro, mdmc global) on SceneParse150-shaped maps, 4 updates of 8 maps of 512x512: its
+    stat scores exactly against numpy counts, the score within ``SLICE6_ATOL``, and the peak memory of one update's
+    one-hot temporaries. ``BinaryFairness`` and ``BinaryGroupStatRates`` on CelebA's test split shape (19,962
+    samples) with 2 and 4 groups: per-group counts exact, rates and ratios within ``SLICE6_ATOL``."""
+    import torchmetrics_tpu_torch as tt
+
+    c, n_updates = 150, 4
+    shape = (n_updates, maps, side, side)
+    target = torch.randint(0, c, shape, generator=gen, device=dev)
+    preds = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.6, target,
+                        torch.randint(0, c, shape, generator=gen, device=dev))
+    dice = tt.Dice(num_classes=c, average="macro", mdmc_average="global")
+    update_peaks = []
+    t0 = time.perf_counter()
+    for u in range(n_updates):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dice.update(preds[u], target[u])
+        torch.cuda.synchronize()
+        update_peaks.append(torch.cuda.max_memory_allocated() - base)
+    value = float(dice.compute())
+    dice_s = time.perf_counter() - t0
+    hp, ht = preds.cpu().numpy().reshape(-1), target.cpu().numpy().reshape(-1)
+    tp = np.bincount(ht[hp == ht], minlength=c)
+    fp, fn = np.bincount(hp, minlength=c) - tp, np.bincount(ht, minlength=c) - tp
+    for name, want in (("tp", tp), ("fp", fp), ("fn", fn)):
+        check(np.array_equal(getattr(dice, name).cpu().numpy(), want), f"Dice {name} != numpy counts")
+    present = tp + fp + fn > 0
+    dice_ref = (2 * tp / np.maximum(2 * tp + fp + fn, 1))[present].mean()
+    dice_err = abs(value - dice_ref)
+    check(dice_err <= SLICE6_ATOL, f"Dice vs float64: {dice_err}")
+
+    fairness = {}  # n: CelebA's test split
+    for groups in (2, 4):
+        scores = torch.rand(n, generator=gen, device=dev)
+        labels = (torch.rand(n, generator=gen, device=dev) < 0.45).to(torch.int64)
+        group_ids = torch.randint(0, groups, (n,), generator=gen, device=dev)
+        fair, rates = tt.BinaryFairness(num_groups=groups), tt.BinaryGroupStatRates(num_groups=groups)
+        for lo in range(0, n, 4096):
+            args = (scores[lo:lo + 4096], labels[lo:lo + 4096], group_ids[lo:lo + 4096])
+            fair.update(*args)
+            rates.update(*args)
+        got_fair, got_rates = fair.compute(), rates.compute()
+        hs, hl, hg = scores.cpu().numpy() > 0.5, labels.cpu().numpy() == 1, group_ids.cpu().numpy()
+        counts = {name: np.array([(m & (hg == g)).sum() for g in range(groups)]) for name, m in
+                  (("tp", hs & hl), ("fp", hs & ~hl), ("tn", ~hs & ~hl), ("fn", ~hs & hl))}
+        for name, want in counts.items():
+            check(np.array_equal(getattr(fair, name).cpu().numpy(), want), f"fairness {name} != numpy ({groups} groups)")
+        pos_rate = (counts["tp"] + counts["fp"]) / (counts["tp"] + counts["fp"] + counts["tn"] + counts["fn"])
+        tpr = counts["tp"] / (counts["tp"] + counts["fn"])
+        want = {f"DP_{pos_rate.argmin()}_{pos_rate.argmax()}": pos_rate.min() / pos_rate.max(),
+                f"EO_{tpr.argmin()}_{tpr.argmax()}": tpr.min() / tpr.max()}
+        check(sorted(got_fair) == sorted(want), f"fairness keys {sorted(got_fair)} != {sorted(want)}")
+        err = max(abs(float(got_fair[k]) - w) for k, w in want.items())
+        stats = np.stack([counts[k] for k in ("tp", "fp", "tn", "fn")], 1)
+        rate_ref = stats / stats.sum(1, keepdims=True)
+        err = max(err, max(float(np.abs(got_rates[f"group_{g}"].cpu().numpy() - rate_ref[g]).max())
+                           for g in range(groups)))
+        check(err <= SLICE6_ATOL, f"fairness vs float64 ({groups} groups): {err}")
+        fairness[groups] = {"results": {k: float(v) for k, v in got_fair.items()}, "max_err": err}
+    emit({
+        "phase": "dice_fairness", "dice": {"classes": c, "updates": n_updates, "pixels": int(hp.size), "value": value,
+                                           "err": dice_err, "seconds": dice_s,
+                                           "onehot_update_peak_bytes": max(update_peaks)},
+        "fairness": {"samples": n, "by_groups": fairness}, "tolerance": {"counts": "exact", "values": SLICE6_ATOL},
+        "card": smi,
+    })
 
 
 def lpips_tap_shapes(torch, dev, net_type: str, pairs: int, side: int) -> list:
@@ -2065,6 +2558,12 @@ def main() -> int:
         "pixels_per_s": pixels / ade_s, "peak_mem_bytes": ade_peak,
     })
 
+    # ---------------- ade20k_miou, classification_rest, coco_multilabel, dice_fairness
+    miou_launches = phase_ade20k_miou(torch, np, kernel, dev, seg_preds, seg_target, ade_cm, smi)
+    rest_launches = phase_classification_rest(torch, np, kernel, dev, logits, target, smi)
+    phase_coco_multilabel(torch, np, dev, gen, smi)
+    phase_dice_fairness(torch, np, dev, gen, smi)
+
     # ----------------------------------------------------------------- timing
     shapes = {}
     main_inputs = {
@@ -2199,7 +2698,8 @@ def main() -> int:
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
-        "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"],
+        "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
+        + miou_launches + rest_launches,
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

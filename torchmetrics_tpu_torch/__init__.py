@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, streaming classification, detection, FID, LPIPS, BERTScore and InfoLM.
+"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, FID, LPIPS, BERTScore and InfoLM.
 
 Same module paths and names as the JAX package. Metric states live on ``cuda``
 unless a metric is built with ``device=...``. Hand-written Hopper kernels
@@ -18,48 +18,8 @@ from torchmetrics_tpu_torch.aggregation import (
     RunningSum,
     SumMetric,
 )
-from torchmetrics_tpu_torch.classification import (
-    AUROC,
-    ROC,
-    Accuracy,
-    BinaryAccuracy,
-    BinaryAUROC,
-    BinaryConfusionMatrix,
-    BinaryF1Score,
-    BinaryFBetaScore,
-    BinaryPrecision,
-    BinaryPrecisionRecallCurve,
-    BinaryRecall,
-    BinaryROC,
-    BinaryStatScores,
-    ConfusionMatrix,
-    F1Score,
-    FBetaScore,
-    MulticlassAccuracy,
-    MulticlassAUROC,
-    MulticlassConfusionMatrix,
-    MulticlassF1Score,
-    MulticlassFBetaScore,
-    MulticlassPrecision,
-    MulticlassPrecisionRecallCurve,
-    MulticlassRecall,
-    MulticlassROC,
-    MulticlassStatScores,
-    MultilabelAccuracy,
-    MultilabelAUROC,
-    MultilabelConfusionMatrix,
-    MultilabelF1Score,
-    MultilabelFBetaScore,
-    MultilabelPrecision,
-    MultilabelPrecisionRecallCurve,
-    MultilabelRecall,
-    MultilabelROC,
-    MultilabelStatScores,
-    Precision,
-    PrecisionRecallCurve,
-    Recall,
-    StatScores,
-)
+from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.detection import (
     CompleteIntersectionOverUnion,
@@ -89,46 +49,7 @@ __all__ = [
     "RunningMean",
     "RunningSum",
     "SumMetric",
-    "Accuracy",
-    "BinaryAccuracy",
-    "MulticlassAccuracy",
-    "MultilabelAccuracy",
-    "ConfusionMatrix",
-    "BinaryConfusionMatrix",
-    "MulticlassConfusionMatrix",
-    "MultilabelConfusionMatrix",
-    "StatScores",
-    "BinaryStatScores",
-    "MulticlassStatScores",
-    "MultilabelStatScores",
-    "AUROC",
-    "BinaryAUROC",
-    "MulticlassAUROC",
-    "MultilabelAUROC",
-    "F1Score",
-    "BinaryF1Score",
-    "MulticlassF1Score",
-    "MultilabelF1Score",
-    "FBetaScore",
-    "BinaryFBetaScore",
-    "MulticlassFBetaScore",
-    "MultilabelFBetaScore",
-    "Precision",
-    "BinaryPrecision",
-    "MulticlassPrecision",
-    "MultilabelPrecision",
-    "Recall",
-    "BinaryRecall",
-    "MulticlassRecall",
-    "MultilabelRecall",
-    "PrecisionRecallCurve",
-    "BinaryPrecisionRecallCurve",
-    "MulticlassPrecisionRecallCurve",
-    "MultilabelPrecisionRecallCurve",
-    "ROC",
-    "BinaryROC",
-    "MulticlassROC",
-    "MultilabelROC",
+    *_classification_all,
     "CompleteIntersectionOverUnion",
     "DistanceIntersectionOverUnion",
     "GeneralizedIntersectionOverUnion",

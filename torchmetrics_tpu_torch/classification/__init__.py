@@ -1,18 +1,73 @@
-"""Classification metrics ported so far: stat scores, accuracy, confusion matrix, precision/recall/F-beta, PR curve, ROC, AUROC."""
+"""Classification metrics: every one of the JAX package's, under the same names."""
 
-from torchmetrics_tpu_torch.classification.accuracy import (
-    Accuracy,
-    BinaryAccuracy,
-    MulticlassAccuracy,
-    MultilabelAccuracy,
+from torchmetrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
+from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
+from torchmetrics_tpu_torch.classification.dice import Dice
+from torchmetrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
+from torchmetrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
+from torchmetrics_tpu_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
+from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
+)
+from torchmetrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
+from torchmetrics_tpu_torch.classification.recall_fixed_precision import (
+    BinaryPrecisionAtFixedRecall,
+    BinaryRecallAtFixedPrecision,
+    MulticlassPrecisionAtFixedRecall,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelPrecisionAtFixedRecall,
+    MultilabelRecallAtFixedPrecision,
+    PrecisionAtFixedRecall,
+    RecallAtFixedPrecision,
+)
+from torchmetrics_tpu_torch.classification.specificity_sensitivity import (
+    BinarySensitivityAtSpecificity,
+    BinarySpecificityAtSensitivity,
+    MulticlassSensitivityAtSpecificity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSensitivityAtSpecificity,
+    MultilabelSpecificityAtSensitivity,
+    SensitivityAtSpecificity,
+    SpecificityAtSensitivity,
 )
 from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
+from torchmetrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
+from torchmetrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+    PrecisionRecallCurve,
+)
+from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
+from torchmetrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -22,6 +77,12 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MulticlassFBetaScore,
     MultilabelF1Score,
     MultilabelFBetaScore,
+)
+from torchmetrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
 )
 from torchmetrics_tpu_torch.classification.precision_recall import (
     BinaryPrecision,
@@ -33,13 +94,12 @@ from torchmetrics_tpu_torch.classification.precision_recall import (
     Precision,
     Recall,
 )
-from torchmetrics_tpu_torch.classification.precision_recall_curve import (
-    BinaryPrecisionRecallCurve,
-    MulticlassPrecisionRecallCurve,
-    MultilabelPrecisionRecallCurve,
-    PrecisionRecallCurve,
+from torchmetrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
 )
-from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -48,44 +108,100 @@ from torchmetrics_tpu_torch.classification.stat_scores import (
 )
 
 __all__ = [
-    "Accuracy",
-    "BinaryAccuracy",
-    "MulticlassAccuracy",
-    "MultilabelAccuracy",
-    "ConfusionMatrix",
-    "BinaryConfusionMatrix",
-    "MulticlassConfusionMatrix",
-    "MultilabelConfusionMatrix",
-    "StatScores",
-    "BinaryStatScores",
-    "MulticlassStatScores",
-    "MultilabelStatScores",
+    "BinaryCalibrationError",
+    "CalibrationError",
+    "MulticlassCalibrationError",
+    "BinaryCohenKappa",
+    "CohenKappa",
+    "MulticlassCohenKappa",
+    "Dice",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
+    "BinaryHingeLoss",
+    "HingeLoss",
+    "MulticlassHingeLoss",
+    "BinaryJaccardIndex",
+    "JaccardIndex",
+    "MulticlassJaccardIndex",
+    "MultilabelJaccardIndex",
+    "BinaryMatthewsCorrCoef",
+    "MatthewsCorrCoef",
+    "MulticlassMatthewsCorrCoef",
+    "MultilabelMatthewsCorrCoef",
+    "MultilabelCoverageError",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
+    "BinaryPrecisionAtFixedRecall",
+    "BinaryRecallAtFixedPrecision",
+    "MulticlassPrecisionAtFixedRecall",
+    "MulticlassRecallAtFixedPrecision",
+    "MultilabelPrecisionAtFixedRecall",
+    "MultilabelRecallAtFixedPrecision",
+    "PrecisionAtFixedRecall",
+    "RecallAtFixedPrecision",
+    "BinarySensitivityAtSpecificity",
+    "BinarySpecificityAtSensitivity",
+    "MulticlassSensitivityAtSpecificity",
+    "MulticlassSpecificityAtSensitivity",
+    "MultilabelSensitivityAtSpecificity",
+    "MultilabelSpecificityAtSensitivity",
+    "SensitivityAtSpecificity",
+    "SpecificityAtSensitivity",
+
     "AUROC",
     "BinaryAUROC",
     "MulticlassAUROC",
     "MultilabelAUROC",
-    "F1Score",
-    "BinaryF1Score",
-    "MulticlassF1Score",
-    "MultilabelF1Score",
-    "FBetaScore",
-    "BinaryFBetaScore",
-    "MulticlassFBetaScore",
-    "MultilabelFBetaScore",
-    "Precision",
-    "BinaryPrecision",
-    "MulticlassPrecision",
-    "MultilabelPrecision",
-    "Recall",
-    "BinaryRecall",
-    "MulticlassRecall",
-    "MultilabelRecall",
-    "PrecisionRecallCurve",
+    "AveragePrecision",
+    "BinaryAveragePrecision",
+    "MulticlassAveragePrecision",
+    "MultilabelAveragePrecision",
     "BinaryPrecisionRecallCurve",
     "MulticlassPrecisionRecallCurve",
     "MultilabelPrecisionRecallCurve",
+    "PrecisionRecallCurve",
     "ROC",
     "BinaryROC",
     "MulticlassROC",
     "MultilabelROC",
+
+    "Accuracy",
+    "BinaryAccuracy",
+    "MulticlassAccuracy",
+    "MultilabelAccuracy",
+    "BinaryConfusionMatrix",
+    "ConfusionMatrix",
+    "MulticlassConfusionMatrix",
+    "MultilabelConfusionMatrix",
+    "ExactMatch",
+    "MulticlassExactMatch",
+    "MultilabelExactMatch",
+    "BinaryF1Score",
+    "BinaryFBetaScore",
+    "F1Score",
+    "FBetaScore",
+    "MulticlassF1Score",
+    "MulticlassFBetaScore",
+    "MultilabelF1Score",
+    "MultilabelFBetaScore",
+    "BinaryHammingDistance",
+    "HammingDistance",
+    "MulticlassHammingDistance",
+    "MultilabelHammingDistance",
+    "BinaryPrecision",
+    "BinaryRecall",
+    "MulticlassPrecision",
+    "MulticlassRecall",
+    "MultilabelPrecision",
+    "MultilabelRecall",
+    "Precision",
+    "Recall",
+    "BinarySpecificity",
+    "MulticlassSpecificity",
+    "MultilabelSpecificity",
+    "Specificity",
+    "BinaryStatScores",
+    "MulticlassStatScores",
+    "MultilabelStatScores",
+    "StatScores",
 ]

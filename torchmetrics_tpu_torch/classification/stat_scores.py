@@ -54,17 +54,17 @@ class _AbstractStatScores(Metric):
                 self.add_state(name, torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
 
     def _update_state(self, tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> None:
-        """Accumulate: in place for tensors, append for lists."""
-        if isinstance(self.tp, list):
-            self.tp.append(tp)
-            self.fp.append(fp)
-            self.tn.append(tn)
-            self.fn.append(fn)
-        else:
+        """Accumulate: in place for tensors, append for lists and ring buffers."""
+        if isinstance(self.tp, Tensor):
             self.tp += tp
             self.fp += fp
             self.tn += tn
             self.fn += fn
+        else:
+            self.tp.append(tp)
+            self.fp.append(fp)
+            self.tn.append(tn)
+            self.fn.append(fn)
 
     def _final_state(self) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         """Concatenate list states for compute."""

@@ -1,49 +1,9 @@
-"""Functional metrics ported so far (classification: stat scores, accuracy, confusion matrix, precision/recall/F-beta, PR curve, ROC, AUROC; detection: the IoU family, panoptic quality; image: LPIPS; text: BERTScore, InfoLM)."""
+"""Functional metrics ported so far (classification: all of it; detection: the IoU family, panoptic quality; image: LPIPS; text: BERTScore, InfoLM)."""
 
 from torchmetrics_tpu_torch.functional import detection
 
-from torchmetrics_tpu_torch.functional.classification import (
-    accuracy,
-    auroc,
-    binary_accuracy,
-    binary_auroc,
-    binary_confusion_matrix,
-    binary_f1_score,
-    binary_fbeta_score,
-    binary_precision,
-    binary_precision_recall_curve,
-    binary_recall,
-    binary_roc,
-    binary_stat_scores,
-    confusion_matrix,
-    f1_score,
-    fbeta_score,
-    multiclass_accuracy,
-    multiclass_auroc,
-    multiclass_confusion_matrix,
-    multiclass_f1_score,
-    multiclass_fbeta_score,
-    multiclass_precision,
-    multiclass_precision_recall_curve,
-    multiclass_recall,
-    multiclass_roc,
-    multiclass_stat_scores,
-    multilabel_accuracy,
-    multilabel_auroc,
-    multilabel_confusion_matrix,
-    multilabel_f1_score,
-    multilabel_fbeta_score,
-    multilabel_precision,
-    multilabel_precision_recall_curve,
-    multilabel_recall,
-    multilabel_roc,
-    multilabel_stat_scores,
-    precision,
-    precision_recall_curve,
-    recall,
-    roc,
-    stat_scores,
-)
+from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.functional.detection import (
     complete_intersection_over_union,
     distance_intersection_over_union,
@@ -57,46 +17,7 @@ from torchmetrics_tpu_torch.functional.text import bert_score, infolm
 
 __all__ = [
     "detection",
-    "accuracy",
-    "binary_accuracy",
-    "multiclass_accuracy",
-    "multilabel_accuracy",
-    "confusion_matrix",
-    "binary_confusion_matrix",
-    "multiclass_confusion_matrix",
-    "multilabel_confusion_matrix",
-    "stat_scores",
-    "binary_stat_scores",
-    "multiclass_stat_scores",
-    "multilabel_stat_scores",
-    "auroc",
-    "binary_auroc",
-    "multiclass_auroc",
-    "multilabel_auroc",
-    "binary_f1_score",
-    "binary_fbeta_score",
-    "f1_score",
-    "fbeta_score",
-    "multiclass_f1_score",
-    "multiclass_fbeta_score",
-    "multilabel_f1_score",
-    "multilabel_fbeta_score",
-    "binary_precision",
-    "binary_recall",
-    "multiclass_precision",
-    "multiclass_recall",
-    "multilabel_precision",
-    "multilabel_recall",
-    "precision",
-    "recall",
-    "binary_precision_recall_curve",
-    "multiclass_precision_recall_curve",
-    "multilabel_precision_recall_curve",
-    "precision_recall_curve",
-    "binary_roc",
-    "multiclass_roc",
-    "multilabel_roc",
-    "roc",
+    *_classification_all,
     "complete_intersection_over_union",
     "distance_intersection_over_union",
     "generalized_intersection_over_union",

@@ -59,7 +59,7 @@ def binary_fbeta_score(
     """Binary F-beta.
 
     Example:
-        >>> 
+        >>> import torch
         >>> from torchmetrics_tpu_torch.functional.classification import binary_fbeta_score
         >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
         >>> preds = torch.tensor([0.11, 0.22, 0.84, 0.73, 0.33, 0.92])

@@ -52,7 +52,7 @@ def binary_precision(
     """Binary precision.
 
     Example:
-        >>> 
+        >>> import torch
         >>> from torchmetrics_tpu_torch.functional.classification import binary_precision
         >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
         >>> preds = torch.tensor([0.11, 0.22, 0.84, 0.73, 0.33, 0.92])
@@ -119,7 +119,7 @@ def binary_recall(
     """Binary recall.
 
     Example:
-        >>> 
+        >>> import torch
         >>> from torchmetrics_tpu_torch.functional.classification import binary_recall
         >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
         >>> preds = torch.tensor([0.11, 0.22, 0.84, 0.73, 0.33, 0.92])
