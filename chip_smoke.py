@@ -127,6 +127,36 @@ Phases, one JSON line each; any mismatch raises and the script exits non-zero:
     hash encoders) on 64 pairs of the bertscore_wmt and infolm_pairs corpora,
     token ids exact and scores within 1e-6 / 1e-5 of the port's CPU run;
 
+the text family without a model (phases 22-27, data from ``--seed``; their
+host references run in worker processes while the card works, and B1-B5's
+launch counters, set to 0 before them, must read 0 after them):
+
+22. ``librispeech_asr``: LibriSpeech test-clean's shape (2,620 utterances,
+    52,576 reference words) through a ``MetricCollection`` of WER, CER, MER,
+    WIL, WIP and character ``EditDistance`` in updates of 32, then each
+    functional over the whole corpus: counts exact against a plain-Python
+    Levenshtein, rates within 1e-6 of float64, WIL and WIP in one compute
+    group, the DP route (host or device) of every call; utterances/s;
+23. ``cnndm_rouge``: BASELINE config 5 on CNN/DailyMail test's shape (11,490
+    pairs): ``ROUGEScore`` (rouge1/2/L/Lsum, ``accumulate="best"``) in updates
+    of 64 and ``rouge_score`` over all pairs (the batched LCS on the card),
+    against a plain-Python float64 ROUGE and LCS (lengths exact) and, for
+    rougeLsum, the port's CPU run; then the config's ``MetricCollection`` of
+    ``ROUGEScore`` and ``BERTScore()`` on 1,000 pairs, equal to each alone;
+24. ``wmt_mt``: BLEU, SacreBLEU (13a, intl), chrF, chrF++, TER and EED on 2,999
+    WMT16-shaped pairs in updates of 100: states exact and scores within 1e-6
+    of the port's CPU run of the same updates; each metric's pairs/s;
+25. ``perplexity_wikitext``: ``Perplexity(ignore_index=-100)`` at GPT-2's
+    vocabulary of 50,257 over 36 updates of (8, 1024) tokens (WikiText-2 test's
+    ~287,000), float32 and bf16 logits, within 1e-4 of a float64 log-softmax;
+    tokens/s and the peak memory of an update;
+26. ``squad_v1``: ``SQuAD()`` over SQuAD v1.1 dev's 10,570 questions, equal to
+    the port's CPU run;
+27. ``edit_dispatch``: the edit DP's host route (timed in a worker) against its
+    batched route on the card, words and characters at 1, 4, 32, 256 and 2,620
+    LibriSpeech-shaped pairs: where each is faster, and the route the dispatch
+    constant picks;
+
 then the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
@@ -2337,7 +2367,676 @@ def phase_text_no_model(torch, np, corpora: dict, pending: dict, pairs: int = 64
     emit(out)
 
 
+# ------------------------------------------------------- the text family without a model (phases 22-27)
+TEXT_RATE_RTOL = 1e-6  # edit-family rates: one float32 division of exact counts, against float64
+ROUGE_F64_ATOL = 1e-6  # float32 means of 11,490 float64 per-pair scores in [0, 1], against a float64 mean
+MT_RTOL = 1e-6  # BLEU/chrF/TER/EED, card vs the port's CPU run: the same host counts, float32 math on each device
+PPL_F64_RTOL = 1e-4  # perplexity against a float64 log-softmax: float32 log-softmax rows and a 294,912-term float32 sum
+PPL_VOCAB = 50257  # GPT-2's vocabulary
+
+
+def zipf_vocabulary(np, rng, size: int, alphabet: str, mean_len: float):
+    """``size`` distinct words of ``alphabet`` (mean length ``mean_len``) and Zipf weights over their ranks."""
+    letters = np.array(list(alphabet))
+    words, seen = [], set()
+    while len(words) < size:
+        word = "".join(rng.choice(letters, 1 + int(rng.poisson(mean_len - 1))))
+        if word not in seen:
+            seen.add(word)
+            words.append(word)
+    weights = 1.0 / (np.arange(size) + 2.7) ** 1.07
+    return words, weights / weights.sum()
+
+
+def split_lengths(np, rng, n: int, total: int, log_mean: float, sigma: float, lo: int, hi: int):
+    """``n`` lognormal lengths in ``[lo, hi]`` moved one at a time until they sum to ``total``."""
+    lengths = np.clip(np.rint(rng.lognormal(log_mean, sigma, n)), lo, hi).astype(np.int64)
+    while lengths.sum() != total:
+        step = 1 if lengths.sum() < total else -1
+        i = int(rng.integers(0, n))
+        lengths[i] = min(hi, max(lo, lengths[i] + step))
+    return lengths
+
+
+def asr_corpus(np, rng, n: int = 2620, n_words: int = 52_576):
+    """LibriSpeech test-clean's shape: ``n`` uppercase references of 1-90 words (``n_words`` in all, ~108
+    characters an utterance) from a Zipf vocabulary; hypotheses with ~3% substitutions, 1% deletions and
+    1% insertions a word."""
+    words, weights = zipf_vocabulary(np, rng, 8000, "ABCDEFGHIJKLMNOPQRSTUVWXYZ", 4.4)
+    lengths = split_lengths(np, rng, n, n_words, np.log(16.0), 0.65, 1, 90)
+    ids = rng.choice(len(words), n_words, p=weights)
+    subs = rng.choice(len(words), n_words, p=weights)
+    inserts = rng.choice(len(words), n_words, p=weights)
+    u, ins = rng.random(n_words), rng.random(n_words) < 0.01
+    preds, target, k = [], [], 0
+    for length in lengths:
+        ref, hyp = [], []
+        for j in range(k, k + length):
+            ref.append(words[ids[j]])
+            if u[j] >= 0.04:
+                hyp.append(words[ids[j]])
+            elif u[j] < 0.03:
+                hyp.append(words[subs[j]])
+            if ins[j]:
+                hyp.append(words[inserts[j]])
+        preds.append(" ".join(hyp))
+        target.append(" ".join(ref))
+        k += length
+    return preds, target
+
+
+class WordPool:
+    """Zipf draws over a vocabulary, made in one call and handed out in order (wrapping at the end)."""
+
+    def __init__(self, np, rng, words: list, weights, size: int):
+        self.np, self.words, self.k = np, words, 0
+        self.ids = rng.choice(len(words), size, p=weights)
+
+    def take(self, n: int) -> list:
+        ids = self.np.take(self.ids, range(self.k, self.k + n), mode="wrap")
+        self.k += n
+        return [self.words[i] for i in ids]
+
+
+def _sentences(rng, words: list, n_sentences: int, abbreviations: list) -> str:
+    """``words`` cut into ``n_sentences`` sentences: capitalized, ended by ``.``, ``!`` or ``?``, some with an abbreviation."""
+    cuts = sorted(rng.choice(range(1, len(words)), min(n_sentences, len(words)) - 1, replace=False).tolist())
+    out = []
+    for lo, hi in zip([0] + cuts, cuts + [len(words)]):
+        part = words[lo:hi]
+        if rng.random() < 0.2 and len(part) > 2:
+            part.insert(int(rng.integers(1, len(part))), abbreviations[int(rng.integers(0, len(abbreviations)))])
+        part[0] = part[0].capitalize()
+        out.append(" ".join(part) + "...!?"[min(4, int(rng.integers(0, 5)))])
+    return " ".join(out)
+
+
+def cnndm_corpus(np, rng, n: int = 11_490):
+    """CNN/DailyMail test's shape: highlights of ~56 words in ~3.75 sentences; candidates of ~60 words that keep
+    ~40% of the reference's words in order, the rest from the vocabulary, in ~4 sentences."""
+    pool = WordPool(np, rng, *zipf_vocabulary(np, rng, 20_000, "abcdefghijklmnopqrstuvwxyz", 5.0), 1 << 21)
+    abbreviations = ["Dr. Smith", "Mr. Jones", "U.S. officials", "e.g. police", "St. Louis", "Gen. Lee", "Jan. 5"]
+    preds, target = [], []
+    for _ in range(n):
+        ref = pool.take(int(np.clip(rng.normal(56, 14), 12, 120)))
+        kept = [w for w, u in zip(ref, rng.random(len(ref))) if u < 0.4]
+        total = max(len(kept) + 1, int(np.clip(rng.normal(60, 12), 15, 120)))
+        slots = np.zeros(total, bool)
+        slots[rng.choice(total, len(kept), replace=False)] = True
+        fresh, old = iter(pool.take(total - len(kept))), iter(kept)
+        cand = [next(old) if slot else next(fresh) for slot in slots]
+        target.append(_sentences(rng, ref, 1 + int(rng.poisson(2.75)), abbreviations))
+        preds.append(_sentences(rng, cand, 1 + int(rng.poisson(3.0)), abbreviations))
+    return preds, target
+
+
+def wmt_corpus(np, rng, n: int = 2999):
+    """WMT16 newstest2016's size at bertscore_wmt's lengths (8-77 words, ~30): mixed case, commas, numbers and a final
+    period; hypotheses with 15% substituted, 5% deleted and 5% inserted words and, in 30% of them, a moved span."""
+    pool = WordPool(np, rng, *zipf_vocabulary(np, rng, 30_000, "abcdefghijklmnopqrstuvwxyz", 5.2), 1 << 18)
+    preds, target = [], []
+    for _ in range(n):
+        ref = pool.take(int(np.clip(np.rint(rng.gamma(4.0, 7.5)), 8, 77)))
+        u, extra = rng.random((2, len(ref)))
+        ref = [f"{w}," if a < 0.06 else (f"{int(b * 998) + 1},{int(b * 899) + 100}" if a > 0.98 else w)
+               for w, a, b in zip(ref, u, extra)]
+        ref[0] = ref[0].capitalize()
+        subs, inserts = iter(pool.take(len(ref))), iter(pool.take(len(ref)))
+        hyp = []
+        for w, a, b in zip(ref, rng.random(len(ref)), rng.random(len(ref))):
+            if a < 0.15:
+                hyp.append(next(subs))
+            elif a >= 0.2:
+                hyp.append(w)
+            if b < 0.05:
+                hyp.append(next(inserts))
+        if rng.random() < 0.3 and len(hyp) > 8:
+            i, k = int(rng.integers(0, len(hyp) - 5)), int(rng.integers(2, 6))
+            span, rest = hyp[i:i + k], hyp[:i] + hyp[i + k:]
+            j = int(rng.integers(0, len(rest) + 1))
+            hyp = rest[:j] + span + rest[j:]
+        preds.append(" ".join(hyp) + " .")
+        target.append(" ".join(ref) + ".")
+    return preds, target
+
+
+def squad_corpus(np, rng, n: int = 10_570):
+    """SQuAD v1.1 dev's shape: ``n`` questions with 1-3 answers of 1-6 words; 60% of the predictions are an answer,
+    some recased or with an article or punctuation added, the rest a span of the context's words."""
+    pool = WordPool(np, rng, *zipf_vocabulary(np, rng, 12_000, "abcdefghijklmnopqrstuvwxyz", 5.5), 1 << 17)
+    preds, target = [], []
+    for q in range(n):
+        first = pool.take(int(rng.integers(1, 7)))
+        answers = [" ".join(first)]
+        for _ in range(int(rng.integers(0, 3))):
+            k = int(rng.integers(0, len(first)))
+            answers.append(" ".join(first[k:] if rng.random() < 0.5 else first[:k + 1]))
+        if rng.random() < 0.6:
+            guess = answers[int(rng.integers(0, len(answers)))]
+            guess = guess.upper() if rng.random() < 0.2 else (f"the {guess}." if rng.random() < 0.3 else guess)
+        else:
+            guess = " ".join(first[: int(rng.integers(1, len(first) + 1))] + pool.take(int(rng.integers(0, 4))))
+        qid = f"{q:024x}"
+        preds.append({"prediction_text": guess, "id": qid})
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": qid})
+    return preds, target
+
+
+def _plain_levenshtein(a, b) -> int:
+    """Textbook Levenshtein DP, one pair (the host reference of the edit family)."""
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+def _host_asr_reference(preds: list, target: list) -> dict:
+    """Worker: word- and character-level Levenshtein distances of each pair, plain Python."""
+    return {"words": [_plain_levenshtein(p.split(), t.split()) for p, t in zip(preds, target)],
+            "chars": [_plain_levenshtein(p, t) for p, t in zip(preds, target)]}
+
+
+def _host_edit_dispatch(cases: dict) -> dict:
+    """Worker: the port's host DP route (``_edit_distance_tokens`` below the dispatch size) timed on each case."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    helper = importlib.import_module("torchmetrics_tpu_torch.functional.text.helper")
+    helper._HOST_DISPATCH_MAX_CELLS = 1 << 62
+    out = {}
+    for key, (preds, target) in cases.items():
+        reps = 5 if len(preds) <= 32 else 1
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            helper._edit_distance_tokens(preds, target, device="cpu")
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[key] = statistics.median(times)
+    return out
+
+
+_ROUGE_TOKEN = re.compile(r"[^a-z0-9]+")
+
+
+def _plain_lcs(a, b) -> int:
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0]
+        for j, y in enumerate(b, 1):
+            cur.append(prev[j - 1] + 1 if x == y else max(prev[j], cur[j - 1]))
+        prev = cur
+    return prev[-1]
+
+
+def _host_rouge_reference(preds: list, target: list) -> dict:
+    """Worker: float64 ROUGE-1/2/L precision, recall and F of each pair from n-gram counters and an LCS DP, plain Python."""
+    def prf(hits, n_pred, n_ref):
+        if not n_pred or not n_ref or not hits:
+            return 0.0, 0.0, 0.0
+        p, r = hits / n_pred, hits / n_ref
+        return p, r, 2 * p * r / (p + r)
+
+    scores, lcs = {"1": [], "2": [], "L": []}, []
+    for pred, ref in zip(preds, target):
+        a, b = _ROUGE_TOKEN.sub(" ", pred.lower()).split(), _ROUGE_TOKEN.sub(" ", ref.lower()).split()
+        for n in (1, 2):
+            grams_a = collections.Counter(tuple(a[i:i + n]) for i in range(len(a) - n + 1))
+            grams_b = collections.Counter(tuple(b[i:i + n]) for i in range(len(b) - n + 1))
+            scores[str(n)].append(prf(sum((grams_a & grams_b).values()), max(0, len(a) - n + 1), max(0, len(b) - n + 1)))
+        lcs.append(_plain_lcs(a, b))
+        scores["L"].append(prf(lcs[-1], len(a), len(b)))
+    return {"scores": scores, "lcs": lcs}
+
+
+def _host_rouge_lsum(preds: list, target: list, batch: int) -> list:
+    """Worker: the port's ``ROUGEScore`` on the CPU, ROUGE-Lsum only, over the same updates: each pair's F."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torchmetrics_tpu_torch.text import ROUGEScore
+
+    torch.set_num_threads(1)
+    metric = ROUGEScore(rouge_keys="rougeLsum", device="cpu")
+    for lo in range(0, len(preds), batch):
+        metric.update(preds[lo:lo + batch], target[lo:lo + batch])
+    return torch.cat(metric.rougeLsum_fmeasure).tolist()
+
+
+def wmt_metrics(device) -> dict:
+    """The MT metrics of phase ``wmt_mt``, on ``device``."""
+    from torchmetrics_tpu_torch.text import (
+        BLEUScore, CHRFScore, ExtendedEditDistance, SacreBLEUScore, TranslationEditRate,
+    )
+
+    return {
+        "bleu": BLEUScore(device=device), "sacrebleu_13a": SacreBLEUScore(tokenize="13a", device=device),
+        "sacrebleu_intl": SacreBLEUScore(tokenize="intl", device=device),
+        "chrf": CHRFScore(n_word_order=0, device=device), "chrf_pp": CHRFScore(n_word_order=2, device=device),
+        "ter": TranslationEditRate(return_sentence_level_score=True, device=device),
+        "eed": ExtendedEditDistance(return_sentence_level_score=True, device=device),
+    }
+
+
+def _mt_result(metric) -> dict:
+    """A metric's states (list states flattened) and its result, as host floats."""
+    host = lambda v: v.cpu().numpy().reshape(-1).tolist()  # noqa: E731
+    states = {k: [x for t in v for x in host(t)] if isinstance(v, list) else host(v) for k, v in metric.metric_state.items()}
+    out = metric.compute()
+    score, sentence = out if isinstance(out, tuple) else (out, None)
+    return {"states": states, "score": float(score), "sentence": None if sentence is None else host(sentence)}
+
+
+def _host_wmt(names: list, preds: list, target: list, batch: int) -> dict:
+    """Worker: the port's MT metrics ``names`` on the CPU over the same updates: states and scores."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    metrics = {k: v for k, v in wmt_metrics("cpu").items() if k in names}
+    for lo in range(0, len(preds), batch):
+        for metric in metrics.values():
+            metric.update(preds[lo:lo + batch], [[t] for t in target[lo:lo + batch]])
+    return {k: _mt_result(m) for k, m in metrics.items()}
+
+
+def _host_squad(preds: list, target: list, batch: int) -> dict:
+    """Worker: the port's ``SQuAD`` on the CPU over the same updates."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torchmetrics_tpu_torch.text import SQuAD
+
+    metric = SQuAD(device="cpu")
+    for lo in range(0, len(preds), batch):
+        metric.update(preds[lo:lo + batch], target[lo:lo + batch])
+    return {"states": {k: float(v) for k, v in metric.metric_state.items()},
+            "result": {k: float(v) for k, v in metric.compute().items()}}
+
+
+def kernel_counters(kernel, ce, lh, ka) -> dict:
+    """The launch counters of B1-B5's wrappers, by name."""
+    return {"confmat": kernel.confusion_matrix_cuda, "matmul_bias_relu": ce.matmul_bias_relu,
+            "bias_relu_": ce.bias_relu_, "lpips_head": lh.lpips_head, "attention": ka.attention,
+            "layernorm_residual": ka.layernorm_residual}
+
+
+class DPRoutes:
+    """Counts the edit family's and ROUGE-L's calls of the batched device DP (the host route is every other call)."""
+
+    def __init__(self):
+        self.helper = importlib.import_module("torchmetrics_tpu_torch.functional.text.helper")
+        self.calls = []
+        self._originals = {}
+
+    def __enter__(self):
+        for name in ("_levenshtein_batch", "_lcs_batch"):
+            original = self._originals[name] = getattr(self.helper, name)
+
+            def counted(*args, _name=name, _original=original, **kwargs):
+                self.calls.append({"dp": _name, "pairs": int(args[0].shape[0]),
+                                   "padded_cells": int(args[0].shape[0] * args[4] * args[2].shape[1])})
+                return _original(*args, **kwargs)
+
+            setattr(self.helper, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, original in self._originals.items():
+            setattr(self.helper, name, original)
+
+
+def text_chunks(n: int, parts: int, align: int = 1) -> list:
+    """``parts`` contiguous ranges covering ``n``, each boundary a multiple of ``align``."""
+    step = -(-n // (parts * align)) * align
+    return [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+
+
+def submit_text_references(pool, corpora: dict) -> dict:
+    """Start the host references of phases 22-27 in the worker pool; read at the end of each phase."""
+    asr_p, asr_t = corpora["asr"]
+    cnn_p, cnn_t = corpora["cnndm"]
+    wmt_p, wmt_t = corpora["wmt"]
+    sq_p, sq_t = corpora["squad"]
+    pending = {
+        "asr": [pool.submit(_host_asr_reference, asr_p[lo:hi], asr_t[lo:hi]) for lo, hi in text_chunks(len(asr_p), 4)],
+        "rouge": [pool.submit(_host_rouge_reference, cnn_p[lo:hi], cnn_t[lo:hi]) for lo, hi in text_chunks(len(cnn_p), 4)],
+        "rouge_lsum": [pool.submit(_host_rouge_lsum, cnn_p[lo:hi], cnn_t[lo:hi], 64)
+                       for lo, hi in text_chunks(len(cnn_p), 4, 64)],
+        "wmt": [pool.submit(_host_wmt, names, wmt_p, wmt_t, 100)
+                for names in (["ter"], ["eed"], ["bleu", "sacrebleu_13a", "sacrebleu_intl", "chrf", "chrf_pp"])],
+        "squad": pool.submit(_host_squad, sq_p, sq_t, 1000),
+    }
+    return pending
+
+
+def edit_dispatch_cases(corpus, batches=(1, 4, 32, 256, 2620)) -> dict:
+    """The first ``b`` LibriSpeech-shaped pairs, tokenized into words and characters, for each batch ``b``."""
+    preds, target = corpus
+    cases = {}
+    for b in batches:
+        cases[f"word_{b}"] = ([p.split() for p in preds[:b]], [t.split() for t in target[:b]])
+        cases[f"char_{b}"] = ([list(p) for p in preds[:b]], [list(t) for t in target[:b]])
+    return cases
+
+
+def phase_librispeech_asr(torch, np, corpus, pending: list, smi: str, batch: int = 32) -> dict:
+    """WER, CER, MER, WIL, WIP and character ``EditDistance`` as one ``MetricCollection`` in updates of ``batch``, then
+    each functional over the whole corpus: counts exact against plain-Python Levenshtein, rates within 1e-6."""
+    import torchmetrics_tpu_torch.functional.text as F
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.text import (
+        CharErrorRate, EditDistance, MatchErrorRate, WordErrorRate, WordInfoLost, WordInfoPreserved,
+    )
+
+    preds, target = corpus
+    n = len(preds)
+    mc = MetricCollection({"wer": WordErrorRate(), "cer": CharErrorRate(), "mer": MatchErrorRate(),
+                           "wil": WordInfoLost(), "wip": WordInfoPreserved(), "edit": EditDistance()})
+    torch.cuda.synchronize()
+    with DPRoutes() as stream_routes:
+        t0 = time.perf_counter()
+        for lo in range(0, n, batch):
+            mc.update(preds[lo:lo + batch], target[lo:lo + batch])
+        results = {k: float(v) for k, v in mc.compute().items()}
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    groups = sorted(sorted(g) for g in mc.compute_groups.values())
+    check(["wil", "wip"] in groups and ["wer"] in groups and ["mer"] in groups,
+          f"librispeech compute groups {groups}: WIL and WIP together, WER and MER apart")
+    updates = -(-n // batch)
+
+    calls, whole = [], {}
+    for name, fn, level in (("wer", "word_error_rate", "word"), ("cer", "char_error_rate", "char"),
+                            ("mer", "match_error_rate", "word"), ("wil", "word_information_lost", "word"),
+                            ("wip", "word_information_preserved", "word"), ("edit", "edit_distance", "char")):
+        tok = str.split if level == "word" else list
+        cells = sum(len(tok(p)) * len(tok(t)) for p, t in zip(preds, target))
+        with DPRoutes() as routes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole[name] = float(getattr(F, fn)(preds, target))
+            ms = (time.perf_counter() - t0) * 1e3
+        calls.append({"fn": fn, "pairs": n, "cells": cells, "route": "device" if routes.calls else "host",
+                      "device_dp_calls": len(routes.calls), "ms": ms})
+
+    ref = {"words": [], "chars": []}
+    for future in pending:
+        part = future.result()
+        ref["words"] += part["words"]
+        ref["chars"] += part["chars"]
+    w_err, c_err = sum(ref["words"]), sum(ref["chars"])
+    n_ref_words = sum(len(t.split()) for t in target)
+    n_pred_words = sum(len(p.split()) for p in preds)
+    n_max = sum(max(len(p.split()), len(t.split())) for p, t in zip(preds, target))
+    n_chars = sum(len(t) for t in target)
+    states = {k: {s: float(v) for s, v in m.metric_state.items()} for k, m in mc.items()}
+    want_states = {
+        "wer": {"errors": w_err, "total": n_ref_words}, "cer": {"errors": c_err, "total": n_chars},
+        "mer": {"errors": w_err, "total": n_max},
+        "wil": {"errors": w_err - n_max, "target_total": n_ref_words, "preds_total": n_pred_words},
+        "wip": {"errors": w_err - n_max, "target_total": n_ref_words, "preds_total": n_pred_words},
+        "edit": {"edit_scores": c_err, "num_elements": n},
+    }
+    check(states == want_states, f"librispeech states {states} != plain-Python Levenshtein {want_states}")
+    hits = n_max - w_err
+    want = {"wer": w_err / n_ref_words, "cer": c_err / n_chars, "mer": w_err / n_max,
+            "wil": 1 - (hits / n_ref_words) * (hits / n_pred_words), "wip": (hits / n_ref_words) * (hits / n_pred_words),
+            "edit": c_err / n}
+    errs = {k: max(abs(results[k] - v), abs(whole[k] - v)) / abs(v) for k, v in want.items()}
+    check(max(errs.values()) <= TEXT_RATE_RTOL, f"librispeech rates vs float64: {errs}")
+    limit = importlib.import_module("torchmetrics_tpu_torch.functional.text.helper")._HOST_DISPATCH_MAX_CELLS
+    check(all(c["route"] == ("host" if c["cells"] <= limit else "device") for c in calls),
+          f"whole-corpus calls not routed by their size: {calls}")
+    out = {"phase": "librispeech_asr", "utterances": n, "reference_words": n_ref_words, "reference_chars": n_chars,
+           "updates": updates, "results": results, "max_rel_err_vs_float64": max(errs.values()),
+           "tolerance": {"counts": "exact", "rates": TEXT_RATE_RTOL}, "compute_groups": groups,
+           "stream": {"seconds": stream_s, "utterances_per_s": n / stream_s,
+                      "device_dp_calls": len(stream_routes.calls),
+                      "host_dp_calls": 5 * updates + 1 - len(stream_routes.calls)},
+           "whole_corpus": calls, "card": smi}
+    emit(out)
+    return out
+
+
+def phase_cnndm_rouge(torch, np, dev, corpus, pending: dict, smi: str, batch: int = 64,
+                      collection_pairs: int = 1000) -> dict:
+    """BASELINE config 5 on CNN/DailyMail test's shape: ``ROUGEScore`` streamed, ``rouge_score`` over all pairs, then
+    the config's ``MetricCollection`` of ``ROUGEScore`` and ``BERTScore()`` against each run alone."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.functional.text import rouge_score
+    from torchmetrics_tpu_torch.functional.text.rouge import _normalize_and_tokenize_text
+    from torchmetrics_tpu_torch.text import BERTScore, ROUGEScore
+
+    helper = importlib.import_module("torchmetrics_tpu_torch.functional.text.helper")
+    preds, target = corpus
+    n = len(preds)
+    keys = ("rouge1", "rouge2", "rougeL", "rougeLsum")
+    metric = ROUGEScore(rouge_keys=keys, accumulate="best")
+    torch.cuda.synchronize()
+    with DPRoutes() as stream_routes:
+        t0 = time.perf_counter()
+        for lo in range(0, n, batch):
+            metric.update(preds[lo:lo + batch], target[lo:lo + batch])
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = {k: float(v) for k, v in metric.compute().items()}
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    with DPRoutes() as routes:
+        t0 = time.perf_counter()
+        whole = {k: float(v) for k, v in rouge_score(preds, target, rouge_keys=keys[:3]).items()}
+        whole_ms = (time.perf_counter() - t0) * 1e3
+    tokens = ([_normalize_and_tokenize_text(p) for p in preds], [_normalize_and_tokenize_text(t) for t in target])
+    lcs = helper._lcs_tokens(*tokens, device=dev)
+
+    ref = {"1": [], "2": [], "L": []}
+    ref_lcs = []
+    for future in pending["rouge"]:
+        part = future.result()
+        for key in ref:
+            ref[key] += part["scores"][key]
+        ref_lcs += part["lcs"]
+    check(np.array_equal(lcs, np.asarray(ref_lcs, np.float32)), "cnndm LCS lengths != plain-Python LCS")
+    errs = {}
+    for key in ("1", "2", "L"):
+        for i, stat in enumerate(("precision", "recall", "fmeasure")):
+            want = float(np.mean([s[i] for s in ref[key]]))
+            errs[f"rouge{key}_{stat}"] = max(abs(res[f"rouge{key}_{stat}"] - want), abs(whole[f"rouge{key}_{stat}"] - want))
+    check(max(errs.values()) <= ROUGE_F64_ATOL, f"cnndm ROUGE vs float64: {errs}")
+    cpu_lsum = np.asarray([x for future in pending["rouge_lsum"] for x in future.result()], np.float32)
+    card_lsum = torch.cat(metric.rougeLsum_fmeasure).cpu().numpy()
+    lsum_err = max(float(np.abs(card_lsum - cpu_lsum).max()), abs(res["rougeLsum_fmeasure"] - float(cpu_lsum.mean())))
+    check(lsum_err <= ROUGE_F64_ATOL, f"cnndm rougeLsum vs the CPU run: {lsum_err}")
+    check(routes.calls and routes.calls[0]["pairs"] == n, f"rouge_score over all pairs did not take the device route")
+
+    # the config's collection on the first pairs, against each member alone
+    head_p, head_t = preds[:collection_pairs], target[:collection_pairs]
+    mc = MetricCollection({"rouge": ROUGEScore(rouge_keys=keys), "bertscore": BERTScore()})
+    alone = {"rouge": ROUGEScore(rouge_keys=keys), "bertscore": BERTScore()}
+    t0 = time.perf_counter()
+    for lo in range(0, collection_pairs, batch):
+        mc.update(head_p[lo:lo + batch], head_t[lo:lo + batch])
+    together = mc.compute()
+    torch.cuda.synchronize()
+    collection_s = time.perf_counter() - t0
+    for lo in range(0, collection_pairs, batch):
+        for m in alone.values():
+            m.update(head_p[lo:lo + batch], head_t[lo:lo + batch])
+    single = {**alone["rouge"].compute(), **alone["bertscore"].compute()}
+    check(sorted(together) == sorted(single), f"collection keys {sorted(together)}")
+    check(all(torch.equal(together[k], single[k]) for k in single), "config 5 collection != its members alone")
+    out = {"phase": "cnndm_rouge", "pairs": n, "updates": -(-n // batch), "results": res,
+           "max_abs_err_vs_float64": max(errs.values()), "rougeLsum_max_abs_err_vs_cpu_run": lsum_err,
+           "tolerance": {"rouge1/2/L vs float64": ROUGE_F64_ATOL, "lcs": "exact", "rougeLsum vs cpu": ROUGE_F64_ATOL},
+           "stream": {"seconds": stream_s, "pairs_per_s": n / stream_s, "compute_ms": compute_ms,
+                      "device_dp_calls": len(stream_routes.calls)},
+           "whole_corpus": {"fn": "rouge_score", "keys": list(keys[:3]), "ms": whole_ms, "dp_calls": routes.calls},
+           "config5_collection": {"pairs": collection_pairs, "seconds": collection_s,
+                                  "pairs_per_s": collection_pairs / collection_s,
+                                  "bertscore_f1": float(together["f1"].mean()), "check": "equal to each alone"},
+           "card": smi}
+    emit(out)
+    return out
+
+
+def phase_wmt_mt(torch, np, corpus, pending: list, smi: str, batch: int = 100) -> dict:
+    """BLEU, SacreBLEU (13a, intl), chrF, chrF++, TER and EED over 2,999 WMT-shaped pairs in updates of ``batch``,
+    each against the port's CPU run of the same updates."""
+    preds, target = corpus
+    n = len(preds)
+    metrics = wmt_metrics(None)
+    rates, card = {}, {}
+    for name, metric in metrics.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, n, batch):
+            metric.update(preds[lo:lo + batch], [[t] for t in target[lo:lo + batch]])
+        card[name] = _mt_result(metric)
+        torch.cuda.synchronize()
+        rates[name] = n / (time.perf_counter() - t0)
+    cpu = {}
+    for future in pending:
+        cpu.update(future.result())
+    errs = {}
+    for name, got in card.items():
+        want = cpu[name]
+        exact = {k: v for k, v in got["states"].items() if k not in ("sentence_eed", "sentence_ter")}
+        check(exact == {k: want["states"][k] for k in exact}, f"wmt {name}: states differ from the CPU run")
+        err = abs(got["score"] - want["score"]) / max(abs(want["score"]), 1e-30)
+        if got["sentence"] is not None:
+            err = max(err, float(np.max(np.abs(np.asarray(got["sentence"]) - np.asarray(want["sentence"])))))
+        errs[name] = err
+        check(err <= MT_RTOL, f"wmt {name} vs the CPU run: {err}")
+    out = {"phase": "wmt_mt", "pairs": n, "updates": -(-n // batch),
+           "scores": {k: v["score"] for k, v in card.items()}, "max_err_vs_cpu_run": errs,
+           "tolerance": {"n-gram and TER counts": "exact", "scores": MT_RTOL}, "pairs_per_s": rates, "card": smi}
+    emit(out)
+    return out
+
+
+def phase_perplexity_wikitext(torch, np, dev, gen, smi: str, updates: int = 36, batch: int = 8, seq: int = 1024) -> dict:
+    """``Perplexity(ignore_index=-100)`` at GPT-2's vocabulary over WikiText-2 test's ~287,000 tokens, float32 and bf16
+    logits, against a float64 log-softmax on the card."""
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    metrics = {"float32": Perplexity(ignore_index=-100), "bfloat16": Perplexity(ignore_index=-100)}
+    ref = {k: [0.0, 0] for k in metrics}
+    seconds = {k: 0.0 for k in metrics}
+    peak = {k: 0 for k in metrics}
+    for _ in range(updates):
+        logits = torch.randn((batch, seq, PPL_VOCAB), generator=gen, device=dev) * 2.0
+        target = torch.randint(0, PPL_VOCAB, (batch, seq), generator=gen, device=dev)
+        target[torch.rand((batch, seq), generator=gen, device=dev) < 0.01] = -100
+        for name, metric in metrics.items():
+            x = logits if name == "float32" else logits.to(torch.bfloat16)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metric.update(x, target)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated() - base)
+            mask = target != -100
+            lp = torch.log_softmax(x.double(), dim=-1).gather(-1, torch.where(mask, target, 0)[..., None])[..., 0]
+            ref[name][0] -= float(lp[mask].sum())
+            ref[name][1] += int(mask.sum())
+            del x, lp
+        del logits
+    tokens = updates * batch * seq
+    res, errs = {}, {}
+    for name, metric in metrics.items():
+        res[name] = float(metric.compute())
+        want = float(np.exp(ref[name][0] / ref[name][1]))
+        errs[name] = abs(res[name] - want) / want
+        check(float(metric.count) == ref[name][1], f"perplexity {name}: count {float(metric.count)} != {ref[name][1]}")
+        check(errs[name] <= PPL_F64_RTOL, f"perplexity {name} vs float64: {errs[name]}")
+    out = {"phase": "perplexity_wikitext", "vocab": PPL_VOCAB, "updates": updates, "batch": [batch, seq],
+           "tokens": tokens, "counted_tokens": ref["float32"][1], "perplexity": res, "rel_err_vs_float64": errs,
+           "tolerance": PPL_F64_RTOL, "tokens_per_s": {k: tokens / s for k, s in seconds.items()},
+           "update_peak_bytes_above_inputs": peak,
+           "logits_bytes_an_update": {"float32": batch * seq * PPL_VOCAB * 4, "bfloat16": batch * seq * PPL_VOCAB * 2}, "card": smi}
+    emit(out)
+    return out
+
+
+def phase_squad_v1(torch, corpus, pending, smi: str, batch: int = 1000) -> dict:
+    """``SQuAD()`` over SQuAD v1.1 dev's 10,570 questions in updates of ``batch``: states and scores equal to the CPU run."""
+    from torchmetrics_tpu_torch.text import SQuAD
+
+    preds, target = corpus
+    metric = SQuAD()
+    t0 = time.perf_counter()
+    for lo in range(0, len(preds), batch):
+        metric.update(preds[lo:lo + batch], target[lo:lo + batch])
+    result = {k: float(v) for k, v in metric.compute().items()}
+    seconds = time.perf_counter() - t0
+    cpu = pending.result()
+    states = {k: float(v) for k, v in metric.metric_state.items()}
+    check(states == cpu["states"] and result == cpu["result"], f"squad {states} {result} != CPU run {cpu}")
+    out = {"phase": "squad_v1", "questions": len(preds), "result": result, "check": "states and scores equal to the CPU run",
+           "questions_per_s": len(preds) / seconds, "card": smi}
+    emit(out)
+    return out
+
+
+def phase_edit_dispatch(torch, dev, cases: dict, host_ms: dict, smi: str) -> dict:
+    """The edit DP's two routes by batch and level: the host DP (timed in a worker) against the batched loop on the card
+    (host clock, ending in a synchronize), the cells where they cost the same, and the route the dispatcher takes."""
+    helper = importlib.import_module("torchmetrics_tpu_torch.functional.text.helper")
+    limit = helper._HOST_DISPATCH_MAX_CELLS
+    rows = []
+    for key, (preds, target) in cases.items():
+        cells = sum(len(p) * len(t) for p, t in zip(preds, target))
+        helper._HOST_DISPATCH_MAX_CELLS = -1
+        try:
+            device_ms = wall_ms(torch, lambda: helper._edit_distance_tokens(preds, target, device=dev),
+                                reps=10 if len(preds) <= 256 else 5, warmup=2)
+        finally:
+            helper._HOST_DISPATCH_MAX_CELLS = limit
+        steps = max(len(p) for p in preds)
+        faster = "host" if host_ms[key] < device_ms else "device"
+        rows.append({"case": key, "pairs": len(preds), "cells": cells, "steps": steps, "host_ms": host_ms[key],
+                     "device_ms": device_ms, "faster": faster, "break_even_cells": cells * device_ms / host_ms[key],
+                     "dispatch": "host" if cells <= limit else "device"})
+    agree = sum(r["faster"] == r["dispatch"] for r in rows)
+    out = {"phase": "edit_dispatch", "threshold_cells": limit, "cases": rows, "dispatch_agrees": f"{agree}/{len(rows)}",
+           "largest_host_faster_cells": max([r["cells"] for r in rows if r["faster"] == "host"], default=0),
+           "smallest_device_faster_cells": min([r["cells"] for r in rows if r["faster"] == "device"], default=0),
+           "device_ms": "wall time of one call, encode to read-back-ready, threshold forced to the device route",
+           "card": smi}
+    emit(out)
+    return out
+
+
+def text_family(torch, np, dev, gen, smi: str, counters: dict, make_corpora, t_main: float,
+                dispatch_batches=(1, 4, 32, 256, 2620), perplexity_updates: int = 36) -> dict:
+    """Phases 22-27 on the corpora ``make_corpora()`` draws, with their host references in worker processes; B1-B5's
+    launch counters must stay at 0. ``t_main`` is when the script started: the last line gives the time since."""
+    t0 = time.perf_counter()
+    corpora = make_corpora()
+    corpora_seconds = time.perf_counter() - t0
+    for counter in counters.values():
+        counter.launches = 0
+    cases = edit_dispatch_cases(corpora["asr"], dispatch_batches)
+    with ProcessPoolExecutor(max_workers=6, mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = submit_text_references(pool, corpora)
+        host_dispatch = pool.submit(_host_edit_dispatch, cases)  # read last: it times the host DP alone in its worker
+        phase_librispeech_asr(torch, np, corpora["asr"], pending["asr"], smi)
+        phase_cnndm_rouge(torch, np, dev, corpora["cnndm"], pending, smi)
+        phase_wmt_mt(torch, np, corpora["wmt"], pending["wmt"], smi)
+        phase_perplexity_wikitext(torch, np, dev, gen, smi, updates=perplexity_updates)
+        phase_squad_v1(torch, corpora["squad"], pending["squad"], smi)
+        phase_edit_dispatch(torch, dev, cases, host_dispatch.result(), smi)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    check(not any(launches.values()), f"the text family launched a kernel of B1-B5: {launches}")
+    out = {"phase": "text_family", "seconds": time.perf_counter() - t0, "corpora_seconds": corpora_seconds,
+           "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
+    emit(out)
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -2671,6 +3370,12 @@ def main() -> int:
         phase_iou_panoptic(torch, np, dev, gen)
         phase_text_no_model(torch, np, corpora, text_pending)
         finish_detection(coco, segm, t_detection)
+
+    # ----------------------------- the text family without a model, phases 22-27
+    text_rng = np.random.default_rng([args.seed, 22])
+    text_family(torch, np, dev, gen, smi, kernel_counters(kernel, ce, lh, ka), lambda: {
+        "asr": asr_corpus(np, text_rng), "cnndm": cnndm_corpus(np, text_rng), "wmt": wmt_corpus(np, text_rng),
+        "squad": squad_corpus(np, text_rng)}, t_main)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 

@@ -1,4 +1,4 @@
-"""The port's classification exports equal the JAX package's.
+"""The port's classification and text exports equal the JAX package's.
 
 The JAX package's ``__all__`` lists are read from its source with ``ast``, so
 nothing of it is imported next to the port here.
@@ -13,6 +13,8 @@ import torchmetrics_tpu_torch
 import torchmetrics_tpu_torch.classification as TC
 import torchmetrics_tpu_torch.functional as TF_ALL
 import torchmetrics_tpu_torch.functional.classification as TF
+import torchmetrics_tpu_torch.functional.text as TFT
+import torchmetrics_tpu_torch.text as TT
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,6 +47,21 @@ def test_classification_names_reach_the_top_level():
         assert getattr(torchmetrics_tpu_torch, name) is getattr(TC, name)
     for name in TF.__all__:
         assert getattr(TF_ALL, name) is getattr(TF, name)
+
+
+@pytest.mark.parametrize(("relpath", "module"), [("text/__init__.py", TT), ("functional/text/__init__.py", TFT)])
+def test_text_all_equals_the_jax_package(relpath, module):
+    want = _jax_all(relpath)
+    assert len(want) == 16
+    assert sorted(module.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(module, name)]
+
+
+def test_text_names_reach_the_top_level():
+    for name in TT.__all__:
+        assert name in torchmetrics_tpu_torch.__all__ and getattr(torchmetrics_tpu_torch, name) is getattr(TT, name)
+    for name in TFT.__all__:
+        assert name in TF_ALL.__all__ and getattr(TF_ALL, name) is getattr(TFT, name)
 
 
 def test_new_classes_default_to_cuda():

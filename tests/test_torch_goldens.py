@@ -14,7 +14,9 @@ thresholds, per class for the multiclass and multilabel curves; a dict's
 values in key order), flattened in the order the JAX replay flattens them. The six detection cases (158-163: the
 IoU family, frozen from the JAX package because the reference delegates to
 torchvision, and the two panoptic qualities, frozen from torchmetrics) replay
-the same way.
+the same way. The 14 text cases without a model (164-177: the edit family,
+TER, EED, BLEU, SacreBLEU, chrF, ROUGE, perplexity, SQuAD) run the string
+functionals with ``device="cpu"``.
 """
 
 import json
@@ -73,6 +75,16 @@ SLICE_IDS = ["001", "006", "011", "012", "015", "016", "017", "022", "024", "030
              "047", "052", "056", "057", "060", "061", "064"]
 
 
+# the text metrics without a model (cases 164-177), all frozen from torchmetrics
+TEXT = [
+    "char_error_rate", "word_error_rate", "match_error_rate", "word_information_lost", "word_information_preserved",
+    "translation_edit_rate", "extended_edit_distance", "edit_distance", "bleu_score", "sacre_bleu_score",
+    "chrf_score", "rouge_score", "perplexity", "squad",
+]
+TEXT_CASES = [(f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if spec.fn in TEXT]
+TEXT_IDS = [f"{i:03d}" for i in range(164, 178)]
+
+
 def test_all_nine_cases_are_in_the_pack():
     assert sorted(spec.fn for _, spec in CASES if spec.fn in PORTED) == sorted(PORTED)
 
@@ -129,3 +141,29 @@ def test_detection_golden(case_id, spec):
     assert got.shape == golden.shape
     np.testing.assert_allclose(got.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
                                err_msg=case_id)
+
+
+def test_the_14_text_cases_are_in_the_pack():
+    assert [case_id[:3] for case_id, _ in TEXT_CASES] == TEXT_IDS
+
+
+def _text_args(args):
+    return [torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args]
+
+
+@pytest.mark.parametrize(("case_id", "spec"), TEXT_CASES, ids=[c[0] for c in TEXT_CASES])
+def test_text_golden(case_id, spec):
+    pack = np.load(os.path.join(GOLDEN_DIR, "goldens.npz"))
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as fh:
+        meta = {case["id"]: case for case in json.load(fh)["cases"]}[case_id]
+    assert meta["source"] == "ref"
+    device = {} if spec.fn == "perplexity" else {"device": "cpu"}
+    leaves = _flatten_output(getattr(TF, spec.fn)(*_text_args(spec.make()), **spec.kwargs, **device))
+    assert len(leaves) == meta["n_leaves"], f"{case_id}: output arity"
+    for li, leaf in enumerate(leaves):
+        golden = pack[f"{case_id}/{li}"]
+        assert leaf.shape == golden.shape, f"{case_id} leaf {li}"
+        np.testing.assert_allclose(
+            leaf.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
+            err_msg=f"{case_id} leaf {li}",
+        )

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, FID, LPIPS, BERTScore and InfoLM.
+"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, FID, LPIPS and all of text (BERTScore, InfoLM and the metrics without a model).
 
 Same module paths and names as the JAX package. Metric states live on ``cuda``
 unless a metric is built with ``device=...``. Hand-written Hopper kernels
@@ -32,7 +32,8 @@ from torchmetrics_tpu_torch.detection import (
 )
 from torchmetrics_tpu_torch.image import FrechetInceptionDistance, LearnedPerceptualImagePatchSimilarity
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
-from torchmetrics_tpu_torch.text import BERTScore, InfoLM
+from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.text import __all__ as _text_all
 from torchmetrics_tpu_torch.wrappers import Running
 
 __all__ = [
@@ -59,6 +60,5 @@ __all__ = [
     "PanopticQuality",
     "FrechetInceptionDistance",
     "LearnedPerceptualImagePatchSimilarity",
-    "BERTScore",
-    "InfoLM",
+    *_text_all,
 ]

@@ -1,4 +1,4 @@
-"""Functional metrics ported so far (classification: all of it; detection: the IoU family, panoptic quality; image: LPIPS; text: BERTScore, InfoLM)."""
+"""Functional metrics ported so far (classification: all of it; detection: the IoU family, panoptic quality; image: LPIPS; text: all of it)."""
 
 from torchmetrics_tpu_torch.functional import detection
 
@@ -13,7 +13,8 @@ from torchmetrics_tpu_torch.functional.detection import (
     panoptic_quality,
 )
 from torchmetrics_tpu_torch.functional.image import learned_perceptual_image_patch_similarity
-from torchmetrics_tpu_torch.functional.text import bert_score, infolm
+from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
     "detection",
@@ -25,6 +26,5 @@ __all__ = [
     "modified_panoptic_quality",
     "panoptic_quality",
     "learned_perceptual_image_patch_similarity",
-    "bert_score",
-    "infolm",
+    *_text_all,
 ]
