@@ -157,7 +157,42 @@ launch counters, set to 0 before them, must read 0 after them):
     LibriSpeech-shaped pairs: where each is faster, and the route the dispatch
     constant picks;
 
-then the card's name and power limit, the ``kernels`` line and, last,
+the rest of image (phases 28-32, data from ``--seed``; the port's CPU runs
+that the pan-sharpening and PPL checks read run in worker processes while
+the card works; B1, B4 and B5 must not launch, B2a/B2b and B3 launch as
+counted):
+
+28. ``generative_cifar10``: ``InceptionScore()`` over 50,000 generated 32x32
+    images in updates of 200 (StyleGAN2-ADA's ``is50k``), then a
+    ``MetricCollection`` of ``KernelInceptionDistance(subsets=100,
+    subset_size=1000)`` and ``MemorizationInformedFrechetInceptionDistance()``
+    over 10,000 real and 10,000 generated images, on the bf16 trunk of
+    ``fid_cifar10_10k``: one compute group, B2a/B2b launched 40/54 times a
+    trunk forward; IS against float64 numpy from its own features under the
+    same permutation, KID against float64 on the same 100 subsets, MiFID's
+    cosine term against float64 and its FID part against a float64 host
+    recomputation; images/s and each ``compute``'s ms;
+29. ``ppl_lpips_vgg``: ``PerceptualPathLength()`` at its defaults (10,000
+    samples, batches of 128, lerp, epsilon 1e-4, resize 64, LPIPS-VGG: B3
+    five times a call) on a seeded 512-latent generator to 3x256x256: mean
+    and std against float64 numpy from its distances, the first 256 distances
+    against the port's CPU run, and against float32 maps; samples/s;
+30. ``div2k_sr``: 100 DIV2K-sized pairs (3x1356x2040) of x4 bicubic
+    super-resolution through one collection of PSNR, SSIM, MS-SSIM, UQI and
+    VIF in updates of 4: SSIM and MS-SSIM in separate groups, each value
+    against float64 windows on the card; pairs/s, an update's ms, the peak
+    memory above the inputs;
+31. ``image_quality_rest``: total variation and image gradients on 16
+    3x512x512 images, PSNR-B on 29 LIVE1-sized Y images with 8x8 block
+    offsets, against float64 numpy;
+32. ``pansharpening_wv3``: PanCollection WorldView-3-shaped sets, 20
+    reduced-resolution 8x256x256 pairs (ERGAS, SAM, SCC, RASE, RMSE-SW, UQI)
+    and 20 full-resolution 8x512x512 fused images with MS and PAN (D_lambda,
+    D_s, QNR), against the port's CPU run of the same updates; each
+    ``compute``'s ms;
+
+then an ``image_rest`` line with B1-B5's launch counts over phases 28-32,
+the card's name and power limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -1506,6 +1541,7 @@ def phase_image_timing(torch, ce, lh, calls, lpips_taps, dev, gen, smi: str) -> 
         rows["bias_relu"].append({
             "shape": list(shape), "count": count, "bound_ms": bound, "bound_by": by,
             "ms": median_ms(torch, lambda: ce.bias_relu_(y, b), reps=30),
+            "queued_ms": queued_ms(torch, lambda: ce.bias_relu_(y, b)),  # the launches alone, host cost queued ahead
             "plain_ms": median_ms(torch, lambda: ce.bias_relu_plain(y, b), reps=10),
             "library_ms": median_ms(torch, lambda: torch.add(y, b).relu_(), reps=30),
         })
@@ -3035,6 +3071,669 @@ def text_family(torch, np, dev, gen, smi: str, counters: dict, make_corpora, t_m
     return out
 
 
+# ------------------------------------------- the rest of image (phases 28-32, data from --seed)
+IS_RTOL = 1e-5  # IS against float64 numpy from the metric's own features, under the same permutation (of the mean)
+KID_RTOL, KID_ATOL = 1e-4, 1e-6  # the unbiased MMD cancels sums of ~1e6 cubed kernel values down to ~1e-2
+COSINE_RTOL = 1e-5  # MiFID's memorization term: a float32 mean of 10,000 minima of 1 - |cos|
+MIFID_FID_RTOL = FID_RTOL  # MiFID's FID part: float32 eigensolvers against float64, as in fid_cifar10_10k
+PPL_STAT_RTOL = 1e-6  # PPL's mean and std against float64 numpy from its own distances and quantiles
+# the first 256 PPL distances on float32 maps, card against the port's CPU run, over the median |distance|:
+# a pair's images differ by ~1e-4 of their size, so float32 rounding in the generator and the trunk (~1e-7 of a
+# value, grown over ~20 layers) is ~1e-2 of the difference, and the distance squares it. The runs on an H100 gave
+# median 5.3e-3, p90 1.3e-2, max 4.6e-2 on these inputs; a pair computed wrongly is off by ~1 of the median.
+PPL_CPU_RTOL = {"median": 1e-2, "p90": 3e-2, "max": 1e-1}
+DIV2K_PSNR_RTOL = 1e-6
+DIV2K_RTOL = 1e-5  # SSIM, MS-SSIM, UQI, VIF against float64 windows: float32 E[x^2] - E[x]^2 on smooth images
+WV3_RTOL = 1e-6  # the card against the port's CPU run of the same updates
+WV3_INDEX_ATOL = 1e-6  # D_lambda, D_s: means of differences of UQIs, each within 1e-6 of its scale (|Q| <= 1)
+REST_RTOL = 1e-6
+WV3_BANDS = 8  # WorldView-3's multispectral bands
+PPL_SEED_OFFSET = 28
+DIV2K_HW = (1356, 2040)  # one DIV2K validation size (the set's widths are ~2040, heights vary)
+LIVE1_HW = (512, 768)  # LIVE1's most common JPEG test size (H, W)
+
+
+def _host_inception_score(np, features, splits: int, seed: int):
+    """IS in float64 from ``features``, under the permutation numpy's global generator draws after ``seed``."""
+    np.random.seed(seed)
+    f = features[np.random.permutation(len(features))]
+    f = f - f.max(axis=1, keepdims=True)
+    log_prob = f - np.log(np.exp(f).sum(axis=1, keepdims=True))
+    prob = np.exp(log_prob)
+    size = len(f) // splits
+    scores = []
+    for k in range(splits):
+        p, lp = prob[k * size:(k + 1) * size], log_prob[k * size:(k + 1) * size]
+        mean_prob = p.mean(axis=0, keepdims=True)
+        scores.append(np.exp((p * (lp - np.log(np.maximum(mean_prob, 1e-10)))).sum(axis=1).mean()))
+    scores = np.asarray(scores)
+    return float(scores.mean()), float(scores.std(ddof=1))
+
+
+def _kid_float64(torch, np, real, fake, subsets: int, subset_size: int, seed: int):
+    """KID's mean and std in float64 on the card, on the subsets numpy's global generator draws after ``seed``."""
+    np.random.seed(seed)
+    perms = [(np.random.permutation(len(real))[:subset_size], np.random.permutation(len(fake))[:subset_size])
+             for _ in range(subsets)]
+    real, fake = real.double(), fake.double()
+    d, m = real.shape[1], subset_size
+    kernel = lambda a, b: (a @ b.T / d + 1.0) ** 3  # noqa: E731
+    scores = []
+    for pr, pf in perms:
+        x = real[torch.as_tensor(pr, device=real.device)]
+        y = fake[torch.as_tensor(pf, device=fake.device)]
+        kxx, kyy, kxy = kernel(x, x), kernel(y, y), kernel(x, y)
+        within = kxx.sum() - kxx.diagonal().sum() + kyy.sum() - kyy.diagonal().sum()
+        scores.append(within / (m * (m - 1)) - 2 * kxy.sum() / m**2)
+    scores = torch.stack(scores).cpu().numpy()
+    return float(scores.mean()), float(scores.std(ddof=1))
+
+
+def _cosine_float64(torch, fake, real) -> float:
+    """MiFID's mean over generated features of the least ``1 - |cos|`` to a real one, in float64, unthresholded."""
+    f1 = fake.double() / fake.double().norm(dim=1, keepdim=True).clamp(min=1e-12)
+    f2 = real.double() / real.double().norm(dim=1, keepdim=True).clamp(min=1e-12)
+    return float((1.0 - (f1 @ f2.T).abs()).min(dim=1).values.mean())
+
+
+def phase_generative_cifar10(torch, np, ce, dev, gen, npz: str, smi: str, seed: int, n_is: int = 50_000,
+                             n_kid: int = 10_000, batch: int = 200, subsets: int = 100, subset_size: int = 1000) -> dict:
+    """IS over ``n_is`` generated images, then KID and MiFID in one collection over ``n_kid`` real and generated ones."""
+    from torchmetrics_tpu_torch.collections import MetricCollection
+    from torchmetrics_tpu_torch.image import (InceptionScore, KernelInceptionDistance,
+                                              MemorizationInformedFrechetInceptionDistance)
+    from torchmetrics_tpu_torch.image.mifid import _compute_cosine_distance
+
+    generated = torch.randint(0, 256, (n_is, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
+    real = torch.randint(0, 256, (n_kid, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
+    noise = torch.randint(-20, 21, real.shape, generator=gen, device=dev, dtype=torch.int16)
+    fake = (real.to(torch.int16) + 24 + noise).clamp_(0, 255).to(torch.uint8)  # brighter, noisier copies
+    launches0 = ce.matmul_bias_relu.launches, ce.bias_relu_.launches
+
+    inception_score = InceptionScore(weights_path=npz)  # logits_unbiased, splits=10, the bf16 fused trunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, n_is, batch):
+        inception_score.update(generated[start:start + batch])
+    torch.cuda.synchronize()
+    is_stream_s = time.perf_counter() - t0
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    is_mean, is_std = inception_score.compute()
+    torch.cuda.synchronize()
+    is_compute_ms = (time.perf_counter() - t0) * 1e3
+    features = torch.cat(inception_score.features)
+    check(tuple(features.shape) == (n_is, 1008), f"IS features {tuple(features.shape)}")
+    host_mean, host_std = _host_inception_score(np, features.double().cpu().numpy(), 10, seed)
+    # the std is held to the mean's scale: a float32 rounding of each split's score (~1e-7 of the mean) moves it so
+    is_err = max(abs(float(is_mean) - host_mean), abs(float(is_std) - host_std)) / abs(host_mean)
+    check(is_err <= IS_RTOL, f"IS ({float(is_mean)}, {float(is_std)}) vs float64 ({host_mean}, {host_std})")
+    del inception_score, features
+
+    collection = MetricCollection({
+        "kid": KernelInceptionDistance(subsets=subsets, subset_size=subset_size, weights_path=npz),
+        "mifid": MemorizationInformedFrechetInceptionDistance(cosine_distance_eps=0.1, weights_path=npz),
+    })
+    is_forwards = n_is // batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    updates = 0
+    for start in range(0, n_kid, batch):
+        collection.update(real[start:start + batch], real=True)
+        collection.update(fake[start:start + batch], real=False)
+        updates += 2
+    torch.cuda.synchronize()
+    kid_stream_s = time.perf_counter() - t0
+    groups = sorted(sorted(g) for g in collection.compute_groups.values())
+    check(groups == [["kid", "mifid"]], f"KID and MiFID compute groups {groups}")
+    forwards = updates + 1  # a collection's first update runs every member to find the groups
+    b2a = ce.matmul_bias_relu.launches - launches0[0]
+    b2b = ce.bias_relu_.launches - launches0[1]
+    check(b2a == 40 * (is_forwards + forwards) and b2b == 54 * (is_forwards + forwards),
+          f"B2a/B2b launches {b2a}/{b2b} for {is_forwards} + {forwards} forwards")
+
+    np.random.seed(seed + 1)
+    t0 = time.perf_counter()
+    kid_mean, kid_std = collection["kid"].compute()
+    torch.cuda.synchronize()
+    kid_compute_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mifid = collection["mifid"].compute()
+    torch.cuda.synchronize()
+    mifid_compute_ms = (time.perf_counter() - t0) * 1e3
+    real_f, fake_f = torch.cat(collection["kid"].real_features), torch.cat(collection["kid"].fake_features)
+    ref_kid = _kid_float64(torch, np, real_f, fake_f, subsets, subset_size, seed + 1)
+    kid_err = [abs(float(got) - want) for got, want in zip((kid_mean, kid_std), ref_kid)]
+    check(all(err <= max(KID_RTOL * abs(want), KID_ATOL) for err, want in zip(kid_err, ref_kid)),
+          f"KID ({float(kid_mean)}, {float(kid_std)}) vs float64 {ref_kid}")
+
+    cosine = float(_compute_cosine_distance(fake_f, real_f, 1.0))  # the unthresholded mean minimum
+    cosine64 = _cosine_float64(torch, fake_f, real_f)
+    cosine_err = abs(cosine - cosine64) / abs(cosine64)
+    check(cosine_err <= COSINE_RTOL, f"MiFID cosine term {cosine} vs float64 {cosine64}")
+    penalty = cosine if cosine < 0.1 else 1.0
+    states = {}
+    for prefix, f in (("real", real_f), ("fake", fake_f)):
+        f64 = f.double()
+        states[f"{prefix}_features_sum"] = f64.sum(dim=0).cpu().numpy()
+        states[f"{prefix}_features_cov_sum"] = (f64.T @ f64).cpu().numpy()
+        states[f"{prefix}_features_num_samples"] = float(len(f))
+    fid64 = host_fid(np, states)["fid"]
+    fid_part = float(mifid) * (penalty + 1e-15)
+    fid_err = abs(fid_part - fid64) / abs(fid64)
+    check(fid_err <= MIFID_FID_RTOL, f"MiFID's FID part {fid_part} vs float64 host {fid64}")
+    result = {
+        "phase": "generative_cifar10", "card": smi,
+        "inception_score": {"images": n_is, "batch": batch, "splits": 10, "mean": float(is_mean), "std": float(is_std),
+                            "err_vs_float64_of_mean": is_err, "images_per_s": n_is / is_stream_s,
+                            "compute_ms": is_compute_ms},
+        "kid_mifid": {"real": n_kid, "generated": n_kid, "updates": updates, "trunk_forwards": forwards,
+                      "groups": groups, "kid": [float(kid_mean), float(kid_std)], "kid_float64": list(ref_kid),
+                      "kid_abs_err": kid_err, "mifid": float(mifid), "cosine_term": cosine,
+                      "cosine_rel_err": cosine_err, "fid_part": fid_part, "fid_float64": fid64,
+                      "fid_part_rel_err": fid_err, "images_per_s": 2 * n_kid / kid_stream_s,
+                      "kid_compute_ms": kid_compute_ms, "mifid_compute_ms": mifid_compute_ms},
+        "launches": {"conv_mm_bias_relu": b2a, "bias_relu": b2b, "trunk_forwards": is_forwards + forwards},
+    }
+    emit(result)
+    return result
+
+
+def ppl_generator(torch, device, seed: int, latent: int = 512, side: int = 256):
+    """A seeded StyleGAN-sized generator, no published one being at hand: a 512-wide latent, a linear layer to 256x4x4,
+    six nearest-upsampling 3x3 conv blocks to 8x256x256 and a 1x1 conv with tanh to 3x256x256.
+
+    The weights and the latents of ``sample(n)`` come from CPU generators seeded with ``seed``, so a run on any
+    device draws the same ones. The convolutions run in full float32 (no TF32): PPL divides by epsilon squared.
+    """
+    from torchmetrics_tpu_torch.utilities.compute import full_fp32
+
+    nn, F = torch.nn, torch.nn.functional
+    widths = (256, 128, 64, 32, 16, 16, 8)
+    steps = {4 * 2**i: i for i in range(7)}
+    if side not in steps:
+        raise ValueError(f"side {side} is not 4 times a power of two up to 256")
+
+    class Generator(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.latent = latent
+            self.fc = nn.Linear(latent, widths[0] * 16)
+            self.blocks = nn.ModuleList(nn.Conv2d(widths[i], widths[i + 1], 3, padding=1) for i in range(steps[side]))
+            self.to_rgb = nn.Conv2d(widths[steps[side]], 3, 1)
+            weights = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for p in self.parameters():
+                    fan_in = p[0].numel() if p.ndim > 1 else 1
+                    p.copy_(torch.randn(p.shape, generator=weights) * (2.0 / fan_in) ** 0.5 if p.ndim > 1
+                            else torch.zeros(p.shape))
+            self.latents = torch.Generator().manual_seed(seed + 1)
+            self.to(device)
+
+        def sample(self, n: int):
+            return torch.randn((n, self.latent), generator=self.latents).to(device)
+
+        def forward(self, z):
+            with torch.no_grad(), full_fp32():
+                h = F.leaky_relu(self.fc(z).view(-1, widths[0], 4, 4), 0.2)
+                for block in self.blocks:
+                    h = F.leaky_relu(block(F.interpolate(h, scale_factor=2, mode="nearest")), 0.2)
+                return torch.tanh(self.to_rgb(h))
+
+    return Generator()
+
+
+def _cpu_ppl_distances(seed: int, n: int, threads: int = 2):
+    """The first ``n`` PPL distances of the port's CPU run on float32 maps of the LPIPS-VGG weights, with the same
+    generator and latents."""
+    import torch
+
+    torch.set_num_threads(threads)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torchmetrics_tpu_torch.image._lpips import LPIPSExtractor
+    from torchmetrics_tpu_torch.image.perceptual_path_length import perceptual_path_length
+
+    cpu = torch.device("cpu")
+    sim_net = LPIPSExtractor(net_type="vgg", compute_dtype=torch.float32, device=cpu)
+    return perceptual_path_length(ppl_generator(torch, cpu, seed), num_samples=n, batch_size=128,
+                                  sim_net=sim_net, device=cpu)[2].numpy()
+
+
+def phase_ppl_lpips_vgg(torch, np, lh, dev, seed: int, pending_cpu, smi: str, n_cpu: int = 256) -> dict:
+    """``PerceptualPathLength()`` at its defaults (10,000 samples, batches of 128, lerp, epsilon 1e-4, resize 64,
+    discards 0.01/0.99, LPIPS-VGG on bf16 maps) on the seeded generator; its first distances again on float32 maps.
+
+    The CPU run is held to the float32 maps: PPL divides by epsilon squared, and a pair's maps differ by ~1e-4 of
+    their size, below a bf16 ulp, so on bf16 maps the distances are the maps' rounding, which the two devices do
+    in other places. The timed bf16 result is checked only against float64 statistics of its own distances."""
+    from torchmetrics_tpu_torch.image import PerceptualPathLength
+    from torchmetrics_tpu_torch.image._lpips import LPIPSExtractor
+    from torchmetrics_tpu_torch.image.perceptual_path_length import perceptual_path_length
+    from torchmetrics_tpu_torch.utilities.compute import full_fp32
+
+    metric = PerceptualPathLength()
+    generator = ppl_generator(torch, dev, seed)
+    metric.update(generator)
+    b3_before = lh.lpips_head.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, std, dists = metric.compute()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = lh.lpips_head.launches - b3_before
+    calls = -(-metric.num_samples // metric.batch_size)
+    check(launches == 5 * calls, f"B3 launches {launches} for {calls} LPIPS-VGG calls")
+    d64 = dists.double().cpu().numpy()
+    check(d64.shape == (metric.num_samples,) and bool(np.isfinite(d64).all()), "PPL distances not finite")
+    lower, upper = np.quantile(d64, 0.01), np.quantile(d64, 0.99)
+    kept = d64[(d64 >= lower) & (d64 <= upper)]
+    ref_mean, ref_std = kept.mean(), kept.std(ddof=1)
+    stat_err = max(abs(float(mean) - ref_mean) / abs(ref_mean), abs(float(std) - ref_std) / abs(ref_std))
+    check(stat_err <= PPL_STAT_RTOL, f"PPL ({float(mean)}, {float(std)}) vs float64 ({ref_mean}, {ref_std})")
+
+    # the same first latents through float32 maps of the same weights (TF32 off), then the CPU run of both
+    f32 = LPIPSExtractor(net_type="vgg", compute_dtype=torch.float32)
+    with full_fp32():
+        d32 = perceptual_path_length(ppl_generator(torch, dev, seed), num_samples=n_cpu, batch_size=128,
+                                     sim_net=f32, device=dev)[2].double().cpu().numpy()
+    side_launches = lh.lpips_head.launches - b3_before - launches
+    cpu = pending_cpu.result().astype(np.float64)
+    # differences over the median |distance| (the random heads' weights make some distances cross zero)
+    err32 = np.abs(d32 - cpu) / np.median(np.abs(cpu))
+    err = {"median": float(np.median(err32)), "p90": float(np.quantile(err32, 0.9)), "max": float(err32.max())}
+    result = {
+        "phase": "ppl_lpips_vgg", "card": smi, "samples": metric.num_samples, "batch": metric.batch_size,
+        "ppl_mean_bf16_maps": float(mean), "ppl_std_bf16_maps": float(std), "stat_rel_err": stat_err,
+        "b3_launches": launches, "b3_launches_float32_maps": side_launches, "seconds": seconds,
+        "samples_per_s": metric.num_samples / seconds, "first_256_float32_maps_vs_cpu": err,
+        "tolerance": {"stat": PPL_STAT_RTOL, "float32_maps_vs_cpu": PPL_CPU_RTOL},
+        "reference": "bf16 maps: float64 statistics of their own distances only (the distances are the maps' "
+                     "rounding at epsilon 1e-4); float32 maps: the port's CPU run",
+        "median_abs_distance": {"bf16_maps": float(np.median(np.abs(d64[:n_cpu]))),
+                                "float32_maps": float(np.median(np.abs(d32)))},
+        "distance_quantiles": [float(q) for q in np.quantile(d64, [0.01, 0.5, 0.99])],
+    }
+    emit(result)
+    for stat, limit in PPL_CPU_RTOL.items():
+        check(err[stat] <= limit, f"PPL's first {n_cpu} distances on float32 maps vs the CPU run: {stat} {err[stat]}")
+    return result
+
+
+def div2k_pairs(torch, dev, gen, n: int, hw=DIV2K_HW, chunk: int = 10):
+    """Seeded smooth targets with texture in [0, 1], and their x4 bicubic down- and up-scaling plus noise."""
+    F = torch.nn.functional
+    targets, preds = [], []
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        base = F.interpolate(torch.rand((m, 3, hw[0] // 32, hw[1] // 32), generator=gen, device=dev), size=hw,
+                             mode="bicubic", align_corners=False)
+        texture = F.interpolate(torch.rand((m, 3, hw[0] // 4, hw[1] // 4), generator=gen, device=dev) - 0.5, size=hw,
+                                mode="bilinear", align_corners=False)
+        target = (0.8 * base + 0.3 * texture + 0.1).clamp_(0.0, 1.0)
+        low = F.interpolate(target, scale_factor=0.25, mode="bicubic", align_corners=False, antialias=True)
+        pred = F.interpolate(low, size=hw, mode="bicubic", align_corners=False)
+        pred.add_(0.01 * torch.randn(pred.shape, generator=gen, device=dev)).clamp_(0.0, 1.0)
+        targets.append(target)
+        preds.append(pred)
+    return torch.cat(preds), torch.cat(targets)
+
+
+def _window64(torch, size: int, sigma: float, dev):
+    x = torch.arange(size, dtype=torch.float64, device=dev) - (size - 1) / 2
+    g = torch.exp(-((x / sigma) ** 2) / 2)
+    return g / g.sum()
+
+
+def _conv64(torch, x, g):
+    """Valid float64 convolution of every channel with the window ``outer(g, g)``, as its two 1-D passes."""
+    F = torch.nn.functional
+    c, k = x.shape[1], g.numel()
+    x = F.conv2d(x, g.view(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
+    return F.conv2d(x, g.view(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
+
+
+def _ssim64(torch, p, t, data_range: float = 1.0):
+    """Per-image float64 SSIM and contrast sensitivity: gaussian 11x11 window (sigma 1.5), reflect pad 5, cropped means."""
+    F = torch.nn.functional
+    g = _window64(torch, 11, 1.5, p.device)
+    p, t = F.pad(p, (5, 5, 5, 5), mode="reflect"), F.pad(t, (5, 5, 5, 5), mode="reflect")
+    mu_x, mu_y = _conv64(torch, p, g), _conv64(torch, t, g)
+    s_x = (_conv64(torch, p * p, g) - mu_x**2).clamp(min=0.0)
+    s_y = (_conv64(torch, t * t, g) - mu_y**2).clamp(min=0.0)
+    s_xy = _conv64(torch, p * t, g) - mu_x * mu_y
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    cs = (2 * s_xy + c2) / (s_x + s_y + c2)
+    ssim = (2 * mu_x * mu_y + c1) / (mu_x**2 + mu_y**2 + c1) * cs
+    crop = (Ellipsis, slice(5, -5), slice(5, -5))
+    return ssim[crop].flatten(1).mean(dim=1), cs[crop].flatten(1).mean(dim=1)
+
+
+def _ms_ssim64(torch, p, t, betas=(0.0448, 0.2856, 0.3001, 0.2363, 0.1333)):
+    F = torch.nn.functional
+    values = []
+    for i in range(len(betas)):
+        sim, cs = _ssim64(torch, p, t)
+        values.append(cs)
+        if i < len(betas) - 1:
+            p, t = F.avg_pool2d(p, 2), F.avg_pool2d(t, 2)
+    values[-1] = sim
+    stack = torch.stack(values).clamp(min=0.0)
+    return torch.prod(stack ** torch.tensor(betas, dtype=torch.float64, device=p.device)[:, None], dim=0)
+
+
+def _uqi64(torch, p, t):
+    F = torch.nn.functional
+    g = _window64(torch, 11, 1.5, p.device)
+    p, t = F.pad(p, (5, 5, 5, 5), mode="reflect"), F.pad(t, (5, 5, 5, 5), mode="reflect")
+    mu_x, mu_y = _conv64(torch, p, g), _conv64(torch, t, g)
+    s_x = _conv64(torch, p * p, g) - mu_x**2
+    s_y = _conv64(torch, t * t, g) - mu_y**2
+    s_xy = _conv64(torch, p * t, g) - mu_x * mu_y
+    eps = float(torch.finfo(torch.float32).eps)
+    uqi = (2 * mu_x * mu_y * 2 * s_xy) / ((mu_x**2 + mu_y**2) * (s_x + s_y) + eps)
+    return uqi[..., 5:-5, 5:-5].flatten(1).mean(dim=1)
+
+
+def _vif64(torch, p, t, sigma_n_sq: float = 2.0):
+    """Per-(image, channel) float64 VIF-p: four scales, the reference's masks."""
+    eps = 1e-10
+    num = torch.zeros(p.shape[:2], dtype=torch.float64, device=p.device)
+    den = torch.zeros_like(num)
+    for scale in range(4):
+        n = int(2 ** (4 - scale) + 1)
+        g = _window64(torch, n, n / 5, p.device)
+        if scale > 0:
+            t, p = _conv64(torch, t, g)[:, :, ::2, ::2], _conv64(torch, p, g)[:, :, ::2, ::2]
+        mu_t, mu_p = _conv64(torch, t, g), _conv64(torch, p, g)
+        s_t = (_conv64(torch, t * t, g) - mu_t**2).clamp(min=0.0)
+        s_p = (_conv64(torch, p * p, g) - mu_p**2).clamp(min=0.0)
+        s_tp = _conv64(torch, t * p, g) - mu_t * mu_p
+        gain = s_tp / (s_t + eps)
+        s_v = s_p - gain * s_tp
+        m1 = s_t < eps
+        gain, s_v, s_t = gain.masked_fill(m1, 0.0), torch.where(m1, s_p, s_v), s_t.masked_fill(m1, 0.0)
+        m2 = s_p < eps
+        gain, s_v = gain.masked_fill(m2, 0.0), s_v.masked_fill(m2, 0.0)
+        m3 = gain < 0
+        s_v, gain = torch.where(m3, s_p, s_v), gain.masked_fill(m3, 0.0)
+        s_v = s_v.clamp(min=eps)
+        num += torch.log10(1.0 + gain**2 * s_t / (s_v + sigma_n_sq)).sum(dim=(2, 3))
+        den += torch.log10(1.0 + s_t / sigma_n_sq).sum(dim=(2, 3))
+    return (num / den).flatten()
+
+
+def div2k_collection():
+    from torchmetrics_tpu_torch.collections import MetricCollection
+    from torchmetrics_tpu_torch.image import (MultiScaleStructuralSimilarityIndexMeasure, PeakSignalNoiseRatio,
+                                              StructuralSimilarityIndexMeasure, UniversalImageQualityIndex,
+                                              VisualInformationFidelity)
+
+    return MetricCollection({
+        "psnr": PeakSignalNoiseRatio(data_range=1.0),
+        "ssim": StructuralSimilarityIndexMeasure(data_range=1.0),
+        "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0),
+        "uqi": UniversalImageQualityIndex(),
+        "vif": VisualInformationFidelity(),
+    })
+
+
+def phase_div2k_sr(torch, np, dev, gen, smi: str, n: int = 100, batch: int = 4, hw=DIV2K_HW) -> dict:
+    """DIV2K validation's x4 super-resolution scores: PSNR, SSIM, MS-SSIM, UQI and VIF in one collection."""
+    preds, target = div2k_pairs(torch, dev, gen, n, hw)
+    collection = div2k_collection()
+    torch.cuda.synchronize()
+    inputs_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch):
+        collection.update(preds[lo:lo + batch], target[lo:lo + batch])
+    values = collection.compute()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+    groups = sorted(sorted(g) for g in collection.compute_groups.values())
+    check(["ssim"] in groups and ["ms_ssim"] in groups, f"SSIM and MS-SSIM share a compute group: {groups}")
+
+    sse, ref = 0.0, {"ssim": [], "ms_ssim": [], "uqi": [], "vif": []}
+    for lo in range(0, n, batch):
+        p, t = preds[lo:lo + batch].double(), target[lo:lo + batch].double()
+        sse += float(((p - t) ** 2).sum())
+        ref["ssim"].append(_ssim64(torch, p, t)[0])
+        ref["ms_ssim"].append(_ms_ssim64(torch, p, t))
+        ref["uqi"].append(_uqi64(torch, p, t))
+        ref["vif"].append(_vif64(torch, p, t))
+    want = {"psnr": float(10.0 * np.log10(1.0 / (sse / preds.numel())))}
+    want.update({k: float(torch.cat(v).mean()) for k, v in ref.items()})
+    errors = {k: abs(float(values[k]) - want[k]) / abs(want[k]) for k in want}
+    check(errors["psnr"] <= DIV2K_PSNR_RTOL, f"PSNR {float(values['psnr'])} vs float64 {want['psnr']}")
+    for key in ("ssim", "ms_ssim", "uqi", "vif"):
+        check(errors[key] <= DIV2K_RTOL, f"{key} {float(values[key])} vs float64 {want[key]}")
+    timing = div2k_collection()
+    update_ms = wall_ms(torch, lambda: timing.update(preds[:batch], target[:batch]), reps=5, warmup=1)
+    result = {
+        "phase": "div2k_sr", "card": smi, "pairs": n, "hw": list(hw), "batch": batch,
+        "values": {k: float(v) for k, v in values.items()}, "float64": want, "rel_err": errors, "groups": groups,
+        "seconds": seconds, "pairs_per_s": n / seconds, "update_ms": update_ms, "peak_above_inputs_bytes": peak_above,
+    }
+    emit(result)
+    return result
+
+
+def _blocky_live1(torch, gen, dev, n: int, hw=LIVE1_HW):
+    """Y-channel images in [0, 255] and predictions with an offset on every 8x8 block, plus noise."""
+    F = torch.nn.functional
+    base = F.interpolate(torch.rand((n, 1, hw[0] // 16, hw[1] // 16), generator=gen, device=dev), size=hw,
+                         mode="bicubic", align_corners=False)
+    target = (255.0 * (0.8 * base + 0.1)).clamp_(0.0, 255.0).round_()
+    offsets = 4.0 * torch.randn((n, 1, hw[0] // 8, hw[1] // 8), generator=gen, device=dev)
+    preds = target + offsets.repeat_interleave(8, dim=2).repeat_interleave(8, dim=3)
+    preds += torch.randn(preds.shape, generator=gen, device=dev)
+    return preds.clamp_(0.0, 255.0), target
+
+
+def _host_psnrb(np, preds, target, block: int = 8) -> float:
+    """PSNR-B in float64 over one-image updates: the summed squared error, the summed blocking factors, the widest range."""
+    sse = total = bef = data_range = 0.0
+    for p, t in zip(preds, target):
+        p, t = p[0], t[0]
+        sse += float(((p - t) ** 2).sum())
+        total += p.size
+        h, w = p.shape
+        cols, rows = np.arange(w - 1), np.arange(h - 1)
+        hb, hbc = cols[(cols + 1) % block == 0], cols[(cols + 1) % block != 0]
+        vb, vbc = rows[(rows + 1) % block == 0], rows[(rows + 1) % block != 0]
+        d_b = ((p[:, hb] - p[:, hb + 1]) ** 2).sum() + ((p[vb, :] - p[vb + 1, :]) ** 2).sum()
+        d_bc = ((p[:, hbc] - p[:, hbc + 1]) ** 2).sum() + ((p[vbc, :] - p[vbc + 1, :]) ** 2).sum()
+        n_hb = h * (w / block) - 1
+        n_vb = w * (h / block) - 1
+        d_b /= n_hb + n_vb
+        d_bc /= (h * (w - 1) - n_hb) + (w * (h - 1) - n_vb)
+        t_factor = np.log2(block) / np.log2(min(h, w))
+        bef += t_factor * (d_b - d_bc) if d_b > d_bc else 0.0
+        data_range = max(data_range, float(t.max() - t.min()))
+    num = data_range**2 if data_range > 2 else 1.0
+    return float(10.0 * np.log10(num / (sse / total + bef)))
+
+
+def phase_image_quality_rest(torch, np, dev, gen, smi: str, n_tv: int = 16, side: int = 512, n_live1: int = 29) -> dict:
+    """Total variation and image gradients on 16 3x512x512 images; PSNR-B at LIVE1's size, one image an update."""
+    from torchmetrics_tpu_torch.functional.image import image_gradients, total_variation
+    from torchmetrics_tpu_torch.image import PeakSignalNoiseRatioWithBlockedEffect
+
+    img = torch.rand((n_tv, 3, side, side), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tv = total_variation(img)
+    dy, dx = image_gradients(img)
+    torch.cuda.synchronize()
+    tv_grad_ms = (time.perf_counter() - t0) * 1e3
+    host = img.double().cpu().numpy()
+    want_dy = np.pad(np.diff(host, axis=2), ((0, 0), (0, 0), (0, 1), (0, 0)))
+    want_dx = np.pad(np.diff(host, axis=3), ((0, 0), (0, 0), (0, 0), (0, 1)))
+    want_tv = float(np.abs(np.diff(host, axis=2)).sum() + np.abs(np.diff(host, axis=3)).sum())
+    tv_err = abs(float(tv) - want_tv) / want_tv
+    grad_err = max(float(np.abs(dy.double().cpu().numpy() - want_dy).max()),
+                   float(np.abs(dx.double().cpu().numpy() - want_dx).max()))
+    check(tv_err <= REST_RTOL, f"total variation {float(tv)} vs float64 {want_tv}")
+    check(grad_err <= REST_RTOL, f"image gradients max abs err {grad_err}")
+
+    preds, target = _blocky_live1(torch, gen, dev, n_live1)
+    metric = PeakSignalNoiseRatioWithBlockedEffect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_live1):
+        metric.update(preds[i:i + 1], target[i:i + 1])
+    psnrb = metric.compute()
+    torch.cuda.synchronize()
+    psnrb_s = time.perf_counter() - t0
+    want_psnrb = _host_psnrb(np, preds.double().cpu().numpy(), target.double().cpu().numpy())
+    psnrb_err = abs(float(psnrb) - want_psnrb) / abs(want_psnrb)
+    check(float(metric.bef) > 0, "the blocking factor is zero: the blocks are not in play")
+    check(psnrb_err <= REST_RTOL, f"PSNR-B {float(psnrb)} vs float64 {want_psnrb}")
+    result = {
+        "phase": "image_quality_rest", "card": smi,
+        "total_variation": {"images": n_tv, "side": side, "value": float(tv), "rel_err": tv_err,
+                            "gradients_max_abs_err": grad_err, "tv_and_gradients_ms": tv_grad_ms},
+        "psnrb_live1": {"images": n_live1, "hw": list(LIVE1_HW), "psnrb": float(psnrb), "float64": want_psnrb,
+                        "rel_err": psnrb_err, "bef_sum": float(metric.bef), "images_per_s": n_live1 / psnrb_s},
+    }
+    emit(result)
+    return result
+
+
+def wv3_data(torch, seed: int, n: int = 20, bands: int = WV3_BANDS, side_rr: int = 256, side_fr: int = 512,
+             ratio: int = 4) -> dict:
+    """PanCollection WorldView-3-shaped test sets on the CPU from ``seed``: the same tensors in every process.
+
+    Reduced resolution: fused images against their ground truth, ``(n, 8, 256, 256)``. Full resolution: fused
+    ``(n, 8, 512, 512)``, MS ``(n, 8, 128, 128)``, its x4 bicubic upsampling (EXP) and PAN replicated to 8 bands.
+    """
+    F = torch.nn.functional
+    g = torch.Generator().manual_seed(seed)
+
+    def scene(m, side):
+        base = F.interpolate(torch.rand((m, 1, side // 16, side // 16), generator=g), size=(side, side),
+                             mode="bicubic", align_corners=False)
+        spectra = 0.5 + 0.5 * torch.rand((m, bands, 1, 1), generator=g)
+        texture = F.interpolate(torch.rand((m, bands, side // 4, side // 4), generator=g) - 0.5, size=(side, side),
+                                mode="bilinear", align_corners=False)
+        return (0.7 * base * spectra + 0.2 * texture + 0.1).clamp_(0.0, 1.0)
+
+    gt = scene(n, side_rr)
+    gain = 1.0 + 0.05 * torch.randn((n, bands, 1, 1), generator=g)
+    fused_rr = (gt * gain + 0.02 * torch.randn(gt.shape, generator=g)).clamp_(0.0, 1.0)
+    hr = scene(n, side_fr)
+    ms = F.avg_pool2d(hr, ratio)
+    exp = F.interpolate(ms, scale_factor=ratio, mode="bicubic", align_corners=False).clamp_(0.0, 1.0)
+    pan = (hr.mean(dim=1, keepdim=True) + 0.01 * torch.randn((n, 1, side_fr, side_fr), generator=g)).clamp_(0.0, 1.0)
+    detail = pan - F.interpolate(F.avg_pool2d(pan, ratio), scale_factor=ratio, mode="bicubic", align_corners=False)
+    fused_fr = (exp * gain + detail + 0.01 * torch.randn(exp.shape, generator=g)).clamp_(0.0, 1.0)
+    return {"fused_rr": fused_rr, "gt": gt, "fused_fr": fused_fr, "ms": ms, "exp": exp,
+            "pan": pan.expand(-1, bands, -1, -1).contiguous()}
+
+
+WV3_GROUPS = {"reduced": ("ergas", "sam", "scc", "rase", "rmse_sw", "uqi"), "d_lambda": ("d_lambda",),
+              "d_s": ("d_s",), "qnr": ("qnr",)}
+
+
+def wv3_metric(name: str, device):
+    from torchmetrics_tpu_torch import image as I
+
+    make = {
+        "ergas": lambda: I.ErrorRelativeGlobalDimensionlessSynthesis(ratio=4, device=device),
+        "sam": lambda: I.SpectralAngleMapper(device=device),
+        "scc": lambda: I.SpatialCorrelationCoefficient(device=device),
+        "rase": lambda: I.RelativeAverageSpectralError(window_size=8, device=device),
+        "rmse_sw": lambda: I.RootMeanSquaredErrorUsingSlidingWindow(device=device),
+        "uqi": lambda: I.UniversalImageQualityIndex(device=device),
+        "d_lambda": lambda: I.SpectralDistortionIndex(device=device),
+        "d_s": lambda: I.SpatialDistortionIndex(device=device),
+        "qnr": lambda: I.QualityWithNoReference(device=device),
+    }
+    return make[name]()
+
+
+def wv3_stream(torch, names, data: dict, device, batch: int = 5) -> dict:
+    """Each metric of ``names`` over ``data`` in updates of ``batch`` images; ``{name: (value, compute ms)}``."""
+    out = {}
+    for name in names:
+        metric = wv3_metric(name, device)
+        for lo in range(0, len(data["gt"]), batch):
+            cut = lambda key: data[key][lo:lo + batch].to(device)  # noqa: E731
+            if name in WV3_GROUPS["reduced"]:
+                metric.update(cut("fused_rr"), cut("gt"))
+            elif name == "d_lambda":
+                metric.update(cut("fused_fr"), cut("exp"))
+            else:
+                metric.update(cut("fused_fr"), {"ms": cut("ms"), "pan": cut("pan")})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = float(metric.compute())
+        out[name] = (value, (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _cpu_wv3(seed: int, names, threads: int = 2) -> dict:
+    """The port's CPU run of the same updates, in a worker process."""
+    import torch
+
+    torch.set_num_threads(threads)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    return {k: v[0] for k, v in wv3_stream(torch, names, wv3_data(torch, seed), torch.device("cpu")).items()}
+
+
+def phase_pansharpening_wv3(torch, np, dev, seed: int, pending: list, smi: str) -> dict:
+    data = wv3_data(torch, seed)
+    got = wv3_stream(torch, [n for names in WV3_GROUPS.values() for n in names], data, dev)
+    want = {}
+    for future in pending:
+        want.update(future.result())
+    errors = {}
+    for name, (value, _) in got.items():
+        err = abs(value - want[name])
+        errors[name] = err / abs(want[name])
+        limit = WV3_INDEX_ATOL if name in ("d_lambda", "d_s") else WV3_RTOL * abs(want[name])
+        check(err <= limit, f"{name} on the card {value} vs the CPU run {want[name]}")
+    result = {
+        "phase": "pansharpening_wv3", "card": smi, "reduced_resolution": [20, WV3_BANDS, 256, 256],
+        "full_resolution": {"fused": [20, WV3_BANDS, 512, 512], "ms": [20, WV3_BANDS, 128, 128]},
+        "values": {k: v[0] for k, v in got.items()}, "cpu": want, "rel_err_vs_cpu": errors,
+        "compute_ms": {k: v[1] for k, v in got.items()},
+    }
+    emit(result)
+    return result
+
+
+def image_rest(torch, np, ce, lh, dev, gen, seed: int, smi: str, counters: dict, t_main: float) -> dict:
+    """Phases 28-32 with their CPU references in worker processes; B1, B4 and B5 must not launch, B2a/B2b (the
+    InceptionV3 trunk) and B3 (LPIPS-VGG) launch as the phases count them."""
+    t0 = time.perf_counter()
+    for counter in counters.values():
+        counter.launches = 0
+    with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        wv3 = [pool.submit(_cpu_wv3, seed, names) for names in WV3_GROUPS.values()]
+        ppl_cpu = pool.submit(_cpu_ppl_distances, seed + PPL_SEED_OFFSET, 256)
+        with tempfile.TemporaryDirectory() as folder:
+            generative = phase_generative_cifar10(torch, np, ce, dev, gen, inception_npz(torch, np, seed, folder, dev, gen),
+                                                  smi, seed)
+        ppl = phase_ppl_lpips_vgg(torch, np, lh, dev, seed + PPL_SEED_OFFSET, ppl_cpu, smi)
+        phase_div2k_sr(torch, np, dev, gen, smi)
+        phase_image_quality_rest(torch, np, dev, gen, smi)
+        phase_pansharpening_wv3(torch, np, dev, seed, wv3, smi)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    expected = {name: 0 for name in counters}
+    expected.update(matmul_bias_relu=generative["launches"]["conv_mm_bias_relu"],
+                    bias_relu_=generative["launches"]["bias_relu"],
+                    lpips_head=ppl["b3_launches"] + ppl["b3_launches_float32_maps"])
+    check(launches == expected, f"the rest of image launched {launches}, expected {expected}")
+    launches["lpips_head"] = ppl["b3_launches"]  # the main path's: the metric's own calls
+    out = {"phase": "image_rest", "seconds": time.perf_counter() - t0,
+           "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3329,6 +4028,7 @@ def main() -> int:
     del probe
     conv_checks = phase_conv_epilogue_vs_plain(torch, ce, calls, dev, gen)
     taps = {net_type: lpips_tap_shapes(torch, dev, net_type, pairs=50, side=256) for net_type in ("alex", "vgg", "squeeze")}
+    taps["vgg_ppl"] = lpips_tap_shapes(torch, dev, "vgg", pairs=128, side=64)  # ppl_lpips_vgg's batches
     odd = {"odd": [(3, 5, 7, 35), (2, 9, 9, 5), (7, 3, 3, 1000)], "misaligned": [(4, 15, 15, 384), (2, 31, 31, 64)]}
     head_checks = phase_lpips_head_vs_plain(torch, lh, {**taps, **odd}, dev, gen)
 
@@ -3376,16 +4076,21 @@ def main() -> int:
     text_family(torch, np, dev, gen, smi, kernel_counters(kernel, ce, lh, ka), lambda: {
         "asr": asr_corpus(np, text_rng), "cnndm": cnndm_corpus(np, text_rng), "wmt": wmt_corpus(np, text_rng),
         "squad": squad_corpus(np, text_rng)}, t_main)
+
+    # ------------------------------------------------ the rest of image, phases 28-32
+    rest = image_rest(torch, np, ce, lh, dev, gen, args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
     big = shapes["ade20k_update"]
     image_kernels = [
-        ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"], conv_checks["worst"]["mm_abs"],
-         "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu", "one InceptionV3 forward (40 pointwise convs), batch 200, bf16"),
-        ("bias_relu", ":96", fid["launches"]["bias_relu"], conv_checks["worst"]["br_abs"],
-         "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu", "one InceptionV3 forward (54 spatial convs), batch 200, bf16"),
-        ("lpips_head", ":60", lpips["launches"], head_checks["max_abs_err"],
+        ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"] + rest["kernel_launches"]["matmul_bias_relu"],
+         conv_checks["worst"]["mm_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
+         "one InceptionV3 forward (40 pointwise convs), batch 200, bf16"),
+        ("bias_relu", ":96", fid["launches"]["bias_relu"] + rest["kernel_launches"]["bias_relu_"],
+         conv_checks["worst"]["br_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
+         "one InceptionV3 forward (54 spatial convs), batch 200, bf16; queued_ms: the launches queued ahead of the card"),
+        ("lpips_head", ":60", lpips["launches"] + rest["kernel_launches"]["lpips_head"], head_checks["max_abs_err"],
          "torchmetrics_tpu/_kernels/lpips_head.py", "lpips_head.cu",
          "one alex LPIPS forward (5 taps), 50 pairs of 256x256, bf16 maps, queued_ms"),
     ]
@@ -3425,6 +4130,7 @@ def main() -> int:
         "bound_ms": timings[name]["bound_ms"],
         "bound_by": timings[name]["bound_by"],
         "library_ms": timings[name]["library_ms"],
+        **({"queued_ms": timings[name]["queued_ms"]} if name == "bias_relu" else {}),
         "at": at,
     } for name, line, launches, err, tpu_file, source, at in image_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""The port's classification and text exports equal the JAX package's.
+"""The port's classification, image and text exports equal the JAX package's.
 
 The JAX package's ``__all__`` lists are read from its source with ``ast``, so
 nothing of it is imported next to the port here.
@@ -13,7 +13,9 @@ import torchmetrics_tpu_torch
 import torchmetrics_tpu_torch.classification as TC
 import torchmetrics_tpu_torch.functional as TF_ALL
 import torchmetrics_tpu_torch.functional.classification as TF
+import torchmetrics_tpu_torch.functional.image as TFI
 import torchmetrics_tpu_torch.functional.text as TFT
+import torchmetrics_tpu_torch.image as TI
 import torchmetrics_tpu_torch.text as TT
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,6 +64,27 @@ def test_text_names_reach_the_top_level():
         assert name in torchmetrics_tpu_torch.__all__ and getattr(torchmetrics_tpu_torch, name) is getattr(TT, name)
     for name in TFT.__all__:
         assert name in TF_ALL.__all__ and getattr(TF_ALL, name) is getattr(TFT, name)
+
+
+@pytest.mark.parametrize(
+    ("relpath", "module", "count"), [("image/__init__.py", TI, 21), ("functional/image/__init__.py", TFI, 18)]
+)
+def test_image_all_equals_the_jax_package(relpath, module, count):
+    want = _jax_all(relpath)
+    assert len(want) == count
+    assert sorted(module.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(module, name)]
+
+
+def test_image_names_reach_the_top_level():
+    for name in TI.__all__:
+        assert name in torchmetrics_tpu_torch.__all__ and getattr(torchmetrics_tpu_torch, name) is getattr(TI, name)
+    for name in TFI.__all__:
+        assert name in TF_ALL.__all__ and getattr(TF_ALL, name) is getattr(TFI, name)
+    # as in the JAX package, `functional.image` re-exports the PPL function of `image/`
+    from torchmetrics_tpu_torch.image.perceptual_path_length import perceptual_path_length
+
+    assert TFI.perceptual_path_length is perceptual_path_length
 
 
 def test_new_classes_default_to_cuda():

@@ -16,7 +16,9 @@ IoU family, frozen from the JAX package because the reference delegates to
 torchvision, and the two panoptic qualities, frozen from torchmetrics) replay
 the same way. The 14 text cases without a model (164-177: the edit family,
 TER, EED, BLEU, SacreBLEU, chrF, ROUGE, perplexity, SQuAD) run the string
-functionals with ``device="cpu"``.
+functionals with ``device="cpu"``. The 16 image cases without a network
+(126-141: PSNR, PSNR-B, SSIM, MS-SSIM, UQI, SAM, ERGAS, RASE, RMSE-SW, TV,
+SCC, VIF, D_lambda, image gradients, D_s, QNR) replay on CPU tensors.
 """
 
 import json
@@ -83,6 +85,19 @@ TEXT = [
 ]
 TEXT_CASES = [(f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if spec.fn in TEXT]
 TEXT_IDS = [f"{i:03d}" for i in range(164, 178)]
+
+
+# the image metrics without a network (cases 126-141), all frozen from torchmetrics
+IMAGE = [
+    "peak_signal_noise_ratio", "peak_signal_noise_ratio_with_blocked_effect", "structural_similarity_index_measure",
+    "multiscale_structural_similarity_index_measure", "universal_image_quality_index", "spectral_angle_mapper",
+    "error_relative_global_dimensionless_synthesis", "relative_average_spectral_error",
+    "root_mean_squared_error_using_sliding_window", "total_variation", "spatial_correlation_coefficient",
+    "visual_information_fidelity", "spectral_distortion_index", "image_gradients", "spatial_distortion_index",
+    "quality_with_no_reference",
+]
+IMAGE_CASES = [(f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if spec.fn in IMAGE]
+IMAGE_IDS = [f"{i:03d}" for i in range(126, 142)]
 
 
 def test_all_nine_cases_are_in_the_pack():
@@ -159,6 +174,27 @@ def test_text_golden(case_id, spec):
     assert meta["source"] == "ref"
     device = {} if spec.fn == "perplexity" else {"device": "cpu"}
     leaves = _flatten_output(getattr(TF, spec.fn)(*_text_args(spec.make()), **spec.kwargs, **device))
+    assert len(leaves) == meta["n_leaves"], f"{case_id}: output arity"
+    for li, leaf in enumerate(leaves):
+        golden = pack[f"{case_id}/{li}"]
+        assert leaf.shape == golden.shape, f"{case_id} leaf {li}"
+        np.testing.assert_allclose(
+            leaf.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
+            err_msg=f"{case_id} leaf {li}",
+        )
+
+
+def test_the_16_image_cases_are_in_the_pack():
+    assert [case_id[:3] for case_id, _ in IMAGE_CASES] == IMAGE_IDS
+
+
+@pytest.mark.parametrize(("case_id", "spec"), IMAGE_CASES, ids=[c[0] for c in IMAGE_CASES])
+def test_image_golden(case_id, spec):
+    pack = np.load(os.path.join(GOLDEN_DIR, "goldens.npz"))
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as fh:
+        meta = {case["id"]: case for case in json.load(fh)["cases"]}[case_id]
+    assert meta["source"] == "ref"
+    leaves = _flatten_output(getattr(TF, spec.fn)(*[torch.from_numpy(a) for a in spec.make()], **spec.kwargs))
     assert len(leaves) == meta["n_leaves"], f"{case_id}: output arity"
     for li, leaf in enumerate(leaves):
         golden = pack[f"{case_id}/{li}"]

@@ -149,7 +149,7 @@ def test_inception_v3_matches_jax_at_80x80(inception, fuse_bn):
         assert torch.equal(net(_nchw(x), "768"), got["768"])  # stops at the tap, same value
 
 
-@pytest.mark.parametrize("kind, feature", [("uint8", "2048"), ("float", "64")])
+@pytest.mark.parametrize("kind, feature", [("uint8", "2048"), ("float", "64"), ("uint8", "logits_unbiased")])
 def test_feature_extractor_matches_jax_at_299(inception, kind, feature):
     """The whole trunk at 299x299 once; the float inputs' preprocessing (floor of x * 255) at the first tap."""
     rng = np.random.default_rng(3)
@@ -160,7 +160,8 @@ def test_feature_extractor_matches_jax_at_299(inception, kind, feature):
     want = JaxExtractor(feature=feature, weights_path=inception["npz"], compute_dtype=jnp.float32)(jnp.asarray(imgs))
     ours = InceptionFeatureExtractor(feature=feature, weights_path=inception["npz"], compute_dtype=torch.float32, device="cpu")
     got = ours(torch.from_numpy(imgs))
-    assert got.shape == (2, int(feature)) and got.dtype == torch.float32
+    width = 1008 if feature == "logits_unbiased" else int(feature)  # the TF checkpoint's 1008 classes
+    assert got.shape == (2, width) and got.dtype == torch.float32
     assert _rel(got, want) < 1e-4
 
 

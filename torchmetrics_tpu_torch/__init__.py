@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, FID, LPIPS and all of text (BERTScore, InfoLM and the metrics without a model).
+"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, all of image and all of text.
 
 Same module paths and names as the JAX package. Metric states live on ``cuda``
 unless a metric is built with ``device=...``. Hand-written Hopper kernels
@@ -30,7 +30,8 @@ from torchmetrics_tpu_torch.detection import (
     ModifiedPanopticQuality,
     PanopticQuality,
 )
-from torchmetrics_tpu_torch.image import FrechetInceptionDistance, LearnedPerceptualImagePatchSimilarity
+from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.text import __all__ as _text_all
@@ -58,7 +59,6 @@ __all__ = [
     "MeanAveragePrecision",
     "ModifiedPanopticQuality",
     "PanopticQuality",
-    "FrechetInceptionDistance",
-    "LearnedPerceptualImagePatchSimilarity",
+    *_image_all,
     *_text_all,
 ]

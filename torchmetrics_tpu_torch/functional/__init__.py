@@ -1,4 +1,4 @@
-"""Functional metrics ported so far (classification: all of it; detection: the IoU family, panoptic quality; image: LPIPS; text: all of it)."""
+"""Functional metrics ported so far (classification, image and text: all of them; detection: the IoU family, panoptic quality)."""
 
 from torchmetrics_tpu_torch.functional import detection
 
@@ -12,7 +12,8 @@ from torchmetrics_tpu_torch.functional.detection import (
     modified_panoptic_quality,
     panoptic_quality,
 )
-from torchmetrics_tpu_torch.functional.image import learned_perceptual_image_patch_similarity
+from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
 from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
@@ -25,6 +26,6 @@ __all__ = [
     "intersection_over_union",
     "modified_panoptic_quality",
     "panoptic_quality",
-    "learned_perceptual_image_patch_similarity",
+    *_image_all,
     *_text_all,
 ]

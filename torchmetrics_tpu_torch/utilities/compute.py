@@ -138,3 +138,16 @@ def full_fp32() -> Iterator[None]:
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _safe_pow(base: Tensor, exp: Tensor) -> Tensor:
+    """``base ** exp`` with finite gradients where the true derivative diverges (JAX ``utilities/compute.py:51``).
+
+    Forward values are unchanged, ``0 ** 0 == 1`` and NaN for a negative base
+    with a fractional exponent included; the non-positive branch is computed
+    on a detached base, so the gradient at ``base == 0`` with ``exp < 1`` is 0,
+    not inf.
+    """
+    positive = base > 0
+    safe = torch.where(positive, base, torch.ones_like(base)) ** exp
+    return torch.where(positive, safe, base.detach() ** exp)
