@@ -191,8 +191,43 @@ counted):
     D_s, QNR), against the port's CPU run of the same updates; each
     ``compute``'s ms;
 
-then an ``image_rest`` line with B1-B5's launch counts over phases 28-32,
-the card's name and power limit, the ``kernels`` line and, last,
+then an ``image_rest`` line with B1-B5's launch counts over phases 28-32;
+
+regression, pairwise distances and retrieval (phases 33-38, data drawn on
+the card from ``--seed``; none of B1-B5 may launch in them):
+
+33. ``nyu_depth_v2``: NYU Depth v2's Eigen test split (654 depth maps of
+    480x640, targets in [0.7, 10] m, predictions the target times
+    exp(0.1 N(0, 1))) in updates of 8 through one collection of MSE, RMSE,
+    MAE, MSLE, MAPE, log-cosh, R², explained variance, RSE, Minkowski(3)
+    and Pearson, against float64 sums of the same pixels; the float32 counts
+    exact at 200,908,800;
+34. ``stsb_sickr``: STS-B dev (1,500 pairs) and SICK-R test (4,927) with gold
+    scores on a 0.2 grid, batches of 32: Pearson, Spearman, concordance and
+    Kendall tau-a/b/c with p-values, against ``scipy.stats`` and the JAX
+    package's p-value formula in float64, and Pearson after a
+    ``merge_state`` of two halves;
+35. ``fremtpl2_tweedie``: freMTPL2freq's 678,013 policies (~95% without a
+    claim) in updates of 8,192: Tweedie deviance at powers 1.9 and 1, MAE,
+    MSE, WMAPE and SMAPE against float64;
+36. ``sevir_csi``: 1,024 SEVIR-shaped sequences of 12 VIL frames of 384x384
+    in updates of 16: CSI at six thresholds and per sequence at one, hits,
+    misses and false alarms exact against int64 bincounts;
+37. ``embeddings_pairwise``: cosine, euclidean and linear on 10,000 x 768
+    against 10,000 x 768, Manhattan and Minkowski(3) on 2,048 x 2,048 x 768,
+    ``CosineSimilarity`` over 50,000 pairs and ``KLDivergence`` of the
+    imagenet_val logits' softmax against a seeded teacher's (both
+    ``log_prob``), against float64 on 256 sampled rows; TF32's flag must not
+    move a product;
+38. ``msmarco_dev``: MS MARCO dev's 6,980 queries x 1,000 candidates in
+    updates of 100 queries, ~1% of the rows ``ignore_index=-1``: MRR@10,
+    nDCG@10, precision@10, hit rate@10, fall-out@10, recall@100 and @1000,
+    MAP (``skip``), R-precision and AUROC (``median``) in one collection,
+    against plain per-query numpy loops in worker processes;
+
+then a ``regression_retrieval`` line with the seconds of phases 33-38 and
+B1-B5's launch counts over them (all 0), the card's name and power limit,
+the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -3734,6 +3769,591 @@ def image_rest(torch, np, ce, lh, dev, gen, seed: int, smi: str, counters: dict,
     return out
 
 
+# ------------------------------------------- regression, pairwise and retrieval (phases 33-38)
+NYU_MAPS, NYU_HW, NYU_BATCH = 654, (480, 640), 8  # NYU Depth v2's Eigen test split, updates of 8 maps
+NYU_RTOL = 1e-5  # float32 sums of 2.46M pixels an update, 82 updates, against float64 sums of the same values
+STS_RTOL = 1e-5  # Pearson, concordance, Spearman: float32 co-moments and rank means over 1,500-4,927 pairs
+KENDALL_ATOL = 1e-6  # tau from exact int64 pair counts, one float32 formula, against scipy's float64
+TWEEDIE_RTOL = 1e-5  # float32 deviance sums of 8,192 policies an update, 83 updates, against float64
+CSI_RTOL = 1e-6  # one float32 division of exact int64 counts
+PAIRWISE_RTOL = 1e-5  # of the largest |value| of the checked rows: float32 products and sums of 768 terms
+KL_RTOL = 1e-5  # float32 row sums of 1,000 terms, a mean over 50,000 rows, against float64 of the same inputs
+RETRIEVAL_ATOL = 1e-6  # a float32 mean of 6,980 per-query float32 values against float64 per-query loops
+MSMARCO_QUERIES, MSMARCO_DEPTH, MSMARCO_BATCH = 6980, 1000, 100
+
+
+def _rel(got, want: float) -> float:
+    return abs(float(got) - want) / max(abs(want), 1e-30)
+
+
+def nyu_collection():
+    import torchmetrics_tpu_torch.regression as R
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "mse": R.MeanSquaredError(), "rmse": R.MeanSquaredError(squared=False), "mae": R.MeanAbsoluteError(),
+        "msle": R.MeanSquaredLogError(), "mape": R.MeanAbsolutePercentageError(), "log_cosh": R.LogCoshError(),
+        "r2": R.R2Score(), "explained_variance": R.ExplainedVariance(), "rse": R.RelativeSquaredError(),
+        "minkowski3": R.MinkowskiDistance(p=3), "pearson": R.PearsonCorrCoef(),
+    })
+
+
+def _nyu_float64(torch, preds, target, batch: int) -> dict:
+    """The eleven values from float64 sums of the same pixels."""
+    sums = collections.Counter()
+    for lo in range(0, preds.shape[0], batch):
+        p, t = preds[lo:lo + batch].double().reshape(-1), target[lo:lo + batch].double().reshape(-1)
+        d = p - t
+        sums.update({"n": p.numel(), "t": float(t.sum()), "t2": float((t * t).sum()), "p": float(p.sum()),
+                     "p2": float((p * p).sum()), "pt": float((p * t).sum()), "sse": float((d * d).sum()),
+                     "sae": float(d.abs().sum()), "ssle": float(((torch.log1p(p) - torch.log1p(t)) ** 2).sum()),
+                     "sape": float((d.abs() / t.abs()).sum()), "slc": float(torch.log(torch.cosh(d)).sum()),
+                     "s3": float((d.abs() ** 3).sum())})
+    n = sums["n"]
+    tss = sums["t2"] - sums["t"] ** 2 / n
+    err_mean = (sums["t"] - sums["p"]) / n
+    ev_num = sums["sse"] / n - err_mean ** 2
+    ev_den = sums["t2"] / n - (sums["t"] / n) ** 2
+    cov = sums["pt"] / n - sums["p"] * sums["t"] / n ** 2
+    var_p, var_t = sums["p2"] / n - (sums["p"] / n) ** 2, ev_den
+    return {"mse": sums["sse"] / n, "rmse": (sums["sse"] / n) ** 0.5, "mae": sums["sae"] / n, "msle": sums["ssle"] / n,
+            "mape": sums["sape"] / n, "log_cosh": sums["slc"] / n, "r2": 1 - sums["sse"] / tss,
+            "explained_variance": 1 - ev_num / ev_den, "rse": sums["sse"] / tss, "minkowski3": sums["s3"] ** (1 / 3),
+            "pearson": cov / (var_p * var_t) ** 0.5}
+
+
+def phase_nyu_depth_v2(torch, np, dev, gen, smi: str, maps: int = NYU_MAPS, hw=NYU_HW, batch: int = NYU_BATCH) -> dict:
+    """NYU Depth v2's Eigen test split: depth in [0.7, 10] m, predictions the target times exp(0.1 N(0, 1)),
+    through one collection of eleven regression metrics, against float64 sums of the same pixels."""
+    target = 0.7 + 9.3 * torch.rand((maps, *hw), generator=gen, device=dev)
+    preds = target * torch.exp(0.1 * torch.randn((maps, *hw), generator=gen, device=dev))
+    collection = nyu_collection()
+    torch.cuda.synchronize()
+    inputs_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for lo in range(0, maps, batch):
+        collection.update(preds[lo:lo + batch].reshape(-1), target[lo:lo + batch].reshape(-1))
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    values = collection.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t1) * 1e3
+    peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+    want = _nyu_float64(torch, preds, target, batch)
+    errors = {k: _rel(values[k], v) for k, v in want.items()}
+    for key, err in errors.items():
+        check(err <= NYU_RTOL, f"nyu_depth_v2 {key} {float(values[key])} vs float64 {want[key]} (rel {err})")
+    pixels = maps * hw[0] * hw[1]
+    counts = {"mse_total": int(collection["mse"].total), "mape_total": float(collection["mape"].total),
+              "explained_variance_num_obs": float(collection["explained_variance"].num_obs),
+              "pearson_n_total": float(collection["pearson"].n_total[0])}
+    check(all(v == pixels for v in counts.values()), f"nyu_depth_v2 counts {counts} != {pixels} pixels")
+    updates = -(-maps // batch)
+    result = {
+        "phase": "nyu_depth_v2", "card": smi, "maps": maps, "hw": list(hw), "pixels": pixels, "updates": updates,
+        "values": {k: float(v) for k, v in values.items()}, "float64": want, "rel_err": errors, "counts": counts,
+        "groups": sorted(sorted(g) for g in collection.compute_groups.values()),
+        "seconds": update_s, "pixels_per_s": pixels / update_s, "update_ms": update_s / updates * 1e3,
+        "compute_ms": compute_ms, "peak_above_inputs_bytes": peak_above,
+    }
+    emit(result)
+    return result
+
+
+def sts_pairs(torch, dev, gen, n: int):
+    """Gold similarity on 0-5 in steps of 0.2; a model's score, clipped to 0-5 and printed to two decimals."""
+    gold = torch.randint(0, 26, (n,), generator=gen, device=dev).to(torch.float32) * 0.2
+    pred = torch.round((gold + 0.8 * torch.randn(n, generator=gen, device=dev)).clamp(0, 5) * 100) / 100
+    return pred, gold
+
+
+def sts_collection():
+    import torchmetrics_tpu_torch.regression as R
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "pearson": R.PearsonCorrCoef(), "spearman": R.SpearmanCorrCoef(), "concordance": R.ConcordanceCorrCoef(),
+        **{f"kendall_{v}": R.KendallRankCorrCoef(variant=v, t_test=True) for v in "abc"},
+    })
+
+
+def _tau_a(np, x, y) -> float:
+    i, j = np.triu_indices(len(x), k=1)
+    return float(np.sum(np.sign(x[j] - x[i]) * np.sign(y[j] - y[i]))) / len(i)
+
+
+def phase_stsb_sickr(torch, np, dev, gen, smi: str, sizes=(("stsb_dev", 1500), ("sickr_test", 4927)), batch: int = 32):
+    """STS-B dev and SICK-R test as GLUE and SentEval report them: rho and tau against scipy, the p-values against
+    the JAX package's normal approximation in float64, Pearson again after a ``merge_state`` of two halves."""
+    from scipy import special, stats
+
+    import torchmetrics_tpu_torch.regression as R
+
+    out = {"phase": "stsb_sickr", "card": smi, "batch": batch, "sets": {}}
+    for name, n in sizes:
+        pred, gold = sts_pairs(torch, dev, gen, n)
+        collection = sts_collection()
+        torch.cuda.synchronize()
+        inputs_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for lo in range(0, n, batch):
+            collection.update(pred[lo:lo + batch], gold[lo:lo + batch])
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        values = collection.compute()
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t1) * 1e3
+        peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+        x, y = pred.double().cpu().numpy(), gold.double().cpu().numpy()
+        want = {"pearson": float(stats.pearsonr(x, y).statistic), "spearman": float(stats.spearmanr(x, y).statistic),
+                "kendall_a": _tau_a(np, x, y), "kendall_b": float(stats.kendalltau(x, y, variant="b").statistic),
+                "kendall_c": float(stats.kendalltau(x, y, variant="c").statistic)}
+        mx, my = x.mean(), y.mean()
+        want["concordance"] = 2 * np.mean((x - mx) * (y - my)) / (x.var() + y.var() + (mx - my) ** 2)
+        var = (4 * n + 10.0) / (9.0 * n * (n - 1))
+        got = {k: float(v[0] if isinstance(v, (tuple, list)) else v) for k, v in values.items()}
+        errors = {k: abs(got[k] - want[k]) for k in want}
+        for key in ("pearson", "spearman", "concordance"):
+            check(errors[key] <= STS_RTOL * abs(want[key]), f"{name} {key} {got[key]} vs {want[key]}")
+        p_errors = {}
+        for variant in "abc":
+            key = f"kendall_{variant}"
+            check(errors[key] <= KENDALL_ATOL, f"{name} {key} {got[key]} vs scipy {want[key]}")
+            p_want = 2 * (1 - special.ndtr(abs(want[key]) / var ** 0.5))
+            p_errors[key] = abs(float(values[key][1]) - p_want)
+            check(p_errors[key] <= KENDALL_ATOL, f"{name} {key} p-value {float(values[key][1])} vs float64 {p_want}")
+        halves = [R.PearsonCorrCoef() for _ in range(2)]
+        half = (n // batch // 2) * batch
+        for lo in range(0, n, batch):
+            halves[lo >= half].update(pred[lo:lo + batch], gold[lo:lo + batch])
+        halves[0].merge_state(halves[1])
+        merged = float(halves[0].compute())
+        check(abs(merged - want["pearson"]) <= STS_RTOL * abs(want["pearson"]), f"{name} merged Pearson {merged}")
+        out["sets"][name] = {"pairs": n, "values": got, "scipy_or_float64": want, "abs_err": errors,
+                             "p_values": {f"kendall_{v}": float(values[f"kendall_{v}"][1]) for v in "abc"},
+                             "p_abs_err": p_errors, "merged_pearson": merged,
+                             "pairs_per_s": n / update_s, "update_ms": update_s / -(-n // batch) * 1e3,
+                             "compute_ms": compute_ms, "peak_above_inputs_bytes": peak_above}
+    emit(out)
+    return out
+
+
+def fremtpl2_data(torch, dev, gen, n: int) -> dict:
+    """freMTPL2freq-shaped policies: exposure in (0.05, 1] years, Poisson claim counts (~95% zero), log-normal
+    claim amounts; a model's frequency and pure premium within ~20% of the truth."""
+    exposure = 0.05 + 0.95 * torch.rand(n, generator=gen, device=dev)
+    rate = 0.08 * torch.exp(0.5 * torch.randn(n, generator=gen, device=dev))
+    claims = torch.poisson(rate * exposure, generator=gen)
+    amount = 1800.0 * torch.exp(0.8 * torch.randn(n, generator=gen, device=dev))
+    pred_freq = rate * torch.exp(0.2 * torch.randn(n, generator=gen, device=dev))
+    return {"freq": claims / exposure, "pred_freq": pred_freq, "pure_premium": claims * amount / exposure,
+            "pred_pure_premium": pred_freq * 1800.0 * 1.377 * torch.exp(0.1 * torch.randn(n, generator=gen, device=dev))}
+
+
+def _tweedie64(torch, p, t, power: float):
+    if power == 1:
+        return float((2 * (torch.xlogy(t, t / p) + p - t)).sum())
+    term_1 = t.clamp(min=0) ** (2 - power) / ((1 - power) * (2 - power))
+    term_2 = t * p ** (1 - power) / (1 - power)
+    term_3 = p ** (2 - power) / (2 - power)
+    return float((2 * (term_1 - term_2 + term_3)).sum())
+
+
+def phase_fremtpl2_tweedie(torch, np, dev, gen, smi: str, n: int = 678_013, batch: int = 8192) -> dict:
+    """Insurance pricing on freMTPL2freq's 678,013 policies, as scikit-learn's Tweedie example scores it."""
+    import torchmetrics_tpu_torch.regression as R
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    data = fremtpl2_data(torch, dev, gen, n)
+    premium = MetricCollection({
+        "tweedie_p1_9": R.TweedieDevianceScore(power=1.9), "mae": R.MeanAbsoluteError(), "mse": R.MeanSquaredError(),
+        "wmape": R.WeightedMeanAbsolutePercentageError(), "smape": R.SymmetricMeanAbsolutePercentageError(),
+    })
+    frequency = R.TweedieDevianceScore(power=1)
+    torch.cuda.synchronize()
+    inputs_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch):
+        premium.update(data["pred_pure_premium"][lo:lo + batch], data["pure_premium"][lo:lo + batch])
+        frequency.update(data["pred_freq"][lo:lo + batch], data["freq"][lo:lo + batch])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    values = {**premium.compute(), "tweedie_p1": frequency.compute()}
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t1) * 1e3
+    peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+    p, t = data["pred_pure_premium"].double(), data["pure_premium"].double()
+    d = (p - t).abs()
+    want = {"tweedie_p1_9": _tweedie64(torch, p, t, 1.9) / n, "mae": float(d.mean()), "mse": float((d * d).mean()),
+            "wmape": float(d.sum() / t.abs().sum()), "smape": float((2 * d / (t.abs() + p.abs())).mean()),
+            "tweedie_p1": _tweedie64(torch, data["pred_freq"].double(), data["freq"].double(), 1.0) / n}
+    errors = {k: _rel(values[k], v) for k, v in want.items()}
+    for key, err in errors.items():
+        check(err <= TWEEDIE_RTOL, f"fremtpl2_tweedie {key} {float(values[key])} vs float64 {want[key]} (rel {err})")
+    check(float(frequency.num_observations) == n, f"Tweedie's float32 count {float(frequency.num_observations)} != {n}")
+    result = {"phase": "fremtpl2_tweedie", "card": smi, "policies": n, "batch": batch,
+              "zero_share": float((data["pure_premium"] == 0).float().mean()),
+              "values": {k: float(v) for k, v in values.items()}, "float64": want, "rel_err": errors,
+              "seconds": update_s, "policies_per_s": n / update_s, "update_ms": update_s / -(-n // batch) * 1e3,
+              "compute_ms": compute_ms, "peak_above_inputs_bytes": peak_above}
+    emit(result)
+    return result
+
+
+SEVIR_THRESHOLDS = (16, 74, 133, 160, 181, 219)  # VIL levels on the 0-255 scale, as Earthformer scores SEVIR
+
+
+def sevir_batch(torch, dev, gen, seqs: int, frames: int, side: int):
+    """VIL-like uint8 frames (mostly weak echoes, a tail of storm cells) and a forecast within ~±40 levels."""
+    target = (255 * torch.rand((seqs, frames, side, side), generator=gen, device=dev) ** 3).to(torch.int16)
+    noise = torch.randint(-40, 41, target.shape, generator=gen, device=dev, dtype=torch.int16)
+    return (target + noise).clamp(0, 255).to(torch.uint8), target.to(torch.uint8)
+
+
+def phase_sevir_csi(torch, np, dev, gen, smi: str, seqs: int = 1024, batch: int = 16, frames: int = 12,
+                    side: int = 384) -> dict:
+    """SEVIR nowcasting scored as Earthformer scores it: CSI at six VIL thresholds over 12 output frames, and one
+    threshold per sequence (``keep_sequence_dim``); hits, misses and false alarms exact against int64 counts."""
+    import torchmetrics_tpu_torch.regression as R
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    data = [sevir_batch(torch, dev, gen, batch, frames, side) for _ in range(0, seqs, batch)]
+    metrics = MetricCollection({**{f"csi_{th}": R.CriticalSuccessIndex(th) for th in SEVIR_THRESHOLDS},
+                                "csi_74_per_sequence": R.CriticalSuccessIndex(74, keep_sequence_dim=True)})
+    torch.cuda.synchronize()
+    inputs_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for preds, target in data:
+        metrics.update(preds, target)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    values = metrics.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t1) * 1e3
+    peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+    # the reference: one int64 bincount of (pred >= th, target >= th) codes a threshold, and a per-sequence one
+    ref = {th: torch.zeros(4, dtype=torch.int64, device=dev) for th in SEVIR_THRESHOLDS}
+    per_seq = []
+    for preds, target in data:
+        for th in SEVIR_THRESHOLDS:
+            code = (preds >= th).to(torch.int64) * 2 + (target >= th).to(torch.int64)
+            ref[th] += torch.bincount(code.reshape(-1), minlength=4)
+            if th == 74:
+                seq = torch.arange(batch, device=dev).reshape(-1, 1, 1, 1) * 4
+                per_seq.append(torch.bincount((code + seq).reshape(-1), minlength=4 * batch).reshape(batch, 4))
+    errors, counts = {}, {}
+    for th in SEVIR_THRESHOLDS:
+        m = metrics[f"csi_{th}"]
+        hits, misses, false_alarms = int(ref[th][3]), int(ref[th][1]), int(ref[th][2])
+        got = (int(m.hits), int(m.misses), int(m.false_alarms))
+        check(got == (hits, misses, false_alarms), f"CSI at {th}: counts {got} != int64 ({hits}, {misses}, {false_alarms})")
+        want = hits / (hits + misses + false_alarms)
+        errors[th] = _rel(values[f"csi_{th}"], want)
+        check(errors[th] <= CSI_RTOL, f"CSI at {th}: {float(values[f'csi_{th}'])} vs {want}")
+        counts[th] = got
+    seq_ref = torch.cat(per_seq)
+    m = metrics["csi_74_per_sequence"]
+    check(torch.equal(torch.cat(m.hits), seq_ref[:, 3]) and torch.equal(torch.cat(m.misses), seq_ref[:, 1])
+          and torch.equal(torch.cat(m.false_alarms), seq_ref[:, 2]), "per-sequence CSI counts != int64 counts")
+    seq_want = seq_ref[:, 3].double() / seq_ref[:, 1:].sum(1).double()
+    seq_err = float(((values["csi_74_per_sequence"].double() - seq_want).abs() / seq_want).max())
+    check(seq_err <= CSI_RTOL, f"per-sequence CSI {seq_err} from float64")
+    pixels = seqs * frames * side * side
+    result = {"phase": "sevir_csi", "card": smi, "sequences": seqs, "frames": frames, "side": side, "batch": batch,
+              "pixels": pixels, "counts": {str(k): v for k, v in counts.items()},
+              "values": {str(th): float(values[f"csi_{th}"]) for th in SEVIR_THRESHOLDS}, "rel_err": errors,
+              "per_sequence_rel_err": seq_err, "seconds": update_s, "sequences_per_s": seqs / update_s,
+              "pixels_per_s": pixels / update_s, "update_ms": update_s / len(data) * 1e3, "compute_ms": compute_ms,
+              "peak_above_inputs_bytes": peak_above}
+    emit(result)
+    return result
+
+
+def _pairwise_float64(torch, name: str, x, y, exponent: float = 3.0):
+    """Rows of ``x`` against all of ``y`` in float64, in row chunks of 16."""
+    x, y = x.double(), y.double()
+    if name == "cosine":
+        return (x / x.norm(dim=1, keepdim=True)) @ (y / y.norm(dim=1, keepdim=True)).T
+    if name == "linear":
+        return x @ y.T
+    if name == "euclidean":
+        return torch.cdist(x, y)
+    chunks = []
+    for lo in range(0, x.shape[0], 16):
+        diff = (x[lo:lo + 16, None, :] - y[None]).abs()
+        chunks.append(diff.sum(-1) if name == "manhattan" else (diff ** exponent).sum(-1) ** (1 / exponent))
+    return torch.cat(chunks)
+
+
+def phase_embeddings_pairwise(torch, np, dev, gen, smi: str, logits, n: int = 10_000, n_l1: int = 2048, d: int = 768,
+                              pairs: int = 50_000, checked_rows: int = 256) -> dict:
+    """Dense retrieval embeddings at BERT-base width: the five pairwise functions, ``CosineSimilarity`` over 50,000
+    pairs and ``KLDivergence`` of the imagenet_val logits' softmax against a seeded teacher's, against float64;
+    the matrix products must not move with ``torch.backends.cuda.matmul.allow_tf32``."""
+    import torchmetrics_tpu_torch.functional.pairwise as P
+    import torchmetrics_tpu_torch.regression as R
+
+    common = torch.randn(d, generator=gen, device=dev)
+    x = torch.randn((n, d), generator=gen, device=dev) + 0.5 * common  # embeddings share a direction, as BERT's do
+    y = torch.randn((n, d), generator=gen, device=dev) + 0.5 * common
+    rows = torch.randperm(n_l1, generator=gen, device=dev)[:checked_rows]
+    functions = {"cosine": (P.pairwise_cosine_similarity, n), "euclidean": (P.pairwise_euclidean_distance, n),
+                 "linear": (P.pairwise_linear_similarity, n), "manhattan": (P.pairwise_manhattan_distance, n_l1),
+                 "minkowski3": (lambda a, b: P.pairwise_minkowski_distance(a, b, exponent=3), n_l1)}
+    out = {"phase": "embeddings_pairwise", "card": smi, "d": d, "functions": {}}
+    for name, (fn, size) in functions.items():
+        a, b = x[:size], y[:size]
+        torch.cuda.synchronize()
+        inputs_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = fn(a, b)
+        torch.cuda.synchronize()
+        peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+        ms = median_ms(torch, lambda: fn(a, b), reps=3, warmup=1)
+        want = _pairwise_float64(torch, name.rstrip("3"), a[rows], b)
+        err = float((result[rows].double() - want).abs().max() / want.abs().max())
+        check(err <= PAIRWISE_RTOL, f"pairwise {name}: {err} of the largest value from float64")
+        flops = 2 * size * size * d if name in ("cosine", "euclidean", "linear") else 3 * size * size * d
+        out["functions"][name] = {"shape": [size, size, d], "ms": ms, "gflop_per_s": flops / ms / 1e6,
+                                  "rel_err": err, "peak_above_inputs_bytes": peak_above}
+        del result
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        full = [P.pairwise_linear_similarity(x[:2048], y[:2048]), P.pairwise_cosine_similarity(x[:2048], y[:2048])]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = [P.pairwise_linear_similarity(x[:2048], y[:2048]), P.pairwise_cosine_similarity(x[:2048], y[:2048])]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    check(all(torch.equal(a, b) for a, b in zip(full, tf32)), "a pairwise product moved with allow_tf32")
+    out["tf32_flag_moves_result"] = False
+
+    preds = torch.randn((pairs, d), generator=gen, device=dev) + 0.5 * common
+    target = preds + 0.7 * torch.randn((pairs, d), generator=gen, device=dev)
+    cosine = R.CosineSimilarity(reduction="mean")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, pairs, 5000):
+        cosine.update(preds[lo:lo + 5000], target[lo:lo + 5000])
+    torch.cuda.synchronize()
+    cos_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    got = float(cosine.compute())
+    cos_compute_ms = (time.perf_counter() - t1) * 1e3
+    p64, t64 = preds.double(), target.double()
+    want = float(((p64 * t64).sum(1) / (p64.norm(dim=1) * t64.norm(dim=1))).mean())
+    check(_rel(got, want) <= PAIRWISE_RTOL, f"CosineSimilarity {got} vs float64 {want}")
+    out["cosine_similarity"] = {"pairs": pairs, "value": got, "float64": want, "rel_err": _rel(got, want),
+                                "pairs_per_s": pairs / cos_s, "update_ms": cos_s / -(-pairs // 5000) * 1e3,
+                                "compute_ms": cos_compute_ms}
+
+    teacher = logits * 0.7 + torch.randn(logits.shape, generator=gen, device=dev)
+    out["kl_divergence"] = {}
+    for log_prob in (False, True):
+        p = torch.log_softmax(logits, 1) if log_prob else torch.softmax(logits, 1)
+        q = torch.log_softmax(teacher, 1) if log_prob else torch.softmax(teacher, 1)
+        kl = R.KLDivergence(log_prob=log_prob)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, p.shape[0], 1000):
+            kl.update(p[lo:lo + 1000], q[lo:lo + 1000])
+        torch.cuda.synchronize()
+        kl_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = float(kl.compute())
+        kl_compute_ms = (time.perf_counter() - t1) * 1e3
+        p64, q64 = p.double(), q.double()
+        if log_prob:
+            want = float((p64.exp() * (p64 - q64)).sum(1).mean())
+        else:
+            p64, q64 = p64 / p64.sum(1, keepdim=True), q64 / q64.sum(1, keepdim=True)
+            q64 = q64.clamp(min=float(np.finfo(np.float32).eps))
+            want = float(torch.xlogy(p64, p64 / q64).sum(1).mean())
+        check(_rel(got, want) <= KL_RTOL, f"KLDivergence(log_prob={log_prob}) {got} vs float64 {want}")
+        out["kl_divergence"][f"log_prob={log_prob}"] = {"value": got, "float64": want, "rel_err": _rel(got, want),
+                                                         "rows_per_s": p.shape[0] / kl_s,
+                                                         "update_ms": kl_s / -(-p.shape[0] // 1000) * 1e3,
+                                                         "compute_ms": kl_compute_ms}
+    emit(out)
+    return out
+
+
+def msmarco_data(torch, dev, gen, queries: int, depth: int, batch: int) -> list:
+    """MS MARCO dev's passage ranking shape: ``depth`` BM25 candidates a query, 0-3 relevant (1.07 on average),
+    scores printed to two decimals (ties), ~1% of the rows ``ignore_index=-1``; each update's rows shuffled."""
+    updates = []
+    for lo in range(0, queries, batch):
+        q = min(batch, queries - lo)
+        u = torch.rand(q, generator=gen, device=dev)
+        n_rel = (u >= 0.03).to(torch.int64) + (u >= 0.91).to(torch.int64) + (u >= 0.99).to(torch.int64)
+        target = (torch.arange(depth, device=dev)[None, :] < n_rel[:, None]).to(torch.int64)
+        boost = 2 + 8 * torch.rand((q, depth), generator=gen, device=dev)  # a relevant passage scores higher
+        scores = 15 + 3 * torch.randn((q, depth), generator=gen, device=dev) + boost * target
+        scores = torch.round(scores * 100) / 100
+        target[torch.rand((q, depth), generator=gen, device=dev) < 0.01] = -1
+        indexes = (lo + torch.arange(q, device=dev))[:, None].expand(q, depth)
+        order = torch.randperm(q * depth, generator=gen, device=dev)
+        updates.append(tuple(a.reshape(-1)[order] for a in (scores, target, indexes)))
+    return updates
+
+
+def msmarco_collection():
+    from torchmetrics_tpu_torch.collections import MetricCollection
+    from torchmetrics_tpu_torch.retrieval import (RetrievalAUROC, RetrievalFallOut, RetrievalHitRate, RetrievalMAP,
+                                                  RetrievalMRR, RetrievalNormalizedDCG, RetrievalPrecision,
+                                                  RetrievalRecall, RetrievalRPrecision)
+
+    return MetricCollection({
+        "mrr@10": RetrievalMRR(top_k=10, ignore_index=-1),
+        "ndcg@10": RetrievalNormalizedDCG(top_k=10, ignore_index=-1),
+        "precision@10": RetrievalPrecision(top_k=10, ignore_index=-1),
+        "hit_rate@10": RetrievalHitRate(top_k=10, ignore_index=-1),
+        "fall_out@10": RetrievalFallOut(top_k=10, ignore_index=-1),
+        "recall@100": RetrievalRecall(top_k=100, ignore_index=-1),
+        "recall@1000": RetrievalRecall(top_k=1000, ignore_index=-1),
+        "map_skip": RetrievalMAP(empty_target_action="skip", ignore_index=-1),
+        "r_precision": RetrievalRPrecision(ignore_index=-1),
+        "auroc_median": RetrievalAUROC(aggregation="median", ignore_index=-1),
+    })
+
+
+def _host_retrieval(queries: list) -> dict:
+    """Per-query values of the msmarco_dev metrics by plain numpy loops, float64, NaN where a query is empty."""
+    import numpy as np
+
+    names = ("mrr@10", "ndcg@10", "precision@10", "hit_rate@10", "fall_out@10", "recall@100", "recall@1000",
+             "map_skip", "r_precision", "auroc_median")
+    out = {name: [] for name in names}
+    discount = 1.0 / np.log2(np.arange(10) + 2.0)
+    for p, t in queries:
+        order = np.argsort(-p, kind="stable")
+        s, rel = p[order], t[order] > 0
+        n_rel, n_irrel = int(rel.sum()), int((~rel).sum())
+        top10 = rel[:10]
+        hits = np.flatnonzero(top10)
+        out["mrr@10"].append(1.0 / (hits[0] + 1) if len(hits) else 0.0)
+        out["precision@10"].append(top10.sum() / 10)
+        out["hit_rate@10"].append(float(top10.any()))
+        out["fall_out@10"].append((~top10).sum() / n_irrel if n_irrel else np.nan)
+        # nDCG@10: every run of tied scores shares the mean of its positions' discounts
+        disc = np.zeros(len(s))
+        disc[:10] = discount[: len(s)]
+        run = np.concatenate([[0], np.cumsum(s[1:] != s[:-1])])
+        mean_disc = (np.bincount(run, disc) / np.bincount(run))[run]
+        ideal = (np.sort(rel.astype(np.float64))[::-1][:10] * discount[: min(10, len(s))]).sum()
+        for name, value in (("recall@100", rel[:100].sum() / max(n_rel, 1)), ("recall@1000", rel[:1000].sum() / max(n_rel, 1)),
+                            ("ndcg@10", (rel * mean_disc).sum() / ideal if ideal else 0.0),
+                            ("map_skip", (np.cumsum(rel)[rel] / (np.flatnonzero(rel) + 1)).sum() / max(n_rel, 1)),
+                            ("r_precision", rel[:n_rel].sum() / max(n_rel, 1))):
+            out[name].append(value if n_rel else np.nan)
+        if n_rel and n_irrel:
+            values, inverse, counts = np.unique(p, return_inverse=True, return_counts=True)
+            ranks = (np.cumsum(counts) - counts + (counts + 1) / 2.0)[inverse]
+            out["auroc_median"].append((ranks[t > 0].sum() - n_rel * (n_rel + 1) / 2) / (n_rel * n_irrel))
+        else:
+            out["auroc_median"].append(np.nan)
+    return {name: np.asarray(v, np.float64) for name, v in out.items()}
+
+
+def _host_queries(np, updates: list) -> list:
+    """The rows on the host, ignored ones dropped, grouped by query in order of arrival."""
+    p, t, idx = (np.concatenate([u[i].cpu().numpy() for u in updates]) for i in range(3))
+    keep = t != -1
+    p, t, idx = p[keep], t[keep], idx[keep]
+    order = np.argsort(idx, kind="stable")
+    bounds = np.cumsum(np.unique(idx[order], return_counts=True)[1])[:-1]
+    return list(zip(np.split(p[order], bounds), np.split(t[order], bounds)))
+
+
+def _aggregate_host(np, per_query: dict) -> dict:
+    """The reference's reductions: empty queries score 0 (``neg``), FallOut's 1 (``pos``), MAP drops them (``skip``)."""
+    out = {}
+    for name, v in per_query.items():
+        if name == "fall_out@10":
+            out[name] = float(np.where(np.isnan(v), 1.0, v).mean())
+        elif name == "map_skip":
+            out[name] = float(v[~np.isnan(v)].mean())
+        elif name == "auroc_median":
+            filled = np.sort(np.where(np.isnan(v), 0.0, v))
+            out[name] = float(filled[(len(filled) - 1) // 2])
+        else:
+            out[name] = float(np.where(np.isnan(v), 0.0, v).mean())
+    return out
+
+
+def phase_msmarco_dev(torch, np, dev, gen, smi: str, pool, queries: int = MSMARCO_QUERIES,
+                      depth: int = MSMARCO_DEPTH, batch: int = MSMARCO_BATCH) -> dict:
+    """MS MARCO dev passage ranking: MRR@10 as the leaderboard reports it and nine more retrieval metrics in one
+    collection over 6,980 queries x 1,000 candidates, against plain per-query numpy loops in worker processes."""
+    updates = msmarco_data(torch, dev, gen, queries, depth, batch)
+    host = _host_queries(np, updates)
+    step = -(-len(host) // 4)
+    pending = [pool.submit(_host_retrieval, host[lo:lo + step]) for lo in range(0, len(host), step)]
+    collection = msmarco_collection()
+    torch.cuda.synchronize()
+    inputs_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for preds, target, indexes in updates:
+        collection.update(preds, target, indexes)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    values, compute_ms = {}, {}
+    for name, metric in collection.items():
+        t1 = time.perf_counter()
+        values[name] = float(metric.compute())
+        torch.cuda.synchronize()
+        compute_ms[name] = (time.perf_counter() - t1) * 1e3
+    peak_above = torch.cuda.max_memory_allocated() - inputs_bytes
+    parts = [f.result() for f in pending]
+    want = _aggregate_host(np, {k: np.concatenate([part[k] for part in parts]) for k in parts[0]})
+    errors = {k: abs(values[k] - v) for k, v in want.items()}
+    for key, err in errors.items():
+        check(err <= RETRIEVAL_ATOL, f"msmarco_dev {key} {values[key]} vs per-query numpy {want[key]}")
+    rows = queries * depth
+    result = {"phase": "msmarco_dev", "card": smi, "queries": queries, "candidates": depth, "rows": rows,
+              "ignored_rows": rows - sum(len(p) for p, _ in host),
+              "empty_queries": int(sum(not (t > 0).any() for _, t in host)),
+              "values": values, "per_query_numpy": want, "abs_err": errors,
+              "groups": sorted(sorted(g) for g in collection.compute_groups.values()),
+              "seconds": update_s, "rows_per_s": rows / update_s, "queries_per_s": queries / update_s,
+              "update_ms": update_s / len(updates) * 1e3, "compute_ms": compute_ms,
+              "peak_above_inputs_bytes": peak_above}
+    emit(result)
+    return result
+
+
+def regression_retrieval(torch, np, dev, gen, smi: str, counters: dict, t_main: float, logits) -> dict:
+    """Phases 33-38 with the retrieval references in worker processes; none of B1-B5 may launch."""
+    t0 = time.perf_counter()
+    for counter in counters.values():
+        counter.launches = 0
+    with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        warm = [pool.submit(_host_retrieval, []) for _ in range(4)]  # the workers start while the card works
+        phase_nyu_depth_v2(torch, np, dev, gen, smi)
+        phase_stsb_sickr(torch, np, dev, gen, smi)
+        phase_fremtpl2_tweedie(torch, np, dev, gen, smi)
+        phase_sevir_csi(torch, np, dev, gen, smi)
+        phase_embeddings_pairwise(torch, np, dev, gen, smi, logits)
+        for future in warm:
+            future.result()
+        phase_msmarco_dev(torch, np, dev, gen, smi, pool)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    check(not any(launches.values()), f"regression, pairwise and retrieval launched {launches}")
+    out = {"phase": "regression_retrieval", "seconds": time.perf_counter() - t0,
+           "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4079,6 +4699,10 @@ def main() -> int:
 
     # ------------------------------------------------ the rest of image, phases 28-32
     rest = image_rest(torch, np, ce, lh, dev, gen, args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main)
+
+    # ------------------------------- regression, pairwise and retrieval, phases 33-38
+    regression_retrieval(torch, np, dev, torch.Generator(device=dev).manual_seed(args.seed + 33), smi,
+                         kernel_counters(kernel, ce, lh, ka), t_main, logits)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 

@@ -2,7 +2,9 @@
 
 Perplexity: the same seeded logits (float32, float16 and bfloat16, with and
 without ``ignore_index``) through both packages, within 1e-5 relative; the
-row-chunked log-softmax equals one pass over all rows. SQuAD: the sums of
+row-chunked log-softmax equals one pass over all rows. A target outside
+``[0, V)`` gives what the JAX package gives: counted from the end in
+``[-V, 0)``, NaN outside ``[-V, V)``. SQuAD: the sums of
 exact match and F1 and the question count are equal to the JAX package's.
 """
 
@@ -75,6 +77,27 @@ def test_perplexity_class_over_updates(dtype):
     whole = PF.perplexity(torch.from_numpy(np.concatenate(xs)).to(TORCH_DTYPES[dtype]),
                           torch.from_numpy(np.concatenate(ts)), ignore_index=-100)
     np.testing.assert_allclose(pm.compute().numpy(), whole.numpy(), rtol=PPL_RTOL)
+
+
+@pytest.mark.parametrize("vocab", [11, 200])
+@pytest.mark.parametrize("bad", ["-100", "-1", "V", "V+39"])
+@pytest.mark.parametrize("ignore_index", [None, -100])
+def test_perplexity_out_of_range_targets(vocab, bad, ignore_index):
+    """A target in [-V, 0) counts from the end and one outside [-V, V) gives NaN, as in the JAX package; none raises."""
+    rng = np.random.default_rng(vocab)
+    x = (rng.standard_normal((2, 9, vocab)) * 3).astype(np.float32)
+    t = rng.integers(0, vocab, (2, 9))
+    t[0, 3] = {"-100": -100, "-1": -1, "V": vocab, "V+39": vocab + 39}[bad]
+    t[1, 5] = -100
+    got = PF.perplexity(torch.from_numpy(x), torch.from_numpy(t), ignore_index=ignore_index)
+    want = np.asarray(JF.perplexity(jnp.asarray(x), jnp.asarray(t), ignore_index=ignore_index))
+    np.testing.assert_allclose(got.numpy(), want, rtol=PPL_RTOL)  # NaN where the JAX package gives NaN
+    pm, jm = PT.Perplexity(ignore_index=ignore_index, device="cpu"), JT.Perplexity(ignore_index=ignore_index)
+    for rows in (slice(0, 1), slice(1, 2)):
+        pm.update(torch.from_numpy(x[rows]), torch.from_numpy(t[rows]))
+        jm.update(jnp.asarray(x[rows]), jnp.asarray(t[rows]))
+    np.testing.assert_allclose(pm.compute().numpy(), np.asarray(jm.compute()), rtol=PPL_RTOL)
+    assert float(pm.count) == float(jm.count)
 
 
 @pytest.mark.parametrize(("preds", "target", "error"), [

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, all of image and all of text.
+"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, all of image, regression, retrieval and all of text.
 
 Same module paths and names as the JAX package. Metric states live on ``cuda``
 unless a metric is built with ``device=...``. Hand-written Hopper kernels
@@ -8,8 +8,21 @@ the LPIPS heads (``lpips_head.cu``), and BERT's attention core (``attention.cu``
 and residual LayerNorms (``layernorm_residual.cu``).
 """
 
-from torchmetrics_tpu_torch import detection, functional
+from torchmetrics_tpu_torch import (
+    aggregation,
+    classification,
+    detection,
+    functional,
+    image,
+    regression,
+    retrieval,
+    text,
+    utilities,
+    wrappers,
+)
+from torchmetrics_tpu_torch.__about__ import __version__
 from torchmetrics_tpu_torch.aggregation import (
+    BaseAggregator,
     CatMetric,
     MaxMetric,
     MeanMetric,
@@ -33,17 +46,31 @@ from torchmetrics_tpu_torch.detection import (
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.regression import __all__ as _regression_all
+from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.text import __all__ as _text_all
 from torchmetrics_tpu_torch.wrappers import Running
 
 __all__ = [
+    "aggregation",
+    "classification",
     "detection",
     "functional",
+    "image",
+    "regression",
+    "retrieval",
+    "text",
+    "utilities",
+    "wrappers",
+    "__version__",
     "Metric",
     "CompositionalMetric",
     "MetricCollection",
     "Running",
+    "BaseAggregator",
     "CatMetric",
     "MaxMetric",
     "MeanMetric",
@@ -60,5 +87,7 @@ __all__ = [
     "ModifiedPanopticQuality",
     "PanopticQuality",
     *_image_all,
+    *_regression_all,
+    *_retrieval_all,
     *_text_all,
 ]

@@ -1,6 +1,6 @@
-"""Functional metrics ported so far (classification, image and text: all of them; detection: the IoU family, panoptic quality)."""
+"""Functional metrics ported so far (classification, image, pairwise, regression, retrieval and text: all of them; detection: the IoU family, panoptic quality)."""
 
-from torchmetrics_tpu_torch.functional import detection
+from torchmetrics_tpu_torch.functional import classification, detection, image, pairwise, regression, retrieval, text
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
@@ -14,11 +14,23 @@ from torchmetrics_tpu_torch.functional.detection import (
 )
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.pairwise import __all__ as _pairwise_all
+from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
+from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
+    "classification",
     "detection",
+    "image",
+    "pairwise",
+    "regression",
+    "retrieval",
+    "text",
     *_classification_all,
     "complete_intersection_over_union",
     "distance_intersection_over_union",
@@ -27,5 +39,8 @@ __all__ = [
     "modified_panoptic_quality",
     "panoptic_quality",
     *_image_all,
+    *_pairwise_all,
+    *_regression_all,
+    *_retrieval_all,
     *_text_all,
 ]

@@ -45,12 +45,19 @@ def _perplexity_update(preds: Tensor, target: Tensor, ignore_index: Optional[int
     logits = preds.reshape(-1, preds.shape[-1])
     target = target.reshape(-1)
     mask = target != ignore_index if ignore_index is not None else torch.ones_like(target, dtype=torch.bool)
-    safe_target = torch.where(mask, target, 0)[:, None]
-    rows = max(1, _CHUNK_BYTES // (4 * logits.shape[1]))
+    # as the JAX package's `take_along_axis`: a target in [-V, 0) counts from the end, one outside
+    # [-V, V) gives NaN; the gather index is clamped, so no target raises and nothing is read back
+    vocab = logits.shape[1]
+    safe_target = torch.where(mask, target, 0)
+    safe_target = torch.where(safe_target < 0, safe_target + vocab, safe_target)
+    out_of_range = mask & ((safe_target < 0) | (safe_target >= vocab))
+    safe_target = safe_target.clamp(0, vocab - 1)[:, None]
+    rows = max(1, _CHUNK_BYTES // (4 * vocab))
     picked = torch.empty(logits.shape[0], dtype=torch.float32, device=logits.device)
     for start in range(0, logits.shape[0], rows):
         log_probs = torch.log_softmax(logits[start : start + rows], dim=-1, dtype=torch.float32)
         picked[start : start + rows] = log_probs.gather(1, safe_target[start : start + rows])[:, 0]
+    picked = torch.where(out_of_range, float("nan"), picked)
     return -torch.where(mask, picked, 0.0).sum(), mask.sum(dtype=torch.int32)
 
 

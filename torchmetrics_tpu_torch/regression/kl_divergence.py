@@ -1,0 +1,57 @@
+"""KLDivergence (port of ``torchmetrics_tpu/regression/kl_divergence.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+from torch import Tensor
+
+from torchmetrics_tpu_torch.functional.regression.kl_divergence import _kld_compute, _kld_update
+from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+
+
+class KLDivergence(Metric):
+    """KL(P || Q) accumulated over batches.
+
+    Example:
+        >>> import torch
+        >>> metric = KLDivergence(device="cpu")
+        >>> metric.update(torch.tensor([[0.36, 0.48, 0.16]]), torch.tensor([[1/3, 1/3, 1/3]]))
+        >>> round(float(metric.compute()), 4)
+        0.0853
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+
+    def __init__(self, log_prob: bool = False, reduction: Optional[str] = "mean", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not isinstance(log_prob, bool):
+            raise TypeError(f"Expected argument `log_prob` to be bool but got {log_prob}")
+        self.log_prob = log_prob
+        allowed_reduction = ["mean", "sum", "none", None]
+        if reduction not in allowed_reduction:
+            raise ValueError(f"Expected argument `reduction` to be one of {allowed_reduction} but got {reduction}")
+        self.reduction = reduction
+
+        if self.reduction in ["mean", "sum"]:
+            self.add_state("measures", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        else:
+            self.add_state("measures", default=[], dist_reduce_fx="cat")
+        self.add_state("total", default=torch.tensor(0), dist_reduce_fx="sum")
+
+    def update(self, p: Tensor, q: Tensor) -> None:
+        measures, total = _kld_update(p, q, self.log_prob)
+        if self.reduction is None or self.reduction == "none":
+            self.measures.append(measures)
+        else:
+            self.measures += measures.sum()
+        self.total += total
+
+    def compute(self) -> Tensor:
+        measures = dim_zero_cat(self.measures) if self.reduction in ["none", None] else self.measures
+        return _kld_compute(measures, self.total, self.reduction)

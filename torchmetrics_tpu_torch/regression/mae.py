@@ -1,0 +1,44 @@
+"""MeanAbsoluteError (port of ``torchmetrics_tpu/regression/mae.py``)."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import Tensor
+
+from torchmetrics_tpu_torch.functional.regression.mae import _mean_absolute_error_compute, _mean_absolute_error_update
+from torchmetrics_tpu_torch.metric import Metric
+
+
+class MeanAbsoluteError(Metric):
+    """Mean absolute error.
+
+    Example:
+        >>> import torch
+        >>> metric = MeanAbsoluteError(device="cpu")
+        >>> metric.update(torch.tensor([0., 1., 2., 3.]), torch.tensor([0., 1., 2., 2.]))
+        >>> metric.compute()
+        tensor(0.2500)
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+
+    def __init__(self, num_outputs: int = 1, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not (isinstance(num_outputs, int) and num_outputs > 0):
+            raise ValueError(f"Expected num_outputs to be a positive integer but got {num_outputs}")
+        self.num_outputs = num_outputs
+        self.add_state("sum_abs_error", default=torch.zeros(num_outputs), dist_reduce_fx="sum")
+        self.add_state("total", default=torch.tensor(0), dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        sum_abs_error, num_obs = _mean_absolute_error_update(preds, target, self.num_outputs)
+        self.sum_abs_error += sum_abs_error
+        self.total += num_obs
+
+    def compute(self) -> Tensor:
+        return _mean_absolute_error_compute(self.sum_abs_error, self.total)

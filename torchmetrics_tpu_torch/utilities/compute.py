@@ -140,6 +140,33 @@ def full_fp32() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def _safe_matmul(x: Tensor, y: Tensor) -> Tensor:
+    """``x @ y.T`` in full float32 (JAX ``utilities/compute.py:19``, ``precision="highest"``).
+
+    Runs inside :func:`full_fp32`, so cuBLAS takes no TF32 path whatever the
+    caller's flags. Half-precision inputs are multiplied in float32 and the
+    product is cast back to ``x``'s dtype.
+    """
+    half = (torch.float16, torch.bfloat16)
+    with full_fp32():
+        if x.dtype in half or y.dtype in half:
+            return torch.matmul(x.to(torch.float32), y.to(torch.float32).T).to(x.dtype)
+        return torch.matmul(x, y.T)
+
+
+def _safe_sqrt(x: Tensor) -> Tensor:
+    """``sqrt`` with a zero gradient at 0; a non-positive input gives 0 (JAX ``utilities/compute.py:37``)."""
+    positive = x > 0
+    return torch.where(positive, torch.sqrt(torch.where(positive, x, torch.ones_like(x))), torch.zeros_like(x))
+
+
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)`` that is 0 wherever ``x == 0``, also where ``y == 0`` (JAX ``utilities/compute.py:64``)."""
+    zero = x == 0
+    res = x * torch.log(torch.where(zero, torch.ones_like(y), y))
+    return torch.where(zero, torch.zeros_like(res), res)
+
+
 def _safe_pow(base: Tensor, exp: Tensor) -> Tensor:
     """``base ** exp`` with finite gradients where the true derivative diverges (JAX ``utilities/compute.py:51``).
 

@@ -86,3 +86,8 @@ def _bucket_size(n: int, minimum: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities to class indices by argmax along ``argmax_dim`` (reference ``data.py:152-170``)."""
+    return torch.argmax(x, dim=argmax_dim)

@@ -43,3 +43,30 @@ def gather_all_tensors(result: Tensor, group: Optional[Any] = None) -> List[Tens
     gathered = [torch.zeros_like(padded) for _ in range(world_size)]
     dist.all_gather(gathered, padded, group=group)
     return [g[tuple(slice(int(d)) for d in size.tolist())] for g, size in zip(gathered, local_sizes)]
+
+
+def reduce(x: Tensor, reduction: Optional[str]) -> Tensor:
+    """Reduce a tensor: ``elementwise_mean``, ``sum`` or ``none`` (reference ``distributed.py:22``)."""
+    if reduction == "elementwise_mean":
+        return torch.mean(x)
+    if reduction == "sum":
+        return torch.sum(x)
+    if reduction in ("none", None):
+        return x
+    raise ValueError("Reduction parameter unknown.")
+
+
+def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: str = "none") -> Tensor:
+    """Per-class fraction with a ``micro``, ``macro``, ``weighted`` or no reduction (reference ``distributed.py:45``)."""
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    fraction = torch.sum(num) / torch.sum(denom) if class_reduction == "micro" else num / denom
+    fraction = torch.where(torch.isnan(fraction), torch.zeros_like(fraction), fraction)
+    if class_reduction == "micro":
+        return fraction
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        return torch.sum(fraction * (weights.to(torch.float32) / torch.sum(weights)))
+    if class_reduction in ("none", None):
+        return fraction
+    raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
