@@ -226,8 +226,41 @@ the card from ``--seed``; none of B1-B5 may launch in them):
     against plain per-query numpy loops in worker processes;
 
 then a ``regression_retrieval`` line with the seconds of phases 33-38 and
-B1-B5's launch counts over them (all 0), the card's name and power limit,
-the ``kernels`` line and, last,
+B1-B5's launch counts over them (all 0);
+
+clustering, nominal association and the wrappers (phases 39-43, data drawn
+on the card from ``--seed``; B1, B3, B4 and B5 may not launch, B2a/B2b only
+in phase 43's trunk forwards):
+
+39. ``clustering_imagenet``: ImageNet-1k val's 50,000 labels against a
+    synthetic 1000-cluster assignment (the true class with probability
+    0.6), as deep-clustering papers report NMI, AMI and ARI: the 9 extrinsic
+    classes in updates of 1,024 against float64 from an int64 contingency
+    (1e-5 relative; AMI 1e-5) and a numpy EMI in a worker process; each
+    ``compute``'s ms, EMI's terms and ms, the float32 pair counts' error;
+40. ``clustering_features``: Calinski-Harabasz, Davies-Bouldin and Dunn on
+    the same assignment over 50,000 x 2,048 float32 features, against
+    float64 on the card (1e-5); ms and the peak above the inputs;
+41. ``nominal_adult``: UCI Adult's 48,842 rows x 9 categorical columns: the
+    four association matrices, the four pair classes streamed with and
+    without ``num_classes``, both NaN strategies on 1% NaNs, against float64
+    numpy (1e-5); ms per matrix;
+42. ``fleiss_cifar10h``: Fleiss' kappa on CIFAR-10H's shape (10,000 images,
+    10 classes, 51 annotators) as counts and as scores (1e-6);
+43. ``wrappers_imagenet_cifar10``: ``BootStrapper(MulticlassAccuracy(1000))``
+    on the imagenet_val data, its loop route (10 copies, each equal to its
+    own metric on the numpy-drawn indices) and its stacked route (100
+    copies, within 1e-6 of a float64 count-weighted accuracy under the
+    counts it drew); ``MetricTracker``, ``ClasswiseWrapper``,
+    ``MinMaxMetric``, ``MultioutputWrapper`` and ``MultitaskWrapper`` equal
+    to their metrics run alone; ``FeatureShare`` over FID, KID and MiFID on
+    fid_cifar10_10k's 10,000 + 10,000 images: one trunk forward a batch (B2a
+    40 and B2b 54 launches), states bit for bit equal to the three metrics
+    run alone; images/s shared and unshared;
+
+then a ``clustering_nominal_wrappers`` line with the seconds of phases
+39-43 and B1-B5's launch counts over them, the card's name and power
+limit, the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -4354,6 +4387,576 @@ def regression_retrieval(torch, np, dev, gen, smi: str, counters: dict, t_main: 
     return out
 
 
+# --------------------------- clustering, nominal association and the wrappers (phases 39-43)
+CLUSTER_RTOL = 1e-5  # float32 sums over a 1000 x 1000 contingency (and float32 pair counts) against float64
+AMI_ATOL = 1e-5  # AMI: float32 MI and entropies around a float64 EMI
+INTRINSIC_RTOL = 1e-5  # float32 centroid sums of ~50 rows of 2,048 features, against float64 on the card
+NOMINAL_ATOL = 1e-5  # float32 chi-squared sums and entropies of 48,842 rows against float64 numpy
+FLEISS_ATOL = 1e-6  # float32 sums of 10,000 per-subject agreements against float64
+BOOT_ATOL = 1e-6  # a float32 macro mean of 1000 per-class recalls from exact counts, against float64
+ADULT_CATEGORIES = (9, 16, 7, 15, 6, 5, 2, 42, 2)  # adult.names: workclass .. native-country, "?" counted
+ADULT_ROWS = 48_842  # adult.data + adult.test
+
+
+def _entropy64(np, counts) -> float:
+    p = counts[counts > 0] / counts.sum()
+    return float(-(p * np.log(p)).sum())
+
+
+def _host_emi(a, b, n: int) -> float:
+    """E[MI] of sklearn's expected_mutual_information in float64 numpy, a row of the contingency at a time,
+    with log-gamma from scipy; an independent reference for the port's chunked sum on the card."""
+    import numpy as np
+    from scipy.special import gammaln
+
+    lg = gammaln(np.arange(n + 2, dtype=np.float64))  # lg[k] = log((k - 1)!)
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    total = 0.0
+    for ai in a:
+        start = np.maximum(1, ai + b - n)
+        count = np.maximum(0, np.minimum(ai, b) - start + 1)
+        col = np.repeat(np.arange(len(b)), count)
+        nij = np.repeat(start, count) + (np.arange(count.sum()) - np.repeat(np.cumsum(count) - count, count))
+        bj = b[col]
+        term1 = nij / n * (np.log(nij) - np.log(ai) - np.log(bj) + np.log(n))
+        gln = (lg[ai + 1] + lg[bj + 1] + lg[n - ai + 1] + lg[n - bj + 1] - lg[n + 1] - lg[nij + 1]
+               - lg[ai - nij + 1] - lg[bj - nij + 1] - lg[n - ai - bj + nij + 1])
+        total += float((term1 * np.exp(gln)).sum())
+    return total
+
+
+def _host_extrinsic(preds, target) -> dict:
+    """The nine extrinsic scores in float64 from an int64 contingency, and the exact pair counts (Python ints);
+    run in a worker process while the card works."""
+    import numpy as np
+
+    _, p = np.unique(preds, return_inverse=True)
+    _, t = np.unique(target, return_inverse=True)
+    kp, kt, n = p.max() + 1, t.max() + 1, len(p)
+    c = np.bincount(t * kp + p, minlength=kt * kp).reshape(kt, kp).astype(np.int64)
+    a, b = c.sum(axis=1), c.sum(axis=0)
+    nz = c > 0
+    mi = float((c[nz] / n * (np.log(c[nz] * n) - np.log(np.outer(a, b)[nz]))).sum())
+    h_t, h_p = _entropy64(np, a.astype(np.float64)), _entropy64(np, b.astype(np.float64))
+    h_t_given_p = float(-(c[nz] / n * (np.log(c[nz]) - np.log(np.broadcast_to(b, c.shape)[nz]))).sum())
+    h_p_given_t = float(-(c[nz] / n * (np.log(c[nz]) - np.log(np.broadcast_to(a[:, None], c.shape)[nz]))).sum())
+    hom, com = 1.0 - h_t_given_p / h_t, 1.0 - h_p_given_t / h_p
+    sq = int((c.astype(object) ** 2).sum())
+    rows, cols = int((a.astype(object) ** 2).sum()), int((b.astype(object) ** 2).sum())
+    tp, fp, fn = sq - n, rows - sq, cols - sq  # fp: the row marginals, as the package orients [0, 1]
+    tn = n * n - tp - fp - fn - n
+    emi = _host_emi(a, b, n)
+    return {
+        "contingency": c, "pairs": [[tn, fp], [fn, tp]], "emi": emi, "emi_terms": int(sum(
+            np.maximum(0, np.minimum(ai, b) - np.maximum(1, ai + b - n) + 1).sum() for ai in a)),
+        "MutualInfoScore": mi, "NormalizedMutualInfoScore": mi / ((h_t + h_p) / 2),
+        "AdjustedMutualInfoScore": (mi - emi) / ((h_t + h_p) / 2 - emi),
+        "RandScore": (tn + tp) / (n * n - n), "AdjustedRandScore": 2.0 * (tp * tn - fn * fp) / (
+            (tp + fn) * (fn + tn) + (tp + fp) * (fp + tn)),
+        "HomogeneityScore": hom, "CompletenessScore": com, "VMeasureScore": 2 * hom * com / (hom + com),
+        "FowlkesMallowsIndex": tp / ((tp + fp) * (tp + fn)) ** 0.5,
+    }
+
+
+def imagenet_clusters(torch, dev, gen, n: int, classes: int, keep: float = 0.6):
+    """ImageNet-1k val's labels and a synthetic k-means assignment: the true class with probability ``keep``."""
+    target = torch.randint(0, classes, (n,), generator=gen, device=dev)
+    other = torch.randint(0, classes, (n,), generator=gen, device=dev)
+    return torch.where(torch.rand(n, generator=gen, device=dev) < keep, target, other), target
+
+
+def phase_clustering_imagenet(torch, np, preds, target, pending, smi: str, batch: int = 1024) -> dict:
+    """NMI, AMI, ARI and six more on ImageNet-1k val's 50,000 labels and 1000 clusters, as deep-clustering papers
+    (SCAN, TEMI) report them; against float64 from an int64 contingency and a numpy EMI in a worker process."""
+    import torchmetrics_tpu_torch.clustering as CL
+    import torchmetrics_tpu_torch.functional.clustering as CLF
+    from torchmetrics_tpu_torch.functional.clustering import (calculate_contingency_matrix,
+                                                              calculate_pair_cluster_confusion_matrix)
+
+    ext = importlib.import_module("torchmetrics_tpu_torch.functional.clustering.extrinsic")
+    names = ["MutualInfoScore", "NormalizedMutualInfoScore", "AdjustedMutualInfoScore", "RandScore",
+             "AdjustedRandScore", "HomogeneityScore", "CompletenessScore", "VMeasureScore", "FowlkesMallowsIndex"]
+    metrics = {name: getattr(CL, name)() for name in names}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, len(target), batch):
+        for metric in metrics.values():
+            metric.update(preds[lo:lo + batch], target[lo:lo + batch])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    values, compute_ms, warm_ms = {}, {}, {}
+    for name, metric in metrics.items():
+        t1 = time.perf_counter()
+        values[name] = float(metric.compute())
+        torch.cuda.synchronize()
+        compute_ms[name] = (time.perf_counter() - t1) * 1e3
+    for name in names:  # again through the functional: the first computes load each CUDA module once
+        fn = getattr(CLF, re.sub(r"(?<!^)(?=[A-Z])", "_", name).lower())  # VMeasureScore: v_measure_score
+        t1 = time.perf_counter()
+        fn(preds, target)
+        torch.cuda.synchronize()
+        warm_ms[name] = (time.perf_counter() - t1) * 1e3
+    contingency = calculate_contingency_matrix(preds, target)
+    n = len(target)
+    t1 = time.perf_counter()
+    emi = ext.expected_mutual_info_score(contingency, n)
+    torch.cuda.synchronize()
+    emi_ms = (time.perf_counter() - t1) * 1e3
+    pairs = calculate_pair_cluster_confusion_matrix(contingency=contingency)
+    ref = pending.result()
+    check(np.array_equal(contingency.cpu().numpy(), ref["contingency"]) and int(contingency.max()) < 2**24,
+          "contingency != int64 bincount")
+    pair_err = max(abs(float(pairs[i, j]) - ref["pairs"][i][j]) / ref["pairs"][i][j] for i in (0, 1) for j in (0, 1))
+    errors = {name: (abs(values[name] - ref[name]) if name == "AdjustedMutualInfoScore" else _rel(values[name], ref[name]))
+              for name in names}
+    for name in names:
+        limit = AMI_ATOL if name == "AdjustedMutualInfoScore" else CLUSTER_RTOL
+        check(errors[name] <= limit, f"{name} {values[name]} vs float64 {ref[name]}")
+    emi_err = _rel(emi, ref["emi"])
+    check(emi_err <= 1e-9, f"EMI {emi} vs numpy float64 {ref['emi']}")
+    result = {"phase": "clustering_imagenet", "card": smi, "samples": n, "classes": int(target.max()) + 1,
+              "clusters": int(preds.max()) + 1, "batch": batch, "values": values, "float64": {k: ref[k] for k in names},
+              "errors": errors, "pair_counts_float32_rel_err": pair_err, "emi": emi, "emi_float64_numpy": ref["emi"],
+              "emi_rel_err": emi_err, "emi_terms": ref["emi_terms"], "emi_ms": emi_ms, "compute_ms": compute_ms,
+              "warm_functional_ms": warm_ms, "updates_s": update_s}
+    emit(result)
+    return result
+
+
+def _intrinsic_float64(torch, data, labels) -> dict:
+    """Calinski-Harabasz, Davies-Bouldin and Dunn (p=2) in float64 on the card; centroid distances by the float64
+    Gram identity, another route than the port's tiled differences."""
+    _, lab = torch.unique(labels, return_inverse=True)
+    k = int(lab.max()) + 1
+    x = data.double()
+    counts = torch.bincount(lab, minlength=k).double()
+    cent = torch.zeros((k, x.shape[1]), dtype=torch.float64, device=x.device).index_add_(0, lab, x) / counts[:, None]
+    resid = ((x - cent[lab]) ** 2).sum(dim=1)
+    between = (counts * ((cent - x.mean(dim=0)) ** 2).sum(dim=1)).sum()
+    ch = float(between / resid.sum() * (len(x) - k) / (k - 1))
+    scatter = torch.zeros(k, dtype=torch.float64, device=x.device).index_add_(0, lab, resid.sqrt()) / counts
+    sq = (cent * cent).sum(dim=1)
+    d2 = (sq[:, None] + sq[None, :] - 2.0 * cent @ cent.T).clamp_(min=0.0)
+    dist = d2.sqrt()
+    ratio = (scatter[:, None] + scatter[None, :]) / dist
+    ratio.fill_diagonal_(-float("inf"))
+    db = float(ratio.max(dim=1).values.mean())
+    dist.fill_diagonal_(float("inf"))
+    dunn = float(dist.min() / resid.sqrt().max())
+    return {"CalinskiHarabaszScore": ch, "DaviesBouldinScore": db, "DunnIndex": dunn}
+
+
+def phase_clustering_features(torch, dev, gen, labels, smi: str, dim: int = 2048, batch: int = 1024) -> dict:
+    """The intrinsic scores of the same 1000-cluster assignment over ResNet-50-wide (2,048) float32 features."""
+    import torchmetrics_tpu_torch.clustering as CL
+
+    centers = torch.randn((int(labels.max()) + 1, dim), generator=gen, device=dev)
+    data = centers[labels] + 2.0 * torch.randn((len(labels), dim), generator=gen, device=dev)
+    del centers
+    metrics = {name: getattr(CL, name)() for name in ("CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex")}
+    for lo in range(0, len(labels), batch):
+        for metric in metrics.values():
+            metric.update(data[lo:lo + batch], labels[lo:lo + batch])
+    torch.cuda.synchronize()
+    inputs_bytes = torch.cuda.memory_allocated()
+    values, compute_ms, peak = {}, {}, {}
+    for name, metric in metrics.items():
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        values[name] = float(metric.compute())
+        torch.cuda.synchronize()
+        compute_ms[name] = (time.perf_counter() - t1) * 1e3
+        peak[name] = torch.cuda.max_memory_allocated() - inputs_bytes
+    import torchmetrics_tpu_torch.functional.clustering as CLF
+
+    warm_ms = {}
+    for name, fn in (("CalinskiHarabaszScore", CLF.calinski_harabasz_score),
+                     ("DaviesBouldinScore", CLF.davies_bouldin_score), ("DunnIndex", CLF.dunn_index)):
+        t1 = time.perf_counter()
+        fn(data, labels)
+        torch.cuda.synchronize()
+        warm_ms[name] = (time.perf_counter() - t1) * 1e3
+    ref = _intrinsic_float64(torch, data, labels)
+    errors = {name: _rel(values[name], ref[name]) for name in values}
+    for name in values:
+        check(errors[name] <= INTRINSIC_RTOL, f"{name} {values[name]} vs float64 {ref[name]}")
+    result = {"phase": "clustering_features", "card": smi, "samples": len(labels), "dim": dim,
+              "features_bytes": data.numel() * 4, "values": values, "float64": ref, "rel_err": errors,
+              "compute_ms": compute_ms, "warm_functional_ms": warm_ms, "peak_above_inputs_bytes": peak,
+              "jax_form_centroid_differences_bytes": (int(labels.max()) + 1) ** 2 * dim * 4}
+    emit(result)
+    return result
+
+
+def adult_columns(torch, dev, gen, rows: int = ADULT_ROWS, categories=ADULT_CATEGORIES):
+    """UCI Adult's categorical columns (category counts as adult.names lists them): each drawn from a shared latent
+    rank or uniformly, so the columns are associated but not equal."""
+    latent = torch.rand(rows, generator=gen, device=dev)
+    cols = []
+    for k in categories:
+        tied = (latent * k).long().clamp_(max=k - 1)
+        free = torch.randint(0, k, (rows,), generator=gen, device=dev)
+        cols.append(torch.where(torch.rand(rows, generator=gen, device=dev) < 0.5, tied, free))
+    return torch.stack(cols, dim=1)
+
+
+def _host_nominal(np, x, y) -> dict:
+    """Cramér's V and Tschuprow's T (bias-corrected), Pearson's C and Theil's U(x | y), float64 from int64 counts."""
+    _, xi = np.unique(x, return_inverse=True)
+    _, yi = np.unique(y, return_inverse=True)
+    r, k = xi.max() + 1, yi.max() + 1
+    c = np.bincount(xi * k + yi, minlength=r * k).reshape(r, k).astype(np.float64)
+    n = c.sum()
+    expected = np.outer(c.sum(axis=1), c.sum(axis=0)) / n
+    chi2 = float(((c - expected) ** 2 / expected).sum())
+    phi2 = max(0.0, chi2 / n - (r - 1) * (k - 1) / (n - 1))
+    rc, kc = r - (r - 1) ** 2 / (n - 1), k - (k - 1) ** 2 / (n - 1)
+    px, py, pj = c.sum(axis=1) / n, c.sum(axis=0) / n, c / n
+    h_x = float(-(px[px > 0] * np.log(px[px > 0])).sum())
+    nz = pj > 0
+    h_x_given_y = float(-(pj[nz] * (np.log(pj[nz]) - np.log(np.broadcast_to(py, pj.shape)[nz]))).sum())
+    return {"cramers_v": (phi2 / min(rc - 1, kc - 1)) ** 0.5, "tschuprows_t": (phi2 / ((rc - 1) * (kc - 1)) ** 0.5) ** 0.5,
+            "pearsons_contingency_coefficient": (chi2 / (chi2 + n)) ** 0.5,
+            "theils_u": 0.0 if h_x == 0 else (h_x - h_x_given_y) / h_x}
+
+
+def phase_nominal_adult(torch, np, dev, gen, smi: str, batch: int = 4096) -> dict:
+    """The four association matrices over UCI Adult's nine categorical columns, the four pair classes streamed
+    with and without ``num_classes``, and both NaN strategies, against float64 numpy."""
+    import torchmetrics_tpu_torch.functional.nominal as NF
+    import torchmetrics_tpu_torch.nominal as NC
+
+    cols = adult_columns(torch, dev, gen)
+    host = cols.cpu().numpy()
+    fns = ("cramers_v", "tschuprows_t", "pearsons_contingency_coefficient", "theils_u")
+    v = host.shape[1]
+    refs = {(i, j): _host_nominal(np, host[:, i], host[:, j]) for i in range(v) for j in range(v) if i != j}
+    matrix_ms, errors = {}, {}
+    for fn in fns:
+        t1 = time.perf_counter()
+        out = getattr(NF, fn + "_matrix")(cols)
+        torch.cuda.synchronize()
+        matrix_ms[fn] = (time.perf_counter() - t1) * 1e3
+        want = np.ones((v, v))
+        for (i, j), ref in refs.items():
+            want[i, j] = ref[fn]
+        check(out.dtype == torch.float32 and out.device == cols.device, f"{fn}_matrix on {out.device} as {out.dtype}")
+        errors[fn + "_matrix"] = float(np.abs(out.cpu().numpy() - want).max())
+        check(errors[fn + "_matrix"] <= NOMINAL_ATOL, f"{fn}_matrix off float64 by {errors[fn + '_matrix']}")
+    # the pair classes on native-country (42) against occupation (16), streamed
+    x, y = cols[:, 7], cols[:, 1]
+    classes = {"cramers_v": "CramersV", "tschuprows_t": "TschuprowsT",
+               "pearsons_contingency_coefficient": "PearsonsContingencyCoefficient", "theils_u": "TheilsU"}
+    class_values = {}
+    for num_classes in (42, None):
+        for fn, cls in classes.items():
+            metric = getattr(NC, cls)(num_classes=num_classes)
+            for lo in range(0, len(x), batch):
+                metric.update(x[lo:lo + batch], y[lo:lo + batch])
+            got = float(metric.compute())
+            key = f"{cls}_{'num_classes' if num_classes else 'cat'}"
+            class_values[key] = got
+            # with num_classes the state's rows are x (preds), as the functional's Theil's U conditions on y
+            errors[key] = abs(got - refs[(7, 1)][fn])
+            check(errors[key] <= NOMINAL_ATOL, f"{key} {got} vs float64 {refs[(7, 1)][fn]}")
+    # 1% NaNs in each of the pair's columns, replaced by category 0 or dropped
+    xf, yf = x.double(), y.double()
+    xf[torch.rand(len(x), generator=gen, device=dev) < 0.01] = float("nan")
+    yf[torch.rand(len(y), generator=gen, device=dev) < 0.01] = float("nan")
+    xh, yh = xf.cpu().numpy(), yf.cpu().numpy()
+    drop = ~(np.isnan(xh) | np.isnan(yh))
+    nan_refs = {"replace": _host_nominal(np, np.nan_to_num(xh, nan=0.0), np.nan_to_num(yh, nan=0.0)),
+                "drop": _host_nominal(np, xh[drop], yh[drop])}
+    for strategy, ref in nan_refs.items():
+        for fn in fns:
+            got = float(getattr(NF, fn)(xf, yf, nan_strategy=strategy))
+            errors[f"{fn}_{strategy}"] = abs(got - ref[fn])
+            check(errors[f"{fn}_{strategy}"] <= NOMINAL_ATOL, f"{fn} with NaNs {strategy}d: {got} vs {ref[fn]}")
+    result = {"phase": "nominal_adult", "card": smi, "rows": len(host), "categories": list(ADULT_CATEGORIES),
+              "matrix_ms": matrix_ms, "class_values": class_values, "max_abs_err": max(errors.values()),
+              "errors": errors, "nan_rows_dropped": int((~drop).sum())}
+    emit(result)
+    return result
+
+
+def _fleiss64(np, counts) -> float:
+    counts = counts.astype(np.float64)
+    raters = counts.sum(axis=1).max()
+    p_cat = counts.sum(axis=0) / (len(counts) * raters)
+    p_bar = ((counts ** 2).sum(axis=1) - raters).mean() / (raters * (raters - 1))
+    pe = (p_cat ** 2).sum()
+    return float((p_bar - pe) / (1 - pe + 1e-5))
+
+
+def phase_fleiss_cifar10h(torch, np, dev, gen, smi: str, images: int = 10_000, classes: int = 10,
+                          raters: int = 51) -> dict:
+    """Fleiss' kappa on CIFAR-10H's shape (10,000 images, 10 classes, 51 annotators an image), counts and scores."""
+    import torchmetrics_tpu_torch.nominal as NC
+
+    truth = torch.randint(0, classes, (images,), generator=gen, device=dev)
+    probs = torch.full((images, classes), 0.1 / (classes - 1), device=dev)
+    probs[torch.arange(images, device=dev), truth] = 0.9
+    choice = torch.multinomial(probs, raters, replacement=True, generator=gen)  # (images, raters)
+    counts = torch.zeros((images, classes), dtype=torch.int64, device=dev).scatter_add_(
+        1, choice, torch.ones_like(choice))
+    scores = torch.rand((images, classes, raters), generator=gen, device=dev)
+    scores.scatter_add_(1, choice[:, None, :], torch.ones((images, 1, raters), device=dev))  # argmax = choice
+    got, ms = {}, {}
+    for mode, data in (("counts", counts), ("probs", scores)):
+        metric = NC.FleissKappa(mode=mode)
+        t1 = time.perf_counter()
+        for lo in range(0, images, 1000):
+            metric.update(data[lo:lo + 1000])
+        got[mode] = float(metric.compute())
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t1) * 1e3
+    want = _fleiss64(np, counts.cpu().numpy())
+    errors = {mode: abs(value - want) for mode, value in got.items()}
+    check(max(errors.values()) <= FLEISS_ATOL, f"Fleiss' kappa {got} vs float64 {want}")
+    result = {"phase": "fleiss_cifar10h", "card": smi, "images": images, "classes": classes, "raters": raters,
+              "kappa": got, "kappa_float64": want, "abs_err": errors, "stream_ms": ms}
+    emit(result)
+    return result
+
+
+def _bootstrap_copies_vs_own(torch, np, Acc, BootStrapper, logits, target, batch: int, strategy: str, copies: int,
+                             seed: int) -> dict:
+    """The loop route: each copy against its own metric updated on the numpy-drawn indices, exactly."""
+    boot = importlib.import_module("torchmetrics_tpu_torch.wrappers.bootstrapping")
+    wrapper = BootStrapper(Acc(num_classes=1000), num_bootstraps=copies, sampling_strategy=strategy, seed=seed,
+                           raw=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, len(target), batch):
+        wrapper.update(logits[lo:lo + batch], target[lo:lo + batch])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    raw = wrapper.compute()["raw"]
+    rng, own = np.random.default_rng(seed), [Acc(num_classes=1000) for _ in range(copies)]
+    for lo in range(0, len(target), batch):
+        p, t = logits[lo:lo + batch], target[lo:lo + batch]
+        for metric in own:
+            idx = torch.from_numpy(boot._bootstrap_sampler(len(t), strategy, rng)).to(p.device)
+            if len(idx):
+                metric.update(p[idx], t[idx])
+    want = torch.stack([m.compute() for m in own])
+    check(torch.equal(raw, want), f"{strategy} loop copies != their own metrics: {raw} vs {want}")
+    check(wrapper.route_counts == {"loop": -(-len(target) // batch), "stacked": 0}, f"routes {wrapper.route_counts}")
+    return {"batches_per_s": -(-len(target) // batch) / seconds, "mean": float(raw.mean()), "std": float(raw.std())}
+
+
+def _macro_accuracy64(np, counts, pred, target, classes: int = 1000):
+    """Macro accuracy of each copy in float64 under an (N, n) count matrix; classes without tp, fp or fn dropped."""
+    correct = pred == target
+    out = []
+    for row in counts:
+        tp = np.bincount(target, weights=row * correct, minlength=classes)
+        fn = np.bincount(target, weights=row * ~correct, minlength=classes)
+        fp = np.bincount(pred, weights=row * ~correct, minlength=classes)
+        seen = (tp + fp + fn) > 0
+        score = np.divide(tp, tp + fn, out=np.zeros(classes), where=(tp + fn) > 0)
+        out.append(score[seen].mean())
+    return np.array(out)
+
+
+def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz: str, smi: str, seed: int,
+                                    batch: int = 1024, n_img: int = 10_000, img_batch: int = 200,
+                                    stacked_copies: int = 100, kid_subset: int = 1000) -> dict:
+    """BootStrapper's two routes, MetricTracker, ClasswiseWrapper, MinMaxMetric, MultioutputWrapper and
+    MultitaskWrapper on the imagenet_val data, each held to the metrics run unwrapped; FeatureShare over FID, KID
+    and MiFID on fid_cifar10_10k's images, one trunk forward a batch, equal to the three run alone."""
+    import torchmetrics_tpu_torch as T
+    from torchmetrics_tpu_torch.wrappers import (BootStrapper, ClasswiseWrapper, FeatureShare, MetricTracker,
+                                                 MinMaxMetric, MultioutputWrapper, MultitaskWrapper)
+
+    out = {"phase": "wrappers_imagenet_cifar10", "card": smi}
+    n = len(target)
+    batches = [(lo, min(lo + batch, n)) for lo in range(0, n, batch)]
+    # --- BootStrapper, the loop route (validate_args=True): 10 copies, both strategies
+    out["bootstrap_loop"] = {s: _bootstrap_copies_vs_own(torch, np, T.MulticlassAccuracy, BootStrapper, logits, target,
+                                                         batch, s, 10, seed + i)
+                             for i, s in enumerate(("poisson", "multinomial"))}
+    # --- the stacked route (validate_args=False): 100 copies, its counts recorded as drawn
+    wrapper = BootStrapper(T.MulticlassAccuracy(num_classes=1000, validate_args=False), num_bootstraps=stacked_copies,
+                           seed=seed, raw=True)
+    drawn, draw = [], wrapper._draw_counts
+    wrapper._draw_counts = lambda size: drawn.append(draw(size)) or drawn[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo, hi in batches:
+        wrapper.update(logits[lo:hi], target[lo:hi])
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    check(wrapper.route_counts == {"loop": 1, "stacked": len(batches) - 1}, f"stacked routes {wrapper.route_counts}")
+    raw = wrapper.compute()["raw"].double().cpu().numpy()
+    boot = importlib.import_module("torchmetrics_tpu_torch.wrappers.bootstrapping")
+    rng = np.random.default_rng(seed)  # the first batch's loop draws, replayed as counts
+    first = np.stack([np.bincount(boot._bootstrap_sampler(batches[0][1], "poisson", rng), minlength=batches[0][1])
+                      for _ in range(stacked_copies)])
+    counts = np.concatenate([first] + [c.cpu().numpy() for c in drawn], axis=1)
+    pred = logits.argmax(dim=1).cpu().numpy()
+    want = _macro_accuracy64(np, counts, pred, target.cpu().numpy())
+    stacked_err = float(np.abs(raw - want).max())
+    check(stacked_err <= BOOT_ATOL, f"stacked copies off the count-weighted float64 accuracy by {stacked_err}")
+    out["bootstrap_stacked"] = {"copies": stacked_copies, "batches_per_s": len(batches) / stacked_s,
+                                "max_abs_err": stacked_err, "count_mean": float(counts.mean()),
+                                "routes": wrapper.route_counts}
+    # --- MetricTracker over 5 epochs of 10,000 samples
+    tracker = MetricTracker(T.MulticlassAccuracy(num_classes=1000))
+    epochs = [(e * n // 5, (e + 1) * n // 5) for e in range(5)]
+    alone = []
+    for lo, hi in epochs:
+        tracker.increment()
+        tracker.update(logits[lo:hi], target[lo:hi])
+        metric = T.MulticlassAccuracy(num_classes=1000)
+        metric.update(logits[lo:hi], target[lo:hi])
+        alone.append(metric.compute())
+    best, step = tracker.best_metric(return_step=True)
+    check(torch.equal(tracker.compute_all(), torch.stack(alone)) and step == int(torch.stack(alone).argmax())
+          and float(best) == float(max(alone)), "MetricTracker != the epochs run alone")
+    # --- ClasswiseWrapper, MinMaxMetric, MultioutputWrapper, MultitaskWrapper
+    classwise = ClasswiseWrapper(T.MulticlassRecall(num_classes=1000, average=None))
+    recall = T.MulticlassRecall(num_classes=1000, average=None)
+    minmax, running = MinMaxMetric(T.MulticlassAccuracy(num_classes=1000, average="micro")), []
+    accumulated = T.MulticlassAccuracy(num_classes=1000, average="micro")
+    reg_t = torch.randn((n, 3), generator=gen, device=dev)
+    reg_p = reg_t + 0.5 * torch.randn((n, 3), generator=gen, device=dev)
+    reg_p[torch.rand((n, 3), generator=gen, device=dev) < 0.01] = float("nan")
+    multi = MultioutputWrapper(T.R2Score(), 3)
+    r2 = [T.R2Score() for _ in range(3)]
+    task = MultitaskWrapper({"cls": T.MulticlassAccuracy(num_classes=1000), "reg": T.MeanSquaredError()})
+    cls_alone, mse_alone = T.MulticlassAccuracy(num_classes=1000), T.MeanSquaredError()
+    for lo, hi in batches:
+        p, t = logits[lo:hi], target[lo:hi]
+        classwise.update(p, t)
+        recall.update(p, t)
+        minmax.update(p, t)
+        accumulated.update(p, t)
+        running.append(float(accumulated.compute()))
+        mm = minmax.compute()
+        check(float(mm["raw"]) == running[-1] and float(mm["max"]) == max(running)
+              and float(mm["min"]) == min(running), f"MinMaxMetric {mm} vs the running accuracy {running}")
+        multi.update(reg_p[lo:hi], reg_t[lo:hi])
+        for i, m in enumerate(r2):
+            keep = ~torch.isnan(reg_p[lo:hi, i])
+            m.update(reg_p[lo:hi, i][keep], reg_t[lo:hi, i][keep])
+        y = torch.nan_to_num(reg_p[lo:hi, 0])
+        task.update({"cls": p, "reg": y}, {"cls": t, "reg": reg_t[lo:hi, 0]})
+        cls_alone.update(p, t)
+        mse_alone.update(y, reg_t[lo:hi, 0])
+    per_class = recall.compute()
+    classwise_out = classwise.compute()
+    check(len(classwise_out) == 1000 and all(torch.equal(classwise_out[f"multiclassrecall_{c}"], per_class[c])
+                                             for c in range(1000)), "ClasswiseWrapper != MulticlassRecall")
+    check(torch.equal(multi.compute(), torch.stack([m.compute() for m in r2])), "MultioutputWrapper != R2Score alone")
+    task_out = task.compute()
+    check(torch.equal(task_out["cls"], cls_alone.compute()) and torch.equal(task_out["reg"], mse_alone.compute()),
+          "MultitaskWrapper != its tasks alone")
+    out["tracker_best"] = {"value": float(best), "step": step}
+    out["minmax"] = {k: float(v) for k, v in mm.items()}
+    out["multioutput_r2"] = multi.compute().tolist()
+
+    # --- FeatureShare: FID, KID and MiFID on one trunk
+    real = torch.randint(0, 256, (n_img, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
+    noise = torch.randint(-20, 21, real.shape, generator=gen, device=dev, dtype=torch.int16)
+    fake = (real.to(torch.int16) + 24 + noise).clamp_(0, 255).to(torch.uint8)
+
+    def members():
+        return [T.FrechetInceptionDistance(feature=2048, weights_path=npz),
+                T.KernelInceptionDistance(feature=2048, subsets=10, subset_size=kid_subset, weights_path=npz),
+                T.MemorizationInformedFrechetInceptionDistance(feature=2048, weights_path=npz)]
+
+    def stream(update):
+        counts0 = ce.matmul_bias_relu.launches, ce.bias_relu_.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, n_img, img_batch):
+            update(real[lo:lo + img_batch], True)
+            update(fake[lo:lo + img_batch], False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, (ce.matmul_bias_relu.launches - counts0[0],
+                                          ce.bias_relu_.launches - counts0[1])
+
+    trunk0 = ce.matmul_bias_relu.launches, ce.bias_relu_.launches
+    shared_members = members()
+    shared = FeatureShare(shared_members)
+    shared_members[0].inception.network(real[:img_batch])  # lazy module loading and cuDNN heuristics, not timed
+    buf = torch.empty((img_batch, 3, 32, 32), dtype=torch.uint8, device=dev)
+
+    def shared_update(imgs, is_real):
+        # one input buffer refilled every update: its version counter, not its identity, tells the cache the batch is new
+        buf.copy_(imgs)
+        shared.update(buf, real=is_real)
+
+    shared_s, shared_launches = stream(shared_update)
+    alone_members = members()
+    alone_s, alone_launches = stream(lambda imgs, is_real: [m.update(imgs, real=is_real) for m in alone_members])
+    forwards = 2 * n_img // img_batch
+    check(shared_launches == (40 * forwards, 54 * forwards), f"shared trunk launches {shared_launches}, {forwards} batches")
+    check(alone_launches == (120 * forwards, 162 * forwards), f"unshared trunk launches {alone_launches}")
+    bitwise = {}
+    for member, single in zip(shared_members, alone_members):
+        name = type(member).__name__
+        for state in member._defaults:
+            got, ref = member.metric_state[state], single.metric_state[state]
+            same = torch.equal(torch.cat(got), torch.cat(ref)) if isinstance(got, list) else torch.equal(got, ref)
+            check(same, f"{name} state {state}: shared trunk != its own trunk")
+        np.random.seed(seed)
+        value = member.compute()
+        np.random.seed(seed)
+        want = single.compute()
+        value, want = (value if isinstance(value, tuple) else (value,)), (want if isinstance(want, tuple) else (want,))
+        bitwise[name] = all(torch.equal(a, b) for a, b in zip(value, want))
+        worst = max(_rel(a, float(b)) for a, b in zip(value, want))
+        check(bitwise[name] or worst <= 1e-6, f"{name} shared {value} vs alone {want}")
+    out["feature_share"] = {"images": 2 * n_img, "batch": img_batch, "forwards": forwards, "input_buffer_reused": True,
+                            "launches_per_batch": [shared_launches[0] / forwards, shared_launches[1] / forwards],
+                            "unshared_launches_per_batch": [alone_launches[0] / forwards, alone_launches[1] / forwards],
+                            "images_per_s_shared": 2 * n_img / shared_s, "images_per_s_unshared": 2 * n_img / alone_s,
+                            "values_bitwise_equal": bitwise}
+    out["trunk_launches"] = {"matmul_bias_relu": ce.matmul_bias_relu.launches - trunk0[0],
+                             "bias_relu_": ce.bias_relu_.launches - trunk0[1]}
+    emit(out)
+    return out
+
+
+def clustering_nominal_wrappers(torch, np, ce, dev, gen, seed: int, smi: str, counters: dict, t_main: float, logits,
+                                target, n_clusters: int = 50_000, classes: int = 1000) -> dict:
+    """Phases 39-43; B1, B3, B4 and B5 must not launch, B2a/B2b only in phase 43's trunk forwards."""
+    t0 = time.perf_counter()
+    for counter in counters.values():
+        counter.launches = 0
+    seconds = {}
+    preds_c, target_c = imagenet_clusters(torch, dev, gen, n_clusters, classes)
+    with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = pool.submit(_host_extrinsic, preds_c.cpu().numpy(), target_c.cpu().numpy())
+        t1 = time.perf_counter()
+        phase_clustering_imagenet(torch, np, preds_c, target_c, pending, smi)
+        seconds["clustering_imagenet"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    phase_clustering_features(torch, dev, gen, preds_c, smi)
+    seconds["clustering_features"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    phase_nominal_adult(torch, np, dev, gen, smi)
+    seconds["nominal_adult"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    phase_fleiss_cifar10h(torch, np, dev, gen, smi)
+    seconds["fleiss_cifar10h"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        wrappers = phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target,
+                                                   inception_npz(torch, np, seed, folder, dev, gen), smi, seed)
+    seconds["wrappers_imagenet_cifar10"] = time.perf_counter() - t1
+    launches = {name: counter.launches for name, counter in counters.items()}
+    expected = {name: 0 for name in counters}
+    expected.update(wrappers["trunk_launches"])
+    check(launches == expected, f"clustering, nominal and the wrappers launched {launches}, expected {expected}")
+    out = {"phase": "clustering_nominal_wrappers", "seconds": time.perf_counter() - t0, "phase_seconds": seconds,
+           "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4703,15 +5306,21 @@ def main() -> int:
     # ------------------------------- regression, pairwise and retrieval, phases 33-38
     regression_retrieval(torch, np, dev, torch.Generator(device=dev).manual_seed(args.seed + 33), smi,
                          kernel_counters(kernel, ce, lh, ka), t_main, logits)
+
+    # ------------------------- clustering, nominal association and the wrappers, phases 39-43
+    cnw = clustering_nominal_wrappers(torch, np, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 39),
+                                      args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main, logits, target)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
     big = shapes["ade20k_update"]
     image_kernels = [
-        ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"] + rest["kernel_launches"]["matmul_bias_relu"],
+        ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"] + rest["kernel_launches"]["matmul_bias_relu"]
+         + cnw["kernel_launches"]["matmul_bias_relu"],
          conv_checks["worst"]["mm_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
          "one InceptionV3 forward (40 pointwise convs), batch 200, bf16"),
-        ("bias_relu", ":96", fid["launches"]["bias_relu"] + rest["kernel_launches"]["bias_relu_"],
+        ("bias_relu", ":96", fid["launches"]["bias_relu"] + rest["kernel_launches"]["bias_relu_"]
+         + cnw["kernel_launches"]["bias_relu_"],
          conv_checks["worst"]["br_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
          "one InceptionV3 forward (54 spatial convs), batch 200, bf16; queued_ms: the launches queued ahead of the card"),
         ("lpips_head", ":60", lpips["launches"] + rest["kernel_launches"]["lpips_head"], head_checks["max_abs_err"],

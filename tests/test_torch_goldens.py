@@ -19,9 +19,10 @@ TER, EED, BLEU, SacreBLEU, chrF, ROUGE, perplexity, SQuAD) run the string
 functionals with ``device="cpu"``. The 16 image cases without a network
 (126-141: PSNR, PSNR-B, SSIM, MS-SSIM, UQI, SAM, ERGAS, RASE, RMSE-SW, TV,
 SCC, VIF, D_lambda, image gradients, D_s, QNR) replay on CPU tensors, and so
-do the 19 regression cases (070, 075-092), the five pairwise ones (143-147)
-and the ten of retrieval (148-157). ``NOT_REPLAYED`` lists the cases left:
-the domains not ported yet, and the three trunks with random weights that
+do the 19 regression cases (070, 075-092), the five pairwise ones (143-147),
+the ten of retrieval (148-157), and the 16 of clustering (093-108) and the
+nine of nominal association (109-117). ``NOT_REPLAYED`` lists the cases
+left: audio, not ported yet, and the three trunks with random weights that
 the JAX suite skips as well.
 """
 
@@ -109,15 +110,20 @@ REGRESSION_RETRIEVAL_IDS = ["070", *(f"{i:03d}" for i in range(75, 93)), *(f"{i:
 REGRESSION_RETRIEVAL_CASES = [
     (f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if f"{idx:03d}" in REGRESSION_RETRIEVAL_IDS
 ]
-# clustering and nominal (093-117), audio (118-125), and LPIPS, BERTScore and InfoLM (142, 178, 179: random
-# trunk weights, skipped by the JAX suite too)
-NOT_REPLAYED = [*(f"{i:03d}" for i in range(93, 126)), "142", "178", "179"]
+# clustering (093-108) and nominal association (109-117), all frozen from torchmetrics
+CLUSTERING_NOMINAL_IDS = [f"{i:03d}" for i in range(93, 118)]
+CLUSTERING_NOMINAL_CASES = [
+    (f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if f"{idx:03d}" in CLUSTERING_NOMINAL_IDS
+]
+# audio (118-125), and LPIPS, BERTScore and InfoLM (142, 178, 179: random trunk weights, skipped by the JAX
+# suite too)
+NOT_REPLAYED = [*(f"{i:03d}" for i in range(118, 126)), "142", "178", "179"]
 
 
 def test_every_case_is_replayed_or_listed_as_not_replayed():
     replayed = [case_id[:3] for case_id, _ in CASES + REST_CASES + DETECTION_CASES + TEXT_CASES + IMAGE_CASES
-                + REGRESSION_RETRIEVAL_CASES]
-    assert len(replayed) == len(set(replayed)) == 144
+                + REGRESSION_RETRIEVAL_CASES + CLUSTERING_NOMINAL_CASES]
+    assert len(replayed) == len(set(replayed)) == 169
     assert sorted(replayed + NOT_REPLAYED) == [f"{i:03d}" for i in range(len(SPECS))] and len(SPECS) == 180
 
 
@@ -246,5 +252,28 @@ def test_regression_and_retrieval_golden(case_id, spec):
         assert leaf.numel() == golden.size, f"{case_id} leaf {li}"
         np.testing.assert_allclose(
             leaf.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4, equal_nan=True,
+            err_msg=f"{case_id} leaf {li}",
+        )
+
+
+def test_the_25_clustering_and_nominal_cases_are_in_the_pack():
+    assert [case_id[:3] for case_id, _ in CLUSTERING_NOMINAL_CASES] == CLUSTERING_NOMINAL_IDS
+    assert len(CLUSTERING_NOMINAL_IDS) == 25
+
+
+@pytest.mark.parametrize(("case_id", "spec"), CLUSTERING_NOMINAL_CASES, ids=[c[0] for c in CLUSTERING_NOMINAL_CASES])
+def test_clustering_and_nominal_golden(case_id, spec):
+    pack = np.load(os.path.join(GOLDEN_DIR, "goldens.npz"))
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as fh:
+        meta = {case["id"]: case for case in json.load(fh)["cases"]}[case_id]
+    assert meta["source"] == "ref"
+    # the generalized mean's power (108) is a number, not an array
+    leaves = _flatten_output(getattr(TF, spec.fn)(*_text_args(spec.make()), **spec.kwargs))
+    assert len(leaves) == meta["n_leaves"], f"{case_id}: output arity"
+    for li, leaf in enumerate(leaves):
+        golden = pack[f"{case_id}/{li}"]
+        assert leaf.shape == golden.shape, f"{case_id} leaf {li}"
+        np.testing.assert_allclose(
+            leaf.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
             err_msg=f"{case_id} leaf {li}",
         )

@@ -126,3 +126,38 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     proc = _run(["chip_smoke.py"], cwd=str(tmp_path))
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _package_sources():
+    for dirpath, _, files in os.walk(PORT):
+        yield from (os.path.join(dirpath, f) for f in files if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", sorted(_package_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_scipy_or_sklearn_import(path):
+    """The package needs neither; ``chip_smoke.py`` may use scipy for its own references."""
+    for module in _imported_modules(path):
+        assert module.split(".")[0] not in ("scipy", "sklearn"), f"{path} imports {module}"
+
+
+def test_clustering_nominal_and_wrappers_run_with_scipy_and_sklearn_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'torchmetrics_tpu', 'scipy', 'sklearn'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "import torchmetrics_tpu_torch as tt\n"
+        "from torchmetrics_tpu_torch.functional import adjusted_mutual_info_score, calculate_contingency_matrix\n"
+        "p, t = torch.tensor([0, 0, 1, 1, 2, 2]), torch.tensor([0, 0, 1, 2, 2, 2])\n"
+        "assert 0.0 < float(adjusted_mutual_info_score(p, t)) < 1.0\n"
+        "assert calculate_contingency_matrix(p, t, sparse=True).to_dense().sum() == 6\n"
+        "cv = tt.CramersV(num_classes=3, device='cpu'); cv.update(p, t)\n"
+        "assert 0.0 < float(cv.compute()) <= 1.0\n"
+        "bs = tt.BootStrapper(tt.MeanSquaredError(device='cpu'), num_bootstraps=3, seed=0)\n"
+        "for _ in range(2): bs.update(p.float(), t.float())\n"
+        "assert bs.route_counts == {'loop': 1, 'stacked': 1}\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

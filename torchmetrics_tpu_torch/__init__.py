@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, detection, all of image, regression, retrieval and all of text.
+"""PyTorch/CUDA port of ``torchmetrics_tpu``: the ``Metric`` runtime, ``MetricCollection``, the aggregators, all of classification, clustering, detection, all of image, nominal association, regression, retrieval, all of text and the wrappers.
 
 Same module paths and names as the JAX package. Metric states live on ``cuda``
 unless a metric is built with ``device=...``. Hand-written Hopper kernels
@@ -11,9 +11,11 @@ and residual LayerNorms (``layernorm_residual.cu``).
 from torchmetrics_tpu_torch import (
     aggregation,
     classification,
+    clustering,
     detection,
     functional,
     image,
+    nominal,
     regression,
     retrieval,
     text,
@@ -33,6 +35,8 @@ from torchmetrics_tpu_torch.aggregation import (
 )
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.detection import (
     CompleteIntersectionOverUnion,
@@ -46,20 +50,25 @@ from torchmetrics_tpu_torch.detection import (
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.text import __all__ as _text_all
-from torchmetrics_tpu_torch.wrappers import Running
+from torchmetrics_tpu_torch.wrappers import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.wrappers import __all__ as _wrappers_all
 
 __all__ = [
     "aggregation",
     "classification",
+    "clustering",
     "detection",
     "functional",
     "image",
+    "nominal",
     "regression",
     "retrieval",
     "text",
@@ -69,7 +78,6 @@ __all__ = [
     "Metric",
     "CompositionalMetric",
     "MetricCollection",
-    "Running",
     "BaseAggregator",
     "CatMetric",
     "MaxMetric",
@@ -90,4 +98,7 @@ __all__ = [
     *_regression_all,
     *_retrieval_all,
     *_text_all,
+    *_clustering_all,
+    *_nominal_all,
+    *_wrappers_all,
 ]

@@ -1,9 +1,21 @@
-"""Functional metrics ported so far (classification, image, pairwise, regression, retrieval and text: all of them; detection: the IoU family, panoptic quality)."""
+"""Functional metrics ported so far (classification, clustering, image, nominal, pairwise, regression, retrieval and text: all of them; detection: the IoU family, panoptic quality)."""
 
-from torchmetrics_tpu_torch.functional import classification, detection, image, pairwise, regression, retrieval, text
+from torchmetrics_tpu_torch.functional import (
+    classification,
+    clustering,
+    detection,
+    image,
+    nominal,
+    pairwise,
+    regression,
+    retrieval,
+    text,
+)
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.functional.detection import (
     complete_intersection_over_union,
     distance_intersection_over_union,
@@ -14,6 +26,8 @@ from torchmetrics_tpu_torch.functional.detection import (
 )
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.pairwise import __all__ as _pairwise_all
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
@@ -25,8 +39,10 @@ from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
     "classification",
+    "clustering",
     "detection",
     "image",
+    "nominal",
     "pairwise",
     "regression",
     "retrieval",
@@ -43,4 +59,6 @@ __all__ = [
     *_regression_all,
     *_retrieval_all,
     *_text_all,
+    *_clustering_all,
+    *_nominal_all,
 ]

@@ -1,6 +1,23 @@
-"""Wrapper metrics ported so far: ``Running`` (reference ``torchmetrics/wrappers/``)."""
+"""Wrapper metrics (port of ``torchmetrics_tpu/wrappers/``)."""
 
 from torchmetrics_tpu_torch.wrappers.abstract import WrapperMetric
+from torchmetrics_tpu_torch.wrappers.bootstrapping import BootStrapper
+from torchmetrics_tpu_torch.wrappers.classwise import ClasswiseWrapper
+from torchmetrics_tpu_torch.wrappers.feature_share import FeatureShare
+from torchmetrics_tpu_torch.wrappers.minmax import MinMaxMetric
+from torchmetrics_tpu_torch.wrappers.multioutput import MultioutputWrapper
+from torchmetrics_tpu_torch.wrappers.multitask import MultitaskWrapper
 from torchmetrics_tpu_torch.wrappers.running import Running
+from torchmetrics_tpu_torch.wrappers.tracker import MetricTracker
 
-__all__ = ["WrapperMetric", "Running"]
+__all__ = [
+    "WrapperMetric",
+    "BootStrapper",
+    "ClasswiseWrapper",
+    "FeatureShare",
+    "MetricTracker",
+    "MinMaxMetric",
+    "MultioutputWrapper",
+    "MultitaskWrapper",
+    "Running",
+]
