@@ -3,14 +3,14 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` and a C compiler (for the RLE codec); it
-builds the five kernel libraries of ``torchmetrics_tpu_torch/csrc/`` (one
+builds the six kernel libraries of ``torchmetrics_tpu_torch/csrc/`` (one
 ``nvcc`` each, started together). It
 exits non-zero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is not beside it.
 
 Phases, one JSON line each; any mismatch raises and the script exits non-zero:
 
-1. ``build``: compile the five kernel libraries (the build line gives each library's
+1. ``build``: compile the six kernel libraries (the build line gives each library's
    ``nvcc`` time, kernel count, most registers and largest spill, and, for the
    kernels redesigned for Hopper, each one's registers, spills and shared
    memory), print the card's name and power limit;
@@ -259,8 +259,53 @@ in phase 43's trunk forwards):
     run alone; images/s shared and unshared;
 
 then a ``clustering_nominal_wrappers`` line with the seconds of phases
-39-43 and B1-B5's launch counts over them, the card's name and power
-limit, the ``kernels`` line and, last,
+39-43 and B1-B5's launch counts over them;
+
+audio, multimodal and segmentation (phases 44-47, data drawn on the card
+from ``--seed``; the float64 SRMR oracle, S1's plain loop at the main
+path's shapes, CLIP's CPU run and scipy's distance transforms run in
+worker processes while the card works; kernel S1 launches in phase 44
+only, B1-B5 in none):
+
+44. ``srmr_reverb``: SRMR at the reference's defaults (16 kHz, 23 cochlear
+    filters, 125 Hz, 4-128 Hz bands) over 64 REVERB-shaped 8 s utterances in
+    batches of 16, also ``norm=True`` and ``fast=True``; kernel S1
+    (``biquad.cu``) in both modes against its plain loop, bit for bit: on
+    the card at 2 utterances cut to 1 s (where the plain loop is timed) and
+    on the host at the main path's first update (16 utterances, their 368
+    gammatone channels, then 2,944 modulation bands, read after phase 47
+    as ``srmr_reverb_s1_main_shape`` with how far cuFFT's envelopes lie
+    from the CPU's); at full length against float64 ``lfilter``; the scores
+    of 4 utterances against a float64 scipy oracle, ``fast=True`` against
+    the port's CPU run; S1 exactly 2 launches an update (1 on the fast
+    path); utterances/s;
+45. ``wsj0_2mix_separation``: WSJ0-2mix test's shape (3,000 mixtures of 2
+    speakers, 8 kHz, 32,000 samples, batches of 100): PIT with SI-SNR in both
+    modes, SNR, SI-SDR, SA-SDR and C-SI-SNR on a 512-point STFT against
+    float64 numpy (the permutations equal to an exhaustive float64 search),
+    SDR (512 taps) on 500 mixtures against a float64 Levinson solve; 3 and 8
+    speakers (the Hungarian route) against scipy's ``linear_sum_assignment``;
+    mixtures/s;
+46. ``clipscore_coco_clipiqa_koniq``: ``CLIPScore`` on seeded random
+    openai/clip-vit-large-patch14 widths over COCO Karpathy test's pairs
+    (480x640 images as floats in [0, 1], captions of 8-77 tokens through
+    the script's tokenizer; 2,500 of the 5,000 for time),
+    ``CLIPImageQualityAssessment`` with all 16 prompts on
+    clip-vit-base-patch16 widths over KonIQ-10k's 1024x768 uint8 images
+    (5,000 of the 10,073);
+    the first 32 pairs (per pair, and through the metric's state and
+    ``compute``) and 16 images against the port's CPU run, the
+    random-projection encoder against its CPU run; pairs/s, images/s and the
+    trunk's share of an update;
+47. ``segmentation_brats_kits``: ``mask_edges`` with spacing on 8
+    BraTS-shaped 240x240x155 volume pairs (codes exact, areas against float64
+    numpy), ``distance_transform`` (three metrics) and ``surface_distance`` on
+    64 KiTS19-shaped 512x512 slices against ``scipy.ndimage``; tile rows and
+    peak memory;
+
+then an ``audio_multimodal_segmentation`` line with the seconds of phases
+44-47 and the launch counts, the card's name and power limit, the
+``kernels`` line (B1-B5 and S1) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -273,6 +318,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 import statistics
 import multiprocessing
 import subprocess
@@ -4957,6 +5003,837 @@ def clustering_nominal_wrappers(torch, np, ce, dev, gen, seed: int, smi: str, co
     return out
 
 
+# ------------------------------------------- audio, multimodal and segmentation (phases 44-47)
+# SRMR against the float64 scipy oracle. The JAX package's float32 pipeline, which the port follows, lies up to
+# 1.1% from that oracle on this generator's reverberant 8 s utterances at 16 kHz (0.19-1.11% over 16 scores drawn on
+# the CPU, seeds 0-1, both `norm`s: `python tests/srmr_oracle_distance.py`), where the JAX suite's 5e-3 holds at
+# 8 kHz on 1 s signals: float32 recurrences with poles within ~4e-4 of the unit circle, then a ratio of band
+# energies; the card's draws lie up to 1.5% from it (an H100, seed 0)
+SRMR_RTOL = 5e-2
+# `fast=True` on the card against the port's CPU run of the same utterances: the FFT gammatonegram, then S1 at 400 Hz
+# (measured 4.8e-7 on an H100). The default path's S1 is held to its plain loop bit for bit instead, on the card's
+# own envelopes (phase 44's s1_main_shape line, which also gives how far cuFFT's envelopes lie from the CPU's)
+SRMR_CPU_RTOL = 1e-5
+S1_GAMMATONE_RTOL = 2e-4  # S1's gammatone cascade against float64 lfilter, of each channel's scale (6.5e-5 on the CPU)
+S1_MOD_RTOL = 5e-3  # its modulation bands (1.8e-3 on the CPU): poles near the unit circle amplify float32 roundings
+SNR_DB_ATOL = 1e-4  # the SNR family against float64 numpy: float32 sums of 32,000 products, then log10
+SDR_DB_ATOL = 5e-2  # SDR's float32 Toeplitz solve against float64 Levinson (the JAX suite's tolerance)
+CLIP_RTOL, CLIP_ATOL = 1e-4, 1e-4  # the card's float32 trunk against the port's CPU run (the JAX equivalence suite's)
+DIST_RTOL = 1e-4  # distance transforms against scipy.ndimage
+AREA_ATOL = 1e-6  # marching-cubes areas: float32 table entries against float64 numpy
+REVERB = {"fs": 16_000, "utterances": 64, "samples": 128_000, "batch": 16}  # REVERB's 16 kHz evaluation, 8 s
+WSJ0_2MIX = {"fs": 8_000, "mixtures": 3_000, "samples": 32_000, "batch": 100, "sdr_mixtures": 500}
+CLIP_L14 = dict(vocab_size=49408, text_hidden=768, text_layers=12, text_heads=12, text_intermediate=3072,
+                max_position=77, vision_hidden=1024, vision_layers=24, vision_heads=16, vision_intermediate=4096,
+                image_size=224, patch_size=14, projection_dim=768, eos_token_id=2)  # openai/clip-vit-large-patch14
+CLIP_B16 = dict(vocab_size=49408, text_hidden=512, text_layers=12, text_heads=8, text_intermediate=2048,
+                max_position=77, vision_hidden=768, vision_layers=12, vision_heads=12, vision_intermediate=3072,
+                image_size=224, patch_size=16, projection_dim=512, eos_token_id=2)  # openai/clip-vit-base-patch16
+CLIP_BOS, CLIP_EOS = 49406, 49407  # CLIP's <|startoftext|> and <|endoftext|> (also its padding)
+# phases 44-47's sizes, which audio_multimodal_segmentation hands each phase (a CPU rehearsal hands small ones).
+# CLIPScore runs 2,500 of COCO Karpathy test's 5,000 pairs and CLIP-IQA 5,000 of KonIQ-10k's 10,073 images, for the
+# script's time (188 pairs/s and 761 images/s in full float32 on an H100); the widths are not cut
+AMS_SIZES = {
+    "srmr_reverb": REVERB,
+    "wsj0_2mix_separation": WSJ0_2MIX,
+    "clipscore_coco_clipiqa_koniq": {"large": CLIP_L14, "base": CLIP_B16, "pairs": 2_500, "iqa_images": 5_000,
+                                     "batch": 100, "iqa_batch": 64, "cpu_pairs": 32, "cpu_images": 16},
+    "segmentation_brats_kits": {"volumes": 8, "slices": 64},
+}
+
+
+def reverb_utterances(torch, dev, gen, n: int, samples: int, fs: int):
+    """Speech-like 16 kHz utterances made on the card, then reverberated: voiced harmonics (f0 100-250 Hz) and
+    fricative noise under syllable envelopes (noise low-passed below ~16 Hz, rectified, with pauses), convolved
+    with a room's exponentially decaying tail (T60 0.3-0.7 s), peak-normalised to 0.9."""
+    t = torch.arange(samples, device=dev, dtype=torch.float32) / fs
+    f0 = 100 + 150 * torch.rand(n, 1, generator=gen, device=dev)
+    voiced = sum(torch.sin(2 * torch.pi * f0 * k * t + 6.28 * torch.rand(n, 1, generator=gen, device=dev)) / k
+                 for k in range(1, 6))
+    frames = samples // (fs // 100) + 2  # a syllable envelope sampled every 10 ms, interpolated to the samples
+    env = torch.randn(n, 1, frames, generator=gen, device=dev)
+    env = torch.nn.functional.avg_pool1d(env, 5, stride=1, padding=2)  # ~16 Hz and below
+    env = torch.nn.functional.interpolate(env, size=samples, mode="linear", align_corners=False)[:, 0]
+    voiced_env = torch.clamp(env, min=0)
+    fricative_env = torch.clamp(-env - 0.5, min=0)
+    dry = voiced * voiced_env + 2.0 * torch.randn(n, samples, generator=gen, device=dev) * fricative_env
+    taps = fs // 2
+    t60 = 0.3 + 0.4 * torch.rand(n, 1, generator=gen, device=dev)
+    rir = torch.randn(n, taps, generator=gen, device=dev) * torch.exp(-6.9 * torch.arange(taps, device=dev) / fs / t60)
+    rir[:, 0] = 1.0
+    size = 1 << (samples + taps - 1).bit_length()
+    wet = torch.fft.irfft(torch.fft.rfft(dry, size) * torch.fft.rfft(rir, size), size)[:, :samples]
+    return (0.9 * wet / wet.abs().amax(dim=1, keepdim=True)).contiguous()
+
+
+def _host_srmr(x, fs: int, norm: bool) -> list:
+    """SRMR in float64 numpy/scipy (the slow path: ``lfilter`` for every IIR stage, ``hilbert`` for the envelope);
+    a copy of the JAX suite's oracle, frame energies a channel at a time. Runs in a worker process."""
+    from math import ceil, pi
+
+    import numpy as np
+    import scipy.signal as sig
+
+    srmr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    x = np.atleast_2d(np.asarray(x, np.float64))
+    num_batch, time_len = x.shape
+    x = x / np.maximum(np.abs(x).max(axis=-1, keepdims=True), 1.0)
+    nums, den, gain = srmr._gammatone_coefs(fs, 23, 125.0)
+    mfs = float(fs)
+    w_length, w_inc = ceil(0.256 * mfs), ceil(0.064 * mfs)
+    mod_num, mod_den, cutoffs = srmr._modulation_filterbank(4.0, 30.0 if norm else 128.0, 8, mfs, 2.0)
+    pad = max(ceil(time_len / w_inc) * w_inc - time_len, w_length - time_len)
+    num_frames = 1 + (time_len - w_length) // w_inc
+    window = 0.54 - 0.46 * np.cos(2.0 * pi * np.arange(w_length) / (w_length + 1))
+    energy = np.empty((num_batch, 23, 8, num_frames))
+    for b in range(num_batch):
+        gt = np.empty((23, time_len))
+        for f in range(23):
+            y = x[b]
+            for s in range(4):
+                y = sig.lfilter(nums[s, f], den[f], y)
+            gt[f] = y / gain[f]
+        env = np.abs(sig.hilbert(gt, axis=-1))  # time % 16 == 0: the padded-FFT envelope exactly
+        for f in range(23):
+            mod = np.stack([sig.lfilter(mod_num[k], mod_den[k], env[f]) for k in range(8)])
+            frames = np.lib.stride_tricks.sliding_window_view(np.pad(mod, [(0, 0), (0, pad)]), w_length, axis=-1)
+            energy[b, f] = ((frames[:, ::w_inc][:, :num_frames] * window) ** 2).sum(axis=-1)
+    if norm:
+        peak = energy.mean(axis=1, keepdims=True).max(axis=(2, 3), keepdims=True)
+        energy = np.clip(energy, peak * 10.0 ** (-30.0 / 10.0), peak)
+    erbs = np.flipud(srmr._erb_bandwidths(srmr._erb_centre_freqs(fs, 23, 125.0)))
+    avg = energy.mean(axis=-1)
+    scores = []
+    for b in range(num_batch):
+        ac_perc = avg[b].sum(axis=1) * 100.0 / avg[b].sum()
+        bw = erbs[int(np.argmax(np.cumsum(ac_perc[::-1]) > 90.0))]
+        kstar = 5 + sum(bw >= cutoffs[k] for k in (5, 6, 7))
+        scores.append(float(avg[b, :, :4].sum() / avg[b, :, 4:kstar].sum()))
+    return scores
+
+
+def _s1_plain_on_host(x, b, a, gain, card, envelope=None) -> dict:
+    """S1's plain loop on the CPU over the card's own input ``x`` (``biquad_bank_plain(x, b, a, gain)``), against
+    the card's output ``card`` element by element; given ``envelope``, the card's Hilbert envelope of ``card``,
+    also how far the CPU's envelope of the same ``card`` lies from it. Runs in a worker process, on one thread:
+    the loop's steps are small."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    kb = importlib.import_module("torchmetrics_tpu_torch._kernels.biquad")
+    t0 = time.perf_counter()
+    plain = kb.biquad_bank_plain(*(None if v is None else torch.from_numpy(v) for v in (x, b, a, gain))).numpy()
+    out = {"plain_cpu_seconds": time.perf_counter() - t0, "max_abs_err": float(np.abs(plain - card).max()),
+           "unequal": int(np.count_nonzero(plain != card)), "elements": int(card.size)}
+    if envelope is not None:
+        srmr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+        env_cpu = srmr._hilbert_envelope(torch.from_numpy(card)).numpy().reshape(envelope.shape)
+        out["envelope_card_vs_cpu"] = {"max_abs": float(np.abs(envelope - env_cpu).max()),
+                                       "max_rel_of_channel": _band_rel(np, envelope, env_cpu)}
+    return out
+
+
+def sm_clock_max_hz() -> float:
+    """The card's highest SM clock, from ``nvidia-smi``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def _band_rel(np, got, want) -> float:
+    """The largest error of any channel, relative to that channel's largest magnitude."""
+    return float((np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)).max())
+
+
+def phase_srmr_reverb(torch, np, kb, dev, gen, pool, smi: str, cfg: dict) -> dict:
+    """SRMR at the reference's defaults over REVERB-shaped 8 s utterances: kernel S1 in both modes against its
+    plain loop (at a cut length on the card; at the main path's shapes on the host, in two workers whose futures
+    the phase returns as ``s1_on_host``) and float64 ``lfilter``; the scores against a float64 scipy oracle;
+    utterances/s."""
+    from torchmetrics_tpu_torch.audio import SpeechReverberationModulationEnergyRatio as SRMR
+
+    srmr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    fs, n, samples, batch = cfg["fs"], cfg["utterances"], cfg["samples"], cfg["batch"]
+    wave = reverb_utterances(torch, dev, gen, n, samples, fs)
+    host4 = wave[:4].cpu().numpy()
+    oracle = {norm: pool.submit(_host_srmr, host4, fs, norm) for norm in (False, True)}
+    num, den, gain = srmr._gammatone_coefs(fs, 23, 125.0)
+    mnum, mden, _ = srmr._modulation_filterbank(4.0, 128.0, 8, float(fs), 2.0)
+    as32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    g_args = (as32(num), as32(den), as32(gain))
+    m_args = (as32(mnum / mden[:, :1])[None], as32(mden / mden[:, :1]), None)
+
+    # S1 against its plain loop on the card, both modes, 2 utterances cut to 1 s, where the plain loop is timed
+    # (it launches ~7 ops a step); bit for bit, as at the main path's shapes below
+    cut = wave[:2, :fs].contiguous()
+    g_kernel = kb.biquad_bank(cut, *g_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_plain = kb.biquad_bank_plain(cut, *g_args)
+    torch.cuda.synchronize()
+    g_plain_ms = (time.perf_counter() - t0) * 1e3
+    env_cut = srmr._hilbert_envelope(g_kernel).reshape(-1, fs).contiguous()
+    m_kernel = kb.biquad_bank(env_cut, *m_args[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_plain = kb.biquad_bank_plain(env_cut, *m_args[:2])
+    torch.cuda.synchronize()
+    m_plain_ms = (time.perf_counter() - t0) * 1e3
+    vs_plain = max(rel_norm(torch, g_kernel, g_plain), rel_norm(torch, m_kernel, m_plain))
+    max_abs_err = max(float((g_kernel - g_plain).abs().max()), float((m_kernel - m_plain).abs().max()))
+    check(max_abs_err == 0, f"S1 against its plain loop on the card: max abs {max_abs_err}, relative {vs_plain}")
+    cut_ms = {"gammatone": median_ms(torch, lambda: kb.biquad_bank(cut, *g_args), reps=10),
+              "modulation": median_ms(torch, lambda: kb.biquad_bank(env_cut, *m_args[:2]), reps=10)}
+
+    # S1 at full length against float64 lfilter: one utterance's 23 channels, then their envelopes' 8 bands
+    import scipy.signal as sig
+
+    g_full = kb.biquad_bank(wave[:1], *g_args)[0]
+    x64 = wave[0].double().cpu().numpy()
+    g_ref = np.empty((23, samples))
+    for f in range(23):
+        y = x64
+        for s in range(4):
+            y = sig.lfilter(num[s, f].astype(np.float32).astype(np.float64), den[f].astype(np.float32).astype(np.float64), y)
+        g_ref[f] = y / np.float64(np.float32(gain[f]))
+    env_full = srmr._hilbert_envelope(g_full[None])[0].contiguous()
+    m_full = kb.biquad_bank(env_full, *m_args[:2])
+    env64 = env_full.double().cpu().numpy()
+    bm, am = m_args[0][0].double().numpy(), m_args[1].double().numpy()
+    m_ref = np.stack([np.stack([sig.lfilter(bm[k], am[k], env64[f]) for k in range(8)]) for f in range(23)])
+    g_err = _band_rel(np, g_full.double().cpu().numpy(), g_ref)
+    m_err = _band_rel(np, m_full.double().cpu().numpy(), m_ref)
+    check(g_err <= S1_GAMMATONE_RTOL and m_err <= S1_MOD_RTOL, f"S1 against float64 lfilter: {g_err}, {m_err}")
+
+    # the card's first four utterances, held to the float64 oracle below (comparison launches, not counted)
+    import warnings
+
+    per_utt = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # fast=True's experimental-path warning
+        for name in ("default", "norm", "fast"):
+            per_utt[name] = srmr.speech_reverberation_modulation_energy_ratio(
+                wave[:4], fs, norm=name == "norm", fast=name == "fast").cpu().numpy()
+
+    # the main path: three metrics over the 64 utterances in batches of 16; S1 twice an update (once on `fast`)
+    metrics = {"default": SRMR(fs), "norm": SRMR(fs, norm=True), "fast": SRMR(fs, fast=True)}
+    rates = {}
+    updates = n // batch
+    kb.biquad_bank.launches = 0
+    for name, metric in metrics.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for lo in range(0, n, batch):
+                metric.update(wave[lo:lo + batch])
+            value = float(metric.compute())
+            torch.cuda.synchronize()
+        rates[name] = {"utterances_per_s": n / (time.perf_counter() - t0), "srmr_mean": value}
+        check(int(metric.total) == n and np.isfinite(value), f"SRMR {name}: {value} over {int(metric.total)}")
+    main_launches = kb.biquad_bank.launches
+    check(main_launches == 5 * updates, f"S1 launched {main_launches} times on the main path, expected {5 * updates}")
+
+    # S1 against its plain loop at the main path's shapes: its first update's 16 utterances through the 23
+    # gammatone channels, then their envelopes through the 8 bands (comparison launches, not counted). The plain
+    # loop runs on the host, in two workers, while phases 45-47 run; the result must equal it bit for bit
+    xb = wave[:batch].contiguous()
+    g_b = kb.biquad_bank(xb, *g_args)
+    env_b = srmr._hilbert_envelope(g_b).reshape(-1, samples).contiguous()
+    host = lambda t: None if t is None else t.cpu().numpy()  # noqa: E731
+    s1_on_host = {
+        "gammatone": pool.submit(_s1_plain_on_host, host(xb), *map(host, g_args), host(g_b), host(env_b)),
+        "modulation": pool.submit(_s1_plain_on_host, host(env_b), *map(host, m_args),
+                                  host(kb.biquad_bank(env_b, *m_args[:2]))),
+    }
+    del g_b
+
+    errs = {}
+    t0 = time.perf_counter()
+    for norm in (False, True):
+        want = np.asarray(oracle[norm].result())
+        got = per_utt["norm" if norm else "default"]
+        errs["norm" if norm else "default"] = float(np.abs(got / want - 1).max())
+    oracle_wait_s = time.perf_counter() - t0
+    check(max(errs.values()) <= SRMR_RTOL, f"SRMR against the float64 oracle: {errs}")
+    fast_cpu = srmr.speech_reverberation_modulation_energy_ratio(wave[:4].cpu(), fs, fast=True).numpy()
+    errs["fast_vs_cpu"] = float(np.abs(per_utt["fast"] / fast_cpu - 1).max())
+    check(errs["fast_vs_cpu"] <= SRMR_CPU_RTOL, f"SRMR fast on the card against its CPU run: {errs['fast_vs_cpu']}")
+
+    # S1's time at the main path's shapes (one update: 16 x 23 channels, then 16 x 23 x 8 bands, 128,000 samples)
+    main_ms = {"gammatone": median_ms(torch, lambda: kb.biquad_bank(xb, *g_args), reps=5),
+               "modulation": median_ms(torch, lambda: kb.biquad_bank(env_b, *m_args[:2]), reps=5)}
+    cost_main = [kb.biquad_bank_cost(batch, 23, samples, 4), kb.biquad_bank_cost(batch * 23, 8, samples, 1)]
+    cost_cut = [kb.biquad_bank_cost(2, 23, fs, 4), kb.biquad_bank_cost(2 * 23, 8, fs, 1)]
+    bounds_main = [bound_ms(c, F32_FLOPS_PER_S) for c in cost_main]
+    bounds_cut = [bound_ms(c, F32_FLOPS_PER_S) for c in cost_cut]
+    # the serial chain a channel walks: T samples x S sections x ~4 dependent float32 operations of ~4 cycles
+    clock_hz = sm_clock_max_hz()
+    chain_main_ms = sum(samples * s * 4 * 4 / clock_hz * 1e3 for s in (4, 1))
+    out = {
+        "phase": "srmr_reverb", "fs": fs, "utterances": n, "samples": samples, "batch": batch, "rates": rates,
+        "s1_vs_plain_rel": vs_plain, "s1_vs_plain_max_abs": max_abs_err,
+        "s1_vs_float64": {"gammatone": g_err, "modulation": m_err, "rtol": [S1_GAMMATONE_RTOL, S1_MOD_RTOL]},
+        "srmr_rel_err": errs, "srmr_rtol": {"oracle": SRMR_RTOL, "cpu": SRMR_CPU_RTOL},
+        "oracle_wait_seconds": oracle_wait_s, "plain_loop_seconds": (g_plain_ms + m_plain_ms) / 1e3,
+        "srmr_oracle": {"default": oracle[False].result(), "norm": oracle[True].result()},
+        "s1_main_path_launches": main_launches,
+        "s1_ms": {"main": main_ms, "cut": cut_ms}, "s1_plain_ms_cut": {"gammatone": g_plain_ms, "modulation": m_plain_ms},
+        "s1_bound_ms": {"main": [b for b, _ in bounds_main], "cut": [b for b, _ in bounds_cut]},
+        "s1_chain_estimate_ms_main": chain_main_ms, "sm_clock_max_hz": clock_hz, "card": smi,
+    }
+    emit(out)
+    out["s1_on_host"] = s1_on_host
+    out["kernel_entry"] = {
+        "ms": sum(cut_ms.values()), "plain_ms": g_plain_ms + m_plain_ms,
+        "bound_ms": sum(b for b, _ in bounds_cut), "bound_by": "bytes" if all(k == "bytes" for _, k in bounds_cut)
+        else "operations", "max_abs_err": max_abs_err, "launches": main_launches,
+        "ms_main_path": sum(main_ms.values()), "bound_ms_main_path": sum(b for b, _ in bounds_main),
+        "chain_estimate_ms_main_path": chain_main_ms,
+    }
+    return out
+
+
+def separation_sources(torch, dev, gen, n: int, spk: int, samples: int, fs: int):
+    """``(n, spk, samples)`` speech-like sources (WSJ0-2mix's utterances padded with zeros to the longest) and
+    estimates: each source plus noise at 5-15 dB, the speakers in a random order per mixture."""
+    t = torch.arange(samples, device=dev, dtype=torch.float32) / fs
+    f0 = 90 + 160 * torch.rand(n, spk, 1, generator=gen, device=dev)
+    src = sum(torch.sin(2 * torch.pi * f0 * k * t) / k for k in range(1, 4))
+    src = src * torch.clamp(torch.sin(2 * torch.pi * (3 + 3 * torch.rand(n, spk, 1, generator=gen, device=dev)) * t),
+                            min=0) + 0.05 * torch.randn(n, spk, samples, generator=gen, device=dev)
+    length = (samples * (0.4 + 0.6 * torch.rand(n, spk, 1, generator=gen, device=dev))).long()
+    src = src * (torch.arange(samples, device=dev) < length)
+    snr_db = 5 + 10 * torch.rand(n, spk, 1, generator=gen, device=dev)
+    noise = torch.randn(n, spk, samples, generator=gen, device=dev)
+    noise = noise * src.norm(dim=-1, keepdim=True) / noise.norm(dim=-1, keepdim=True) / 10 ** (snr_db / 20)
+    perm = torch.argsort(torch.rand(n, spk, generator=gen, device=dev), dim=1)
+    est = torch.gather(src + noise, 1, perm[:, :, None].expand(-1, -1, samples))
+    return est.contiguous(), src.contiguous()
+
+
+def _snr64(np, p, t, kind: str):
+    """The SNR family in float64 numpy, as the reference defines it."""
+    eps = np.finfo(np.float32).eps
+    if kind in ("si_snr", "c_si_snr"):
+        p, t = p - p.mean(-1, keepdims=True), t - t.mean(-1, keepdims=True)
+    if kind == "snr":
+        return 10 * np.log10(((t**2).sum(-1) + eps) / (((t - p) ** 2).sum(-1) + eps))
+    axes = (-2, -1) if kind == "sa_sdr" else -1
+    alpha = ((p * t).sum(axes, keepdims=True) + eps) / ((t**2).sum(axes, keepdims=True) + eps)
+    ts = alpha * t
+    return 10 * np.log10(((ts**2).sum(axes) + eps) / (((ts - p) ** 2).sum(axes) + eps))
+
+
+def _sums_to_db(np, pt, tt, pp, zero_scale: bool):
+    """10 log10 of the SNR family's ratio from float64 inner products: ``alpha = (pt + eps) / (tt + eps)`` (scale
+    invariant) or 1, target energy ``alpha^2 tt`` over noise energy ``alpha^2 tt - 2 alpha pt + pp``."""
+    eps = np.finfo(np.float32).eps
+    alpha = np.ones_like(pt) if zero_scale else (pt + eps) / (tt + eps)
+    return 10 * np.log10((alpha**2 * tt + eps) / (alpha**2 * tt - 2 * alpha * pt + pp + eps))
+
+
+def _host_separation(est, src, chunk: int = 250) -> dict:
+    """Float64 numpy references of the 2-speaker stream, from each pair's float64 inner products: the exhaustive
+    best permutation by SI-SNR and its value, SNR and SI-SDR of each estimate against its source, SA-SDR of each
+    mixture. Runs in the main process: handing 1.5 GB to a worker cost ~20 s of waiting on an H100's host."""
+    import numpy as np
+
+    perms = np.asarray([[0, 1], [1, 0]])
+    out = {"perm": [], "best": [], "snr": [], "si_sdr": [], "sa_sdr": []}
+    for lo in range(0, len(est), chunk):
+        p, t = est[lo:lo + chunk].astype(np.float64), src[lo:lo + chunk].astype(np.float64)
+        n = p.shape[-1]
+        pt = np.einsum("bjs,bis->bij", p, t)  # [b, target i, estimate j]
+        tt, pp = np.einsum("bis,bis->bi", t, t), np.einsum("bjs,bjs->bj", p, p)
+        sp, st = p.sum(-1), t.sum(-1)
+        pt_c = pt - st[:, :, None] * sp[:, None, :] / n  # zero-mean (SI-SNR) sums
+        tt_c, pp_c = tt - st**2 / n, pp - sp**2 / n
+        pair = _sums_to_db(np, pt_c, tt_c[:, :, None], pp_c[:, None, :], False)  # [b, i, j]
+        scores = np.stack([pair[:, [0, 1], q].mean(-1) for q in perms], 1)  # mean over i of metric(p[q[i]], t[i])
+        best = perms[scores.argmax(1)]
+        rows = np.arange(len(p))[:, None]
+        pt_al = pt[rows, [[0, 1]], best]  # [b, i]: estimate best[i] against source i
+        pp_al = pp[rows, best]
+        out["perm"].append(best)
+        out["best"].append(scores.max(1))
+        out["snr"].append(_sums_to_db(np, pt_al, tt, pp_al, True))
+        out["si_sdr"].append(_sums_to_db(np, pt_al, tt, pp_al, False))
+        out["sa_sdr"].append(_sums_to_db(np, pt_al.sum(1), tt.sum(1), pp_al.sum(1), False))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def _sdr64(np, p, t, taps: int = 512):
+    """SDR with a ``taps``-tap distortion filter in float64: the same normalisation, Levinson's Toeplitz solve."""
+    import scipy.fft as sfft
+    from scipy.linalg import solve_toeplitz
+
+    t = t / np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-6)
+    p = p / np.maximum(np.linalg.norm(p, axis=-1, keepdims=True), 1e-6)
+    n_fft = 1 << (2 * t.shape[-1] - 2).bit_length()
+    workers = os.cpu_count() or 1
+    tf, pf = sfft.rfft(t, n_fft, workers=workers), sfft.rfft(p, n_fft, workers=workers)
+    r0 = sfft.irfft(np.abs(tf) ** 2, n_fft, workers=workers)[:, :taps]
+    b = sfft.irfft(np.conj(tf) * pf, n_fft, workers=workers)[:, :taps]
+    r0[:, 0] += 1e-7  # the port's diagonal load
+    coh = np.asarray([b[i] @ solve_toeplitz(r0[i], b[i]) for i in range(len(b))])
+    return 10 * np.log10(coh / (1 - coh))
+
+
+def phase_wsj0_2mix_separation(torch, np, dev, gen, smi: str, cfg: dict) -> dict:
+    """WSJ0-2mix test's shape through PIT (both modes), the SNR family, C-SI-SNR on a 512-point STFT and SDR,
+    against float64 numpy and an exhaustive float64 permutation search; 3 and 8 speakers against scipy."""
+    from scipy.optimize import linear_sum_assignment
+
+    import torchmetrics_tpu_torch.audio as A
+    import torchmetrics_tpu_torch.functional.audio as FA
+
+    n, samples, batch, fs = cfg["mixtures"], cfg["samples"], cfg["batch"], cfg["fs"]
+    est, src = separation_sources(torch, dev, gen, n, 2, samples, fs)
+    host_s = {}  # the host seconds of the float64 references, by step: where the phase's wall time goes
+    window = torch.hann_window(512, device=dev)
+
+    def stft(x):
+        spec = torch.stft(x.reshape(-1, x.shape[-1]), 512, 128, window=window, return_complex=True)
+        return spec.reshape(*x.shape[:-1], *spec.shape[-2:])
+
+    perm = torch.cat([FA.permutation_invariant_training(est[lo:lo + batch], src[lo:lo + batch],
+                                                        FA.scale_invariant_signal_noise_ratio)[1]
+                      for lo in range(0, n, batch)])
+    aligned = FA.pit_permutate(est, perm)  # each estimate beside its source
+    metrics = {
+        "pit_speaker_wise": A.PermutationInvariantTraining(FA.scale_invariant_signal_noise_ratio),
+        "pit_permutation_wise": A.PermutationInvariantTraining(FA.scale_invariant_signal_noise_ratio,
+                                                               mode="permutation-wise"),
+        "snr": A.SignalNoiseRatio(), "si_sdr": A.ScaleInvariantSignalDistortionRatio(),
+        "sa_sdr": A.SourceAggregatedSignalDistortionRatio(), "c_si_snr": A.ComplexScaleInvariantSignalNoiseRatio(),
+    }
+    rates = {}
+    for name, metric in metrics.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, n, batch):
+            p, t = (est if name.startswith("pit") else aligned)[lo:lo + batch], src[lo:lo + batch]
+            if name == "c_si_snr":
+                p, t = stft(p), stft(t)
+            metric.update(p, t)
+        value = float(metric.compute())
+        torch.cuda.synchronize()
+        rates[name] = {"mixtures_per_s": n / (time.perf_counter() - t0), "value_db": value}
+
+    # SDR, 512 taps, on the first 500 mixtures (1,000 signals), against a float64 Levinson solve
+    m = cfg["sdr_mixtures"]
+    sdr = A.SignalDistortionRatio()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, m, batch):
+        sdr.update(aligned[lo:lo + batch], src[lo:lo + batch])
+    sdr_value = float(sdr.compute())
+    torch.cuda.synchronize()
+    rates["sdr_512"] = {"mixtures_per_s": m / (time.perf_counter() - t0), "value_db": sdr_value}
+    sdr_got = FA.signal_distortion_ratio(aligned[:m], src[:m]).reshape(-1).double().cpu().numpy()
+    t0 = time.perf_counter()
+    sdr_want = _sdr64(np, aligned[:m].reshape(-1, samples).double().cpu().numpy(),
+                      src[:m].reshape(-1, samples).double().cpu().numpy())
+    host_s["sdr_float64"] = time.perf_counter() - t0
+    errs = {"sdr_per_signal": float(np.abs(sdr_got - sdr_want).max())}
+    check(errs["sdr_per_signal"] <= SDR_DB_ATOL, f"SDR against float64: {errs['sdr_per_signal']} dB")
+
+    # C-SI-SNR per signal on the first batch, against float64 numpy on the same spectra
+    ps, ts = stft(aligned[:batch]), stft(src[:batch])
+    c_want = _snr64(np, torch.view_as_real(ps).double().cpu().numpy().reshape(batch, 2, -1),
+                    torch.view_as_real(ts).double().cpu().numpy().reshape(batch, 2, -1), "c_si_snr")
+    c_got = FA.complex_scale_invariant_signal_noise_ratio(ps, ts).double().cpu().numpy()
+    errs["c_si_snr_per_signal"] = float(np.abs(c_got - c_want).max())
+
+    # the stream against the float64 references
+    t0 = time.perf_counter()
+    ref = _host_separation(est.cpu().numpy(), src.cpu().numpy())
+    host_s["stream_float64"] = time.perf_counter() - t0
+    check(np.array_equal(perm.cpu().numpy(), ref["perm"]), "PIT permutations != the exhaustive float64 search")
+    per_signal = {"snr": FA.signal_noise_ratio(aligned, src), "si_sdr": FA.scale_invariant_signal_distortion_ratio(
+        aligned, src), "sa_sdr": FA.source_aggregated_signal_distortion_ratio(aligned, src),
+        "best": FA.permutation_invariant_training(est, src, FA.scale_invariant_signal_noise_ratio)[0]}
+    for name, got in per_signal.items():
+        errs[f"{name}_per_signal"] = float(np.abs(got.double().cpu().numpy() - ref[name]).max())
+    for name, key in (("pit_speaker_wise", "best"), ("pit_permutation_wise", "best"), ("snr", "snr"),
+                      ("si_sdr", "si_sdr"), ("sa_sdr", "sa_sdr")):
+        errs[name] = abs(rates[name]["value_db"] - float(ref[key].mean()))
+    check(max(errs[k] for k in errs if k != "sdr_per_signal") <= SNR_DB_ATOL,
+          f"SNR family against float64 numpy: {errs}")
+
+    # 3 speakers (WSJ0-3mix's shape; exhaustive) and 8 (the Hungarian route) against scipy on float64 matrices
+    spk_checks = {}
+    t0 = time.perf_counter()
+    for spk, count, length in ((3, 100, samples), (8, 20, 8000)):
+        e, s = separation_sources(torch, dev, gen, count, spk, length, fs)
+        vals, got_perm = FA.permutation_invariant_training(e, s, FA.scale_invariant_signal_noise_ratio)
+        e64, s64 = e.double().cpu().numpy(), s.double().cpu().numpy()
+        mtx = np.stack([np.stack([_snr64(np, e64[:, j], s64[:, i], "si_snr") for j in range(spk)], 1)
+                        for i in range(spk)], 1)  # [count, target, pred]
+        lsa = np.stack([linear_sum_assignment(mtx[b], maximize=True)[1] for b in range(count)])
+        check(np.array_equal(got_perm.cpu().numpy(), lsa), f"PIT at {spk} speakers != linear_sum_assignment")
+        best = np.take_along_axis(mtx, lsa[:, :, None], 2)[..., 0].mean(1)
+        spk_checks[spk] = float(np.abs(vals.double().cpu().numpy() - best).max())
+        check(spk_checks[spk] <= SNR_DB_ATOL, f"PIT values at {spk} speakers: {spk_checks[spk]} dB")
+    host_s["speakers_3_and_8"] = time.perf_counter() - t0
+    out = {"phase": "wsj0_2mix_separation", "mixtures": n, "speakers": 2, "fs": fs, "samples": samples,
+           "batch": batch, "sdr_mixtures": m, "rates": rates, "host_seconds": host_s, "max_err_db": errs,
+           "pit_spk_max_err_db": spk_checks,
+           "tolerance_db": {"snr_family": SNR_DB_ATOL, "sdr": SDR_DB_ATOL}, "card": smi}
+    emit(out)
+    return out
+
+
+class ClipTokenizer:
+    """Captions to CLIP-shaped ids: BOS, one id a lower-cased word (a stable hash below the specials), EOS, padded
+    with EOS to 77 as the OpenAI checkpoints' tokenizer pads; cut to 77 with EOS kept."""
+
+    def __call__(self, texts):
+        import numpy as np
+
+        ids = np.full((len(texts), 77), CLIP_EOS, dtype=np.int64)
+        mask = np.zeros((len(texts), 77), dtype=np.int64)
+        for i, text in enumerate(texts):
+            words = [sum((j + 1) * ord(ch) for j, ch in enumerate(w)) % 49_000 + 256 for w in text.lower().split()]
+            row = [CLIP_BOS, *words[:75], CLIP_EOS]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def coco_captions(np, rng, n: int) -> list:
+    """COCO-caption-shaped sentences: 6-75 words (8-77 tokens with BOS and EOS), mean ~11 words."""
+    vocab = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9))) for _ in range(5000)]
+    lengths = np.clip(np.rint(rng.gamma(5.0, 11.0 / 5.0, n)), 6, 75).astype(int)
+    lengths[: n // 100] = 75  # a few at the full width
+    return [" ".join(vocab[j] for j in rng.integers(0, len(vocab), k)) for k in lengths]
+
+
+def natural_images(torch, dev, gen, n: int, h: int, w: int):
+    """uint8 ``(n, 3, h, w)`` images with structure at several scales (smooth fields plus texture), made on the card."""
+    coarse = torch.rand(n, 3, 6, 8, generator=gen, device=dev)
+    mid = torch.rand(n, 3, 48, 64, generator=gen, device=dev)
+    img = (0.7 * torch.nn.functional.interpolate(coarse, (h, w), mode="bilinear", align_corners=False)
+           + 0.25 * torch.nn.functional.interpolate(mid, (h, w), mode="bilinear", align_corners=False)
+           + 0.05 * torch.rand(n, 3, h, w, generator=gen, device=dev))
+    return (img.clamp(0, 1) * 255).to(torch.uint8)
+
+
+def clip_npz(torch, np, cfg: dict, seed: int, folder: str, dev) -> str:
+    """Seeded random CLIP weights at ``cfg``'s widths (``init_clip_weights_``, drawn on the card), written through
+    ``clip_variables_from_state_dict`` as the JAX package's flat ``.npz``."""
+    from torchmetrics_tpu_torch.multimodal._clip_encoder import ClipConfig, _ClipModel, init_clip_weights_
+    from torchmetrics_tpu_torch.utilities.convert import clip_variables_from_state_dict
+
+    config = ClipConfig(**cfg)
+    with torch.device("meta"):
+        net = _ClipModel(config)
+    net = init_clip_weights_(net.to_empty(device=dev), seed)
+    path = os.path.join(folder, f"clip_{cfg['vision_hidden']}_{cfg['patch_size']}.npz")
+    np.savez(path, **clip_variables_from_state_dict(net.state_dict(), config))
+    return path
+
+
+def _cpu_clip(npz_l: str, npz_b: str, imgs_l, captions: list, imgs_b, threads: int = 6) -> dict:
+    """The port's CPU run of the first pairs' CLIPScores and the first images' CLIP-IQA probabilities, in a worker."""
+    import torch
+
+    torch.set_num_threads(threads)
+    from torchmetrics_tpu_torch.functional.multimodal.clip_iqa import (
+        _clip_iqa_compute, _clip_iqa_format_prompts, _clip_iqa_get_anchor_vectors, _clip_iqa_update)
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _clip_score_update
+    from torchmetrics_tpu_torch.multimodal._clip_encoder import ClipExtractor
+
+    large = ClipExtractor(npz_l, tokenizer=ClipTokenizer(), device="cpu")
+    scores, _ = _clip_score_update(torch.from_numpy(imgs_l), captions, large)
+    del large
+    base = ClipExtractor(npz_b, tokenizer=ClipTokenizer(), device="cpu")
+    prompts, names = _clip_iqa_format_prompts(tuple(CLIP_IQA_PROMPTS))
+    anchors = _clip_iqa_get_anchor_vectors(base, prompts)
+    probs = _clip_iqa_compute(_clip_iqa_update(torch.from_numpy(imgs_b), base, 255.0), anchors, names,
+                              format_as_dict=False)
+    return {"scores": scores.numpy(), "probs": probs.numpy()}
+
+
+CLIP_IQA_PROMPTS = ("quality", "brightness", "noisiness", "colorfullness", "sharpness", "contrast", "complexity",
+                    "natural", "happy", "scary", "new", "warm", "real", "beautiful", "lonely", "relaxing")
+
+
+def phase_clipscore_coco_clipiqa_koniq(torch, np, dev, gen, seed: int, smi: str, pool, cfg: dict) -> dict:
+    """CLIPScore on ViT-L/14 widths over COCO Karpathy test's pairs, CLIP-IQA on ViT-B/16 widths over KonIQ-10k's
+    images with all 16 prompts; the first pairs (through the metric's update and compute too) and images against
+    the port's CPU run."""
+    from torchmetrics_tpu_torch.functional.multimodal import clip_score
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _clip_score_update
+    from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+
+    n_pairs, n_iqa, batch, iqa_batch = cfg["pairs"], cfg["iqa_images"], cfg["batch"], cfg["iqa_batch"]
+    n_cpu, n_cpu_b = cfg["cpu_pairs"], cfg["cpu_images"]
+    rng = np.random.default_rng([seed, 46])
+    captions = coco_captions(np, rng, n_pairs)
+    folder = tempfile.mkdtemp(prefix="clip_")  # removed below, after the CPU run has read the weights
+    t0 = time.perf_counter()
+    npz_l = clip_npz(torch, np, cfg["large"], seed, folder, dev)
+    npz_b = clip_npz(torch, np, cfg["base"], seed + 1, folder, dev)
+    weights_s = time.perf_counter() - t0
+    # CLIPScore's images as floats in [0, 1]: both packages cast them to float32 before the encoder, so a uint8
+    # image would reach CLIP's normalisation unscaled; CLIP-IQA scales by its data_range (255 here)
+    first_l = natural_images(torch, dev, gen, n_cpu, 480, 640).float() / 255
+    first_b = natural_images(torch, dev, gen, n_cpu_b, 768, 1024)
+    cpu = pool.submit(_cpu_clip, npz_l, npz_b, first_l.cpu().numpy(), captions[:n_cpu], first_b.cpu().numpy())
+
+    t0 = time.perf_counter()
+    metric = CLIPScore(weights_path=npz_l, tokenizer=ClipTokenizer())
+    load_s = time.perf_counter() - t0
+    model = metric.model
+    got_scores, _ = _clip_score_update(first_l, captions[:n_cpu], model)
+    # the same pairs through the metric's own state: its sum is the per-pair scores' sum, its compute their mean
+    # clamped at 0 (random towers give cosines around 0, so the clamp may bite); held to the CPU run below
+    metric.update(first_l, captions[:n_cpu])
+    first_state = {"score": float(metric.score), "n_samples": int(metric.n_samples),
+                   "compute": float(metric.compute()), "per_pair_sum": float(got_scores.sum())}
+    check(first_state["n_samples"] == n_cpu and first_state["score"] == first_state["per_pair_sum"]
+          and first_state["compute"] == max(float(np.float32(first_state["score"]) / np.float32(n_cpu)), 0.0),
+          f"CLIPScore's state: {first_state}")
+    metric.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, n_pairs, batch):
+        metric.update(natural_images(torch, dev, gen, min(batch, n_pairs - lo), 480, 640).float() / 255,
+                      captions[lo:lo + batch])
+    clip_value = float(metric.compute())
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    unclamped = float(metric.score / metric.n_samples)
+    check(int(metric.n_samples) == n_pairs and clip_value == max(unclamped, 0.0),
+          f"CLIPScore over the stream: {clip_value}, {unclamped} over {int(metric.n_samples)}")
+    probe = natural_images(torch, dev, gen, batch, 480, 640).float() / 255
+    update_ms = wall_ms(torch, lambda: metric.update(probe, captions[:batch]), reps=3, warmup=1)
+    trunk_ms = wall_ms(torch, lambda: (model.get_image_features(probe), model.get_text_features(captions[:batch])),
+                       reps=3, warmup=1)
+    del metric, model
+
+    iqa = CLIPImageQualityAssessment(prompts=CLIP_IQA_PROMPTS, weights_path=npz_b, tokenizer=ClipTokenizer(),
+                                     data_range=255.0)
+    iqa.update(first_b)
+    got_probs = torch.stack([v for v in iqa.compute().values()], 1)
+    iqa.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, n_iqa, iqa_batch):
+        iqa.update(natural_images(torch, dev, gen, min(iqa_batch, n_iqa - lo), 768, 1024))
+    probs = iqa.compute()
+    torch.cuda.synchronize()
+    iqa_s = time.perf_counter() - t0
+    check(all(v.shape == (n_iqa,) and bool(torch.isfinite(v).all()) for v in probs.values()), "CLIP-IQA output")
+    probe_b = natural_images(torch, dev, gen, iqa_batch, 768, 1024)
+    iqa_update_ms = wall_ms(torch, lambda: iqa.update(probe_b), reps=3, warmup=1)
+    iqa_trunk_ms = wall_ms(torch, lambda: iqa.model.get_image_features(probe_b.float() / 255.0), reps=3, warmup=1)
+    del iqa
+
+    # the default random-projection encoder on the card against its CPU run, pair by pair (the mean may clamp to 0)
+    from torchmetrics_tpu_torch.functional.multimodal._encoder import RandomProjectionClipEncoder
+
+    rp_gpu, _ = _clip_score_update(first_l, captions[:n_cpu], RandomProjectionClipEncoder(warn=False))
+    rp_cpu, _ = _clip_score_update(first_l.cpu(), captions[:n_cpu],
+                                   RandomProjectionClipEncoder(warn=False, device="cpu"))
+    rp_err = float((rp_gpu.cpu() - rp_cpu).abs().max() / rp_cpu.abs().max())
+    check(rp_err <= 1e-5, f"random-projection CLIPScore on the card against its CPU run: {rp_err}")
+    check(bool(torch.isfinite(clip_score(first_l, captions[:n_cpu], model=RandomProjectionClipEncoder(
+        warn=False)))), "random-projection clip_score")
+
+    t0 = time.perf_counter()
+    ref = cpu.result()
+    cpu_wait_s = time.perf_counter() - t0
+    score_err = float(np.abs(got_scores.cpu().numpy() - ref["scores"]).max())
+    prob_err = float(np.abs(got_probs.cpu().numpy() - ref["probs"]).max())
+    check(np.allclose(got_scores.cpu().numpy(), ref["scores"], rtol=CLIP_RTOL, atol=CLIP_ATOL),
+          f"CLIPScore per pair against the CPU run: {score_err}")
+    cpu_mean = float(ref["scores"].astype(np.float64).mean())  # a mean errs no more than its worst pair
+    state_err = abs(first_state["score"] / n_cpu - cpu_mean)
+    check(np.isclose(first_state["score"] / n_cpu, cpu_mean, rtol=CLIP_RTOL, atol=CLIP_ATOL),
+          f"CLIPScore's state over the first pairs against the CPU run's mean: {state_err}")
+    check(np.allclose(got_probs.cpu().numpy(), ref["probs"], rtol=CLIP_RTOL, atol=CLIP_ATOL),
+          f"CLIP-IQA against the CPU run: {prob_err}")
+    shutil.rmtree(folder, ignore_errors=True)
+    out = {
+        "phase": "clipscore_coco_clipiqa_koniq", "pairs": n_pairs, "iqa_images": n_iqa,
+        "cut": {"pairs": [5000, n_pairs], "iqa_images": [10_073, n_iqa]}, "batch": batch,
+        "iqa_batch": iqa_batch, "prompts": len(CLIP_IQA_PROMPTS), "weights_seconds": weights_s,
+        "load_seconds_l14": load_s, "cpu_run_wait_seconds": cpu_wait_s,
+        "clipscore": {"value": clip_value, "unclamped_mean": unclamped, "pairs_per_s": n_pairs / clip_s, "update_ms": update_ms,
+                      "trunk_ms": trunk_ms, "trunk_share": trunk_ms / update_ms},
+        "clip_iqa": {"images_per_s": n_iqa / iqa_s, "update_ms": iqa_update_ms, "trunk_ms": iqa_trunk_ms,
+                     "trunk_share": iqa_trunk_ms / iqa_update_ms,
+                     "quality_mean": float(probs["quality"].mean())},
+        "vs_cpu": {"score_max_abs": score_err, "prob_max_abs": prob_err, "pairs": n_cpu, "images": n_cpu_b,
+                   "state_mean_abs": state_err, "first_state": first_state, "cpu_mean": cpu_mean,
+                   "random_projection_rel": rp_err},
+        "card": smi,
+    }
+    emit(out)
+    return out
+
+
+def brats_volumes(torch, dev, gen, n: int, shape=(240, 240, 155)):
+    """BraTS-shaped pairs of whole-tumour masks: a smooth blob (~1-3% of the volume) and a perturbed copy."""
+    small = torch.rand(n, 1, shape[0] // 8, shape[1] // 8, shape[2] // 5 + 1, generator=gen, device=dev)
+    field = torch.nn.functional.interpolate(small, size=shape, mode="trilinear", align_corners=False)[:, 0]
+    grids = torch.meshgrid(*[torch.linspace(-1, 1, s, device=dev) for s in shape], indexing="ij")
+    center = 1.0 - sum(g**2 for g in grids)
+    target = (field + center) > 1.6
+    noise = torch.rand(n, 1, shape[0] // 8, shape[1] // 8, shape[2] // 5 + 1, generator=gen, device=dev)
+    noise = torch.nn.functional.interpolate(noise, size=shape, mode="trilinear", align_corners=False)[:, 0]
+    preds = (field + center + 0.1 * (noise - 0.5)) > 1.6
+    return preds, target
+
+
+def kits_slices(torch, dev, gen, n: int, side: int = 512):
+    """KiTS19-shaped axial slices: kidney (~2-4% of the slice) as two smooth blobs; predictions a perturbed copy."""
+    small = torch.rand(n, 1, side // 32, side // 32, generator=gen, device=dev)
+    field = torch.nn.functional.interpolate(small, size=(side, side), mode="bicubic", align_corners=False)[:, 0]
+    y, x = torch.meshgrid(torch.linspace(-1, 1, side, device=dev), torch.linspace(-1, 1, side, device=dev),
+                          indexing="ij")
+    kidneys = torch.maximum(-((x - 0.4) ** 2 + y**2) * 8, -((x + 0.4) ** 2 + y**2) * 8) + 1
+    target = (kidneys + 0.3 * field) > 1.05
+    noise = torch.nn.functional.interpolate(torch.rand(n, 1, side // 16, side // 16, generator=gen, device=dev),
+                                            size=(side, side), mode="bilinear", align_corners=False)[:, 0]
+    preds = (kidneys + 0.3 * field + 0.15 * (noise - 0.5)) > 1.05
+    return preds, target
+
+
+def _codes64(np, vol):
+    """2x2x2 neighbour codes of a padded boolean volume in numpy, bits weighted 128 .. 1."""
+    v = np.pad(vol, 1).astype(np.int64)
+    return sum(v[i:v.shape[0] - 1 + i, j:v.shape[1] - 1 + j, k:v.shape[2] - 1 + k] << (7 - (4 * i + 2 * j + k))
+               for i in (0, 1) for j in (0, 1) for k in (0, 1))
+
+
+def _host_distances(masks, edges_t, edges_p) -> dict:
+    """scipy.ndimage's distance transforms of each slice (edt, cdt chessboard and taxicab) and the surface distances
+    of its prediction edges to its target edges; run in a worker process."""
+    import numpy as np
+    from scipy import ndimage
+
+    out = {"euclidean": [], "chessboard": [], "taxicab": [], "surface": []}
+    for m, et, ep in zip(masks, edges_t, edges_p):
+        out["euclidean"].append(ndimage.distance_transform_edt(m).astype(np.float32))
+        for metric in ("chessboard", "taxicab"):
+            out[metric].append(ndimage.distance_transform_cdt(m, metric=metric).astype(np.float32))
+        out["surface"].append(ndimage.distance_transform_edt(~et)[ep].astype(np.float32))
+    return out
+
+
+def phase_segmentation_brats_kits(torch, np, dev, gen, smi: str, pool, cfg: dict) -> dict:
+    """mask_edges with spacing on BraTS-shaped volumes (codes exact, areas 1e-6 against numpy); surface_distance
+    and distance_transform (three metrics) on KiTS19-shaped slices against scipy.ndimage; tile sizes, peak memory."""
+    import torchmetrics_tpu_torch.functional.segmentation as S
+
+    seg = importlib.import_module("torchmetrics_tpu_torch.functional.segmentation.utils")
+    volumes, slices = cfg["volumes"], cfg["slices"]
+    preds, target = brats_volumes(torch, dev, gen, volumes)
+    table, _ = seg._table_surface_area((1, 1, 1))
+    flat = np.frombuffer(seg._MC_NORMALS_PACKED.encode("ascii"), dtype=np.uint8).astype(np.float64)
+    table64 = np.linalg.norm(((flat - ord("0") - 4) / 8.0).reshape(256, 4, 3), axis=-1).sum(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    edges = [S.mask_edges(preds[v], target[v], spacing=(1, 1, 1)) for v in range(volumes)]
+    torch.cuda.synchronize()
+    edges_s = time.perf_counter() - t0
+    area_err, edge_voxels = 0.0, 0
+    for v, (ep, et, ap, at) in enumerate(edges):
+        codes = _codes64(np, preds[v].cpu().numpy())
+        check(np.array_equal(ep.cpu().numpy(), (codes != 0) & (codes != 255)), f"BraTS volume {v}: edges")
+        area_err = max(area_err, float(np.abs(ap.double().cpu().numpy() - table64[codes]).max()))
+        edge_voxels += int(ep.sum())
+    del edges
+    check(area_err <= AREA_ATOL, f"marching-cubes areas against float64 numpy: {area_err}")
+
+    kp, kt = kits_slices(torch, dev, gen, slices)
+    edge_t, edge_p = [], []
+    for i in range(slices):
+        e_p, e_t = S.mask_edges(kp[i], kt[i], crop=False)
+        edge_p.append(e_p)
+        edge_t.append(e_t)
+    pending = pool.submit(_host_distances, kt.cpu().numpy(), torch.stack(edge_t).cpu().numpy(),
+                          torch.stack(edge_p).cpu().numpy())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, seconds = {m: [] for m in ("euclidean", "chessboard", "taxicab", "surface")}, {}
+    for metric in ("euclidean", "chessboard", "taxicab"):
+        t0 = time.perf_counter()
+        for i in range(slices):
+            got[metric].append(S.distance_transform(kt[i].float(), metric=metric).cpu().numpy())
+        torch.cuda.synchronize()
+        seconds[metric] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(slices):
+        got["surface"].append(S.surface_distance(edge_p[i], edge_t[i]).cpu().numpy())
+    torch.cuda.synchronize()
+    seconds["surface"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    want = pending.result()
+    errs = {m: max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1.0)) for g, w in zip(got[m], want[m]))
+            for m in got}
+    check(max(errs.values()) <= DIST_RTOL, f"distances against scipy.ndimage: {errs}")
+    n_fg = int(kt.sum(dim=(1, 2)).float().mean())
+    rows = max(1, seg._TILE_BYTES // (seg._TILE_MATRICES * kt.shape[1] * kt.shape[2] * 4))
+    out = {"phase": "segmentation_brats_kits", "brats_volumes": volumes, "brats_shape": list(preds.shape[1:]),
+           "brats_edge_voxels": edge_voxels, "mask_edges_seconds": edges_s, "area_max_err": area_err,
+           "kits_slices": slices, "mean_foreground": n_fg, "tile_rows": rows,
+           "tile_bytes": seg._TILE_BYTES, "distance_seconds": seconds, "peak_bytes_above_inputs": peak,
+           "max_rel_err": errs, "card": smi}
+    emit(out)
+    return out
+
+
+def audio_multimodal_segmentation(torch, np, dev, gen, seed: int, smi: str, counters: dict, t_main: float,
+                                  sizes: dict) -> dict:
+    """Phases 44-47, each at its entry of ``sizes`` (``AMS_SIZES`` on the card); kernel S1 launches in phase 44
+    only, B1-B5 in none of them. S1's main-shape check against its plain loop on the host ends after phase 47."""
+    kb = importlib.import_module("torchmetrics_tpu_torch._kernels.biquad")
+    t0 = time.perf_counter()
+    for counter in counters.values():
+        counter.launches = 0
+    seconds = {}
+    with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        t1 = time.perf_counter()
+        srmr = phase_srmr_reverb(torch, np, kb, dev, gen, pool, smi, sizes["srmr_reverb"])
+        seconds["srmr_reverb"] = time.perf_counter() - t1
+        s1_after_44 = kb.biquad_bank.launches
+        t1 = time.perf_counter()
+        phase_wsj0_2mix_separation(torch, np, dev, gen, smi, sizes["wsj0_2mix_separation"])
+        seconds["wsj0_2mix_separation"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        phase_clipscore_coco_clipiqa_koniq(torch, np, dev, gen, seed, smi, pool, sizes["clipscore_coco_clipiqa_koniq"])
+        seconds["clipscore_coco_clipiqa_koniq"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        phase_segmentation_brats_kits(torch, np, dev, gen, smi, pool, sizes["segmentation_brats_kits"])
+        seconds["segmentation_brats_kits"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        s1_host = {mode: pending.result() for mode, pending in srmr["s1_on_host"].items()}
+        s1_wait_s = time.perf_counter() - t1
+    s1_main_err = max(r["max_abs_err"] for r in s1_host.values())
+    check(s1_main_err == 0 and not any(r["unequal"] for r in s1_host.values()),
+          f"S1 at the main path's shapes against its plain loop: {s1_host}")
+    cfg = sizes["srmr_reverb"]
+    emit({"phase": "srmr_reverb_s1_main_shape", "utterances": cfg["batch"], "samples": cfg["samples"],
+          "channels": {"gammatone": cfg["batch"] * 23, "modulation": cfg["batch"] * 23 * 8}, **s1_host,
+          "wait_seconds": s1_wait_s})
+    launches = {name: counter.launches for name, counter in counters.items()}
+    check(not any(launches.values()), f"audio, multimodal and segmentation launched {launches}")
+    check(kb.biquad_bank.launches == s1_after_44, "S1 launched outside phase 44")
+    out = {"phase": "audio_multimodal_segmentation", "seconds": time.perf_counter() - t0, "phase_seconds": seconds,
+           "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches,
+           "s1_launches": kb.biquad_bank.launches}
+    emit(out)
+    out["s1"] = {**srmr["kernel_entry"], "max_abs_err": max(srmr["kernel_entry"]["max_abs_err"], s1_main_err)}
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4980,6 +5857,7 @@ def main() -> int:
     ce = importlib.import_module("torchmetrics_tpu_torch._kernels.conv_epilogue")
     lh = importlib.import_module("torchmetrics_tpu_torch._kernels.lpips_head")
     ka = importlib.import_module("torchmetrics_tpu_torch._kernels.attention")
+    kb = importlib.import_module("torchmetrics_tpu_torch._kernels.biquad")
     confmat_cuda, confmat_plain = kernel.confusion_matrix_cuda, kernel.confusion_matrix_plain
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4994,6 +5872,7 @@ def main() -> int:
         "lpips_head": (lh.SOURCE, lh._library),
         "attention": (ka.ATTENTION_SOURCE, ka._attention_library),
         "layernorm_residual": (ka.LAYERNORM_SOURCE, ka._layernorm_library),
+        "biquad": (kb.SOURCE, kb._library),
     }
     infos = dict(zip(libraries, nvcc.build_all([source for source, _ in libraries.values()])))  # one nvcc each, at once
     for _, load in libraries.values():
@@ -5310,6 +6189,10 @@ def main() -> int:
     # ------------------------- clustering, nominal association and the wrappers, phases 39-43
     cnw = clustering_nominal_wrappers(torch, np, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 39),
                                       args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main, logits, target)
+
+    # ------------------------- audio, multimodal and segmentation, phases 44-47
+    ams = audio_multimodal_segmentation(torch, np, dev, torch.Generator(device=dev).manual_seed(args.seed + 44),
+                                        args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main, AMS_SIZES)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -5365,7 +6248,24 @@ def main() -> int:
         "library_ms": timings[name]["library_ms"],
         **({"queued_ms": timings[name]["queued_ms"]} if name == "bias_relu" else {}),
         "at": at,
-    } for name, line, launches, err, tpu_file, source, at in image_kernels]})
+    } for name, line, launches, err, tpu_file, source, at in image_kernels] + [{
+        "name": "biquad_bank",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/biquad.cu",
+        "replaces": "torchmetrics_tpu/functional/audio/srmr.py:130 (_biquad's lax.scan at :153; no Pallas kernel)",
+        "launches": ams["s1"]["launches"],
+        "max_abs_err": ams["s1"]["max_abs_err"],
+        "ms": ams["s1"]["ms"],
+        "plain_ms": ams["s1"]["plain_ms"],
+        "bound_ms": ams["s1"]["bound_ms"],
+        "bound_by": ams["s1"]["bound_by"],
+        "library_ms": None,
+        "ms_main_path": ams["s1"]["ms_main_path"],
+        "bound_ms_main_path": ams["s1"]["bound_ms_main_path"],
+        "chain_estimate_ms_main_path": ams["s1"]["chain_estimate_ms_main_path"],
+        "at": "one SRMR update's two launches (23 gammatone channels, then their 8 modulation bands) on 2 utterances "
+              "of 16,000 samples at 16 kHz, where the plain loop was timed; *_main_path: 16 utterances of 128,000",
+    }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}})
     return 0
 

@@ -10,18 +10,23 @@ import os
 import pytest
 
 import torchmetrics_tpu_torch
+import torchmetrics_tpu_torch.audio as TA
 import torchmetrics_tpu_torch.classification as TC
 import torchmetrics_tpu_torch.clustering as TCL
 import torchmetrics_tpu_torch.functional as TF_ALL
+import torchmetrics_tpu_torch.functional.audio as TFA
 import torchmetrics_tpu_torch.functional.classification as TF
 import torchmetrics_tpu_torch.functional.clustering as TFCL
 import torchmetrics_tpu_torch.functional.image as TFI
+import torchmetrics_tpu_torch.functional.multimodal as TFM
 import torchmetrics_tpu_torch.functional.nominal as TFN
 import torchmetrics_tpu_torch.functional.text as TFT
 import torchmetrics_tpu_torch.functional.pairwise as TFP
 import torchmetrics_tpu_torch.functional.regression as TFR
 import torchmetrics_tpu_torch.functional.retrieval as TFRET
+import torchmetrics_tpu_torch.functional.segmentation as TFS
 import torchmetrics_tpu_torch.image as TI
+import torchmetrics_tpu_torch.multimodal as TM
 import torchmetrics_tpu_torch.nominal as TN
 import torchmetrics_tpu_torch.regression as TR
 import torchmetrics_tpu_torch.retrieval as TRET
@@ -146,7 +151,7 @@ def test_submodule_names_the_port_has_are_listed(relpath, module):
     package = os.path.dirname(module.__file__)
     ported = [name for name in _jax_top_level_strings(relpath)
               if os.path.isdir(os.path.join(package, name)) or os.path.isfile(os.path.join(package, name + ".py"))]
-    assert len(ported) == (12 if module is torchmetrics_tpu_torch else 9), ported
+    assert len(ported) == (14 if module is torchmetrics_tpu_torch else 12), ported
     for name in ported:
         assert name in module.__all__ and isinstance(getattr(module, name), types.ModuleType), name
 
@@ -219,20 +224,36 @@ def _jax_names(relpath, seen=None):
 
 
 @pytest.mark.parametrize(
-    ("relpath", "module", "count", "ported", "missing_domains"),
-    [("__init__.py", torchmetrics_tpu_torch, 235, 219, {"audio", "multimodal"}),
-     ("functional/__init__.py", TF_ALL, 220, 204, {"audio", "multimodal", "segmentation"})],
+    ("relpath", "module", "count", "ported"),
+    [("__init__.py", torchmetrics_tpu_torch, 235, 233), ("functional/__init__.py", TF_ALL, 220, 220)],
 )
-def test_the_top_level_gap_is_only_what_is_not_ported_yet(relpath, module, count, ported, missing_domains):
-    """Audio, multimodal and functional segmentation (queue item 5), and the AOT helpers (item 7)."""
+def test_the_top_level_gap_is_only_what_is_not_ported_yet(relpath, module, count, ported):
+    """The functional list is complete; the top level lacks only the AOT helpers (queue item 7)."""
     want = _jax_names(relpath)
     assert len(want) == count and len(module.__all__) == ported
-    gap = set(want) - set(module.__all__)
-    unported = set(missing_domains)
-    for domain in missing_domains:
-        for path in (f"{domain}/__init__.py", f"functional/{domain}/__init__.py"):
-            if os.path.isfile(os.path.join(ROOT, "torchmetrics_tpu", path)):
-                unported |= set(_jax_all(path))
     aot = {"get_aot_cache", "set_aot_cache"} if module is torchmetrics_tpu_torch else set()
-    assert gap == (unported | aot) & set(want)
+    assert set(want) - set(module.__all__) == aot
     assert not set(module.__all__) - set(want)
+
+
+@pytest.mark.parametrize(
+    ("relpath", "module", "count"),
+    [("audio/__init__.py", TA, 10), ("functional/audio/__init__.py", TFA, 11), ("multimodal/__init__.py", TM, 2),
+     ("functional/multimodal/__init__.py", TFM, 2), ("functional/segmentation/__init__.py", TFS, 6)],
+)
+def test_audio_multimodal_segmentation_all_equals_the_jax_package(relpath, module, count):
+    want = _jax_all(relpath)
+    assert len(want) == count
+    assert sorted(module.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(module, name)]
+
+
+def test_audio_multimodal_names_reach_the_top_level():
+    for module in (TA, TM):
+        for name in module.__all__:
+            assert name in torchmetrics_tpu_torch.__all__ and getattr(torchmetrics_tpu_torch, name) is getattr(module, name)
+    for module in (TFA, TFM):
+        for name in module.__all__:
+            assert name in TF_ALL.__all__ and getattr(TF_ALL, name) is getattr(module, name)
+    # as in the JAX package, the segmentation utilities stay in their submodule
+    assert not set(TFS.__all__) & set(TF_ALL.__all__) and TF_ALL.segmentation is TFS

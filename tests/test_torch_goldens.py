@@ -20,10 +20,11 @@ functionals with ``device="cpu"``. The 16 image cases without a network
 (126-141: PSNR, PSNR-B, SSIM, MS-SSIM, UQI, SAM, ERGAS, RASE, RMSE-SW, TV,
 SCC, VIF, D_lambda, image gradients, D_s, QNR) replay on CPU tensors, and so
 do the 19 regression cases (070, 075-092), the five pairwise ones (143-147),
-the ten of retrieval (148-157), and the 16 of clustering (093-108) and the
-nine of nominal association (109-117). ``NOT_REPLAYED`` lists the cases
-left: audio, not ported yet, and the three trunks with random weights that
-the JAX suite skips as well.
+the ten of retrieval (148-157), the 16 of clustering (093-108), the
+nine of nominal association (109-117) and the eight of audio (118-125: the
+SNR family, SDR and PIT frozen from torchmetrics, SRMR from the JAX
+package). ``NOT_REPLAYED`` lists the cases left: the three trunks with
+random weights that the JAX suite skips as well.
 """
 
 import json
@@ -115,15 +116,17 @@ CLUSTERING_NOMINAL_IDS = [f"{i:03d}" for i in range(93, 118)]
 CLUSTERING_NOMINAL_CASES = [
     (f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if f"{idx:03d}" in CLUSTERING_NOMINAL_IDS
 ]
-# audio (118-125), and LPIPS, BERTScore and InfoLM (142, 178, 179: random trunk weights, skipped by the JAX
-# suite too)
-NOT_REPLAYED = [*(f"{i:03d}" for i in range(118, 126)), "142", "178", "179"]
+# audio (118-125): the SNR family, SDR and PIT frozen from torchmetrics ("ref"), SRMR from the JAX package ("self")
+AUDIO_IDS = [f"{i:03d}" for i in range(118, 126)]
+AUDIO_CASES = [(f"{idx:03d}_{spec.fn}", spec) for idx, spec in enumerate(SPECS) if f"{idx:03d}" in AUDIO_IDS]
+# LPIPS, BERTScore and InfoLM (142, 178, 179: random trunk weights, skipped by the JAX suite too)
+NOT_REPLAYED = ["142", "178", "179"]
 
 
 def test_every_case_is_replayed_or_listed_as_not_replayed():
     replayed = [case_id[:3] for case_id, _ in CASES + REST_CASES + DETECTION_CASES + TEXT_CASES + IMAGE_CASES
-                + REGRESSION_RETRIEVAL_CASES + CLUSTERING_NOMINAL_CASES]
-    assert len(replayed) == len(set(replayed)) == 169
+                + REGRESSION_RETRIEVAL_CASES + CLUSTERING_NOMINAL_CASES + AUDIO_CASES]
+    assert len(replayed) == len(set(replayed)) == 177
     assert sorted(replayed + NOT_REPLAYED) == [f"{i:03d}" for i in range(len(SPECS))] and len(SPECS) == 180
 
 
@@ -269,6 +272,31 @@ def test_clustering_and_nominal_golden(case_id, spec):
     assert meta["source"] == "ref"
     # the generalized mean's power (108) is a number, not an array
     leaves = _flatten_output(getattr(TF, spec.fn)(*_text_args(spec.make()), **spec.kwargs))
+    assert len(leaves) == meta["n_leaves"], f"{case_id}: output arity"
+    for li, leaf in enumerate(leaves):
+        golden = pack[f"{case_id}/{li}"]
+        assert leaf.shape == golden.shape, f"{case_id} leaf {li}"
+        np.testing.assert_allclose(
+            leaf.numpy().astype(np.float64), golden.astype(np.float64), atol=spec.atol, rtol=1e-4,
+            err_msg=f"{case_id} leaf {li}",
+        )
+
+
+def test_the_8_audio_cases_are_in_the_pack():
+    assert [case_id[:3] for case_id, _ in AUDIO_CASES] == AUDIO_IDS
+
+
+@pytest.mark.parametrize(("case_id", "spec"), AUDIO_CASES, ids=[c[0] for c in AUDIO_CASES])
+def test_audio_golden(case_id, spec):
+    pack = np.load(os.path.join(GOLDEN_DIR, "goldens.npz"))
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as fh:
+        meta = {case["id"]: case for case in json.load(fh)["cases"]}[case_id]
+    assert meta["source"] == ("self" if spec.fn == "speech_reverberation_modulation_energy_ratio" else "ref")
+    kwargs = dict(spec.kwargs)
+    metric_func = kwargs.pop("__metric_func", None)  # PIT's metric, by its functional name
+    if metric_func:
+        kwargs["metric_func"] = getattr(TF, metric_func)
+    leaves = _flatten_output(getattr(TF, spec.fn)(*[torch.from_numpy(a) for a in spec.make()], **kwargs))
     assert len(leaves) == meta["n_leaves"], f"{case_id}: output arity"
     for li, leaf in enumerate(leaves):
         golden = pack[f"{case_id}/{li}"]

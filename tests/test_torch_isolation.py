@@ -84,6 +84,18 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         "pan = torch.tensor([[[[6, 0], [0, 0]], [[0, 0], [1, 0]]]])\n"
         "pq.update(pan, pan)\n"
         "assert float(pq.compute()) == 1.0\n"
+        "sn = tt.SignalNoiseRatio(device='cpu')\n"
+        "sn.update(torch.tensor([2.5, 0.0, 2.0, 8.0]), torch.tensor([3.0, -0.5, 2.0, 7.0]))\n"
+        "assert abs(float(sn.compute()) - 16.1805) < 1e-3\n"
+        "sr = tt.SpeechReverberationModulationEnergyRatio(8000, device='cpu')\n"
+        "sr.update(torch.randn(2, 4096, generator=torch.Generator().manual_seed(0)))\n"
+        "assert bool(torch.isfinite(sr.compute()))\n"
+        "cs = tt.CLIPScore(device='cpu')\n"
+        "cs.update(torch.rand(2, 3, 32, 32), ['a cat', 'a dog'])\n"
+        "assert bool(torch.isfinite(cs.compute()))\n"
+        "from torchmetrics_tpu_torch.functional.segmentation import surface_distance\n"
+        "sq = torch.zeros(8, 8, dtype=torch.bool); sq[2:6, 2:6] = True\n"
+        "assert float(surface_distance(sq, sq).max()) == 0.0\n"
         "assert not opened, opened\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
         "print('ok')\n"

@@ -1,16 +1,21 @@
-"""Functional metrics ported so far (classification, clustering, image, nominal, pairwise, regression, retrieval and text: all of them; detection: the IoU family, panoptic quality)."""
+"""Functional metrics: every domain of the JAX package (detection: the IoU family and panoptic quality, as there)."""
 
 from torchmetrics_tpu_torch.functional import (
+    audio,
     classification,
     clustering,
     detection,
     image,
+    multimodal,
     nominal,
     pairwise,
     regression,
     retrieval,
+    segmentation,
     text,
 )
+from torchmetrics_tpu_torch.functional.audio import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.audio import __all__ as _audio_all
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
@@ -26,6 +31,7 @@ from torchmetrics_tpu_torch.functional.detection import (
 )
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.multimodal import clip_image_quality_assessment, clip_score
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
@@ -38,14 +44,17 @@ from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
+    "audio",
     "classification",
     "clustering",
     "detection",
     "image",
+    "multimodal",
     "nominal",
     "pairwise",
     "regression",
     "retrieval",
+    "segmentation",
     "text",
     *_classification_all,
     "complete_intersection_over_union",
@@ -61,4 +70,7 @@ __all__ = [
     *_text_all,
     *_clustering_all,
     *_nominal_all,
+    *_audio_all,
+    "clip_image_quality_assessment",
+    "clip_score",
 ]

@@ -197,3 +197,66 @@ def bert_variables_from_state_dict(state: Mapping[str, Tensor], config: Any) -> 
         out[f"config/{name}"] = np.asarray(getattr(config, name))
     out["config/with_mlm_head"] = np.asarray(int(config.with_mlm_head))
     return out
+
+
+# CLIP (``tools/convert_weights.py::convert_clip_state_dict``): both towers under ``params/vision`` and
+# ``params/text``, the projections, scalar ``config/*`` entries. Leaves: a Conv ``kernel`` (HWIO -> OIHW), a
+# Dense ``kernel`` (``(in, out)`` -> ``(out, in)``), ``bias``, a LayerNorm ``scale`` (-> ``weight``), an
+# ``nn.Embed`` ``embedding`` (-> ``weight``) and the vision tower's bare ``class_embedding``.
+_CLIP_LAYERNORMS = ("ln1", "ln2", "pre_ln", "post_ln", "final_ln")
+
+
+def clip_state_dict_from_variables(flat: Mapping[str, np.ndarray]) -> Tuple[Dict[str, Tensor], Any]:
+    """A converted CLIP ``.npz`` mapping as the port's ``_ClipModel`` ``state_dict`` and its ``ClipConfig``."""
+    from torchmetrics_tpu_torch.multimodal._clip_encoder import CONFIG_KEYS, ClipConfig
+
+    state: Dict[str, Tensor] = {}
+    for key, value in flat.items():
+        if key.startswith("config/"):
+            continue
+        collection, path = _route(key)
+        if collection != "params":
+            raise KeyError(f"Cannot map CLIP variable {key!r} onto a torch parameter")
+        *modules, leaf = path
+        arr = np.asarray(value)
+        if leaf == "class_embedding":
+            name = leaf
+        elif leaf in ("embedding", "scale"):
+            name = "weight"
+        elif leaf == "kernel":
+            name, arr = "weight", (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"Cannot map CLIP variable {key!r} onto a torch parameter")
+        state[".".join([*modules, name])] = torch.from_numpy(np.array(arr))  # a writable copy
+    config = ClipConfig(**{name: int(flat[f"config/{name}"]) for name in CONFIG_KEYS})
+    return state, config
+
+
+def clip_variables_from_state_dict(state: Mapping[str, Tensor], config: Any) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`clip_state_dict_from_variables`: the flat ``.npz`` mapping, ``config/*`` included."""
+    from torchmetrics_tpu_torch.multimodal._clip_encoder import CONFIG_KEYS
+
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        *modules, name = key.split(".")
+        arr = value.detach().cpu().float().numpy()
+        if name == "class_embedding":
+            leaf = name
+        elif name == "weight" and modules[-1] in _CLIP_LAYERNORMS:
+            leaf = "scale"
+        elif name == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif name == "weight" and modules[-1].endswith("_embedding"):
+            leaf = "embedding"
+        elif name == "weight":
+            leaf, arr = "kernel", arr.T
+        elif name == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"Cannot map state entry {key!r} onto a CLIP variable")
+        out["/".join(["params", *modules, leaf])] = np.ascontiguousarray(arr)
+    for name in CONFIG_KEYS:
+        out[f"config/{name}"] = np.asarray(getattr(config, name))
+    return out
