@@ -304,7 +304,23 @@ only, B1-B5 in none):
     peak memory;
 
 then an ``audio_multimodal_segmentation`` line with the seconds of phases
-44-47 and the launch counts, the card's name and power limit, the
+44-47 and the launch counts, then
+
+48. ``compiled_path``: the compiled update path (CUDA graphs, one a
+    signature) against ``auto_compile=False``: the imagenet_val data through
+    a collection of macro accuracy and the 1,000-class confusion matrix,
+    Jaccard and MCC (one compute group, B1 in its head's graph) beside a
+    mean cross-entropy, states and results bit for bit, B1's launches equal,
+    the replays under ``torch.cuda.set_sync_debug_mode("error")``; the 16
+    default-path classes at 32 and 65,536 rows; ``jit_update`` and
+    ``scan_update``; a deferred violation; a ring buffer past its capacity
+    (``--phase compiled_path`` runs the build and this phase alone;
+    ``--phase compiled_stream --order compiled,eager,traced`` runs the build
+    and then whole imagenet_val streams in that order, each with its host
+    milliseconds by kind of batch, ``traced`` under ``torch.profiler`` with
+    its top host rows);
+
+the card's name and power limit, the
 ``kernels`` line (B1-B5 and S1) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
@@ -492,17 +508,20 @@ def rel_norm(torch, got, want) -> float:
     return float(torch.linalg.vector_norm((got - want).double()) / torch.linalg.vector_norm(want.double()))
 
 
-def device_time_by_kernel(torch, fn, top: int = 10) -> dict:
+def device_time_by_kernel(torch, fn, top: int = 10, counted=None) -> dict:
     """Device time of one call of ``fn`` by kernel (``torch.profiler``), and the share of its wall time the card idled.
 
     Only the device rows count: the row of a PyTorch op repeats the time of
     the kernels it launched. The wall time is taken under the profiler.
+    ``counted``, a ``(kernel name, launch counter)`` pair, adds the calls of
+    that kernel the profiler saw beside the counter's increase over the same call.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = None if counted is None else int(counted[1])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -514,11 +533,15 @@ def device_time_by_kernel(torch, fn, top: int = 10) -> dict:
         key=lambda r: -r[1],
     )
     busy = sum(r[1] for r in rows)
-    return {  # no rows: the profiler saw no device time here, and the CUDA-event timings stand alone
-        "wall_ms": wall, "device_busy_ms": busy if rows else None,
+    out = {  # no rows: the profiler saw no device time here, and the CUDA-event timings stand alone
+        "wall_ms": wall, "device_busy_ms": busy if rows else None, "launches": sum(r[2] for r in rows),
         "idle_share": 1.0 - busy / wall if rows else None, "kernels": len(rows),
         "top": [{"kernel": name[:64], "ms": ms, "calls": calls} for name, ms, calls in rows[:top]],
     }
+    if counted is not None:
+        out["counted"] = {"kernel": counted[0], "counter": int(counted[1]) - before,
+                          "profiler_calls": sum(calls for name, _, calls in rows if counted[0] in name)}
+    return out
 
 
 def inception_npz(torch, np, seed: int, folder: str, dev, gen) -> str:
@@ -724,7 +747,7 @@ def phase_confmat_exact_2p24(torch, kernel, dev) -> int:
 
     n = 2**24 + 3
     ones = torch.ones(n, dtype=torch.int64, device=dev)
-    kernel.confusion_matrix_cuda.launches = 0
+    kernel.confusion_matrix_cuda.launches.reset()
     cells = {}
     for name, metric in (("binary", BinaryConfusionMatrix()), ("multiclass_3", MulticlassConfusionMatrix(num_classes=3)),
                          ("multiclass_300", MulticlassConfusionMatrix(num_classes=300))):
@@ -733,7 +756,7 @@ def phase_confmat_exact_2p24(torch, kernel, dev) -> int:
         check(cm.device == dev and cm.dtype == torch.int32, f"{name}: {cm.device} {cm.dtype}")
         cells[name] = int(cm[1, 1])
         check(cells[name] == n == 16_777_219 and int(cm.sum()) == n, f"{name}: cell (1, 1) {cells[name]} != {n}")
-    launches = kernel.confusion_matrix_cuda.launches
+    launches = int(kernel.confusion_matrix_cuda.launches)
     check(launches == 1, f"B1 launches {launches} != 1 (the 300-class update)")
     emit({"phase": "confmat_exact_2p24", "rows": n, "cell_1_1": cells, "confmat_launches": launches,
           "check": "exact: 16,777,219 in cell (1, 1)"})
@@ -816,7 +839,7 @@ def phase_classification_collection(torch, np, kernel, dev, gen, smi: str, n_val
         binned_future = pool.submit(_host_binned_auroc, probs, host_t, thresholds)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernel.confusion_matrix_cuda.launches = 0
+        kernel.confusion_matrix_cuda.launches.reset()
         call_ms = {"forward": [], "update": []}
         t0 = time.perf_counter()
         for b, start in enumerate(starts):
@@ -829,7 +852,7 @@ def phase_classification_collection(torch, np, kernel, dev, gen, smi: str, n_val
             torch.cuda.synchronize()
             call_ms["forward" if b % 2 == 0 else "update"].append((time.perf_counter() - t_call) * 1e3)
         stream_s = time.perf_counter() - t0
-        launches = kernel.confusion_matrix_cuda.launches
+        launches = int(kernel.confusion_matrix_cuda.launches)
         n_forward = len(call_ms["forward"])
         compute_ms = {}
         for name in ("auroc_binned", "auroc_exact"):
@@ -1079,11 +1102,11 @@ def _host_calibration(probs, target, boundaries) -> dict:
 def _launches_per_update(torch, kernel, mc, batches) -> list:
     """Stream ``batches`` through ``mc.update``; B1's launches in each update (its count is reset first)."""
     per_update = []
-    kernel.confusion_matrix_cuda.launches = 0
+    kernel.confusion_matrix_cuda.launches.reset()
     for args in batches:
-        before = kernel.confusion_matrix_cuda.launches
+        before = int(kernel.confusion_matrix_cuda.launches)
         mc.update(*args)
-        per_update.append(kernel.confusion_matrix_cuda.launches - before)
+        per_update.append(int(kernel.confusion_matrix_cuda.launches) - before)
     torch.cuda.synchronize()
     return per_update
 
@@ -1498,7 +1521,9 @@ def phase_fid(torch, np, ce, dev, gen, npz: str, n_img: int = 10_000, batch: int
     fid.inception(real[:batch])  # first call: lazy CUDA module loading and cuDNN heuristics, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ce.matmul_bias_relu.launches = ce.bias_relu_.launches = ce.conv_bias_act.layout_copies = 0
+    ce.matmul_bias_relu.launches.reset()
+    ce.bias_relu_.launches.reset()
+    ce.conv_bias_act.layout_copies = 0
     t0 = time.perf_counter()
     for start in range(0, n_img, batch):
         fid.update(real[start:start + batch], real=True)
@@ -1509,8 +1534,8 @@ def phase_fid(torch, np, ce, dev, gen, npz: str, n_img: int = 10_000, batch: int
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {
-        "conv_mm_bias_relu": ce.matmul_bias_relu.launches,
-        "bias_relu": ce.bias_relu_.launches,
+        "conv_mm_bias_relu": int(ce.matmul_bias_relu.launches),
+        "bias_relu": int(ce.bias_relu_.launches),
         "layout_copies": ce.conv_bias_act.layout_copies,
     }
     peak = torch.cuda.max_memory_allocated()
@@ -1575,14 +1600,14 @@ def phase_lpips(torch, lh, dev, gen, n_pairs: int = 1000, batch: int = 50, side:
     metric.net(img0[:batch], img1[:batch])  # first call, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lh.lpips_head.launches = 0
+    lh.lpips_head.launches.reset()
     t0 = time.perf_counter()
     for start in range(0, n_pairs, batch):
         metric.update(img0[start:start + batch], img1[start:start + batch])
     score = metric.compute()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = lh.lpips_head.launches
+    launches = int(lh.lpips_head.launches)
     peak = torch.cuda.max_memory_allocated()
     updates = n_pairs // batch
     check(launches == 5 * updates, f"B3 launches {launches} for {updates} alex forwards")
@@ -1617,11 +1642,11 @@ def phase_lpips(torch, lh, dev, gen, n_pairs: int = 1000, batch: int = 50, side:
     }
     for net_type, taps in (("vgg", 5), ("squeeze", 7)):
         other = LearnedPerceptualImagePatchSimilarity(net_type=net_type)
-        lh.lpips_head.launches = 0
+        lh.lpips_head.launches.reset()
         other.update(img0[:batch], img1[:batch])
         value = other.compute()
         torch.cuda.synchronize()
-        count = lh.lpips_head.launches
+        count = int(lh.lpips_head.launches)
         check(count == taps, f"{net_type}: B3 launches {count}, expected {taps}")
         want = LPIPSExtractor(net_type=net_type, unfused=True)(img0[:batch], img1[:batch])
         got = other.net(img0[:batch], img1[:batch])
@@ -1742,13 +1767,13 @@ def phase_attention_vs_plain(torch, ka, dev, gen, path_mask) -> dict:
             del q, k, v, got, ref, err
     # a view one element into (B, L, hidden + 1) tensors defeats the kernel's 4-element loads: refused, not launched
     q = torch.randn((2, 8, 97), device=dev)[..., 1:]
-    launches = ka.attention.launches
+    launches = int(ka.attention.launches)
     try:
         ka.attention(q, q, q, torch.ones((2, 8), device=dev), num_heads=4)
         refused = False
     except ValueError:
         refused = True
-    check(refused and ka.attention.launches == launches, "B4 launched on a view that is not 4-element aligned")
+    check(refused and int(ka.attention.launches) == launches, "B4 launched on a view that is not 4-element aligned")
     emit({
         "phase": "attention_vs_plain", "cases": cases, "shapes": [list(sh[:5]) for sh in shapes], "worst": worst,
         "misaligned_view": "refused",
@@ -1823,7 +1848,8 @@ def phase_bertscore(torch, np, ka, npz: str, corpus, batch: int = 100) -> dict:
     sl = lambda enc, a: {k: v[a:a + batch] for k, v in enc.items()}  # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ka.attention.launches = ka.layernorm_residual.launches = 0
+    ka.attention.launches.reset()
+    ka.layernorm_residual.launches.reset()
     t0 = time.perf_counter()
     forwards = 0
     for u, start in enumerate(range(0, n, batch)):
@@ -1834,11 +1860,11 @@ def phase_bertscore(torch, np, ka, npz: str, corpus, batch: int = 100) -> dict:
             metric.update(sl(preds, start), sl(target, start))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    before = (ka.attention.launches, ka.layernorm_residual.launches)
+    before = (int(ka.attention.launches), int(ka.layernorm_residual.launches))
     out = metric.compute()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"attention": ka.attention.launches, "layernorm_residual": ka.layernorm_residual.launches}
+    launches = {"attention": int(ka.attention.launches), "layernorm_residual": int(ka.layernorm_residual.launches)}
     peak = torch.cuda.max_memory_allocated()
     encoder_forwards = 2 * (forwards + 1)
     layers = BERT_BASE["num_layers"]  # one B4 and two B5 per layer of each encoder forward
@@ -1850,9 +1876,10 @@ def phase_bertscore(torch, np, ka, npz: str, corpus, batch: int = 100) -> dict:
     idf_metric = BERTScore(model=encoder, idf=True)
     for start in range(0, n, batch):
         idf_metric.update(sl(preds, start), sl(target, start))
-    ka.attention.launches = ka.layernorm_residual.launches = 0
+    ka.attention.launches.reset()
+    ka.layernorm_residual.launches.reset()
     out_idf = idf_metric.compute()
-    check([ka.attention.launches, ka.layernorm_residual.launches] == [2 * layers, 4 * layers], "idf compute launches")
+    check([int(ka.attention.launches), int(ka.layernorm_residual.launches)] == [2 * layers, 4 * layers], "idf compute launches")
 
     # the oracle: the literal unfused float32 graph on the card, scored by the same matcher
     oracle = BertEncoderExtractor(npz, unfused=True)
@@ -1901,12 +1928,13 @@ def phase_infolm(torch, np, ka, npz: str, corpus) -> dict:
     metric = InfoLM(model=mlm, **kw)
     metric.update(preds, target)
     torch.cuda.synchronize()
-    ka.attention.launches = ka.layernorm_residual.launches = 0
+    ka.attention.launches.reset()
+    ka.layernorm_residual.launches.reset()
     t0 = time.perf_counter()
     corpus_score, sentences = metric.compute()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"attention": ka.attention.launches, "layernorm_residual": ka.layernorm_residual.launches}
+    launches = {"attention": int(ka.attention.launches), "layernorm_residual": int(ka.layernorm_residual.launches)}
     layers = BERT_BASE["num_layers"]
     check(launches == {"attention": 2 * width * layers, "layernorm_residual": 4 * width * layers},
           f"InfoLM launches {launches} for 2 sides x {width} positions")
@@ -3166,7 +3194,7 @@ def text_family(torch, np, dev, gen, smi: str, counters: dict, make_corpora, t_m
     corpora = make_corpora()
     corpora_seconds = time.perf_counter() - t0
     for counter in counters.values():
-        counter.launches = 0
+        counter.launches.reset()
     cases = edit_dispatch_cases(corpora["asr"], dispatch_batches)
     with ProcessPoolExecutor(max_workers=6, mp_context=multiprocessing.get_context("spawn")) as pool:
         pending = submit_text_references(pool, corpora)
@@ -3177,7 +3205,7 @@ def text_family(torch, np, dev, gen, smi: str, counters: dict, make_corpora, t_m
         phase_perplexity_wikitext(torch, np, dev, gen, smi, updates=perplexity_updates)
         phase_squad_v1(torch, corpora["squad"], pending["squad"], smi)
         phase_edit_dispatch(torch, dev, cases, host_dispatch.result(), smi)
-    launches = {name: counter.launches for name, counter in counters.items()}
+    launches = {name: int(counter.launches) for name, counter in counters.items()}
     check(not any(launches.values()), f"the text family launched a kernel of B1-B5: {launches}")
     out = {"phase": "text_family", "seconds": time.perf_counter() - t0, "corpora_seconds": corpora_seconds,
            "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
@@ -3262,7 +3290,7 @@ def phase_generative_cifar10(torch, np, ce, dev, gen, npz: str, smi: str, seed: 
     real = torch.randint(0, 256, (n_kid, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
     noise = torch.randint(-20, 21, real.shape, generator=gen, device=dev, dtype=torch.int16)
     fake = (real.to(torch.int16) + 24 + noise).clamp_(0, 255).to(torch.uint8)  # brighter, noisier copies
-    launches0 = ce.matmul_bias_relu.launches, ce.bias_relu_.launches
+    launches0 = int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches)
 
     inception_score = InceptionScore(weights_path=npz)  # logits_unbiased, splits=10, the bf16 fused trunk
     torch.cuda.synchronize()
@@ -3301,8 +3329,8 @@ def phase_generative_cifar10(torch, np, ce, dev, gen, npz: str, smi: str, seed: 
     groups = sorted(sorted(g) for g in collection.compute_groups.values())
     check(groups == [["kid", "mifid"]], f"KID and MiFID compute groups {groups}")
     forwards = updates + 1  # a collection's first update runs every member to find the groups
-    b2a = ce.matmul_bias_relu.launches - launches0[0]
-    b2b = ce.bias_relu_.launches - launches0[1]
+    b2a = int(ce.matmul_bias_relu.launches) - launches0[0]
+    b2b = int(ce.bias_relu_.launches) - launches0[1]
     check(b2a == 40 * (is_forwards + forwards) and b2b == 54 * (is_forwards + forwards),
           f"B2a/B2b launches {b2a}/{b2b} for {is_forwards} + {forwards} forwards")
 
@@ -3428,13 +3456,13 @@ def phase_ppl_lpips_vgg(torch, np, lh, dev, seed: int, pending_cpu, smi: str, n_
     metric = PerceptualPathLength()
     generator = ppl_generator(torch, dev, seed)
     metric.update(generator)
-    b3_before = lh.lpips_head.launches
+    b3_before = int(lh.lpips_head.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mean, std, dists = metric.compute()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = lh.lpips_head.launches - b3_before
+    launches = int(lh.lpips_head.launches) - b3_before
     calls = -(-metric.num_samples // metric.batch_size)
     check(launches == 5 * calls, f"B3 launches {launches} for {calls} LPIPS-VGG calls")
     d64 = dists.double().cpu().numpy()
@@ -3450,7 +3478,7 @@ def phase_ppl_lpips_vgg(torch, np, lh, dev, seed: int, pending_cpu, smi: str, n_
     with full_fp32():
         d32 = perceptual_path_length(ppl_generator(torch, dev, seed), num_samples=n_cpu, batch_size=128,
                                      sim_net=f32, device=dev)[2].double().cpu().numpy()
-    side_launches = lh.lpips_head.launches - b3_before - launches
+    side_launches = int(lh.lpips_head.launches) - b3_before - launches
     cpu = pending_cpu.result().astype(np.float64)
     # differences over the median |distance| (the random heads' weights make some distances cross zero)
     err32 = np.abs(d32 - cpu) / np.median(np.abs(cpu))
@@ -3824,7 +3852,7 @@ def image_rest(torch, np, ce, lh, dev, gen, seed: int, smi: str, counters: dict,
     InceptionV3 trunk) and B3 (LPIPS-VGG) launch as the phases count them."""
     t0 = time.perf_counter()
     for counter in counters.values():
-        counter.launches = 0
+        counter.launches.reset()
     with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
         wv3 = [pool.submit(_cpu_wv3, seed, names) for names in WV3_GROUPS.values()]
         ppl_cpu = pool.submit(_cpu_ppl_distances, seed + PPL_SEED_OFFSET, 256)
@@ -3835,7 +3863,7 @@ def image_rest(torch, np, ce, lh, dev, gen, seed: int, smi: str, counters: dict,
         phase_div2k_sr(torch, np, dev, gen, smi)
         phase_image_quality_rest(torch, np, dev, gen, smi)
         phase_pansharpening_wv3(torch, np, dev, seed, wv3, smi)
-    launches = {name: counter.launches for name, counter in counters.items()}
+    launches = {name: int(counter.launches) for name, counter in counters.items()}
     expected = {name: 0 for name in counters}
     expected.update(matmul_bias_relu=generative["launches"]["conv_mm_bias_relu"],
                     bias_relu_=generative["launches"]["bias_relu"],
@@ -4414,7 +4442,7 @@ def regression_retrieval(torch, np, dev, gen, smi: str, counters: dict, t_main: 
     """Phases 33-38 with the retrieval references in worker processes; none of B1-B5 may launch."""
     t0 = time.perf_counter()
     for counter in counters.values():
-        counter.launches = 0
+        counter.launches.reset()
     with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
         warm = [pool.submit(_host_retrieval, []) for _ in range(4)]  # the workers start while the card works
         phase_nyu_depth_v2(torch, np, dev, gen, smi)
@@ -4425,7 +4453,7 @@ def regression_retrieval(torch, np, dev, gen, smi: str, counters: dict, t_main: 
         for future in warm:
             future.result()
         phase_msmarco_dev(torch, np, dev, gen, smi, pool)
-    launches = {name: counter.launches for name, counter in counters.items()}
+    launches = {name: int(counter.launches) for name, counter in counters.items()}
     check(not any(launches.values()), f"regression, pairwise and retrieval launched {launches}")
     out = {"phase": "regression_retrieval", "seconds": time.perf_counter() - t0,
            "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
@@ -4913,17 +4941,17 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
                 T.MemorizationInformedFrechetInceptionDistance(feature=2048, weights_path=npz)]
 
     def stream(update):
-        counts0 = ce.matmul_bias_relu.launches, ce.bias_relu_.launches
+        counts0 = int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for lo in range(0, n_img, img_batch):
             update(real[lo:lo + img_batch], True)
             update(fake[lo:lo + img_batch], False)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, (ce.matmul_bias_relu.launches - counts0[0],
-                                          ce.bias_relu_.launches - counts0[1])
+        return time.perf_counter() - t0, (int(ce.matmul_bias_relu.launches) - counts0[0],
+                                          int(ce.bias_relu_.launches) - counts0[1])
 
-    trunk0 = ce.matmul_bias_relu.launches, ce.bias_relu_.launches
+    trunk0 = int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches)
     shared_members = members()
     shared = FeatureShare(shared_members)
     shared_members[0].inception.network(real[:img_batch])  # lazy module loading and cuDNN heuristics, not timed
@@ -4960,8 +4988,8 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
                             "unshared_launches_per_batch": [alone_launches[0] / forwards, alone_launches[1] / forwards],
                             "images_per_s_shared": 2 * n_img / shared_s, "images_per_s_unshared": 2 * n_img / alone_s,
                             "values_bitwise_equal": bitwise}
-    out["trunk_launches"] = {"matmul_bias_relu": ce.matmul_bias_relu.launches - trunk0[0],
-                             "bias_relu_": ce.bias_relu_.launches - trunk0[1]}
+    out["trunk_launches"] = {"matmul_bias_relu": int(ce.matmul_bias_relu.launches) - trunk0[0],
+                             "bias_relu_": int(ce.bias_relu_.launches) - trunk0[1]}
     emit(out)
     return out
 
@@ -4971,7 +4999,7 @@ def clustering_nominal_wrappers(torch, np, ce, dev, gen, seed: int, smi: str, co
     """Phases 39-43; B1, B3, B4 and B5 must not launch, B2a/B2b only in phase 43's trunk forwards."""
     t0 = time.perf_counter()
     for counter in counters.values():
-        counter.launches = 0
+        counter.launches.reset()
     seconds = {}
     preds_c, target_c = imagenet_clusters(torch, dev, gen, n_clusters, classes)
     with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -4993,7 +5021,7 @@ def clustering_nominal_wrappers(torch, np, ce, dev, gen, seed: int, smi: str, co
         wrappers = phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target,
                                                    inception_npz(torch, np, seed, folder, dev, gen), smi, seed)
     seconds["wrappers_imagenet_cifar10"] = time.perf_counter() - t1
-    launches = {name: counter.launches for name, counter in counters.items()}
+    launches = {name: int(counter.launches) for name, counter in counters.items()}
     expected = {name: 0 for name in counters}
     expected.update(wrappers["trunk_launches"])
     check(launches == expected, f"clustering, nominal and the wrappers launched {launches}, expected {expected}")
@@ -5220,7 +5248,7 @@ def phase_srmr_reverb(torch, np, kb, dev, gen, pool, smi: str, cfg: dict) -> dic
     metrics = {"default": SRMR(fs), "norm": SRMR(fs, norm=True), "fast": SRMR(fs, fast=True)}
     rates = {}
     updates = n // batch
-    kb.biquad_bank.launches = 0
+    kb.biquad_bank.launches.reset()
     for name, metric in metrics.items():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -5232,7 +5260,7 @@ def phase_srmr_reverb(torch, np, kb, dev, gen, pool, smi: str, cfg: dict) -> dic
             torch.cuda.synchronize()
         rates[name] = {"utterances_per_s": n / (time.perf_counter() - t0), "srmr_mean": value}
         check(int(metric.total) == n and np.isfinite(value), f"SRMR {name}: {value} over {int(metric.total)}")
-    main_launches = kb.biquad_bank.launches
+    main_launches = int(kb.biquad_bank.launches)
     check(main_launches == 5 * updates, f"S1 launched {main_launches} times on the main path, expected {5 * updates}")
 
     # S1 against its plain loop at the main path's shapes: its first update's 16 utterances through the 23
@@ -5797,13 +5825,13 @@ def audio_multimodal_segmentation(torch, np, dev, gen, seed: int, smi: str, coun
     kb = importlib.import_module("torchmetrics_tpu_torch._kernels.biquad")
     t0 = time.perf_counter()
     for counter in counters.values():
-        counter.launches = 0
+        counter.launches.reset()
     seconds = {}
     with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
         t1 = time.perf_counter()
         srmr = phase_srmr_reverb(torch, np, kb, dev, gen, pool, smi, sizes["srmr_reverb"])
         seconds["srmr_reverb"] = time.perf_counter() - t1
-        s1_after_44 = kb.biquad_bank.launches
+        s1_after_44 = int(kb.biquad_bank.launches)
         t1 = time.perf_counter()
         phase_wsj0_2mix_separation(torch, np, dev, gen, smi, sizes["wsj0_2mix_separation"])
         seconds["wsj0_2mix_separation"] = time.perf_counter() - t1
@@ -5823,21 +5851,455 @@ def audio_multimodal_segmentation(torch, np, dev, gen, seed: int, smi: str, coun
     emit({"phase": "srmr_reverb_s1_main_shape", "utterances": cfg["batch"], "samples": cfg["samples"],
           "channels": {"gammatone": cfg["batch"] * 23, "modulation": cfg["batch"] * 23 * 8}, **s1_host,
           "wait_seconds": s1_wait_s})
-    launches = {name: counter.launches for name, counter in counters.items()}
+    launches = {name: int(counter.launches) for name, counter in counters.items()}
     check(not any(launches.values()), f"audio, multimodal and segmentation launched {launches}")
-    check(kb.biquad_bank.launches == s1_after_44, "S1 launched outside phase 44")
+    check(int(kb.biquad_bank.launches) == s1_after_44, "S1 launched outside phase 44")
     out = {"phase": "audio_multimodal_segmentation", "seconds": time.perf_counter() - t0, "phase_seconds": seconds,
            "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches,
-           "s1_launches": kb.biquad_bank.launches}
+           "s1_launches": int(kb.biquad_bank.launches)}
     emit(out)
     out["s1"] = {**srmr["kernel_entry"], "max_abs_err": max(srmr["kernel_entry"]["max_abs_err"], s1_main_err)}
     return out
+
+
+def imagenet_val_data(torch, dev, gen, n_val: int = 50_000, c_in: int = 1000):
+    """ImageNet-val-shaped logits and labels: ~76% of rows have their argmax on the target."""
+    logits = torch.randn((n_val, c_in), generator=gen, device=dev)
+    target = torch.randint(0, c_in, (n_val,), generator=gen, device=dev)
+    hit = torch.rand(n_val, generator=gen, device=dev) < 0.76
+    rows = torch.arange(n_val, device=dev)
+    logits[rows[hit], target[hit]] += 10.0
+    return logits, target
+
+
+# ------------------------------------------------------------ compiled_path
+# the 16 classes of the JAX package's certified default path (torchmetrics_tpu/_aot/default_path.py:80-96),
+# each with the canonical batch maker of that file
+DEFAULT_PATH = {
+    "MeanMetric": ("aggregation", "MeanMetric", {}, "agg"),
+    "MaxMetric": ("aggregation", "MaxMetric", {}, "agg"),
+    "BinaryStatScores": ("classification", "BinaryStatScores", {}, "bin"),
+    "BinaryAccuracy": ("classification", "BinaryAccuracy", {}, "bin"),
+    "BinaryF1Score": ("classification", "BinaryF1Score", {}, "bin"),
+    "BinaryConfusionMatrix": ("classification", "BinaryConfusionMatrix", {}, "bin"),
+    "MulticlassAccuracy": ("classification", "MulticlassAccuracy", {"num_classes": 4}, "mc"),
+    "MulticlassStatScores": ("classification", "MulticlassStatScores", {"num_classes": 4}, "mc"),
+    "MultilabelAccuracy": ("classification", "MultilabelAccuracy", {"num_labels": 3}, "ml"),
+    "MultilabelRankingLoss": ("classification", "MultilabelRankingLoss", {"num_labels": 3}, "ml"),
+    "MeanSquaredError": ("regression", "MeanSquaredError", {}, "reg"),
+    "MeanAbsoluteError": ("regression", "MeanAbsoluteError", {}, "reg"),
+    "R2Score": ("regression", "R2Score", {}, "reg"),
+    "PearsonCorrCoef": ("regression", "PearsonCorrCoef", {}, "reg"),
+    "KLDivergence": ("regression", "KLDivergence", {}, "probs2d"),
+    "TweedieDevianceScore": ("regression", "TweedieDevianceScore", {}, "reg_pos"),
+}
+
+
+def default_path_batch(torch, maker: str, n: int, gen, dev):
+    """One batch of ``n`` rows, as ``_aot/default_path.py::_data`` draws it, from a torch generator on the card."""
+    if maker == "bin":
+        return torch.rand(n, generator=gen, device=dev), torch.randint(0, 2, (n,), generator=gen, device=dev)
+    if maker == "mc":
+        p = torch.rand((n, 4), generator=gen, device=dev)
+        return p / p.sum(1, keepdim=True), torch.randint(0, 4, (n,), generator=gen, device=dev)
+    if maker == "ml":
+        return torch.rand((n, 3), generator=gen, device=dev), torch.randint(0, 2, (n, 3), generator=gen, device=dev)
+    if maker == "reg":
+        return torch.randn(n, generator=gen, device=dev), torch.randn(n, generator=gen, device=dev)
+    if maker == "reg_pos":
+        return torch.rand(n, generator=gen, device=dev) + 0.1, torch.rand(n, generator=gen, device=dev) + 0.1
+    if maker == "probs2d":
+        p, q = torch.rand((n, 5), generator=gen, device=dev), torch.rand((n, 5), generator=gen, device=dev)
+        return p / p.sum(1, keepdim=True), q / q.sum(1, keepdim=True)
+    return (torch.rand(n, generator=gen, device=dev),)
+
+
+def _engaged(metric, cache: str = "_auto_update_fn") -> bool:
+    return bool(metric.__dict__.get(cache)) and not metric._auto_disabled
+
+
+def _same(torch, a, b) -> bool:
+    """Bit for bit: tensors (NaN where the other has NaN), dicts, tuples, lists."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(torch, x, y) for x, y in zip(a, b))
+    return torch.equal(a, b) or bool((a.isnan() & b.isnan()).sum() == a.isnan().sum() == b.isnan().sum()
+                                     and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def _states(metric) -> dict:
+    """Copies of a metric's states (a ring buffer's live rows)."""
+    ring = importlib.import_module("torchmetrics_tpu_torch.utilities.ringbuffer").RingBuffer
+    return {n: (v.values() if isinstance(v, ring) else v).clone()
+            for n, v in ((n, getattr(metric, n)) for n in metric._defaults)}
+
+
+def phase_compiled_path(torch, np, kernel, dev, gen, logits, target, smi: str, batch: int = 1024,
+                        sweep_rows=(32, 65_536), scan_steps: int = 48, ring_capacity: int = 100_000) -> dict:
+    """The compiled update path on the card: CUDA graphs against the eager stream, bit for bit.
+
+    1. ImageNet-val: a collection of MulticlassAccuracy (macro), MulticlassConfusionMatrix, Jaccard and MCC at
+       1,000 classes (the last three one compute group: its head replays B1 in its graph) and a MeanMetric of the
+       batch's cross-entropy, streamed once compiled and once with ``auto_compile=False``; a ``compute``, two
+       ``forward``s and a ``reset`` mid-stream; the steady updates replay under
+       ``torch.cuda.set_sync_debug_mode("error")``.
+    2. The 16 default-path classes at the canonical 32 rows and at 65,536, compiled against eager.
+    3. ``jit_update`` and ``scan_update`` of MulticlassConfusionMatrix(1000) (B1) and MeanSquaredError.
+    4. A deferred violation: an out-of-range label in a compiled stream is dropped, ``compute()`` raises with the
+       JAX package's message, and a compiled ``forward`` of that batch returns NaN.
+    5. A ring buffer (BinaryAUROC, ``cat_state_capacity``) streamed past its capacity, compiled against eager.
+    """
+    import importlib
+    import warnings
+
+    import torch.nn.functional as F
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    MCA, MCM = tp.classification.MulticlassAccuracy, tp.classification.MulticlassConfusionMatrix
+    t_phase, b1_phase = time.perf_counter(), int(kernel.confusion_matrix_cuda.launches)
+    c_in, n_val = logits.shape[1], logits.shape[0]
+    starts = list(range(0, n_val, batch))
+    ce_all = F.cross_entropy(logits, target, reduction="none")
+
+    def imagenet(auto: bool) -> dict:
+        kw = {"device": dev, "auto_compile": auto}
+        mc = tp.MetricCollection({
+            "acc": MCA(num_classes=c_in, average="macro", **kw), "cm": MCM(num_classes=c_in, **kw),
+            "jac": tp.classification.MulticlassJaccardIndex(num_classes=c_in, **kw),
+            "mcc": tp.classification.MulticlassMatthewsCorrCoef(num_classes=c_in, **kw),
+        })
+        mean_ce = tp.MeanMetric(**kw)
+        launches0, graphs0 = int(kernel.confusion_matrix_cuda.launches), compile_mod.stats()
+        out = {"checkpoints": {}, "forward": {}, "host_ms": [], "guarded": 0}
+        steady = [b for b in range(len(starts)) if b >= 2 and b not in (10, 20, 21, 22, 30, 31, len(starts) - 1)]
+        t_span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        span = [b for b in steady if b >= 32]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, s in enumerate(starts):
+            p, t, ce = logits[s:s + batch], target[s:s + batch], ce_all[s:s + batch]
+            if b == span[0]:
+                t_span[0].record()
+            if b in (20, 21):
+                out["forward"][b] = {**mc(p, t), "mean_ce": mean_ce(ce)}
+            elif b in steady:
+                h0 = time.perf_counter()
+                with _sync_guard(torch, on=auto):  # a replay reads nothing back; the eager checks do
+                    mc.update(p, t)
+                    mean_ce.update(ce)
+                out["host_ms"].append((time.perf_counter() - h0) * 1e3)
+                out["guarded"] += auto
+            else:
+                mc.update(p, t)
+                mean_ce.update(ce)
+            if b == span[-1]:
+                t_span[1].record()
+            if b == 10:
+                out["checkpoints"][b] = {**mc.compute(), "mean_ce": mean_ce.compute()}
+            if b == 30:
+                mc.reset()
+                mean_ce.reset()
+        out["final"] = {**mc.compute(), "mean_ce": mean_ce.compute()}
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["device_span_ms_per_update"] = t_span[0].elapsed_time(t_span[1]) / len(span)
+        out["b1_launches"] = int(kernel.confusion_matrix_cuda.launches) - launches0
+        graphs = compile_mod.stats()
+        out["graphs"] = {k: graphs[k] - graphs0[k] for k in graphs}
+        out["states"] = {name: _states(m) for name, m in mc.items(keep_base=True)}
+        out["states"]["mean_ce"] = _states(mean_ce)
+        out["engaged"] = {name: _engaged(m) for name, m in [*mc.items(keep_base=True), ("mean_ce", mean_ce)]}
+        out["reasons"] = {name: m._auto_disabled_reason for name, m in [*mc.items(keep_base=True), ("mean_ce", mean_ce)]}
+        out["groups"] = [list(g) for g in mc.compute_groups.values()]
+        # one more update of each kind, on fresh instances, under the profiler: the card's busy time
+        tm = tp.MetricCollection({"cm": MCM(num_classes=c_in, **kw), "acc": MCA(num_classes=c_in, average="macro", **kw),
+                                  "jac": tp.classification.MulticlassJaccardIndex(num_classes=c_in, **kw),
+                                  "mcc": tp.classification.MulticlassMatthewsCorrCoef(num_classes=c_in, **kw)})
+        tmean = tp.MeanMetric(**kw)
+        p, t, ce = logits[:batch], target[:batch], ce_all[:batch]
+
+        def one():
+            tm.update(p, t)
+            tmean.update(ce)
+
+        for _ in range(3):
+            one()
+        # the counter against the profiler: B1 seen on the card as often as counted, replays included
+        out["profile"] = device_time_by_kernel(torch, one, top=6, counted=("confmat_kernel", kernel.confusion_matrix_cuda.launches))
+        launches1 = int(kernel.confusion_matrix_cuda.launches)
+        one()
+        out["b1_per_update"] = int(kernel.confusion_matrix_cuda.launches) - launches1
+        out["launches_per_update"] = out["profile"]["launches"]
+        return out
+
+    compiled, eager = imagenet(True), imagenet(False)
+    check(compiled["groups"] == eager["groups"] == [["acc"], ["cm", "jac", "mcc"]], f"groups {compiled['groups']}")
+    check(all(compiled["engaged"].values()), f"compiled path not engaged: {compiled['reasons']}")
+    check(not any(eager["engaged"].values()), "auto_compile=False engaged a compiled path")
+    check(_same(torch, compiled["states"], eager["states"]), "compiled states != eager states")
+    check(_same(torch, compiled["final"], eager["final"]), "compiled compute() != eager compute()")
+    check(_same(torch, compiled["checkpoints"], eager["checkpoints"]), "mid-stream compute() differs")
+    check(_same(torch, compiled["forward"], eager["forward"]), "forward values differ")
+    check(compiled["b1_launches"] == eager["b1_launches"], f"B1 launches {compiled['b1_launches']} != eager {eager['b1_launches']}")
+    # the group's head replays B1 once an update, the other members and the accuracy none; the profiler
+    # sees as many B1 calls as the counter counts
+    for run in (compiled, eager):
+        counted = run["profile"].get("counted")
+        check(dev.type != "cuda" or (run["b1_per_update"] == counted["counter"] == counted["profiler_calls"] == 1),
+              f"B1 an update: {run['b1_per_update']} counted, {counted}")
+    check(dev.type != "cuda" or (compiled["graphs"]["replayed"] > 0 and compiled["guarded"] > 0),
+          "no replay under sync-debug mode")
+    host = {"compiled": compiled, "eager": eager}
+    imagenet_line = {
+        run: {
+            "updates_per_s": len(starts) / r["seconds"],
+            "steady_updates_per_s": 1e3 / r["device_span_ms_per_update"],
+            "host_ms_per_update": statistics.median(r["host_ms"]),
+            "device_span_ms_per_update": r["device_span_ms_per_update"],
+            "device_busy_ms_per_update": r["profile"]["device_busy_ms"], "idle_share": r["profile"]["idle_share"],
+            "kernels_per_update": r["launches_per_update"], "b1_launches": r["b1_launches"],
+            "b1_per_update": r["b1_per_update"], "b1_counted_vs_profiler": r["profile"]["counted"],
+            "graphs": r["graphs"], "replays_under_sync_error": r["guarded"],
+            "top_kernels": r["profile"]["top"],
+        } for run, r in host.items()
+    }
+    emit({"phase": "compiled_path", "part": "imagenet_val_collection", "batches": len(starts), "batch": batch,
+          "classes": c_in, "groups": compiled["groups"], "states_equal": True,
+          **imagenet_line, "card": smi})
+
+    # ------------------------------------------------------------ default path
+    sweep = {}
+    for rows in sweep_rows:
+        for name, (module, cls, kwargs, maker) in DEFAULT_PATH.items():
+            ctor = getattr(importlib.import_module(f"torchmetrics_tpu_torch.{module}"), cls)
+            auto, plain = ctor(device=dev, **kwargs), ctor(device=dev, auto_compile=False, **kwargs)
+            g = torch.Generator(device=dev).manual_seed(1234 + rows)
+            for _ in range(4):
+                args = default_path_batch(torch, maker, rows, g, dev)
+                auto.update(*args)
+                plain.update(*args)
+            ok = _same(torch, _states(auto), _states(plain)) and _same(torch, auto.compute(), plain.compute())
+            check(ok, f"{name} at {rows} rows: compiled != eager")
+            check(_engaged(auto), f"{name} at {rows} rows did not engage: {auto._auto_disabled_reason}")
+            sweep.setdefault(rows, []).append(name)
+    emit({"phase": "compiled_path", "part": "default_path", "rows": list(sweep_rows),
+          "classes_engaged_and_equal": {str(k): len(v) for k, v in sweep.items()}})
+
+    # ------------------------------------------------- jit_update, scan_update
+    full = starts[:scan_steps] if len(starts) > scan_steps else starts[:-1]
+    stacked_p = torch.stack([logits[s:s + batch] for s in full])
+    stacked_t = torch.stack([target[s:s + batch] for s in full])
+    mse_p, mse_t = stacked_p[:, :, 0].contiguous(), stacked_p[:, :, 1].contiguous()
+    scan_out = {}
+    for label, ctor, xs, ys in (("confusion_matrix", lambda **k: MCM(num_classes=c_in, device=dev, **k), stacked_p, stacked_t),
+                                ("mean_squared_error", lambda **k: tp.MeanSquaredError(device=dev, **k), mse_p, mse_t)):
+        plain, jitted, scanned = ctor(auto_compile=False), ctor(), ctor()
+        for i in range(len(full)):
+            plain.update(xs[i], ys[i])
+        l0 = int(kernel.confusion_matrix_cuda.launches)
+        for i in range(len(full)):
+            jitted.jit_update(xs[i], ys[i])
+        jit_launches = int(kernel.confusion_matrix_cuda.launches) - l0
+        l0 = int(kernel.confusion_matrix_cuda.launches)
+        scanned.scan_update(xs, ys)
+        scan_launches = int(kernel.confusion_matrix_cuda.launches) - l0
+        for m in (jitted, scanned):
+            check(_same(torch, _states(m), _states(plain)) and m.update_count == plain.update_count,
+                  f"{label}: jit/scan != eager")
+        # a second scan replays the graph: the kernels' own counters count its launches again
+        l0 = int(kernel.confusion_matrix_cuda.launches)
+        scanned.scan_update(xs, ys)
+        per_call = int(kernel.confusion_matrix_cuda.launches) - l0
+        torch.cuda.synchronize()
+        t_scan = wall_ms(torch, lambda: scanned.scan_update(xs, ys), reps=3, warmup=0)
+        scan_out[label] = {"steps": len(full), "jit_b1_launches": jit_launches, "scan_b1_launches": scan_launches,
+                           "scan_b1_per_replay": per_call, "scan_ms": t_scan, "scan_ms_per_step": t_scan / len(full)}
+        if label == "confusion_matrix" and dev.type == "cuda":
+            check(jit_launches == len(full) == scan_launches == per_call, f"B1 launches {scan_out[label]}")
+    emit({"phase": "compiled_path", "part": "jit_scan_update", **scan_out})
+
+    # ----------------------------------------------------- deferred violation
+    good = [(logits[s:s + batch], target[s:s + batch]) for s in starts[:4]]
+    bad_t = good[3][1].clone()
+    bad_t[7] = c_in  # one label out of range: same shape and dtype, so the compiled step replays it
+    m, ref = MCA(num_classes=c_in, device=dev), MCA(num_classes=c_in, device=dev, auto_compile=False)
+    for p, t in good[:3]:
+        m.update(p, t)
+        ref.update(p, t)
+    m.update(good[3][0], bad_t)
+    check(_engaged(m), "MulticlassAccuracy did not engage")
+    message = None
+    try:
+        m.compute()
+    except RuntimeError as err:
+        message = str(err)
+    want = f"Detected more unique values in `target` than expected. Expected only {c_in}."
+    check(message is not None and message.startswith(want) and "raised asynchronously" in message,
+          f"deferred violation: {message!r}")
+    check(_same(torch, m.compute(), ref.compute()) and _same(torch, _states(m), _states(ref)),
+          "the violating batch reached the state")
+    fwd = MCA(num_classes=c_in, device=dev)
+    for p, t in good[:2]:
+        fwd(p, t)
+    poisoned = fwd(good[3][0], bad_t)
+    check(_engaged(fwd, "_auto_forward_fn") and bool(torch.isnan(poisoned)), f"forward of the bad batch gave {poisoned}")
+    try:
+        fwd.compute()
+        check(False, "the forward's violation did not surface")
+    except RuntimeError as err:
+        check(str(err).startswith(want), f"forward violation message {err}")
+    emit({"phase": "compiled_path", "part": "deferred_violation", "message": message, "forward_value": float(poisoned)})
+
+    # ------------------------------------------------------------ ring buffer
+    ring_batch, ring_updates = 16_384, 10
+    rp = torch.rand((ring_updates, ring_batch), generator=gen, device=dev)
+    rt = (torch.rand((ring_updates, ring_batch), generator=gen, device=dev) < rp).to(torch.int64)
+    runs = {}
+    for auto in (True, False):
+        metric = tp.classification.BinaryAUROC(cat_state_capacity=ring_capacity, device=dev, auto_compile=auto)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for u in range(ring_updates):
+                metric.update(rp[u], rt[u])
+        runs[auto] = (metric, [str(w.message) for w in caught if "capacity" in str(w.message)])
+    (mc_, warn_c), (me_, warn_e) = runs[True], runs[False]
+    check(_engaged(mc_), f"BinaryAUROC ring did not engage: {mc_._auto_disabled_reason}")
+    check(mc_.preds.count == me_.preds.count == ring_batch * ring_updates, "ring counts differ")
+    check(torch.equal(mc_.preds.values(), me_.preds.values()) and torch.equal(mc_.target.values(), me_.target.values()),
+          "ring rows differ")
+    check(len(warn_c) == len(warn_e) == 2, f"overflow warnings {len(warn_c)} / {len(warn_e)}")  # preds' and target's
+    check(_same(torch, mc_.compute(), me_.compute()), "ring AUROC differs")
+    emit({"phase": "compiled_path", "part": "ring_buffer", "capacity": ring_capacity,
+          "rows_appended": mc_.preds.count, "auroc": float(mc_.compute()), "warning": warn_c[0][:60]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "compiled_path", "seconds": seconds, "graphs": compile_mod.stats()})
+    return {"confmat_launches": int(kernel.confusion_matrix_cuda.launches) - b1_phase, "seconds": seconds}
+
+
+def phase_compiled_stream(torch, kernel, dev, logits, target, order, smi: str, batch: int = 1024) -> None:
+    """Where a whole stream's time goes, compiled against eager, in the order given (``--phase compiled_stream``).
+
+    Each item of ``order`` streams the imagenet_val data once through a new
+    collection (macro accuracy and the 1,000-class confusion-matrix group) and
+    a mean cross-entropy, ``update`` a batch and one ``compute``: ``eager``
+    with ``auto_compile=False``, ``compiled`` with the default, ``traced`` the
+    default under ``torch.profiler``. Each prints its seconds and every
+    batch's host milliseconds by kind (a signature's first call, a capture, a
+    replay); ``traced`` adds the top host rows by self time (PyTorch ops and
+    CUDA runtime calls), over the stream and within each kind of batch, the
+    card's busy time, and B1's calls as the profiler saw them beside the
+    launch counter over the stream.
+    """
+    import importlib
+
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    c_in, starts = logits.shape[1], list(range(0, logits.shape[0], batch))
+    ce_all = F.cross_entropy(logits, target, reduction="none")
+    torch.cuda.synchronize()
+    for item in order:
+        kw = {"device": dev, "auto_compile": item != "eager"}
+        mc = tp.MetricCollection({
+            "acc": tp.classification.MulticlassAccuracy(num_classes=c_in, average="macro", **kw),
+            "cm": tp.classification.MulticlassConfusionMatrix(num_classes=c_in, **kw),
+            "jac": tp.classification.MulticlassJaccardIndex(num_classes=c_in, **kw),
+            "mcc": tp.classification.MulticlassMatthewsCorrCoef(num_classes=c_in, **kw),
+        })
+        mean_ce = tp.MeanMetric(**kw)
+        kinds, graphs0, b1_0 = [], compile_mod.stats(), int(kernel.confusion_matrix_cuda.launches)
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if item == "traced" else None
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        for s in starts:
+            h0, g0 = time.perf_counter(), compile_mod.stats()
+            seen = s + batch <= logits.shape[0] and s > 0  # the first batch and the short last one are first calls
+            with record_function(f"batch_{len(kinds)}"):
+                mc.update(logits[s:s + batch], target[s:s + batch])
+                mean_ce.update(ce_all[s:s + batch])
+            g1 = compile_mod.stats()
+            kind = ("capture" if g1["captured"] > g0["captured"] else "replay" if g1["replayed"] > g0["replayed"]
+                    else "eager" if seen else "first_call")
+            kinds.append((kind, (time.perf_counter() - h0) * 1e3))
+        values = {**mc.compute(), "mean_ce": mean_ce.compute()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        check(all(bool(torch.isfinite(v.float()).all()) for v in values.values()), f"{item}: non-finite results")
+        by_kind = {}
+        for kind, ms in kinds:
+            entry = by_kind.setdefault(kind, {"batches": 0, "host_ms": 0.0, "max_ms": 0.0})
+            entry["batches"] += 1
+            entry["host_ms"] += ms
+            entry["max_ms"] = max(entry["max_ms"], ms)
+        graphs = compile_mod.stats()
+        line = {"phase": "compiled_stream", "item": item, "batches": len(starts), "seconds": seconds,
+                "updates_per_s": len(starts) / seconds, "host_ms_by_kind": by_kind,
+                "slowest_batches": sorted(((round(ms, 3), b, kind) for b, (kind, ms) in enumerate(kinds)), reverse=True)[:6],
+                "graphs": {k: graphs[k] - graphs0[k] for k in graphs},
+                "b1_launches": int(kernel.confusion_matrix_cuda.launches) - b1_0, "card": smi}
+        if prof is not None:
+            rows = prof.key_averages()
+            host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in rows
+                           if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0), key=lambda r: -r[1])
+            device = [(e.key, e.self_device_time_total / 1e3, e.count) for e in rows
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            line.update({
+                "host_self_ms_total": sum(r[1] for r in host),
+                "top_host_rows": [{"row": k[:60], "self_ms": ms, "calls": n} for k, ms, n in host[:20]],
+                "device_busy_ms": sum(r[1] for r in device),
+                "kernel_calls": sum(r[2] for r in device),
+                "b1_profiler_calls": sum(n for k, _, n in device if "confmat_kernel" in k),
+            })
+            # each host event's self time, by the kind of the batch it ran in
+            spans = [(e.time_range.start, e.time_range.end, kinds[int(e.name[6:])][0])
+                     for e in prof.events() if e.name.startswith("batch_")]
+            by_batch_kind = {}
+            for e in prof.events():
+                if e.device_type != DeviceType.CPU or e.name.startswith("batch_") or e.self_cpu_time_total <= 0:
+                    continue
+                kind = next((k for a, b, k in spans if a <= e.time_range.start <= b), "outside")
+                by_batch_kind.setdefault(kind, collections.Counter())[e.name[:60]] += e.self_cpu_time_total / 1e3
+            line["top_host_rows_by_batch_kind"] = {
+                k: {"self_ms": sum(c.values()), "top": [[n, ms] for n, ms in c.most_common(6)]}
+                for k, c in by_batch_kind.items()}
+            check(dev.type != "cuda" or line["b1_profiler_calls"] == line["b1_launches"],
+                  f"B1: {line['b1_profiler_calls']} calls seen, {line['b1_launches']} counted")
+        emit(line)
+
+
+class _sync_guard:
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block (when ``on``): a host sync in it raises."""
+
+    def __init__(self, torch, on: bool = True):
+        self.torch, self.on = torch, on
+
+    def __enter__(self):
+        if self.on:
+            self.mode = self.torch.cuda.get_sync_debug_mode()
+            self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode(self.mode)
 
 
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream"), default="all",
+                        help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
+                             "compiled_stream: build, stream the imagenet_val data in the --order given, stop")
+    parser.add_argument("--order", default="compiled,eager,compiled",
+                        help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
 
     import numpy as np
@@ -5911,8 +6373,17 @@ def main() -> int:
     })
     print(smi, flush=True)
 
-    # -------------------------------------------------------- kernel_vs_plain
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.phase != "all":
+        logits, target = imagenet_val_data(torch, dev, gen)
+        if args.phase == "compiled_path":
+            phase_compiled_path(torch, np, kernel, dev, gen, logits, target, smi)
+        else:
+            phase_compiled_stream(torch, kernel, dev, logits, target, args.order.split(","), smi)
+        print(smi, flush=True)
+        return 0
+
+    # -------------------------------------------------------- kernel_vs_plain
     cases = [
         # (n, C, label dtype, weights, labels)
         (8, 256, torch.int32, None, "uniform"),
@@ -5967,11 +6438,7 @@ def main() -> int:
 
     # ----------------------------------------------------------- imagenet_val
     n_val, c_in, batch = 50_000, 1000, 1024
-    logits = torch.randn((n_val, c_in), generator=gen, device=dev)
-    target = torch.randint(0, c_in, (n_val,), generator=gen, device=dev)
-    hit = torch.rand(n_val, generator=gen, device=dev) < 0.76
-    rows = torch.arange(n_val, device=dev)
-    logits[rows[hit], target[hit]] += 10.0  # ~76% of rows have their argmax on the target
+    logits, target = imagenet_val_data(torch, dev, gen, n_val, c_in)
     metrics = [
         MulticlassAccuracy(num_classes=c_in, average="micro"),
         MulticlassAccuracy(num_classes=c_in, average="micro", top_k=5),
@@ -5979,7 +6446,7 @@ def main() -> int:
     ]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    confmat_cuda.launches = 0
+    confmat_cuda.launches.reset()
     t0 = time.perf_counter()
     first_batch_vals = None
     n_batches = 0
@@ -5995,7 +6462,7 @@ def main() -> int:
     top1, top5, cm = (m.compute() for m in metrics)
     torch.cuda.synchronize()
     imagenet_s = time.perf_counter() - t0
-    imagenet_launches = confmat_cuda.launches
+    imagenet_launches = int(confmat_cuda.launches)
 
     host_logits, host_target = logits.cpu().numpy(), target.cpu().numpy()
     pred1 = host_logits.argmax(axis=1)
@@ -6033,14 +6500,14 @@ def main() -> int:
     ade = MulticlassConfusionMatrix(num_classes=c_ade, ignore_index=-1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    confmat_cuda.launches = 0
+    confmat_cuda.launches.reset()
     t0 = time.perf_counter()
     for u in range(n_updates):
         ade.update(seg_preds[u], seg_target[u])
     ade_cm = ade.compute()
     torch.cuda.synchronize()
     ade_s = time.perf_counter() - t0
-    ade_launches = confmat_cuda.launches
+    ade_launches = int(confmat_cuda.launches)
     ade_peak = torch.cuda.max_memory_allocated()
 
     ref = torch.zeros((c_ade, c_ade), dtype=torch.int32, device=dev)
@@ -6193,6 +6660,9 @@ def main() -> int:
     # ------------------------- audio, multimodal and segmentation, phases 44-47
     ams = audio_multimodal_segmentation(torch, np, dev, torch.Generator(device=dev).manual_seed(args.seed + 44),
                                         args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main, AMS_SIZES)
+
+    # --------------------------- the compiled update path, last: it profiles graph replays
+    compiled = phase_compiled_path(torch, np, kernel, dev, gen, logits, target, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -6225,7 +6695,7 @@ def main() -> int:
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
-        + miou_launches + rest_launches,
+        + miou_launches + rest_launches + compiled["confmat_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

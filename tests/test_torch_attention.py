@@ -94,13 +94,14 @@ def test_layernorm_residual_plain_matches_jax(dtypes, feat):
 
 
 def test_wrappers_take_the_plain_versions_on_cpu_tensors():
-    ka.attention.launches = ka.layernorm_residual.launches = 0
+    ka.attention.launches.reset()
+    ka.layernorm_residual.launches.reset()
     q, k, v, mask = (torch.from_numpy(a) for a in _qkv_mask(5, 3, 20, 64))
     assert torch.equal(ka.attention(q, k, v, mask.long(), num_heads=2), ka.attention_plain(q, k, v, mask, num_heads=2))
     x, h = q.bfloat16(), k
     s, b = torch.rand(64), torch.rand(64)
     assert torch.equal(ka.layernorm_residual(x, h, s, b, eps=1e-12), ka.layernorm_residual_plain(x, h, s, b, eps=1e-12))
-    assert ka.attention.launches == 0 and ka.layernorm_residual.launches == 0
+    assert int(ka.attention.launches) == 0 and int(ka.layernorm_residual.launches) == 0
 
 
 def test_wrappers_refuse_bad_shapes():

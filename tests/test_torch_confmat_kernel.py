@@ -90,11 +90,11 @@ def test_out_of_range_labels_are_dropped(c, weighted):
 
 
 def test_launch_counter_stays_zero_on_cpu():
-    before = kernel.confusion_matrix_cuda.launches
+    before = int(kernel.confusion_matrix_cuda.launches)
     p = torch.randint(0, 300, (100,))
     for w in (None, torch.ones(100, dtype=torch.bool), torch.ones(100)):
         kernel.confusion_matrix_cuda(p, p, 300, w)
-    assert kernel.confusion_matrix_cuda.launches == before == 0
+    assert int(kernel.confusion_matrix_cuda.launches) == before == 0
 
 
 @pytest.mark.parametrize(
@@ -121,7 +121,7 @@ def test_module_imports_and_runs_without_nvcc():
         "assert shutil.which('nvcc') is None\n"
         "p = torch.randint(0, 300, (50,))\n"
         "assert int(k.confusion_matrix_cuda(p, p, 300).trace()) == 50\n"
-        "assert k._library.cache_info().currsize == 0 and k.confusion_matrix_cuda.launches == 0\n"
+        "assert k._library.cache_info().currsize == 0 and int(k.confusion_matrix_cuda.launches) == 0\n"
         "print('ok')\n"
     )
     env = {**os.environ, "PATH": os.path.dirname(sys.executable), "CUDA_HOME": os.path.join(ROOT, "no-cuda-here")}
@@ -170,7 +170,7 @@ def test_out_is_checked_before_anything_is_added(weights, out):
         kernel.confusion_matrix_cuda(p, p, 300, weights, out=out)
     if before is not None:
         assert torch.equal(out, before)
-    assert kernel.confusion_matrix_cuda.launches == 0
+    assert int(kernel.confusion_matrix_cuda.launches) == 0
 
 
 @pytest.mark.parametrize(

@@ -126,11 +126,11 @@ def test_cost_matches_jax(kshape, strides, padding):
 
 
 def test_cpu_tensors_never_launch_or_copy():
-    before = (ce.matmul_bias_relu.launches, ce.bias_relu_.launches, ce.conv_bias_act.layout_copies)
+    before = (int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches), ce.conv_bias_act.layout_copies)
     x = torch.randn(2, 8, 5, 5).contiguous(memory_format=torch.channels_last)
     ce.conv_bias_act(x, torch.randn(4, 8, 1, 1), torch.randn(4))
     ce.conv_bias_act(x, torch.randn(4, 8, 3, 3), torch.randn(4), padding=1)
-    assert (ce.matmul_bias_relu.launches, ce.bias_relu_.launches, ce.conv_bias_act.layout_copies) == before == (0, 0, 0)
+    assert (int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches), ce.conv_bias_act.layout_copies) == before == (0, 0, 0)
 
 
 def test_a_contiguous_nchw_input_is_copied_once_and_counted():

@@ -126,10 +126,11 @@ def test_regression_pairwise_retrieval_names_reach_the_top_level():
 
 
 def test_utilities_all_equals_the_jax_package_but_the_compile_path():
-    """``ring_push`` and ``sync_in_jit`` belong to the compile path, which is not ported yet."""
+    """``ring_push`` came with the compile path; ``sync_in_jit`` belongs to ``_spmd``'s ``to_spmd``, not ported yet."""
     want = _jax_all("utilities/__init__.py")
     assert len(want) == 26
-    assert sorted(TU.__all__) == sorted(set(want) - {"ring_push", "sync_in_jit"})
+    assert "ring_push" in TU.__all__
+    assert sorted(TU.__all__) == sorted(set(want) - {"sync_in_jit"})
     assert not [name for name in TU.__all__ if not hasattr(TU, name)]
 
 

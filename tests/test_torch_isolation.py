@@ -105,6 +105,42 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_compile_path_runs_with_jax_and_the_jax_package_blocked():
+    """``_compile.py`` and the eligibility copy stand alone: the JAX package's ``eligibility.json`` is never opened."""
+    code = (
+        "import json, os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['torchmetrics_tpu'] = None\n"
+        "jax_pkg = os.path.join(os.getcwd(), 'torchmetrics_tpu') + os.sep\n"
+        "opened = []\n"
+        "def audit(event, args):\n"
+        "    if event == 'open' and args and isinstance(args[0], (str, bytes)):\n"
+        "        path = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if path.startswith(jax_pkg):\n"
+        "            opened.append(path)\n"
+        "sys.addaudithook(audit)\n"
+        "import torch\n"
+        "import torchmetrics_tpu_torch as tt\n"
+        "from torchmetrics_tpu_torch import _compile\n"
+        "assert _compile.eligibility_verdict(tt.MulticlassConfusionMatrix) == 'metadata_only'\n"
+        "assert _compile.eligibility_verdict(tt.MulticlassAccuracy) == 'value_flags'\n"
+        "copy = json.load(open(_compile._ELIGIBILITY_PATH))['classes']\n"
+        "assert len(copy) == 204 and all(k.startswith('torchmetrics_tpu_torch.') for k in copy)\n"
+        "m = tt.MulticlassAccuracy(num_classes=3, average='micro', device='cpu')\n"
+        "p, t = torch.tensor([[0.8, 0.1, 0.1], [0.2, 0.7, 0.1]]), torch.tensor([0, 2])\n"
+        "assert m.precompile(p, t) == {'engaged': True, 'reason': None}\n"
+        "m.update(p, t); m.update(p, t); m(p, t); m(p, t)\n"
+        "m.jit_update(p, t); m.scan_update(p[None], t[None])\n"
+        "assert m.update_count == 6 and abs(float(m.compute()) - 0.5) < 1e-6\n"
+        "assert not opened, opened\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imported_modules(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):

@@ -215,7 +215,9 @@ def test_runtime_guards():
     with pytest.raises(RuntimeError, match="Can't change const"):
         tm.full_state_update = True
     with pytest.raises(ValueError, match="Unexpected keyword arguments"):
-        TC.MulticlassAccuracy(num_classes=C, device="cpu", auto_compile=False)
+        TC.MulticlassAccuracy(num_classes=C, device="cpu", not_a_metric_kwarg=False)
+    with pytest.raises(ValueError, match="`auto_compile` to be a `bool`"):
+        TC.MulticlassAccuracy(num_classes=C, device="cpu", auto_compile="yes")
     with pytest.raises(TorchMetricsUserError):
         tm.merge_state(TC.MulticlassAccuracy(num_classes=C, device="cpu"))
     with pytest.raises(NotImplementedError):

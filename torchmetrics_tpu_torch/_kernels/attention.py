@@ -27,6 +27,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
@@ -114,11 +115,11 @@ def attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) 
             out.stride(0), out.stride(1), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     nvcc.raise_on_error(_attention_library(), err, name)
-    attention.launches += 1
+    attention.launches.hit(q.device)
     return out
 
 
-attention.launches = 0  # type: ignore[attr-defined]
+attention.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 @functools.cache
@@ -188,11 +189,11 @@ def layernorm_residual(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, *, eps
             _DTYPES[x.dtype], _DTYPES[h.dtype], eps, torch.cuda.current_stream(x.device).cuda_stream,
         )
     nvcc.raise_on_error(_layernorm_library(), err, name)
-    layernorm_residual.launches += 1
+    layernorm_residual.launches.hit(x.device)
     return out
 
 
-layernorm_residual.launches = 0  # type: ignore[attr-defined]
+layernorm_residual.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 @functools.cache

@@ -19,6 +19,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch.utilities import nvcc
 
 __all__ = ["biquad_bank", "biquad_bank_cost", "biquad_bank_plain"]
@@ -109,11 +110,11 @@ def biquad_bank(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor] = None) 
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     nvcc.raise_on_error(_library(), err, "biquad_bank")
-    biquad_bank.launches += 1
+    biquad_bank.launches.hit(x.device)
     return out
 
 
-biquad_bank.launches = 0  # type: ignore[attr-defined]
+biquad_bank.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 def biquad_bank_cost(rows: int, k: int, t_len: int, sections: int) -> KernelCost:

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
@@ -177,11 +178,11 @@ def matmul_bias_relu(x2d: Tensor, w2d: Tensor, bias: Tensor, out: Optional[Tenso
             _DTYPES[x2d.dtype], int(route == "tma_wgmma"), torch.cuda.current_stream(x2d.device).cuda_stream,
         )
     nvcc.raise_on_error(_library(), err, name)
-    matmul_bias_relu.launches += 1
+    matmul_bias_relu.launches.hit(x2d.device)
     return out
 
 
-matmul_bias_relu.launches = 0  # type: ignore[attr-defined]
+matmul_bias_relu.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 # --------------------------------------------------------------------- B2b
@@ -217,11 +218,11 @@ def bias_relu_(y2d: Tensor, bias: Tensor) -> Tensor:
             _max_blocks(y2d.device.index), torch.cuda.current_stream(y2d.device).cuda_stream,
         )
     nvcc.raise_on_error(_library(), err, name)
-    bias_relu_.launches += 1
+    bias_relu_.launches.hit(y2d.device)
     return y2d
 
 
-bias_relu_.launches = 0  # type: ignore[attr-defined]
+bias_relu_.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 # ------------------------------------------------------------------ public

@@ -24,6 +24,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
@@ -141,11 +142,11 @@ def lpips_head(f0: Tensor, f1: Tensor, weight: Tensor) -> Tensor:
             torch.cuda.current_stream(f0.device).cuda_stream,
         )
     nvcc.raise_on_error(_library(), err, "lpips_head")
-    lpips_head.launches += 1
+    lpips_head.launches.hit(f0.device)
     return out
 
 
-lpips_head.launches = 0  # type: ignore[attr-defined]
+lpips_head.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 @functools.cache

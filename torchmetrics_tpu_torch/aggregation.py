@@ -1,11 +1,16 @@
 """Aggregation primitives: Max/Min/Sum/Cat/Mean and their running forms.
 
 Port of ``torchmetrics_tpu/aggregation.py`` (parity target: reference
-``torchmetrics/aggregation.py``), eager forms only. ``nan_strategy`` keeps the
-JAX package's eager behaviour: ``"error"`` raises, ``"warn"`` warns and drops
-the NaN elements, ``"ignore"`` drops them, ``"disable"`` passes them through
-and a float replaces them. Finding a NaN reads one flag back to the host per
-update, as the eager JAX path does.
+``torchmetrics/aggregation.py``). ``nan_strategy`` keeps the JAX package's
+eager behaviour: ``"error"`` raises, ``"warn"`` warns and drops the NaN
+elements, ``"ignore"`` drops them, ``"disable"`` passes them through and a
+float replaces them. Finding a NaN reads one flag back to the host per eager
+update, as the eager JAX path does. Inside a compiled step the strategy runs
+with no read back: a NaN becomes the reduction's neutral value with weight
+zero, which reduces as dropping it does, and the raise or the warning rides
+the fused flag vector (:meth:`BaseAggregator._traced_value_flags`). So the
+default aggregators (``nan_strategy="warn"``) compile. ``CatMetric`` would
+keep the neutral rows, so its NaN filtering stays eager.
 
 ``MeanMetric`` keeps (weighted sum, weight sum), both ``sum`` states, so its
 distributed merge is one reduction each.
@@ -19,6 +24,8 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
@@ -42,6 +49,12 @@ class BaseAggregator(Metric):
     higher_is_better = None
     full_state_update: bool = False
 
+    # what a NaN becomes inside a compiled step: no change to the reduction
+    # (0 for sum and mean; Max/Min override with -inf/+inf)
+    _nan_neutral: float = 0.0
+    # CatMetric appends rows, so a neutral row would be kept: it stays eager
+    _nan_imputation_traceable: bool = True
+
     def __init__(
         self,
         fn: Union[Callable, str],
@@ -58,8 +71,22 @@ class BaseAggregator(Metric):
                 f" but got {nan_strategy}."
             )
         self.nan_strategy = nan_strategy
+        # the raise and warn strategies carry a per-batch value check: it
+        # opts the compiled path into the fused flags (JAX ``aggregation.py:89``)
+        self.validate_args = nan_strategy in ("error", "warn")
         self.add_state(state_name, default=default_value, dist_reduce_fx=fn)
         self.state_name = state_name
+
+    def _traced_value_flags(
+        self, value: Union[float, Tensor], weight: Optional[Union[float, Tensor]] = None
+    ) -> Tuple[Tuple[str, ...], Tensor, Tuple[str, ...]]:
+        """The NaN check on the device, one flag of the strategy's severity (JAX ``aggregation.py:91``)."""
+        bad = torch.isnan(torch.as_tensor(value, dtype=torch.float32, device=self.device)).any()
+        if isinstance(weight, Tensor):
+            bad = bad | torch.isnan(weight.to(torch.float32)).any()
+        if self.nan_strategy == "error":
+            return ("Encountered `nan` values in tensor",), bad.reshape(1), ("error",)
+        return ("Encountered `nan` values in tensor. Will be removed.",), bad.reshape(1), ("warn",)
 
     def _cast_and_nan_check_input(
         self, x: Union[float, Tensor], weight: Optional[Union[float, Tensor]] = None
@@ -69,13 +96,17 @@ class BaseAggregator(Metric):
         weight_was_scalar = weight is None or torch.as_tensor(weight).ndim == 0
         if weight is None:
             weight = torch.ones_like(x)
-        else:
-            weight = torch.as_tensor(weight).to(device=self.device, dtype=torch.float32)
+        elif isinstance(weight, Tensor):
+            weight = weight.to(device=self.device, dtype=torch.float32)
+        else:  # a fill, not a host-to-device copy, so a graph can capture it
+            weight = torch.full((), float(weight), dtype=torch.float32, device=self.device)
         weight = torch.broadcast_to(weight, x.shape)
 
         if self.nan_strategy == "disable":
             return x, weight
         nans = torch.isnan(x) | torch.isnan(weight)
+        if _in_compiled_step():
+            return self._impute_nans(x, weight, nans, weight_was_scalar)
         any_nan = bool(nans.any())
         if any_nan and self.nan_strategy == "error":
             raise RuntimeError("Encountered `nan` values in tensor")
@@ -95,6 +126,32 @@ class BaseAggregator(Metric):
             # `weight[nans] = value` writes through the 0-stride view and EVERY
             # weight becomes the replacement value, on a batch that has NaNs
             weight = torch.full_like(weight, self.nan_strategy) if any_nan else weight
+        else:
+            weight = torch.where(nans, self.nan_strategy, weight)
+        return x, weight
+
+    def _impute_nans(self, x: Tensor, weight: Tensor, nans: Tensor, weight_was_scalar: bool) -> Tuple[Tensor, Tensor]:
+        """The NaN strategy with no read back (JAX ``aggregation.py:128-172``)."""
+        if self.nan_strategy in ("error", "warn", "ignore"):
+            if not self._nan_imputation_traceable:
+                raise TorchMetricsUserError(
+                    f"{type(self).__name__} keeps dropped elements out of an append-mode state;"
+                    " its NaN filtering is value-dependent and cannot run in a compiled step"
+                )
+            if self.nan_strategy == "error" and not self.__dict__.get("_fused_flags_tracing"):
+                # a step without the fused flags (jit_update, scan_update) can
+                # neither raise nor drop a NaN batch
+                raise TorchMetricsUserError(
+                    f"{type(self).__name__}(nan_strategy='error') cannot run in a compiled step without"
+                    " the fused violation flags (plain `update()` compiles them; `jit_update`/"
+                    "`scan_update` skip validation): use nan_strategy='ignore'/'disable' or the"
+                    " plain update path"
+                )
+            return torch.where(nans, self._nan_neutral, x), torch.where(nans, 0.0, weight)
+        x = torch.where(nans, self.nan_strategy, x)
+        if weight_was_scalar:
+            # the reference's quirk (see the eager path), chosen on the device
+            weight = torch.where(nans.any(), torch.full_like(weight, self.nan_strategy), weight)
         else:
             weight = torch.where(nans, self.nan_strategy, weight)
         return x, weight
@@ -120,6 +177,7 @@ class MaxMetric(BaseAggregator):
     """
 
     full_state_update = True
+    _nan_neutral = -float("inf")
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("max", torch.tensor(-float("inf")), nan_strategy, **kwargs)
@@ -134,6 +192,7 @@ class MinMetric(BaseAggregator):
     """Running minimum of a stream of values (reference ``aggregation.py:219``)."""
 
     full_state_update = True
+    _nan_neutral = float("inf")
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("min", torch.tensor(float("inf")), nan_strategy, **kwargs)
@@ -162,6 +221,8 @@ class CatMetric(BaseAggregator):
     With ``cat_state_capacity`` the values go into a ring buffer, and
     ``compute`` returns its live rows as one tensor.
     """
+
+    _nan_imputation_traceable = False
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("cat", [], nan_strategy, **kwargs)

@@ -6,7 +6,7 @@ per-sample confidence and accuracy; the binning happens at ``compute``.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 from torch import Tensor
 
@@ -23,6 +23,7 @@ from torchmetrics_tpu_torch.functional.classification.calibration_error import (
     _multiclass_calibration_error_update,
 )
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.checks import _no_value_flags
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTaskNoMultilabel
 
@@ -43,6 +44,9 @@ class _AbstractCalibrationError(Metric):
         self.validate_args = validate_args
         self.add_state("confidences", [], dist_reduce_fx="cat")
         self.add_state("accuracies", [], dist_reduce_fx="cat")
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _no_value_flags(preds, target)  # the eager checks read shapes and dtypes only
 
     def compute(self) -> Tensor:
         confidences = dim_zero_cat(self.confidences)

@@ -7,7 +7,7 @@ already handed out does not change under later updates.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -19,6 +19,7 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     _binary_confusion_matrix_format,
     _binary_confusion_matrix_tensor_validation,
     _binary_confusion_matrix_update,
+    _binary_confusion_matrix_value_flags,
     _multiclass_confusion_matrix_arg_validation,
     _multiclass_confusion_matrix_compute,
     _multiclass_confusion_matrix_format,
@@ -75,6 +76,9 @@ class BinaryConfusionMatrix(Metric):
             _binary_confusion_matrix_tensor_validation(preds, target, self.ignore_index)
         preds, target, valid = _binary_confusion_matrix_format(preds, target, self.threshold, self.ignore_index)
         _binary_confusion_matrix_update(preds, target, valid, out=self.confmat)
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _binary_confusion_matrix_value_flags(preds, target, self.ignore_index)
 
     def compute(self) -> Tensor:
         return _binary_confusion_matrix_compute(self.confmat.clone(), self.normalize)

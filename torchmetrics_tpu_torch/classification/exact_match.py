@@ -19,6 +19,7 @@ from torchmetrics_tpu_torch.functional.classification.exact_match import (
     _multilabel_exact_match_update,
 )
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    _multiclass_stat_scores_value_flags,
     _multiclass_stat_scores_arg_validation,
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
@@ -103,6 +104,9 @@ class MulticlassExactMatch(_AbstractExactMatch):
         preds, target = _multiclass_stat_scores_format(preds, target, 1)
         correct, total = _multiclass_exact_match_update(preds, target, self.multidim_average, self.ignore_index)
         self._update_state(correct, total)
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _multiclass_stat_scores_value_flags(preds, target, self.num_classes, self.ignore_index)
 
 
 class MultilabelExactMatch(_AbstractExactMatch):

@@ -5,7 +5,7 @@ Both keep per-group int32 tp/fp/tn/fn states of shape ``(num_groups,)``, updated
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -17,6 +17,7 @@ from torchmetrics_tpu_torch.functional.classification.group_fairness import (
     _compute_binary_equal_opportunity,
     _groups_reduce,
 )
+from torchmetrics_tpu_torch.functional.classification.stat_scores import _binary_stat_scores_value_flags
 from torchmetrics_tpu_torch.metric import Metric
 
 
@@ -36,6 +37,18 @@ class _AbstractGroupStatScores(Metric):
     def _update_states(self, group_stats: GroupStats) -> None:
         for i, name in enumerate(("tp", "fp", "tn", "fn")):
             getattr(self, name).add_(torch.stack([s[i] for s in group_stats]))
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor, groups: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        """The binary target-set check and the groups-range check on the device (JAX ``group_fairness.py:39``).
+
+        As the eager ``_groups_validation``, only identifiers above
+        ``num_groups`` are flagged.
+        """
+        msgs_t, flags_t = _binary_stat_scores_value_flags(preds, target, self.ignore_index)
+        msgs = msgs_t + (
+            f"The groups tensor contains identifiers larger than the specified number of groups {self.num_groups}.",
+        )
+        return msgs, torch.cat([flags_t, (groups.max() > self.num_groups).reshape(1)])
 
 
 class BinaryGroupStatRates(_AbstractGroupStatScores):
@@ -116,6 +129,13 @@ class BinaryFairness(_AbstractGroupStatScores):
             preds, target, groups, self.num_groups, self.threshold, self.ignore_index, self.validate_args
         )
         self._update_states(group_stats)
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor, groups: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        # demographic parity puts a zero target in before validating (update()
+        # above), so its raw target is not checked: nor is it here
+        if self.task == "demographic_parity":
+            target = torch.zeros(preds.shape, dtype=torch.int32, device=preds.device)
+        return super()._traced_value_flags(preds, target, groups)
 
     def compute(self) -> Dict[str, Tensor]:
         stats = {"tp": self.tp, "fp": self.fp, "tn": self.tn, "fn": self.fn}

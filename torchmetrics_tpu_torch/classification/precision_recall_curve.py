@@ -9,7 +9,7 @@ in place and reduced by ``"sum"`` across processes. Plotting is not ported.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -34,6 +34,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multilabel_precision_recall_curve_update,
 )
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.checks import _no_value_flags, _target_set_value_flags
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
@@ -75,6 +76,10 @@ class BinaryPrecisionRecallCurve(Metric):
             self.add_state("target", default=[], dist_reduce_fx="cat")
         else:
             self.add_state("confmat", default=torch.zeros((thresholds.shape[0], 2, 2), dtype=torch.int32), dist_reduce_fx="sum")
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        # the eager validator's only value check (JAX ``precision_recall_curve.py:116``)
+        return _target_set_value_flags(target, self.ignore_index)
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.validate_args:
@@ -128,6 +133,9 @@ class MulticlassPrecisionRecallCurve(Metric):
         else:
             shape = (thresholds.shape[0], 2, 2) if average == "micro" else (thresholds.shape[0], num_classes, 2, 2)
             self.add_state("confmat", default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _no_value_flags(preds, target)  # the eager checks read shapes and dtypes only
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.validate_args:
@@ -188,6 +196,9 @@ class MultilabelPrecisionRecallCurve(Metric):
                 default=torch.zeros((thresholds.shape[0], num_labels, 2, 2), dtype=torch.int32),
                 dist_reduce_fx="sum",
             )
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _no_value_flags(preds, target)  # the eager checks read shapes and dtypes only
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.validate_args:

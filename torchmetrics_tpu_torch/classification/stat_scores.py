@@ -8,7 +8,7 @@ with ``"cat"``.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -20,11 +20,13 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _binary_stat_scores_format,
     _binary_stat_scores_tensor_validation,
     _binary_stat_scores_update,
+    _binary_stat_scores_value_flags,
     _multiclass_stat_scores_arg_validation,
     _multiclass_stat_scores_compute,
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
+    _multiclass_stat_scores_value_flags,
     _multilabel_stat_scores_arg_validation,
     _multilabel_stat_scores_compute,
     _multilabel_stat_scores_format,
@@ -53,9 +55,19 @@ class _AbstractStatScores(Metric):
                 shape = () if size == 1 else (size,)
                 self.add_state(name, torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
 
+    def _masks_dropped_batch(self, states: Dict[str, Any]) -> bool:
+        return all(isinstance(states.get(n), Tensor) for n in ("tp", "fp", "tn", "fn"))
+
     def _update_state(self, tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> None:
-        """Accumulate: in place for tensors, append for lists and ring buffers."""
+        """Accumulate: in place for tensors, append for lists and ring buffers.
+
+        Inside a compiled step that may drop the batch, the counts are
+        multiplied by its keep flag (0 for a violating batch) first.
+        """
         if isinstance(self.tp, Tensor):
+            keep = self.__dict__.pop("_step_keep", None)
+            if keep is not None:
+                tp, fp, tn, fn = tp * keep, fp * keep, tn * keep, fn * keep
             self.tp += tp
             self.fp += fp
             self.tn += tn
@@ -114,6 +126,9 @@ class BinaryStatScores(_AbstractStatScores):
         tp, fp, tn, fn = _binary_stat_scores_update(preds, target, valid, self.multidim_average)
         self._update_state(tp, fp, tn, fn)
 
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _binary_stat_scores_value_flags(preds, target, self.ignore_index)
+
     def compute(self) -> Tensor:
         """Final ``[tp, fp, tn, fn, support]``."""
         tp, fp, tn, fn = self._final_state()
@@ -170,6 +185,9 @@ class MulticlassStatScores(_AbstractStatScores):
             preds, target, self.num_classes, self.top_k, self.multidim_average, self.ignore_index
         )
         self._update_state(tp, fp, tn, fn)
+
+    def _traced_value_flags(self, preds: Tensor, target: Tensor) -> Tuple[Tuple[str, ...], Tensor]:
+        return _multiclass_stat_scores_value_flags(preds, target, self.num_classes, self.ignore_index)
 
     def compute(self) -> Tensor:
         tp, fp, tn, fn = self._final_state()

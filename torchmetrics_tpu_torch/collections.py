@@ -22,6 +22,11 @@ write into them. Only the head's own ``update`` inside
 :meth:`MetricCollection.update` writes into the shared tensors, and the
 members are meant to see that. Ring-buffer states get one copy per member
 (copy on write as well), as in the JAX package.
+
+With the compiled path (``Metric.auto_compile``) a group's head replays its
+CUDA graph, which writes into the graph's own state buffers, and
+:meth:`MetricCollection._sync_compute_groups` gives the members those
+buffers, as it gives them any head's states.
 """
 
 from __future__ import annotations
@@ -167,6 +172,21 @@ class MetricCollection(nn.Module):
             else:
                 self._groups = {i: [name] for i, name in enumerate(self._modules)}
                 self._groups_checked = True
+
+    def precompile(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Warm every member's compiled update for this batch (``Metric.precompile``; JAX ``collections.py:187``).
+
+        The batch is handed to each member as :meth:`update` hands it, so
+        the steps built match the signatures real traffic brings. Member
+        states are untouched. Returns ``{member name: report}``.
+        """
+        return {name: m.precompile(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
+
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        """``Metric.set_dtype`` on every member (JAX ``collections.py:493``)."""
+        for m in self._modules.values():
+            m.set_dtype(dst_type)
+        return self
 
     def _merge_compute_groups(self) -> None:
         """Pairwise-merge metrics whose states are identical (reference ``collections.py:228-262``)."""

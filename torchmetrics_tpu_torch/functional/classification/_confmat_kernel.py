@@ -29,7 +29,9 @@ from typing import Any, Optional
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch.utilities import nvcc
+from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step
 
 SOURCE = nvcc.CSRC_DIR / "confmat.cu"
 
@@ -97,6 +99,12 @@ def confusion_matrix_plain(
     A row whose label lies outside ``[0, C)``, or that the mask drops, goes
     to a spare bin ``C * C`` that is thrown away. With ``out``, the counts
     are added into it and it is returned.
+
+    Inside a compiled update step the counts are an ``index_add_`` into the
+    same ``C * C + 1`` bins, int64 (or float64) and so exact, instead of
+    ``bincount``: on a CUDA tensor ``bincount`` reads its largest bin back
+    to the host, which a CUDA graph cannot capture. Both give the same
+    integers, bit for bit.
     """
     _check_inputs(preds, target, num_classes, weights)
     if out is None:
@@ -108,9 +116,13 @@ def confusion_matrix_plain(
     if weights is not None and weights.dtype == torch.bool:
         counted &= weights
     cells = torch.where(counted, target.to(torch.int64) * num_classes + preds, spare)
-    sums = torch.bincount(
-        cells, weights=None if weights is None or weights.dtype == torch.bool else weights.double(), minlength=spare + 1
-    )
+    float_weights = None if weights is None or weights.dtype == torch.bool else weights.double()
+    if _in_compiled_step():
+        sums = torch.zeros(spare + 1, dtype=torch.int64 if float_weights is None else torch.float64, device=cells.device)
+        ones = torch.ones((), dtype=torch.int64, device=cells.device).expand(cells.shape)
+        sums.index_add_(0, cells, ones if float_weights is None else float_weights)
+    else:
+        sums = torch.bincount(cells, weights=float_weights, minlength=spare + 1)
     out += sums[:spare].reshape(num_classes, num_classes).to(out.dtype)
     return out
 
@@ -169,11 +181,11 @@ def confusion_matrix_cuda(
             torch.cuda.current_stream(preds.device).cuda_stream,
         )
     nvcc.raise_on_error(lib, err, "confmat")
-    confusion_matrix_cuda.launches += 1
+    confusion_matrix_cuda.launches.hit(preds.device)
     return out
 
 
-confusion_matrix_cuda.launches = 0  # type: ignore[attr-defined]
+confusion_matrix_cuda.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
 @functools.cache

@@ -17,7 +17,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
-from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _in_compiled_step
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTaskNoMultilabel
 
@@ -155,8 +155,15 @@ def _multiclass_calibration_error_format(
 
 
 def _multiclass_calibration_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
-    """Top-1 confidence and hit per row; softmax first unless every score lies in ``[0, 1]`` (one host read)."""
-    if not bool(torch.all((preds >= 0) & (preds <= 1))):
+    """Top-1 confidence and hit per row; softmax first unless every score lies in ``[0, 1]``.
+
+    Eagerly the choice is one host read; inside a compiled step it is made on
+    the device, with the softmax always computed.
+    """
+    in_range = torch.all((preds >= 0) & (preds <= 1))
+    if _in_compiled_step():
+        preds = torch.where(in_range, preds, torch.softmax(preds, dim=1))
+    elif not bool(in_range):
         preds = torch.softmax(preds, dim=1)
     confidences, predictions = torch.max(preds, dim=1)
     accuracies = (predictions == target).to(torch.float32)

@@ -15,7 +15,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.functional.classification._confmat_kernel import confusion_matrix_cuda, confusion_matrix_plain
-from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _in_compiled_step, _target_set_value_flags
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
@@ -64,6 +64,8 @@ def _binary_confusion_matrix_tensor_validation(
     preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
 ) -> None:
     _check_same_shape(preds, target)
+    if _in_compiled_step():  # `_binary_confusion_matrix_value_flags` carries it
+        return
     unique = set(torch.unique(target).tolist())
     allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
     if not unique.issubset(allowed):
@@ -71,6 +73,13 @@ def _binary_confusion_matrix_tensor_validation(
             f"Detected the following values in `target`: {sorted(unique)} but expected only"
             f" the following values {sorted(allowed)}."
         )
+
+
+def _binary_confusion_matrix_value_flags(
+    preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
+) -> Tuple[Tuple[str, ...], Tensor]:
+    """The binary check on the device, the target set only (JAX ``confusion_matrix.py:78``)."""
+    return _target_set_value_flags(target, ignore_index)
 
 
 def _binary_confusion_matrix_format(

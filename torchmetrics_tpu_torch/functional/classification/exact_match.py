@@ -41,7 +41,7 @@ def _multiclass_exact_match_update(
     n = target.shape[0]
     correct = torch.all(match.reshape(n, -1), dim=1).to(torch.int32)
     if multidim_average == "global":
-        return correct.sum(dtype=torch.int32), torch.tensor(n, dtype=torch.int32, device=correct.device)
+        return correct.sum(dtype=torch.int32), torch.full((), n, dtype=torch.int32, device=correct.device)
     return correct, torch.ones_like(correct)
 
 
@@ -83,7 +83,7 @@ def _multilabel_exact_match_update(
     pos_correct = torch.all(match, dim=1)  # (N, ...): all labels right at each position
     if multidim_average == "global":
         flat = pos_correct.reshape(-1)
-        return flat.sum(dtype=torch.int32), torch.tensor(flat.shape[0], dtype=torch.int32, device=flat.device)
+        return flat.sum(dtype=torch.int32), torch.full((), flat.shape[0], dtype=torch.int32, device=flat.device)
     flat = pos_correct.reshape(n, -1)
     return flat.sum(dim=1, dtype=torch.int32), torch.full((n,), flat.shape[1], dtype=torch.int32, device=flat.device)
 

@@ -18,6 +18,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _binary_stat_scores_format,
     _binary_stat_scores_tensor_validation,
 )
+from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
 from torchmetrics_tpu_torch.utilities.data import _one_hot
 
@@ -25,7 +26,7 @@ GroupStats = List[Tuple[Tensor, Tensor, Tensor, Tensor]]
 
 
 def _groups_validation(groups: Tensor, num_groups: int) -> None:
-    if int(groups.max()) > num_groups:
+    if not _in_compiled_step() and int(groups.max()) > num_groups:
         raise ValueError(
             f"The largest number in the groups tensor is {int(groups.max())}, which is larger than the"
             f" specified number of groups {num_groups}. The group identifiers should be"

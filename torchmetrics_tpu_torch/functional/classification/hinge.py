@@ -57,7 +57,7 @@ def _binary_hinge_loss_update(preds: Tensor, target: Tensor, squared: bool) -> T
     measures = torch.clamp(1 - target * preds, min=0)
     if squared:
         measures = measures**2
-    return torch.sum(measures), torch.tensor(target.shape[0], dtype=torch.float32, device=preds.device)
+    return torch.sum(measures), torch.full((), target.shape[0], dtype=torch.float32, device=preds.device)
 
 
 def binary_hinge_loss(
@@ -118,7 +118,7 @@ def _multiclass_hinge_loss_update(
         measures = torch.clamp(1 - target_pm * preds, min=0)  # (N, C)
     if squared:
         measures = measures**2
-    return torch.sum(measures, dim=0), torch.tensor(target.shape[0], dtype=torch.float32, device=preds.device)
+    return torch.sum(measures, dim=0), torch.full((), target.shape[0], dtype=torch.float32, device=preds.device)
 
 
 def multiclass_hinge_loss(

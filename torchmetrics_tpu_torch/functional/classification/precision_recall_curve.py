@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _in_compiled_step
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, interp, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _one_hot
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
@@ -104,6 +104,8 @@ def _binary_precision_recall_curve_tensor_validation(
             "Expected argument `preds` to be an floating tensor with probability/logit scores,"
             f" but got tensor with dtype {preds.dtype}"
         )
+    if _in_compiled_step():  # the class's `_traced_value_flags` carries the target-set check
+        return
     unique = set(torch.unique(target).tolist())
     allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
     if not unique.issubset(allowed):

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _in_compiled_step, _target_set_value_flags
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _one_hot, select_topk
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
@@ -65,22 +65,40 @@ def _binary_stat_scores_tensor_validation(
     _check_same_shape(preds, target)
     if torch.is_floating_point(target):
         raise ValueError("Expected argument `target` to be an int tensor, but got tensor with float dtype.")
-    unique = torch.unique(target).tolist()
-    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
-    if not set(unique).issubset(allowed):
-        raise RuntimeError(
-            f"Detected the following values in `target`: {unique} but expected only"
-            f" the following values {sorted(allowed)}."
-        )
-    if not torch.is_floating_point(preds):
-        unique_p = torch.unique(preds).tolist()
-        if not set(unique_p).issubset({0, 1}):
+    if not _in_compiled_step():  # in a compiled step `_binary_stat_scores_value_flags` carries these
+        unique = torch.unique(target).tolist()
+        allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
+        if not set(unique).issubset(allowed):
             raise RuntimeError(
-                f"Detected the following values in `preds`: {unique_p} but expected only"
-                " binary values [0, 1] for integer predictions."
+                f"Detected the following values in `target`: {unique} but expected only"
+                f" the following values {sorted(allowed)}."
             )
+        if not torch.is_floating_point(preds):
+            unique_p = torch.unique(preds).tolist()
+            if not set(unique_p).issubset({0, 1}):
+                raise RuntimeError(
+                    f"Detected the following values in `preds`: {unique_p} but expected only"
+                    " binary values [0, 1] for integer predictions."
+                )
     if multidim_average != "global" and preds.ndim < 2:
         raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
+
+
+def _binary_stat_scores_value_flags(
+    preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
+) -> Tuple[Tuple[str, ...], Tensor]:
+    """The binary value checks on the device: ``(messages, flags)`` (JAX ``stat_scores.py:86``).
+
+    The flag vector has one length for every argument signature: the
+    integer-preds check is a constant False for float preds.
+    """
+    msgs_t, flag_t = _target_set_value_flags(target, ignore_index)
+    if torch.is_floating_point(preds):
+        bad_p = torch.zeros((), dtype=torch.bool, device=target.device)
+    else:
+        bad_p = torch.any((preds != 0) & (preds != 1))
+    msgs = msgs_t + ("Detected values in `preds` outside of the expected binary set [0, 1].",)
+    return msgs, torch.cat([flag_t, bad_p.reshape(1)])
 
 
 def _binary_stat_scores_format(
@@ -213,11 +231,30 @@ def _multiclass_stat_scores_tensor_validation(
             "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
             " and `preds` should be (N, C, ...)."
         )
+    if _in_compiled_step():  # `_multiclass_stat_scores_value_flags` carries these
+        return
     t = target if ignore_index is None else target[target != ignore_index]
     if t.numel() and bool((t.min() < 0) | (t.max() >= num_classes)):
         raise RuntimeError(f"Detected more unique values in `target` than expected. Expected only {num_classes}.")
     if not torch.is_floating_point(preds) and preds.numel() and bool((preds.min() < 0) | (preds.max() >= num_classes)):
         raise RuntimeError(f"Detected more unique values in `preds` than expected. Expected only {num_classes}.")
+
+
+def _multiclass_stat_scores_value_flags(
+    preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int] = None
+) -> Tuple[Tuple[str, ...], Tensor]:
+    """The multiclass value checks on the device (JAX ``stat_scores.py:272``); same flag-length contract."""
+    valid = torch.ones_like(target, dtype=torch.bool) if ignore_index is None else target != ignore_index
+    bad_t = torch.any(valid & ((target < 0) | (target >= num_classes)))
+    if torch.is_floating_point(preds):
+        bad_p = torch.zeros((), dtype=torch.bool, device=target.device)
+    else:
+        bad_p = torch.any((preds < 0) | (preds >= num_classes))
+    msgs = (
+        f"Detected more unique values in `target` than expected. Expected only {num_classes}.",
+        f"Detected more unique values in `preds` than expected. Expected only {num_classes}.",
+    )
+    return msgs, torch.stack([bad_t, bad_p])
 
 
 def _multiclass_stat_scores_format(

@@ -30,11 +30,11 @@ def _psnr_update(
     target = torch.as_tensor(target).to(torch.float32)
     if dim is None:
         sum_squared_error = torch.sum(torch.square(preds - target))
-        num_obs = torch.tensor(float(target.numel()), device=target.device)
+        num_obs = torch.full((), float(target.numel()), device=target.device)
     else:
         diff = preds - target
         sum_squared_error = torch.sum(diff * diff, dim=dim)
-        num_obs = torch.tensor(float(_prod_axis(target.shape, dim)), device=target.device)
+        num_obs = torch.full((), float(_prod_axis(target.shape, dim)), device=target.device)
         num_obs = torch.broadcast_to(num_obs, sum_squared_error.shape)
     return sum_squared_error, num_obs
 

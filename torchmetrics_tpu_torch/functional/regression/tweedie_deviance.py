@@ -36,7 +36,7 @@ def _tweedie_deviance_score_update(preds: Tensor, targets: Tensor, power: float 
         term_3 = torch.pow(preds, 2 - power) / (2 - power)
         deviance_score = 2 * (term_1 - term_2 + term_3)
 
-    return torch.sum(deviance_score), torch.tensor(targets.numel(), dtype=torch.float32, device=targets.device)
+    return torch.sum(deviance_score), torch.full((), targets.numel(), dtype=torch.float32, device=targets.device)
 
 
 def _tweedie_deviance_score_compute(sum_deviance_score: Tensor, num_observations: Tensor) -> Tensor:

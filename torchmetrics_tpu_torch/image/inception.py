@@ -30,6 +30,8 @@ class InceptionScore(Metric):
     global generator (``np.random.permutation``), as the JAX package does.
     """
 
+    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
+
     higher_is_better: bool = True
     is_differentiable: bool = False
     full_state_update: bool = False

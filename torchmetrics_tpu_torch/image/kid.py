@@ -51,6 +51,8 @@ class KernelInceptionDistance(Metric):
     reads nothing back before the mean and std.
     """
 
+    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
+
     higher_is_better: bool = False
     is_differentiable: bool = False
     full_state_update: bool = False

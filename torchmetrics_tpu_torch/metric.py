@@ -20,19 +20,33 @@ states) registered with :meth:`Metric.add_state` on an explicit device:
 
 A metric built without ``device=`` keeps its states on ``cuda`` and raises
 where no GPU is present; it never falls back to the CPU on its own.
+
+With ``auto_compile=True`` (the default, JAX ``metric.py:182``) every
+``update``/``forward`` whose argument signature was seen before runs one
+compiled step (``_compile.py``): a CUDA graph captured once per signature
+and replayed on a CUDA metric, the same step run eagerly on a CPU metric.
+The first call with each signature runs the plain update with its eager
+checks; ``validate_args=True`` value checks then run fused in the step as a
+device flag vector that is read back at the next eager update, ``compute()``
+or ``reset()`` (:meth:`Metric._check_pending_violations`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
+import itertools
+import warnings
 from abc import ABC, abstractmethod
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import Tensor, nn
 
+from torchmetrics_tpu_torch import _compile
+from torchmetrics_tpu_torch.utilities.checks import _compiled_step
 from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_cat,
     dim_zero_max,
@@ -75,6 +89,46 @@ def _squeeze_if_scalar(data: Any) -> Any:
     return data
 
 
+def _flatten_args(tree: Any, leaves: List[Any]) -> Any:
+    """Hashable structure of nested tuples, lists and dicts; the leaves are appended to ``leaves``."""
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(_flatten_args(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        return ("dict", keys, tuple(_flatten_args(tree[k], leaves) for k in keys))
+    leaves.append(tree)
+    return None
+
+
+def _unflatten_args(treedef: Any, leaves: Any) -> Any:
+    if treedef is None:
+        return next(leaves)
+    if treedef[0] == "dict":
+        return {k: _unflatten_args(t, leaves) for k, t in zip(treedef[1], treedef[2])}
+    items = [_unflatten_args(t, leaves) for t in treedef[1]]
+    return tuple(items) if treedef[0] == "tuple" else items
+
+
+def _tree_map(fn: Callable[[Tensor], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every tensor of a nested tuple/list/dict value."""
+    if isinstance(tree, Tensor):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _poison(bad: Tensor, value: Tensor) -> Tensor:
+    """A violating batch's value: NaN for floats, the type's least value for integers (JAX ``metric.py:1890``)."""
+    if value.is_floating_point() or value.is_complex():
+        return torch.where(bad, float("nan"), value)
+    if value.dtype != torch.bool:
+        return torch.where(bad, torch.iinfo(value.dtype).min, value)
+    return value
+
+
 def _flatten_maybe(seq: Sequence) -> list:
     out = []
     for el in seq:
@@ -83,6 +137,65 @@ def _flatten_maybe(seq: Sequence) -> list:
         else:
             out.append(el)
     return out
+
+
+# a step's buffers hold the states under their names (identifiers) and these two
+_VIOL, _COUNT = "#violations", "#update_count"
+
+
+def _ring_clone(ring: RingBuffer) -> RingBuffer:
+    """A ring buffer with its own copy of ``ring``'s storage and the same count."""
+    shared = ring._shared
+    out = ring.copy()
+    if out.data is not None:
+        out.data = out.data.clone()
+        out._shared, ring._shared = False, shared
+    return out
+
+
+def _hold(states: Dict[str, Any]) -> Dict[str, Tuple]:
+    """The tensors a step must leave its results in: each state tensor, each ring's storage and cursor."""
+    return {
+        n: (v, v.data, v._cursor) if isinstance(v, RingBuffer) else (v,) for n, v in states.items()
+    }
+
+
+def _snapshot(states: Dict[str, Any]) -> Dict[str, Tensor]:
+    return {n: (v.data if isinstance(v, RingBuffer) else v).clone() for n, v in states.items()}
+
+
+def _keep_unless(bad: Tensor, old: Dict[str, Tensor], new: Dict[str, Any], held: Dict[str, Tuple]) -> Dict[str, Any]:
+    """The pre-step states where ``bad`` (a violating batch adds nothing), else the new ones.
+
+    A tensor state of unchanged dtype and shape is chosen straight into its held buffer.
+    """
+    out = {}
+    for n, v in new.items():
+        if isinstance(v, RingBuffer):
+            v.data = torch.where(bad, old[n], v.data)
+            out[n] = v
+        elif v.dtype == held[n][0].dtype and v.shape == held[n][0].shape:
+            out[n] = torch.where(bad, old[n], v, out=held[n][0])
+        else:
+            out[n] = torch.where(bad, old[n], v)
+    return out
+
+
+def _write_back(held: Dict[str, Tuple], new: Dict[str, Any]) -> None:
+    """Leave a step's results in the buffers it was given (an in-place update already has)."""
+    for n, h in held.items():
+        v = new[n]
+        if len(h) == 1:
+            if v is not h[0]:
+                h[0].copy_(v)
+            continue
+        ring, data, cursor = h
+        if ring.data is not data:
+            data.copy_(ring.data)
+            ring.data = data
+        if cursor is not None and ring._cursor is not cursor:
+            cursor.copy_(ring._cursor)
+            ring._cursor = cursor
 
 
 class Metric(nn.Module, ABC):
@@ -102,6 +215,10 @@ class Metric(nn.Module, ABC):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
+    # True where the update runs an encoder trunk (kernels B2a, B2b, B3, B4,
+    # B5) or SRMR's filterbanks (S1): those updates stream eagerly until
+    # their capture is ported (ROADMAP item 6b)
+    _compiled_update_deferred: bool = False
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -133,6 +250,10 @@ class Metric(nn.Module, ABC):
             raise ValueError(
                 f"Expected keyword argument `compute_with_cache` to be a `bool` but got {self.compute_with_cache}"
             )
+        # repeat argument signatures run one compiled step (a CUDA graph on the card)
+        self.auto_compile = kwargs.pop("auto_compile", True)
+        if not isinstance(self.auto_compile, bool):
+            raise ValueError(f"Expected keyword argument `auto_compile` to be a `bool` but got {self.auto_compile}")
         # bound append-mode ("cat") states to a fixed-capacity ring buffer instead of an unbounded list
         self.cat_state_capacity = kwargs.pop("cat_state_capacity", None)
         if self.cat_state_capacity is not None and not (
@@ -163,6 +284,22 @@ class Metric(nn.Module, ABC):
         self._cache: Optional[Dict[str, State]] = None
         # set by a MetricCollection while other metrics hold these state tensors
         self._states_aliased = False
+        self._dtype_policy: Optional[torch.dtype] = None
+
+        # compiled-path bookkeeping: seen argument signatures, cached state
+        # names, and per-path disable flags (flipped on the first failure)
+        self._auto_sigs: Dict[Any, int] = {}
+        self._auto_fwd_sigs: Dict[Any, int] = {}
+        self._auto_names: Optional[List[str]] = None
+        self._auto_disabled = False
+        self._auto_forward_disabled = False
+        self._auto_disabled_reason: Optional[str] = None
+        # fused validation: messages, severities and the device flag vector
+        # the compiled steps OR into, read back at the next sync point
+        self._viol_msgs: Optional[Tuple[str, ...]] = None
+        self._viol_sevs: Optional[Tuple[str, ...]] = None
+        self._viol_flags: Optional[Tensor] = None
+        self._traced_validation_supported: Optional[bool] = None
 
     # ------------------------------------------------------------------ state
     @property
@@ -251,7 +388,8 @@ class Metric(nn.Module, ABC):
         if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:
-            self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
+            handled, batch_val = self._try_auto_forward(args, kwargs)
+            self._forward_cache = batch_val if handled else self._forward_reduce_state_update(*args, **kwargs)
         return self._forward_cache
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -259,8 +397,9 @@ class Metric(nn.Module, ABC):
         self.update(*args, **kwargs)
         self._to_sync = self.dist_sync_on_step
         # reset() rebinds every state to a fresh default, so the accumulated
-        # states can be stashed by reference: the batch replay cannot touch them
-        cache = self.metric_state
+        # states can be stashed by reference (a graph's buffers are copied:
+        # the batch replay writes into them)
+        cache = self._stash_states()
         update_count = self._update_count
         try:
             self.reset()
@@ -278,9 +417,16 @@ class Metric(nn.Module, ABC):
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Single-update path (reference ``metric.py:353-391``)."""
-        global_state = self.metric_state  # stashed by reference, as in the double-update path
+        global_state = self._stash_states()  # as in the double-update path
         update_count = self._update_count
-        self.reset()
+        try:
+            self.reset()
+        except Exception:
+            # reset() raises a pending deferred violation after resetting:
+            # the accumulation lives only in the stash
+            self._update_count = update_count
+            self._restore_state(global_state)
+            raise
         self._to_sync = self.dist_sync_on_step
         self._should_unsync = False
         try:
@@ -359,11 +505,23 @@ class Metric(nn.Module, ABC):
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            if self._try_auto_update(args, kwargs):
+                return
+            self._check_pending_violations()
             self._computed = None
             if self._states_aliased:
                 self._unshare_states()
             self._update_count += 1
+            # where a compiled path could engage, an update that rebinds or
+            # mutates a plain attribute turns it off: a replay would not
+            guard = self._auto_eligible()
+            if guard:
+                before, _keepalive = self._host_attr_snapshot()
             update(*args, **kwargs)
+            if guard and self._host_attr_snapshot()[0] != before:
+                self._disable_auto("update mutated unregistered host attributes")
+            if self._dtype_policy is not None:
+                self._apply_dtype_policy()
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
@@ -375,6 +533,7 @@ class Metric(nn.Module, ABC):
         Lists get a list of their own (their tensors are never written in
         place); a ring buffer from the group is already a copy on write.
         """
+        self._release_graph_buffers()
         for attr in self._defaults:
             cur = getattr(self, attr)
             if isinstance(cur, Tensor):
@@ -382,6 +541,837 @@ class Metric(nn.Module, ABC):
             elif isinstance(cur, list):
                 setattr(self, attr, list(cur))
         self._states_aliased = False
+
+    # ------------------------------------------------------- compiled update
+    # The compiled paths (JAX ``metric.py:1310-2175``). A *step* is the raw
+    # update as a function of buffers (the states under their names, the
+    # flag vector under `_VIOL`, the update count under `_COUNT`) and the
+    # batch's tensors: it writes its results back into the buffers it was
+    # given. It runs eagerly on a CPU metric and is captured into a CUDA
+    # graph (`_compile`) on a CUDA metric.
+    _AUTO_MAX_SIGNATURES = 8
+    _COMPILED_CACHES = ("_auto_update_fn", "_auto_forward_fn", "_jit_update_fn", "_scan_update_fn")
+
+    def _disable_auto(self, reason: str) -> None:
+        """Turn the compiled update and forward off for this instance, recording why."""
+        self._auto_disabled = self._auto_forward_disabled = True
+        if self._auto_disabled_reason is None:
+            self._auto_disabled_reason = reason
+
+    def _auto_eligible(self) -> bool:
+        """Base gate for the compiled ``update``/``forward`` (JAX ``metric.py:1501``).
+
+        ``validate_args=True`` metrics compile where they carry a traced
+        validator (:meth:`_traced_value_flags`) or where the eligibility
+        verdict copied from the JAX package certifies their checks
+        metadata-only (``_eligibility.json``). ``compute_on_cpu`` keeps
+        growing states on the host, which no step can hold.
+        """
+        return (
+            self.auto_compile
+            and not self._auto_disabled
+            and not self._compiled_update_deferred
+            and not self.compute_on_cpu
+            and (
+                getattr(self, "validate_args", None) is not True
+                or self._supports_traced_validation()
+                or _compile.eligibility_verdict(type(self)) == "metadata_only"
+            )
+        )
+
+    def _traced_value_flags(self, *args: Any, **kwargs: Any) -> Optional[Tuple]:
+        """Device-side value checks: ``(messages, flags[, severities])`` (JAX ``metric.py:1538``).
+
+        ``flags[i]`` is True where the batch violates check ``i``; the
+        message tuple must not depend on the argument values. Severity
+        ``"error"`` (the default) drops the batch and raises at the next sync
+        point; ``"warn"`` keeps it and warns. The base returns None: such a
+        metric keeps the eager path when ``validate_args=True``, unless its
+        checks are certified metadata-only.
+        """
+        return None
+
+    def _supports_traced_validation(self) -> bool:
+        sup = self._traced_validation_supported
+        if sup is None:
+            sup = type(self)._traced_value_flags is not Metric._traced_value_flags
+            self._traced_validation_supported = sup
+        return sup
+
+    def _auto_validate(self) -> bool:
+        """True when compiled steps must carry the fused value checks."""
+        return getattr(self, "validate_args", None) is True and self._supports_traced_validation()
+
+    @staticmethod
+    def _split_value_flags(res: Tuple) -> Tuple[Tuple[str, ...], Tensor, Tuple[str, ...]]:
+        """Normalize a ``_traced_value_flags`` result to ``(msgs, flags, sevs)``."""
+        msgs, flags = res[0], res[1]
+        sevs = tuple(res[2]) if len(res) > 2 else tuple("error" for _ in msgs)
+        if [s for s in sevs if s not in ("error", "warn")] or len(sevs) != len(msgs):
+            raise TorchMetricsUserError(
+                "`_traced_value_flags` severities must be 'error' or 'warn', one per message;"
+                f" got {sevs!r} for {len(tuple(msgs))} message(s)"
+            )
+        return tuple(msgs), flags, sevs
+
+    def _prime_violation_state(self, treedef: Any, dynamic: List[Tensor], statics: Tuple) -> bool:
+        """Learn the message vector once, before the first compile; False when there is nothing to fuse."""
+        if self._viol_msgs is None:
+            a, kw = self._merge_batch_args(treedef, dynamic, statics)
+            msgs, _, sevs = self._split_value_flags(self._traced_value_flags(*a, **kw))
+            self._viol_msgs, self._viol_sevs = msgs, sevs
+        if self._viol_flags is None and self._viol_msgs:
+            self._viol_flags = torch.zeros(len(self._viol_msgs), dtype=torch.bool, device=self._device)
+        return bool(self._viol_msgs)
+
+    def _check_pending_violations(self) -> None:
+        """Surface value-check violations recorded by compiled steps (JAX ``metric.py:1605``).
+
+        The flag vector stays on the device while the compiled steps stream;
+        this read at the next eager update, ``compute()`` or ``reset()`` is
+        its only read back, as a CUDA device-side assert surfaces at the
+        next sync. The first call with each argument signature validates
+        eagerly, so a single bad batch still raises at once with the
+        reference's message.
+        """
+        flags = self._viol_flags
+        if flags is None:
+            return
+        vals = flags.tolist()
+        if not any(vals):
+            return
+        sevs = self._viol_sevs or tuple("error" for _ in self._viol_msgs)
+        errors = [m for m, s, v in zip(self._viol_msgs, sevs, vals) if v and s == "error"]
+        warns = [m for m, s, v in zip(self._viol_msgs, sevs, vals) if v and s == "warn"]
+        self._viol_flags = torch.zeros_like(flags)
+        for msg in warns:
+            rank_zero_warn(
+                f"{msg} (surfaced asynchronously: this warn-severity check ran fused inside the compiled update)",
+                UserWarning,
+            )
+        if errors:
+            raise RuntimeError(
+                f"{errors[0]} (raised asynchronously: with `auto_compile` the `validate_args=True`"
+                " value checks run fused inside the compiled update and surface at the next host"
+                " synchronization point)"
+            )
+
+    def _fixed_shape_state_names(self, method_name: str) -> Optional[List[str]]:
+        """State names for the compiled paths; None = warm up eagerly first (JAX ``metric.py:1310``).
+
+        A metric that delegates to child metrics, or holds an attribute that
+        looks stateful, refuses; so does a list state. A ring buffer that has
+        not seen a batch learns its row shape from an eager update first.
+        """
+
+        def metric_like(v: Any) -> bool:
+            return isinstance(v, Metric) or (
+                hasattr(v, "update")
+                and hasattr(v, "compute")
+                and hasattr(v, "reset")
+                and (hasattr(v, "_defaults") or hasattr(v, "_modules"))
+            )
+
+        def stateful_like(v: Any) -> bool:
+            return (
+                not isinstance(v, (Metric, Tensor, RingBuffer))
+                and hasattr(v, "update")
+                and hasattr(v, "compute")
+                and hasattr(v, "reset")
+            )
+
+        attrs = {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_modules")}
+        attrs.update(self._modules)
+        for attr, value in attrs.items():
+            if isinstance(value, dict):
+                children = list(value.values())
+            elif isinstance(value, (list, tuple)):
+                children = list(value)
+            elif isinstance(value, nn.Module) and not isinstance(value, Metric):
+                children = list(value.modules())  # a ModuleList/ModuleDict of metrics, at any depth
+            else:
+                children = [value]
+            if any(metric_like(v) for v in children):
+                raise TorchMetricsUserError(
+                    f"`{method_name}` is unsupported on {type(self).__name__}: it delegates to child"
+                    f" metric(s) (`{attr}`) whose states live outside this metric's state registry."
+                    " Call the compiled update on the component metrics directly."
+                )
+            if any(stateful_like(v) for v in children):
+                raise TorchMetricsUserError(
+                    f"`{method_name}` is unsupported on {type(self).__name__}: attribute `{attr}` looks"
+                    " stateful (it exposes update/compute/reset) but is not a registered metric state."
+                    " If `update()` mutates it, a replay would corrupt it; stream through the plain"
+                    " `update()` path, or register its state with `add_state`."
+                )
+        names = list(self._defaults)
+        if not names:
+            raise TorchMetricsUserError(
+                f"`{method_name}` is unsupported on {type(self).__name__}: it registers no state, so its update"
+                " can only act outside this metric."
+            )
+        warm_up = False
+        for name in names:
+            state = getattr(self, name)
+            if isinstance(state, list):
+                raise TorchMetricsUserError(
+                    f"`{method_name}` requires fixed-shape states, but state `{name}` is an append-mode"
+                    " list. Construct the metric with `cat_state_capacity=N` to bound it into a device"
+                    " ring buffer, or stream through the plain `update()` path."
+                )
+            if isinstance(state, RingBuffer) and not state.initialized:
+                warm_up = True
+        return None if warm_up else names
+
+    def _auto_state_names(self, method_name: str) -> Optional[List[str]]:
+        """Fixed-shape state names for the auto paths, cached once no ring buffer can go back to lazy."""
+        if self._auto_names is not None:
+            return self._auto_names
+        names = self._fixed_shape_state_names(method_name)
+        if names is not None and not any(isinstance(getattr(self, n), RingBuffer) for n in names):
+            self._auto_names = names
+        return names
+
+    @staticmethod
+    def _split_batch_args(method_name: str, args: tuple, kwargs: Dict[str, Any]) -> Tuple[Any, List[Tensor], Tuple]:
+        """Split ``(args, kwargs)`` into tensors (the step's inputs) and static values (JAX ``metric.py:1407``).
+
+        Static values (flags such as FID's ``real=True``) key the cache, so
+        they must be hashable.
+        """
+        leaves: List[Any] = []
+        treedef = _flatten_args((args, kwargs), leaves)
+        dynamic = [leaf for leaf in leaves if isinstance(leaf, Tensor)]
+        statics = tuple((i, leaf) for i, leaf in enumerate(leaves) if not isinstance(leaf, Tensor))
+        try:
+            hash(statics)
+        except TypeError:
+            raise TorchMetricsUserError(
+                f"`{method_name}` arguments must be tensors or hashable static values, got"
+                f" {[type(leaf).__name__ for _, leaf in statics]}; use the plain `update()` path."
+            ) from None
+        return (treedef, len(leaves)), dynamic, statics
+
+    @staticmethod
+    def _merge_batch_args(treedef: Any, dynamic: Sequence[Tensor], statics: Tuple) -> Tuple[tuple, Dict[str, Any]]:
+        structure, n_leaves = treedef
+        static_map = dict(statics)
+        dyn_iter = iter(dynamic)
+        leaves = [static_map[i] if i in static_map else next(dyn_iter) for i in range(n_leaves)]
+        args, kwargs = _unflatten_args(structure, iter(leaves))
+        return args, kwargs
+
+    def _auto_signature(self, args: tuple, kwargs: Dict[str, Any], method_name: str = "update") -> Tuple:
+        """Hashable ``(structure, statics, shapes/dtypes/devices/layouts)`` key of a call (JAX ``metric.py:1661``).
+
+        The layout (strides, 16-byte alignment) is part of the key so that a
+        graph reads its batch in the layout the eager update read, and its
+        sums come out the same (``_compile.static_like``).
+        """
+        treedef, dynamic, statics = self._split_batch_args(method_name, args, kwargs)
+        sig = (
+            treedef,
+            statics,
+            tuple((tuple(d.shape), d.dtype, d.device, *_compile.layout_key(d)) for d in dynamic),
+        )
+        return sig, treedef, dynamic, statics
+
+    def _host_attr_snapshot(self) -> Tuple[List[tuple], List[Any]]:
+        """Fingerprint of the plain (public, unregistered) attributes (JAX ``metric.py:717``).
+
+        A replay runs no Python, so an update that mutates such an attribute
+        (a counter, a cached batch) would be frozen by it: every eager update
+        of an eligible metric compares this before and after. Returns
+        ``(fingerprint, keepalive)``; the caller holds ``keepalive`` across
+        the update so an object fingerprinted by identity cannot be freed
+        and its id reused.
+        """
+        keepalive: List[Any] = []
+
+        def fp(v: Any) -> Any:
+            if isinstance(v, (bool, int, float, complex, str, bytes, type(None))):
+                return v
+            keepalive.append(v)
+            return id(v)
+
+        snap: List[tuple] = []
+        for k, v in self.__dict__.items():
+            if k.startswith("_") or k in self._defaults or callable(v):
+                continue
+            if isinstance(v, (Tensor, RingBuffer)):
+                keepalive.append(v)
+                snap.append((k, id(v)))
+            elif isinstance(v, (bool, int, float, complex, str, bytes, type(None))):
+                snap.append((k, v))
+            elif isinstance(v, dict) and len(v) <= 16:
+                snap.append((k, id(v), tuple((fp(dk), fp(dv)) for dk, dv in v.items())))
+            elif isinstance(v, (list, tuple)) and len(v) <= 16:
+                snap.append((k, id(v), tuple(fp(i) for i in v)))
+            elif isinstance(v, (list, tuple)):
+                n = len(v)
+                idxs = sorted({0, 1, 2, n // 4, n // 2, (3 * n) // 4, n - 3, n - 2, n - 1})
+                snap.append((k, id(v), n, tuple((i, fp(v[i])) for i in idxs)))
+            elif isinstance(v, (dict, set)):
+                items = itertools.islice(v.items() if isinstance(v, dict) else v, 8)
+                snap.append((k, id(v), len(v), tuple(fp(i) if not isinstance(i, tuple) else tuple(map(fp, i)) for i in items)))
+            else:
+                keepalive.append(v)
+                snap.append((k, id(v)))
+        return snap, keepalive
+
+    def _traced_update(self, names: List[str], states: Dict[str, Any], args: tuple, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        """Run the raw update on temporarily bound states; return the states it leaves (JAX ``metric.py:1378``)."""
+        saved = {n: getattr(self, n) for n in names}
+        try:
+            for n in names:
+                object.__setattr__(self, n, states[n])
+            self.update.__wrapped__(*args, **kwargs)
+            new_states = {n: getattr(self, n) for n in names}
+            if self._dtype_policy is not None:
+                new_states = {
+                    n: v.to(self._dtype_policy) if isinstance(v, Tensor) and v.is_floating_point() else v
+                    for n, v in new_states.items()
+                }
+            return new_states
+        finally:
+            for n, v in saved.items():
+                object.__setattr__(self, n, v)
+
+    def _traced_compute(self, names: List[str], states: Dict[str, Any]) -> Any:
+        """Run the raw compute on temporarily bound states (JAX ``metric.py:1799``)."""
+        saved = {n: getattr(self, n) for n in names}
+        try:
+            for n in names:
+                object.__setattr__(self, n, states[n])
+            return self.compute.__wrapped__()
+        finally:
+            for n, v in saved.items():
+                object.__setattr__(self, n, v)
+
+    def _step_flags(self, args: tuple, kwargs: Dict[str, Any]) -> Tensor:
+        msgs, flags, sevs = self._split_value_flags(self._traced_value_flags(*args, **kwargs))
+        if msgs != self._viol_msgs or sevs != self._viol_sevs:
+            raise TorchMetricsUserError("traced validation messages changed across argument signatures")
+        return flags
+
+    def _masks_dropped_batch(self, states: Dict[str, Any]) -> bool:
+        """True when the update scales its batch's contribution by ``_step_keep`` itself.
+
+        A compiled step whose error checks may drop the batch sets
+        ``_step_keep`` (a device bool, False for a violating batch) before the
+        update; such an update needs no copy of the states to restore. The
+        base says False: the step copies the states and chooses after.
+        """
+        return False
+
+    def _error_flag(self, flags: Tensor) -> Optional[Tensor]:
+        """True where an error-severity check fired (warn checks keep the batch); None when there are none."""
+        err = [i for i, s in enumerate(self._viol_sevs) if s == "error"]
+        if not err:
+            return None
+        if len(err) == len(self._viol_sevs):
+            return flags.any()
+        return torch.stack([flags[i] for i in err]).any()
+
+    def _update_step(self, names: List[str], treedef: Any, statics: Tuple, validate: bool, steps: int = 0) -> Callable:
+        """The step of ``update`` (``steps=0``), or of ``steps`` stacked batches (``scan_update``)."""
+
+        def one(bufs: Dict[str, Any], dyn: Sequence[Tensor]) -> None:
+            a, kw = self._merge_batch_args(treedef, dyn, statics)
+            states = {n: bufs[n] for n in names}
+            held = _hold(states)
+            bad = None
+            if validate:  # the checks read only the batch: they run first
+                flags = self._step_flags(a, kw)
+                bufs[_VIOL] |= flags
+                bad = self._error_flag(flags)  # only an error check drops the batch
+            masked = bad is not None and self._masks_dropped_batch(states)
+            old = _snapshot(states) if bad is not None and not masked else None
+            if masked:
+                self.__dict__["_step_keep"] = ~bad
+            try:
+                new = self._traced_update(names, states, a, kw)
+            finally:
+                unused = self.__dict__.pop("_step_keep", None) is not None
+            if masked and unused:
+                raise TorchMetricsUserError(f"{type(self).__name__}'s update did not mask its batch with `_step_keep`")
+            if old is not None:
+                new = _keep_unless(bad, old, new, held)
+            _write_back(held, new)
+
+        def step(bufs: Dict[str, Any], dyn: List[Tensor]) -> None:
+            with _compiled_step(), self._fused_flags(validate):
+                if steps:
+                    for i in range(steps):
+                        one(bufs, [d[i] for d in dyn])
+                else:
+                    one(bufs, dyn)
+
+        return step
+
+    def _forward_step(self, names: List[str], treedef: Any, statics: Tuple, validate: bool) -> Callable:
+        """One step computing the batch value and merging the batch into the states (JAX ``metric.py:1872``)."""
+        reductions = {n: self._reductions[n] for n in names}
+
+        def step(bufs: Dict[str, Any], dyn: List[Tensor]) -> Any:
+            with _compiled_step(), self._fused_flags(validate):
+                a, kw = self._merge_batch_args(treedef, dyn, statics)
+                batch = self._traced_update(names, {n: self._defaults[n].clone() for n in names}, a, kw)
+                batch_val = _squeeze_if_scalar(self._traced_compute(names, batch))
+                bad = None
+                if validate:
+                    flags = self._step_flags(a, kw)
+                    bufs[_VIOL] |= flags
+                    bad = self._error_flag(flags)
+                    if bad is not None:
+                        batch_val = _tree_map(functools.partial(_poison, bad), batch_val)
+                count = bufs[_COUNT]
+                prev = count.to(torch.float32)
+                merged = {}
+                for n in names:
+                    reduce_fn, g, loc = reductions[n], bufs[n], batch[n]
+                    if reduce_fn == "sum":
+                        m = g + loc
+                    elif reduce_fn == "mean":
+                        m = (prev * g + loc) / (prev + 1.0)
+                    elif reduce_fn == "max":
+                        m = torch.maximum(g, loc)
+                    elif reduce_fn == "min":
+                        m = torch.minimum(g, loc)
+                    else:
+                        m = reduce_fn(torch.stack([g, loc]))
+                    # a violating batch adds nothing: the eager path raises before merging
+                    merged[n] = m if bad is None else torch.where(bad, g, m)
+                count += 1 if bad is None else (~bad).to(count.dtype)
+                _write_back(_hold({n: bufs[n] for n in names}), merged)
+            return batch_val
+
+        return step
+
+    @contextlib.contextmanager
+    def _fused_flags(self, on: bool) -> Iterator[None]:
+        """Mark a step that carries the fused flags (the aggregators' NaN ``"error"`` check reads it)."""
+        if on:
+            self.__dict__["_fused_flags_tracing"] = True
+        try:
+            yield
+        finally:
+            self.__dict__.pop("_fused_flags_tracing", None)
+
+    def _step_bufs(self, names: List[str], validate: bool, count: bool, private: bool) -> Dict[str, Any]:
+        """The step's buffers: the live states, or private copies of them (a graph's own, or scratch)."""
+        bufs: Dict[str, Any] = {}
+        for n in names:
+            cur = getattr(self, n)
+            if isinstance(cur, RingBuffer):
+                ring = _ring_clone(cur) if private else cur
+                ring._cursor = torch.full((), ring.count, dtype=torch.int64, device=ring.data.device)
+                bufs[n] = ring
+            else:
+                bufs[n] = cur.clone() if private else cur
+        if validate:
+            bufs[_VIOL] = self._viol_flags.clone() if private else self._viol_flags
+        if count:
+            bufs[_COUNT] = torch.full((), self._update_count, dtype=torch.int64, device=self._device)
+        return bufs
+
+    def _run_compiled(
+        self, cache_name: str, key: Any, names: List[str], dynamic: List[Tensor], build: Callable, validate: bool, count: bool = False
+    ) -> Any:
+        """Run the step of ``key``: eagerly on a CPU metric, as a CUDA graph's replay on a CUDA metric.
+
+        The dtype policy is part of the key (JAX ``metric.py:1447``). On the
+        card the first call captures: the warm-up applies this batch to the
+        graph's own copies of the states, then the capture on those copies
+        runs nothing, so the batch reaches the states once. A failure
+        anywhere leaves the metric's states as they were.
+        """
+        key = (key, None if self._dtype_policy is None else str(self._dtype_policy))
+        cache = self.__dict__.setdefault(cache_name, {})
+        if self._device.type != "cuda":
+            first = key not in cache
+            if first:
+                cache[key] = build()
+            bufs = self._step_bufs(names, validate, count, private=first)
+            if count:
+                cnt = self.__dict__.get("_auto_cnt")
+                if cnt is not None and cnt[0] == self._update_count:
+                    bufs[_COUNT] = cnt[1]
+            try:
+                out = cache[key](bufs, dynamic)
+            except Exception:
+                if first:
+                    del cache[key]
+                raise
+            self._commit_compiled_states(names, bufs, validate, count)
+            return out
+        entry = cache.get(key)
+        if entry is None:
+            step = build()
+            bufs = self._step_bufs(names, validate, count, private=True)
+            out = _compile.warm_up(step, bufs, dynamic, self._device)
+            rings = {n: (b.count, b._warned_overflow) for n, b in bufs.items() if isinstance(b, RingBuffer)}
+            # one memory pool for the metric's graphs; a pool whose graphs are all
+            # gone is not reused (the allocator frees it lazily), so it gets a new one
+            if not self._graph_buffer_ids():
+                self.__dict__["_graph_pool"] = torch.cuda.graph_pool_handle()
+            entry = _compile.CapturedStep(step, bufs, dynamic, self.__dict__["_graph_pool"], self._device)
+            # the capture ran the step's Python but no kernel: put back the host side of each ring
+            entry.ring_deltas = {n: bufs[n].count - c for n, (c, _) in rings.items()}
+            for n, (c, warned) in rings.items():
+                bufs[n].count, bufs[n]._warned_overflow = c, warned
+            entry.cursor_at = {n: c for n, (c, _) in rings.items()}
+            entry.count_at = self._update_count + 1
+            cache[key] = entry
+            self._commit_compiled_states(names, bufs, validate, count)
+            return out
+        bufs = entry.bufs
+        # the metric may have rebound its states since the last replay
+        # (reset, load_state_dict, merge_state, a forward's stash, an eager
+        # update): the graph reads and writes only its own buffers
+        for n in names:
+            cur, buf = getattr(self, n), bufs[n]
+            if isinstance(buf, RingBuffer):
+                if cur is not buf:
+                    buf.data.copy_(cur.data)
+                    buf.count, buf._warned_overflow = cur.count, cur._warned_overflow
+                buf._shared = False
+                if entry.cursor_at[n] != buf.count:
+                    buf._cursor.fill_(buf.count)
+            elif cur is not buf:
+                buf.copy_(cur)
+        if validate and self._viol_flags is not bufs[_VIOL]:
+            bufs[_VIOL].copy_(self._viol_flags)
+        if count and entry.count_at != self._update_count:
+            bufs[_COUNT].fill_(self._update_count)
+        out = entry.replay(dynamic)
+        for n, delta in entry.ring_deltas.items():
+            bufs[n]._advance(delta)
+            entry.cursor_at[n] = bufs[n].count
+        entry.count_at = self._update_count + 1
+        self._commit_compiled_states(names, bufs, validate, count)
+        # the graph rewrites its outputs on the next replay: hand out copies
+        return _tree_map(torch.clone, out)
+
+    def _commit_compiled_states(self, names: List[str], bufs: Dict[str, Any], validate: bool, count: bool) -> None:
+        """Bind the states (and flags) to the step's buffers (JAX ``metric.py:1984``)."""
+        for n in names:
+            buf = bufs[n]
+            if isinstance(buf, RingBuffer) and self._device.type != "cuda":
+                buf._cursor = None  # a CPU step makes its cursor afresh from the host count
+            object.__setattr__(self, n, buf)
+        if validate:
+            self._viol_flags = bufs[_VIOL]
+        if count and self._device.type != "cuda":
+            self.__dict__["_auto_cnt"] = (self._update_count + 1, bufs[_COUNT])
+
+    def _graph_buffer_ids(self) -> set:
+        ids = set()
+        for name in self._COMPILED_CACHES:
+            for entry in self.__dict__.get(name, {}).values():
+                for buf in getattr(entry, "bufs", {}).values():
+                    ids.add(id(buf))
+                    if isinstance(buf, RingBuffer):
+                        ids.add(id(buf.data))
+        return ids
+
+    def _stash_states(self, deep: bool = False) -> Dict[str, State]:
+        """The states by reference, except what a graph replay writes into, which is copied.
+
+        ``deep`` also copies every ring buffer's storage (a plain ring copy
+        shares it until one side appends, and a replay appends in place).
+        """
+        ids = self._graph_buffer_ids()
+        out: Dict[str, State] = {}
+        for attr in self._defaults:
+            cur = getattr(self, attr)
+            if isinstance(cur, RingBuffer):
+                out[attr] = _ring_clone(cur) if (deep or id(cur) in ids or id(cur.data) in ids) else cur
+            elif isinstance(cur, Tensor) and (deep or id(cur) in ids):
+                out[attr] = cur.clone()
+            else:
+                out[attr] = cur
+        return out
+
+    def _release_graph_buffers(self) -> None:
+        """Drop this metric's graphs when other metrics of a compute group hold their state buffers.
+
+        The states are about to be rebound; a later replay would copy them
+        into buffers the group's members still read. The signatures stay
+        known, so the next call captures afresh.
+        """
+        if not self._states_aliased:
+            return
+        ids = self._graph_buffer_ids()
+        if ids and any(id(getattr(self, a)) in ids for a in self._defaults):
+            for name in self._COMPILED_CACHES:
+                self.__dict__.pop(name, None)
+
+    def _try_auto_update(self, args: tuple, kwargs: Dict[str, Any]) -> bool:
+        """Route a repeat-signature ``update()`` through the compiled step (JAX ``metric.py:1672``).
+
+        Returns True when the update was handled. The first call with a
+        signature runs eagerly, with its checks; the second compiles. Any
+        failure turns the path off for this instance only and falls back to
+        the eager update, with the cause in ``_auto_disabled_reason``.
+        """
+        if not self._auto_eligible():
+            return False
+        try:
+            sig, treedef, dynamic, statics = self._auto_signature(args, kwargs)
+        except (TorchMetricsUserError, TypeError) as err:
+            self._disable_auto(f"unhashable/unsupported update arguments: {err}")
+            return False
+        if not dynamic or any(d.device != self._device or _compile.overlapping(d) for d in dynamic):
+            return False  # python scalars only, a batch on another device, or an expanded view: eager
+        seen = self._auto_sigs
+        if sig not in seen:
+            if len(seen) < self._AUTO_MAX_SIGNATURES:
+                seen[sig] = 0  # the first call runs eagerly (validation + warm-up)
+            return False
+        try:
+            names = self._auto_state_names("update")
+        except TorchMetricsUserError as err:
+            self._disable_auto(f"states unsupported by the compiled path: {err}")
+            return False
+        if names is None:
+            return False
+        validate = self._auto_validate()
+        if validate:
+            try:
+                validate = self._prime_violation_state(treedef, dynamic, statics)
+            except Exception as err:
+                self._disable_auto(f"traced validation failed: {type(err).__name__}: {err}")
+                return False
+        if self._states_aliased:
+            self._unshare_states()
+        try:
+            self._run_compiled(
+                "_auto_update_fn",
+                (treedef, statics, sig[2], validate),
+                names,
+                dynamic,
+                lambda: self._update_step(names, treedef, statics, validate),
+                validate,
+            )
+        except Exception as err:
+            self._disable_auto(f"compiled update failed: {type(err).__name__}: {err}")
+            return False
+        seen[sig] += 1
+        self._computed = None
+        self._update_count += 1
+        return True
+
+    def _auto_forward_mergeable(self, names: List[str]) -> bool:
+        """True when every state merges by a fixed-shape reduction (no ring buffer)."""
+        for n in names:
+            if isinstance(getattr(self, n), RingBuffer):
+                return False
+            reduce_fn = self._reductions[n]
+            if not (reduce_fn in ("sum", "mean", "max", "min") or callable(reduce_fn)):
+                return False
+        return True
+
+    def _try_auto_forward(self, args: tuple, kwargs: Dict[str, Any]) -> Tuple[bool, Any]:
+        """Compiled ``forward`` of a reduce-state metric (JAX ``metric.py:1821``).
+
+        One step computes the batch value and merges the batch state into the
+        global state, in place of the eager stash/reset/update/compute/merge.
+        ``mean`` states are weighted by the previous update count, which the
+        step keeps as a device scalar. A violating batch adds nothing, and
+        its value comes back as NaN (or the integer type's least value).
+        """
+        if self._auto_forward_disabled or not self._auto_eligible():
+            return False, None
+        try:
+            sig, treedef, dynamic, statics = self._auto_signature(args, kwargs)
+        except (TorchMetricsUserError, TypeError) as err:
+            self._auto_forward_disabled = True
+            self._auto_disabled_reason = self._auto_disabled_reason or f"unsupported forward arguments: {err}"
+            return False, None
+        if not dynamic or any(d.device != self._device or _compile.overlapping(d) for d in dynamic):
+            return False, None
+        seen = self._auto_fwd_sigs
+        if sig not in seen:
+            if len(seen) < self._AUTO_MAX_SIGNATURES:
+                seen[sig] = 0
+            return False, None
+        try:
+            names = self._auto_state_names("forward")
+        except TorchMetricsUserError as err:
+            self._auto_forward_disabled = True
+            self._auto_disabled_reason = self._auto_disabled_reason or f"states unsupported by the compiled forward: {err}"
+            return False, None
+        if names is None or not self._auto_forward_mergeable(names):
+            self._auto_forward_disabled = True
+            return False, None
+        validate = self._auto_validate()
+        if validate:
+            try:
+                validate = self._prime_violation_state(treedef, dynamic, statics)
+            except Exception:
+                self._auto_forward_disabled = True
+                return False, None
+        if self._states_aliased:  # the step merges into the states in place
+            self._unshare_states()
+        try:
+            batch_val = self._run_compiled(
+                "_auto_forward_fn",
+                (treedef, statics, sig[2], validate),
+                names,
+                dynamic,
+                lambda: self._forward_step(names, treedef, statics, validate),
+                validate,
+                count=True,
+            )
+        except Exception as err:
+            self._auto_forward_disabled = True
+            self._auto_disabled_reason = self._auto_disabled_reason or (
+                f"compiled forward failed: {type(err).__name__}: {err}"
+            )
+            return False, None
+        seen[sig] += 1
+        self._update_count += 1
+        self._computed = None
+        self._is_synced = False
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
+        return True, batch_val
+
+    def precompile(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Warm the compiled update for this argument signature (JAX ``metric.py:2007``).
+
+        Runs the real update machinery on the example batch, so the step is
+        built (and, on the card, captured), then puts back the states, the
+        update count, the cached value and the violation flags exactly as
+        they were. The signature stays registered, so the first real
+        ``update()`` of that signature replays at once. Returns ``engaged``
+        (the compiled path is armed) and ``reason`` when it is not.
+        """
+        report: Dict[str, Any] = {"engaged": False, "reason": None}
+        if not self._auto_eligible():
+            if self._auto_disabled or not self.auto_compile:
+                report["reason"] = "auto path disabled for this instance"
+            elif self._compiled_update_deferred:
+                report["reason"] = "class streams eagerly (its trunk's capture is not ported yet)"
+            else:
+                report["reason"] = "class streams eagerly (not certified for the compiled default path)"
+            return report
+        stash = self._stash_states(deep=True)
+        saved_count, saved_computed = self._update_count, self._computed
+        saved_viol = None if self._viol_flags is None else self._viol_flags.clone()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                try:
+                    sig, _, dynamic, _ = self._auto_signature(args, kwargs)
+                except (TorchMetricsUserError, TypeError):
+                    sig = dynamic = None
+                if dynamic and sig not in self._auto_sigs:
+                    if len(self._auto_sigs) >= self._AUTO_MAX_SIGNATURES:
+                        report["reason"] = (
+                            f"signature cache saturated ({self._AUTO_MAX_SIGNATURES} shapes):"
+                            " this signature streams eagerly"
+                        )
+                        return report
+                    self._auto_sigs[sig] = 0
+                self.update(*args, **kwargs)
+                if "_auto_update_fn" not in self.__dict__ and not self._auto_disabled:
+                    # a lazily shaped ring buffer warms up on the first pass
+                    self.update(*args, **kwargs)
+        finally:
+            self._update_count, self._computed = saved_count, saved_computed
+            self._viol_flags = saved_viol
+            self._restore_state(stash)
+        report["engaged"] = "_auto_update_fn" in self.__dict__ and not self._auto_disabled
+        if not report["engaged"]:
+            report["reason"] = self._auto_disabled_reason or "update did not compile"
+        return report
+
+    def jit_update(self, *args: Any, **kwargs: Any) -> None:
+        """``update()`` as one compiled step (JAX ``metric.py:2089``): a CUDA graph per signature on the card.
+
+        The first call with a signature compiles (no eager pass); value
+        checks are skipped, as under any compiled update with no fused
+        flags. Tensor arguments are the step's inputs, other arguments
+        static. A capture failure raises: this path never falls back.
+        """
+        names = self._fixed_shape_state_names("jit_update")
+        if names is None:  # a ring buffer's first batch allocates eagerly
+            self.update(*args, **kwargs)
+            return
+        sig, treedef, dynamic, statics = self._auto_signature(args, kwargs, "jit_update")
+        if self._states_aliased:
+            self._unshare_states()
+        self._run_compiled(
+            "_jit_update_fn",
+            (treedef, statics, sig[2]),
+            names,
+            dynamic,
+            lambda: self._update_step(names, treedef, statics, False),
+            False,
+        )
+        self._computed = None
+        self._update_count += 1
+
+    def scan_update(self, *args: Any, **kwargs: Any) -> None:
+        """Consume a stacked stream of batches in one compiled step (JAX ``metric.py:2127``).
+
+        Every tensor argument carries a leading stream axis of one length
+        ``S``; the call equals ``S`` successive ``update()`` calls. On the card
+        the ``S`` steps are captured into one graph, so the stream costs one
+        replay. Same constraints as :meth:`jit_update`; a capture failure raises.
+        """
+        names = self._fixed_shape_state_names("scan_update")
+        if names is None:  # a ring buffer's first batch allocates eagerly
+            first = _tree_map(lambda x: x[0], (args, kwargs))
+            self.update(*first[0], **first[1])
+            rest = _tree_map(lambda x: x[1:], (args, kwargs))
+            leaves: List[Any] = []
+            _flatten_args(rest, leaves)
+            arr = [x for x in leaves if isinstance(x, Tensor)]
+            if arr and arr[0].shape[0]:
+                self.scan_update(*rest[0], **rest[1])
+            return
+        sig, treedef, dynamic, statics = self._auto_signature(args, kwargs, "scan_update")
+        if not dynamic:
+            raise TorchMetricsUserError("`scan_update` needs at least one tensor argument with a stream axis")
+        n_steps = int(dynamic[0].shape[0])
+        if self._states_aliased:
+            self._unshare_states()
+        self._run_compiled(
+            "_scan_update_fn",
+            (treedef, statics, sig[2]),
+            names,
+            dynamic,
+            lambda: self._update_step(names, treedef, statics, False, steps=n_steps),
+            False,
+        )
+        self._computed = None
+        self._update_count += n_steps
+
+    def _apply_dtype_policy(self) -> None:
+        """Re-cast floating states to the ``set_dtype`` policy after an update (JAX ``metric.py:782``)."""
+        dst = self._dtype_policy
+        for attr in self._defaults:
+            current = getattr(self, attr)
+            if isinstance(current, RingBuffer):
+                if current.data is not None and current.data.is_floating_point():
+                    current.data = current.data.to(dst)
+            elif isinstance(current, list):
+                setattr(self, attr, [v.to(dst) if v.is_floating_point() else v for v in current])
+            elif current.is_floating_point():
+                setattr(self, attr, current.to(dst))
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast floating states to ``dst_type`` and keep them so (JAX ``metric.py:2513``).
+
+        The policy is part of every compiled step's cache key, so a step
+        compiled before the call is never replayed after it.
+        """
+        self._dtype_policy = dst_type
+        self._apply_dtype_policy()
+        return self
 
     def _move_list_states_to_cpu(self) -> None:
         """Offload append-mode (list) states to host memory after each update (reference ``metric.py:483-488``)."""
@@ -395,6 +1385,7 @@ class Metric(nn.Module, ABC):
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            self._check_pending_violations()
             if not self.update_called:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__}"
@@ -543,6 +1534,7 @@ class Metric(nn.Module, ABC):
                 raise ValueError(f"Cannot merge state entries {unknown}: integrity blocks are not supported yet")
             incoming_state = incoming
             incoming_count = 1
+        self._release_graph_buffers()
         prev_count = self._update_count
         self._update_count = prev_count + incoming_count
         current = self.metric_state
@@ -554,7 +1546,18 @@ class Metric(nn.Module, ABC):
 
     # ---------------------------------------------------------------- reset
     def reset(self) -> None:
-        """Reset states to their defaults (reference ``metric.py:673-688``)."""
+        """Reset states to their defaults (reference ``metric.py:673-688``).
+
+        A deferred violation of the compiled path still surfaces here, after
+        the reset (JAX ``metric.py:2227``): one call both raises and leaves a
+        clean metric.
+        """
+        pending: Optional[BaseException] = None
+        try:
+            self._check_pending_violations()
+        except RuntimeError as err:  # the check has already cleared the flags
+            pending = err
+        self._release_graph_buffers()
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
@@ -563,6 +1566,8 @@ class Metric(nn.Module, ABC):
         self._cache = None
         self._is_synced = False
         self._states_aliased = False
+        if pending is not None:
+            raise pending
 
     def _reset_state_to_default(self, attr: str) -> None:
         default = self._defaults[attr]
@@ -628,6 +1633,7 @@ class Metric(nn.Module, ABC):
 
     def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True, prefix: str = "") -> None:  # type: ignore[override]
         """Restore states from a :meth:`state_dict` mapping; tensors or numpy arrays."""
+        self._release_graph_buffers()
         for key in self._defaults:
             if prefix + key in state_dict:
                 val = self._to_state(state_dict[prefix + key])
@@ -645,7 +1651,8 @@ class Metric(nn.Module, ABC):
 
     def __getstate__(self) -> Dict[str, Any]:
         """Pickle support: drop the wrapped bound methods (reference ``metric.py:694-702``)."""
-        state = {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_update_signature")}
+        dropped = ("update", "compute", "_update_signature", "_auto_sigs", "_auto_fwd_sigs", "_auto_cnt", "_graph_pool")
+        state = {k: v for k, v in self.__dict__.items() if k not in dropped + self._COMPILED_CACHES}
         state["_computed"] = None
         return state
 
@@ -655,6 +1662,9 @@ class Metric(nn.Module, ABC):
         self._update_signature = inspect.signature(self.update)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+        self._auto_sigs = {}
+        self._auto_fwd_sigs = {}
+        self._auto_names = None
 
     def __setattr__(self, name: str, value: Any) -> None:
         """Class-flag immutability guard (reference ``metric.py:715-726``)."""
@@ -667,6 +1677,11 @@ class Metric(nn.Module, ABC):
         """Carry ``.to()``/``.cuda()``/``.cpu()`` over to the states, their defaults and the cached values."""
         this = super()._apply(fn, recurse)
         this._device = fn(torch.zeros(1, device=this._device)).device
+        # the graphs read and write buffers on the old device or in the old type
+        for name in self._COMPILED_CACHES + ("_auto_cnt", "_graph_pool"):
+            this.__dict__.pop(name, None)
+        if this._viol_flags is not None:
+            this._viol_flags = this._viol_flags.to(this._device)
         for attr, default in self._defaults.items():
             cur = getattr(this, attr)
             if isinstance(cur, RingBuffer):

@@ -34,6 +34,8 @@ class BERTScore(Metric):
     encoder, and without either the JAX package's hash embedding is.
     """
 
+    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
+
     is_differentiable = False
     higher_is_better = True
     full_state_update = False

@@ -27,6 +27,8 @@ class InfoLM(Metric):
     JAX package's hash logits are.
     """
 
+    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
+
     is_differentiable = False
     higher_is_better = True
     full_state_update = False

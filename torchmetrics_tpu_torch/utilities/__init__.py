@@ -1,8 +1,8 @@
 """Utility layer: safe math, data ops, distributed gather, checks, enums, state carry-over, ring buffers.
 
-``__all__`` lists the JAX package's names but ``ring_push`` and ``sync_in_jit``
-(they belong to the compile path, not ported yet); ``normalize_logits_if_needed``
-and ``state_from_jax`` are importable from here as well, outside that list.
+``__all__`` lists the JAX package's names but ``sync_in_jit`` (it belongs to
+``_spmd``'s ``to_spmd``, not ported yet); ``normalize_logits_if_needed`` and
+``state_from_jax`` are importable from here as well, outside that list.
 """
 
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, check_forward_full_state_property
@@ -28,7 +28,7 @@ from torchmetrics_tpu_torch.utilities.data import (
 from torchmetrics_tpu_torch.utilities.distributed import class_reduce, gather_all_tensors, reduce
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_info, rank_zero_warn
-from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
+from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer, ring_push
 
 __all__ = [
     "_check_same_shape",
@@ -55,4 +55,5 @@ __all__ = [
     "rank_zero_info",
     "rank_zero_warn",
     "RingBuffer",
+    "ring_push",
 ]

@@ -1,14 +1,21 @@
 """Input validation helpers (reference ``torchmetrics/utilities/checks.py:33-39``).
 
-PyTorch runs eagerly, so the value-dependent checks of the functionals run
-on every call; on a CUDA tensor each reads one scalar back to the host, as
-the reference does.
+The value-dependent checks of the functionals read their verdict back to the
+host, as the reference does. They run on every eager call and are skipped
+inside a compiled update step (:func:`_in_compiled_step`), the counterpart of
+the JAX package's ``_is_concrete``: there the step carries them as a device
+flag vector built from the ``*_value_flags`` blocks below, read back at the
+next eager update, ``compute()`` or ``reset()``. The flag is one explicit
+switch, set the same way on the CPU, where the step runs eagerly, and on the
+card, where it is captured into a CUDA graph, so both take the same branches.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -21,6 +28,24 @@ def rank_zero_print(*args: Any, **kwargs: Any) -> None:
     print(*args, **kwargs)
 
 
+_STEP = threading.local()
+
+
+def _in_compiled_step() -> bool:
+    """True while a compiled update step runs: host-reading checks must not run."""
+    return getattr(_STEP, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _compiled_step() -> Iterator[None]:
+    """Mark the body as a compiled update step (captured on the card, run eagerly on the CPU)."""
+    _STEP.depth = getattr(_STEP, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _STEP.depth -= 1
+
+
 def _check_same_shape(preds: Tensor, target: Tensor) -> None:
     """Raise if shapes differ (reference ``checks.py:33-39``)."""
     if preds.shape != target.shape:
@@ -28,6 +53,38 @@ def _check_same_shape(preds: Tensor, target: Tensor) -> None:
             f"Predictions and targets are expected to have the same shape, but got {preds.shape} and {target.shape}."
         )
 
+
+# ------------------------------------------------------------------ traced
+# Building blocks for ``Metric._traced_value_flags`` (JAX ``checks.py:69-110``):
+# each returns a static message tuple and a same-length boolean flag vector
+# computed on the device, with no host read. The tuple, and so the flag
+# length, is the same for every argument signature of an instance (a check
+# that does not apply to a dtype gives a constant False, never a missing
+# entry), so the device-side OR accumulator stays aligned.
+
+
+def _target_set_value_flags(target: Tensor, ignore_index: Optional[int] = None) -> Tuple[Tuple[str, ...], Tensor]:
+    """Flag for "target values outside {0, 1} (and ``ignore_index``)", in the JAX package's words.
+
+    The offending values are not listed: the check runs on the device,
+    where listing them would read them back.
+    """
+    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
+    ok = (target == 0) | (target == 1)
+    if ignore_index is not None:
+        ok = ok | (target == ignore_index)
+    msgs = (
+        "Detected the following values in `target` outside of the expected set, but expected"
+        f" only the following values {sorted(allowed)} (offending value list omitted: check"
+        " ran fused on-device).",
+    )
+    return msgs, torch.any(~ok).reshape(1)
+
+
+def _no_value_flags(*args: Any, **_kwargs: Any) -> Tuple[Tuple[str, ...], Tensor]:
+    """For metrics whose validation reads only shapes, dtypes and arguments: nothing to fuse."""
+    device = next((a.device for a in args if isinstance(a, Tensor)), None)
+    return (), torch.zeros((0,), dtype=torch.bool, device=device)
 
 
 def _allclose_tree(a: Any, b: Any) -> bool:

@@ -15,6 +15,14 @@ first ``min(count, capacity)`` slots: :meth:`values` is a slice in storage
 order (insertion order until the buffer wraps, as in the JAX package) and
 reads nothing back to the host. The count lives on the host.
 
+Inside a compiled update step (``utilities.checks._in_compiled_step``) a
+Python slice taken from the host count would be frozen into the captured
+graph and rewrite the same rows on every replay. There :meth:`append` keeps a
+device cursor (``_cursor``, the rows ever appended as an int64 scalar) and
+writes through :func:`ring_push`; the host count still advances by the
+batch's row count, which the argument signature fixes, so it stays exact
+with no read back, and the overflow warning keeps firing.
+
 :meth:`copy` shares the storage and either side copies it before its next
 append (copy on write), so a copy costs nothing until one side writes: the
 JAX package's copies share immutable arrays, and this keeps that cost.
@@ -27,7 +35,32 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
+
+
+def ring_push(
+    data: Tensor, valid: Optional[Tensor], count: Tensor, batch: Tensor
+) -> Tuple[Tensor, Optional[Tensor], Tensor]:
+    """Pure ring-buffer push (JAX ``ringbuffer.py:38``): scatter ``batch``'s rows in at the write cursor.
+
+    ``data``: ``(capacity, *item_shape)`` storage; ``valid``: its ``(capacity,)``
+    bool mask of written slots, or None; ``count``: a scalar integer tensor,
+    the rows ever pushed (the cursor is ``count % capacity``); ``batch``:
+    ``(n, *item_shape)`` rows, of which only the last ``capacity`` survive.
+    Returns new ``(data, valid, count)`` with ``count`` grown by the full
+    ``n``. Every shape is fixed by the arguments' shapes and nothing is read
+    back, so the push can be captured into a CUDA graph.
+    """
+    capacity = data.shape[0]
+    n = batch.shape[0]
+    offset = max(0, n - capacity)
+    batch = batch[offset:]
+    idx = (count.to(torch.int64) + offset + torch.arange(batch.shape[0], device=data.device)) % capacity
+    data = data.index_copy(0, idx, batch.to(data.dtype))
+    if valid is not None:
+        valid = valid.index_fill(0, idx, True)
+    return data, valid, count + n
 
 
 class RingBuffer:
@@ -48,6 +81,7 @@ class RingBuffer:
         self.count = 0  # rows ever appended; the write cursor is count % capacity
         self._shared = False  # storage also held by a copy: clone it before writing
         self._warned_overflow = False
+        self._cursor: Optional[Tensor] = None  # device copy of `count`, used inside compiled steps
 
     # ------------------------------------------------------------- properties
     @property
@@ -88,13 +122,13 @@ class RingBuffer:
                 f"RingBuffer expects rows of shape {self.item_shape}, but got a batch of shape {tuple(batch.shape)}"
             )
         n = batch.shape[0]
-        if self.count + n > self.capacity and not self._warned_overflow:
-            rank_zero_warn(
-                f"RingBuffer capacity ({self.capacity}) exceeded; oldest rows are being overwritten."
-                " Increase `cat_state_capacity` if the metric should see every sample.",
-                UserWarning,
-            )
-            self._warned_overflow = True
+        if _in_compiled_step():
+            if self._cursor is None:
+                self._cursor = torch.full((), self.count, dtype=torch.int64, device=self.data.device)
+            self.data, _, self._cursor = ring_push(self.data, None, self._cursor, batch)
+            self._shared = False  # the push wrote a new tensor
+            self._advance(n)
+            return self
         if self._shared:
             self.data = self.data.clone()
             self._shared = False
@@ -105,8 +139,19 @@ class RingBuffer:
         first = min(kept.shape[0], self.capacity - start)
         self.data[start:start + first] = kept[:first]
         self.data[:kept.shape[0] - first] = kept[first:]
-        self.count += n
+        self._advance(n)
         return self
+
+    def _advance(self, n: int) -> None:
+        """Count ``n`` more rows, warning once when the oldest start being overwritten."""
+        if self.count + n > self.capacity and not self._warned_overflow:
+            rank_zero_warn(
+                f"RingBuffer capacity ({self.capacity}) exceeded; oldest rows are being overwritten."
+                " Increase `cat_state_capacity` if the metric should see every sample.",
+                UserWarning,
+            )
+            self._warned_overflow = True
+        self.count += n
 
     def extend(self, values: Any) -> "RingBuffer":
         """Append an iterable of batches, another :class:`RingBuffer`, or one tensor."""
