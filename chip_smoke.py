@@ -320,6 +320,16 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     milliseconds by kind of batch, ``traced`` under ``torch.profiler`` with
     its top host rows);
 
+49. ``captured_trunks``: the trunk metrics by default (compiled where the
+    JAX runtime compiles them) against ``auto_compile=False``: FID
+    (InceptionV3 2048, bf16, batches of 200), IS and KID with a ring
+    capacity, LPIPS alex, CLIPScore (ViT-B/16), BERTScore (bert-base) and
+    SRMR (16 x 8 s at 16 kHz); the routing of the JAX runtime, states and
+    ``compute()`` bit for bit, B2a-B5 and S1 launched from graph replays as
+    often as on the other route, replays under the sync guard, the trunks'
+    graphs and pool bytes, host ms an update and the rates on each route
+    (``--phase captured_trunks`` runs the build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1-B5 and S1) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
@@ -330,6 +340,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import importlib
 import json
 import os
@@ -599,7 +610,7 @@ def inception_conv_calls(extractor, imgs) -> list:
 
     hooks = [m.register_forward_hook(record) for m in extractor.net.modules() if isinstance(m, BasicConv2d)]
     try:
-        extractor(imgs)
+        extractor(imgs)  # the shape's first call: eager, so each conv's hook fires once
     finally:
         for hook in hooks:
             hook.remove()
@@ -1622,7 +1633,10 @@ def phase_lpips(torch, lh, dev, gen, n_pairs: int = 1000, batch: int = 50, side:
     lpnet, taps = metric.net.net, []
     hook = lpnet.net.register_forward_hook(lambda mod, args, out: taps.extend(out))
     try:
-        metric.net(img0[:batch], img1[:batch])
+        with torch.no_grad():
+            # the net itself: the extractor's second call of this shape would run the hook at its warm-up and
+            # again at its capture, and a replay runs none
+            lpnet(img0[:batch], img1[:batch])
     finally:
         hook.remove()
     with torch.no_grad():
@@ -1899,6 +1913,7 @@ def phase_bertscore(torch, np, ka, npz: str, corpus, batch: int = 100) -> dict:
             check(got[key].shape == (n,) and bool(torch.isfinite(got[key]).all()), f"{label} {key} shape/finite")
         errs[label] = max(float((got[k] - want[k]).abs().max()) for k in want)
         check(errs[label] <= BERTSCORE_ATOL, f"BERTScore {label} vs unfused oracle: {errs[label]}")
+    oracle_graphs = {"oracle_graphs": len(oracle.captured.graphs), "oracle_eager_signatures": len(oracle.captured.eager)}
     del oracle, pe, te
     torch.cuda.empty_cache()
     profile = device_time_by_kernel(torch, lambda: bert_score(preds, target, model=encoder), top=8)
@@ -1909,6 +1924,10 @@ def phase_bertscore(torch, np, ka, npz: str, corpus, batch: int = 100) -> dict:
         "launches": launches, "encoder_forwards": encoder_forwards, "compute_launches": compute_launches,
         "seconds": t2 - t0, "pairs_per_s": n / (t2 - t0), "updates_seconds": t1 - t0, "compute_seconds": t2 - t1,
         "peak_mem_bytes": peak, "compute_profile": profile,
+        # the encoder's graphs of the shapes it met twice and their one pool; the shapes kept eager past its bound
+        "trunk_graphs": len(encoder.captured.graphs), "trunk_eager_signatures": len(encoder.captured.eager),
+        "trunk_pool_bytes": importlib.import_module("torchmetrics_tpu_torch._compile").pool_bytes(encoder.captured.pool),
+        **oracle_graphs,
     }
     emit(result)
     return result
@@ -4838,7 +4857,8 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
                                     stacked_copies: int = 100, kid_subset: int = 1000) -> dict:
     """BootStrapper's two routes, MetricTracker, ClasswiseWrapper, MinMaxMetric, MultioutputWrapper and
     MultitaskWrapper on the imagenet_val data, each held to the metrics run unwrapped; FeatureShare over FID, KID
-    and MiFID on fid_cifar10_10k's images, one trunk forward a batch, equal to the three run alone."""
+    and MiFID on fid_cifar10_10k's images, one shared trunk forward a batch (FID's compiled graph runs its own
+    beside it), equal to the three run alone."""
     import torchmetrics_tpu_torch as T
     from torchmetrics_tpu_torch.wrappers import (BootStrapper, ClasswiseWrapper, FeatureShare, MetricTracker,
                                                  MinMaxMetric, MultioutputWrapper, MultitaskWrapper)
@@ -4966,7 +4986,12 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
     alone_members = members()
     alone_s, alone_launches = stream(lambda imgs, is_real: [m.update(imgs, real=is_real) for m in alone_members])
     forwards = 2 * n_img // img_batch
-    check(shared_launches == (40 * forwards, 54 * forwards), f"shared trunk launches {shared_launches}, {forwards} batches")
+    # FID compiles, as the JAX runtime compiles it: from the third call of a signature its graph runs its own
+    # trunk inline, beside the cached forward KID and MiFID share, so each batch from the fifth runs two forwards
+    # (the JAX package's executable traces the trunk the same way)
+    shared_forwards = forwards + max(forwards - 4, 0)
+    check(shared_launches == (40 * shared_forwards, 54 * shared_forwards),
+          f"shared trunk launches {shared_launches}, {forwards} batches, {shared_forwards} forwards expected")
     check(alone_launches == (120 * forwards, 162 * forwards), f"unshared trunk launches {alone_launches}")
     bitwise = {}
     for member, single in zip(shared_members, alone_members):
@@ -4983,7 +5008,8 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
         bitwise[name] = all(torch.equal(a, b) for a, b in zip(value, want))
         worst = max(_rel(a, float(b)) for a, b in zip(value, want))
         check(bitwise[name] or worst <= 1e-6, f"{name} shared {value} vs alone {want}")
-    out["feature_share"] = {"images": 2 * n_img, "batch": img_batch, "forwards": forwards, "input_buffer_reused": True,
+    out["feature_share"] = {"images": 2 * n_img, "batch": img_batch, "forwards": forwards,
+                            "shared_forwards": shared_forwards, "input_buffer_reused": True,
                             "launches_per_batch": [shared_launches[0] / forwards, shared_launches[1] / forwards],
                             "unshared_launches_per_batch": [alone_launches[0] / forwards, alone_launches[1] / forwards],
                             "images_per_s_shared": 2 * n_img / shared_s, "images_per_s_unshared": 2 * n_img / alone_s,
@@ -5641,6 +5667,11 @@ def phase_clipscore_coco_clipiqa_koniq(torch, np, dev, gen, seed: int, smi: str,
     update_ms = wall_ms(torch, lambda: metric.update(probe, captions[:batch]), reps=3, warmup=1)
     trunk_ms = wall_ms(torch, lambda: (model.get_image_features(probe), model.get_text_features(captions[:batch])),
                        reps=3, warmup=1)
+    # ViT-L/14's trunk graphs (batch 100 images, 100 x 77 tokens) and the metric's own, with their pools
+    pool_bytes = importlib.import_module("torchmetrics_tpu_torch._compile").pool_bytes
+    l14_graphs = {"trunk_graphs": len(model.captured.graphs), "trunk_pool_bytes": pool_bytes(model.captured.pool),
+                  "metric_graphs": len(metric.__dict__.get("_auto_update_fn", {})),
+                  "metric_pool_bytes": pool_bytes(metric.__dict__.get("_graph_pool"))}
     del metric, model
 
     iqa = CLIPImageQualityAssessment(prompts=CLIP_IQA_PROMPTS, weights_path=npz_b, tokenizer=ClipTokenizer(),
@@ -5692,7 +5723,7 @@ def phase_clipscore_coco_clipiqa_koniq(torch, np, dev, gen, seed: int, smi: str,
         "iqa_batch": iqa_batch, "prompts": len(CLIP_IQA_PROMPTS), "weights_seconds": weights_s,
         "load_seconds_l14": load_s, "cpu_run_wait_seconds": cpu_wait_s,
         "clipscore": {"value": clip_value, "unclamped_mean": unclamped, "pairs_per_s": n_pairs / clip_s, "update_ms": update_ms,
-                      "trunk_ms": trunk_ms, "trunk_share": trunk_ms / update_ms},
+                      "trunk_ms": trunk_ms, "trunk_share": trunk_ms / update_ms, "vit_l14_graphs": l14_graphs},
         "clip_iqa": {"images_per_s": n_iqa / iqa_s, "update_ms": iqa_update_ms, "trunk_ms": iqa_trunk_ms,
                      "trunk_share": iqa_trunk_ms / iqa_update_ms,
                      "quality_mean": float(probs["quality"].mean())},
@@ -5929,10 +5960,13 @@ def _same(torch, a, b) -> bool:
 
 
 def _states(metric) -> dict:
-    """Copies of a metric's states (a ring buffer's live rows)."""
+    """Copies of a metric's states (a ring buffer's live rows, each tensor of a list state)."""
     ring = importlib.import_module("torchmetrics_tpu_torch.utilities.ringbuffer").RingBuffer
-    return {n: (v.values() if isinstance(v, ring) else v).clone()
-            for n, v in ((n, getattr(metric, n)) for n in metric._defaults)}
+
+    def copy(v):
+        return [t.clone() for t in v] if isinstance(v, list) else (v.values() if isinstance(v, ring) else v).clone()
+
+    return {n: copy(getattr(metric, n)) for n in metric._defaults}
 
 
 def phase_compiled_path(torch, np, kernel, dev, gen, logits, target, smi: str, batch: int = 1024,
@@ -6275,6 +6309,235 @@ def phase_compiled_stream(torch, kernel, dev, logits, target, order, smi: str, b
         emit(line)
 
 
+# ------------------------------------------------------------ captured_trunks
+def release_graphs(torch) -> None:
+    """Free the graphs of the metrics a phase dropped, and their pools' memory.
+
+    A metric refers back to itself through its wrapped ``update``, so it goes
+    only when Python's collector runs, and with it its graphs and its trunks'
+    (a pool of InceptionV3 at batch 200 holds 3.5 GB).
+    """
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _max_abs_diff(a, b) -> float:
+    """The largest absolute difference between two trees of tensors (inf where shapes differ)."""
+    if isinstance(a, dict):
+        return max((_max_abs_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        return max((_max_abs_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a.double() - b.double()).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+
+
+def _trunk_route(torch, np, make, calls, counters: dict, compiled: bool, replays: bool) -> dict:
+    """One route of a trunk metric: built by ``make(auto_compile)``, fed ``calls``, computed once.
+
+    ``calls`` are ``(signature, args, kwargs)``; where ``replays`` (a class the JAX runtime compiles), from its
+    third call a signature's update is a graph replay on the compiled route, run under
+    ``torch.cuda.set_sync_debug_mode("error")``. The steady part of the stream starts at the first call that
+    sees its signature a third time (after a synchronize). Returns the states, the value, the kernels'
+    launches, the host ms of each update by kind, the steady seconds and the graphs with their pools' bytes.
+    """
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    metric = make(compiled)
+    on_card = metric.device.type == "cuda"
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    seen, host = collections.Counter(), {"first": [], "capture": [], "replay": [], "eager": []}
+    t0 = time.perf_counter()
+    t_steady, steady_calls = None, 0
+    for key, args, kwargs in calls:
+        seen[key] += 1
+        if seen[key] >= 3:
+            if t_steady is None:
+                torch.cuda.synchronize()
+                t_steady = time.perf_counter()
+            steady_calls += 1
+        g0 = compile_mod.stats()
+        replay = compiled and replays and seen[key] >= 3 and on_card
+        h0 = time.perf_counter()
+        with _sync_guard(torch, replay):
+            metric.update(*args, **kwargs)
+        ms = (time.perf_counter() - h0) * 1e3
+        g1 = compile_mod.stats()
+        kind = ("capture" if g1["captured"] > g0["captured"] else "replay" if g1["replayed"] > g0["replayed"]
+                else "first" if seen[key] == 1 else "eager")
+        check(not replay or kind == "replay", f"{type(metric).__name__}: call {seen[key]} of a signature ran {kind}")
+        host[kind].append(ms)
+    torch.cuda.synchronize()
+    t_updates = time.perf_counter() - t0
+    steady_seconds = None if t_steady is None else time.perf_counter() - t_steady
+    np.random.seed(0)  # IS and KID draw their subsets from numpy's global generator
+    value = metric.compute()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: int(c) for name, c in counters.items()}  # BERTScore's encoder runs in compute
+    trunk = next((m for m in metric.modules() if isinstance(m, compile_mod.CapturedForward)), None)
+    graphs = metric.__dict__.get("_auto_update_fn", {})
+    return {
+        "metric": metric, "value": value, "launches": launches, "states": _states(metric),
+        "updates_seconds": t_updates, "seconds": seconds, "steady_seconds": steady_seconds,
+        "steady_calls": steady_calls,
+        "host_ms": {k: {"calls": len(v), "median": statistics.median(v)} for k, v in host.items() if v},
+        "engaged": _engaged(metric), "disabled": metric._auto_disabled, "reason": metric._auto_disabled_reason,
+        "replays_by_signature": sorted(metric._auto_sigs.values()),
+        "metric_graphs": len(graphs),
+        "metric_pool_bytes": compile_mod.pool_bytes(metric.__dict__.get("_graph_pool")),
+        "trunk": trunk is not None, "trunk_graphs": 0 if trunk is None else len(trunk.graphs),
+        "trunk_pool_bytes": 0 if trunk is None else compile_mod.pool_bytes(trunk.pool),
+        "trunk_eager_signatures": 0 if trunk is None else len(trunk.eager),
+    }
+
+
+CAPTURED_TRUNKS = {"fid_batch": 200, "fid_pairs": 10, "lpips_pairs": 50, "lpips_side": 256, "clip": CLIP_B16,
+                   "clip_batch": 64, "bert_pairs": 100, "bert_width": 128, "srmr_batch": 16, "srmr_samples": 128_000,
+                   "bert_memory": (100, 512)}
+
+
+def phase_captured_trunks(torch, np, ce, lh, ka, kb, dev, gen, seed: int, smi: str, npz_folder: str,
+                          sizes=CAPTURED_TRUNKS) -> dict:
+    """The trunk metrics streamed by default (compiled where the JAX runtime compiles) and with ``auto_compile=False``.
+
+    FID (InceptionV3 2048, batches of 200), IS and KID with ``cat_state_capacity=4000``, LPIPS (alex, 50 pairs of
+    256x256), CLIPScore (ViT-B/16, 64 pairs, two caption lists alternating), BERTScore (bert-base, 3 x 100 pairs)
+    and SRMR (16 x 8 s at 16 kHz): the routing of the JAX runtime, states and ``compute()`` bit for bit between the
+    routes, the kernels' launches equal between the routes and per forward, replays under the sync guard, graphs and
+    pool bytes, host ms an update and the rates on each route.
+    """
+    from torchmetrics_tpu_torch.audio import SpeechReverberationModulationEnergyRatio
+    from torchmetrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        InceptionScore,
+        KernelInceptionDistance,
+        LearnedPerceptualImagePatchSimilarity,
+    )
+    from torchmetrics_tpu_torch.multimodal import CLIPScore
+    from torchmetrics_tpu_torch.text import BERTScore
+    from torchmetrics_tpu_torch.text._bert_encoder import BertEncoderExtractor
+
+    t_phase = time.perf_counter()
+    counters = {name: fn.launches for name, fn in (("B2a", ce.matmul_bias_relu), ("B2b", ce.bias_relu_),
+                                                   ("B3", lh.lpips_head), ("B4", ka.attention),
+                                                   ("B5", ka.layernorm_residual), ("S1", kb.biquad_bank))}
+    rng = np.random.default_rng([seed, 49])
+    fb, npairs, lp, side, cb = (sizes[k] for k in ("fid_batch", "fid_pairs", "lpips_pairs", "lpips_side", "clip_batch"))
+    bp, bw, sb = sizes["bert_pairs"], sizes["bert_width"], sizes["srmr_batch"]
+    inception = inception_npz(torch, np, seed, npz_folder, dev, gen)
+    clip_b = clip_npz(torch, np, sizes["clip"], seed + 2, npz_folder, dev)
+    bert = bert_base_npz(torch, np, seed, npz_folder)
+    imgs = [torch.randint(0, 256, (fb, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
+            for _ in range(2 * npairs)]
+    pairs = [(torch.rand((lp, 3, side, side), generator=gen, device=dev) * 2 - 1) for _ in range(20)]
+    clip_side = sizes["clip"]["image_size"]
+    clip_imgs = [natural_images(torch, dev, gen, cb, clip_side, clip_side).float() / 255 for _ in range(6)]
+    caption_lists = [coco_captions(np, rng, cb), coco_captions(np, rng, cb)]
+    texts = token_corpus(np, rng, pairs=3 * bp, width=bw, min_len=10, max_len=min(100, bw), mean_len=min(40.0, bw / 3),
+                         vocab=BERT_BASE["vocab_size"])
+    audio = reverb_utterances(torch, dev, gen, 4 * sb, sizes["srmr_samples"], 16_000)
+    sl = lambda enc, a: {k: v[a:a + bp] for k, v in enc.items()}  # noqa: E731
+
+    cases = {
+        # name: (make(auto_compile), calls, expected route, units, kernels and launches a forward, forwards)
+        "fid": (lambda auto: FrechetInceptionDistance(feature=2048, weights_path=inception, auto_compile=auto),
+                [(r, (imgs[2 * i + r],), {"real": bool(1 - r)}) for i in range(npairs) for r in (0, 1)],
+                "compiled", 2 * npairs * fb, {"B2a": 40, "B2b": 54}, 2 * npairs),
+        "is_capacity": (lambda auto: InceptionScore(weights_path=inception, cat_state_capacity=2 * npairs * fb,
+                                                    auto_compile=auto),
+                        [(0, (imgs[i],), {}) for i in range(npairs)], "compiled", npairs * fb,
+                        {"B2a": 40, "B2b": 54}, npairs),
+        "kid_capacity": (lambda auto: KernelInceptionDistance(weights_path=inception, cat_state_capacity=2 * npairs * fb,
+                                                              subsets=100, subset_size=npairs * fb // 2,
+                                                              auto_compile=auto),
+                         [(r, (imgs[2 * i + r],), {"real": bool(1 - r)}) for i in range(npairs // 2) for r in (0, 1)],
+                         "compiled", npairs * fb, {"B2a": 40, "B2b": 54}, npairs),
+        "lpips_alex": (lambda auto: LearnedPerceptualImagePatchSimilarity(net_type="alex", auto_compile=auto),
+                       [(0, (pairs[2 * i], pairs[2 * i + 1]), {}) for i in range(10)], "compiled", 10 * lp,
+                       {"B3": 5}, 10),
+        # two caption lists alternating, so each signature is seen a third time: a replay
+        "clipscore_vit_b16": (lambda auto: CLIPScore(weights_path=clip_b, tokenizer=ClipTokenizer(), auto_compile=auto),
+                              [(i % 2, (clip_imgs[i], caption_lists[i % 2]), {}) for i in range(6)], "compiled",
+                              6 * cb, {}, 6),
+        "bertscore": (lambda auto: BERTScore(weights_path=bert, max_length=bw, auto_compile=auto),
+                      [(0, (sl(texts[0], bp * i), sl(texts[1], bp * i)), {}) for i in range(3)], "eager", 3 * bp,
+                      {"B4": 12, "B5": 24}, 2),
+        "srmr": (lambda auto: SpeechReverberationModulationEnergyRatio(16_000, auto_compile=auto),
+                 [(0, (audio[sb * i:sb * (i + 1)],), {}) for i in range(4)], "compiled", 4 * sb, {"S1": 2}, 4),
+    }
+    out = {}
+    for name, (make, calls, route, units, per_forward, forwards) in cases.items():
+        compiled, eager = (_trunk_route(torch, np, make, calls, counters, flag, route == "compiled")
+                           for flag in (True, False))
+        states_equal = _same(torch, compiled["states"], eager["states"])
+        value_equal = _same(torch, compiled["value"], eager["value"])
+        diffs = {"states": _max_abs_diff(compiled["states"], eager["states"]),
+                 "value": _max_abs_diff(compiled["value"], eager["value"])}
+        # a kernel on the CPU is its plain version, launching nothing
+        want = {k: per_forward.get(k, 0) * forwards * (dev.type == "cuda") for k in counters}
+        line = {
+            "phase": "captured_trunks", "metric": name, "expected_route": route, "units": units,
+            "states_bit_equal": states_equal, "value_bit_equal": value_equal, "max_abs_diff": diffs,
+            "launches": {"compiled": compiled["launches"], "eager": eager["launches"], "expected": want},
+            "routing": {k: compiled[k] for k in ("engaged", "disabled", "reason", "replays_by_signature")},
+            "graphs": {"metric": compiled["metric_graphs"], "metric_pool_bytes": compiled["metric_pool_bytes"],
+                       "trunk": compiled["trunk_graphs"], "trunk_pool_bytes": compiled["trunk_pool_bytes"],
+                       "eager_route_trunk": eager["trunk_graphs"], "eager_route_trunk_pool_bytes": eager["trunk_pool_bytes"],
+                       "trunk_eager_signatures": {"compiled": compiled["trunk_eager_signatures"],
+                                                  "eager": eager["trunk_eager_signatures"]}},
+            "host_ms_an_update": {"compiled": compiled["host_ms"], "eager": eager["host_ms"]},
+            "seconds": {"compiled": compiled["seconds"], "eager": eager["seconds"]},
+            "units_per_s": {"compiled": units / compiled["seconds"], "eager": units / eager["seconds"]},
+            # from the first call of a signature's third sighting to the end of the updates, no compute
+            "steady_units_per_s": None if route != "compiled" else {
+                r["name"]: None if not r["steady_calls"] else units / len(calls) * r["steady_calls"] / r["steady_seconds"]
+                for r in ({"name": "compiled", **compiled}, {"name": "eager", **eager})},
+            "card": smi,
+        }
+        emit(line)
+        check(states_equal and value_equal, f"{name}: the compiled route differs from auto_compile=False: {diffs}")
+        check(compiled["launches"] == eager["launches"] == want,
+              f"{name}: launches {compiled['launches']} compiled, {eager['launches']} eager, {want} expected")
+        if route == "compiled":
+            check(compiled["engaged"] and compiled["reason"] is None and compiled["metric_graphs"] > 0
+                  and all(v > 0 for v in compiled["replays_by_signature"]),
+                  f"{name}: not compiled: {line['routing']}, {compiled['metric_graphs']} graphs")
+            # the metric's graph holds the only copy of its trunk: a signature's first, eager call runs it inline
+            check(compiled["trunk_graphs"] == 0, f"{name}: {compiled['trunk_graphs']} trunk graphs beside the metric's")
+        else:
+            check(compiled["disabled"] and compiled["metric_graphs"] == 0, f"{name}: compiled, expected eager")
+        check(not eager["engaged"] and eager["metric_graphs"] == 0, f"{name}: auto_compile=False compiled")
+        # eagerly, a trunk that meets a shape again captures it (every trunk here repeats its shapes)
+        check(not eager["trunk"] or dev.type != "cuda" or eager["trunk_graphs"] > 0,
+              f"{name}: the trunk captured nothing on auto_compile=False")
+        out[name] = line
+        del compiled, eager
+        release_graphs(torch)
+
+    # memory of one trunk forward's graph: BERT-base at (100, 512) (ViT-L/14's is in phase 46)
+    encoder = BertEncoderExtractor(bert)
+    ids = torch.randint(1000, BERT_BASE["vocab_size"], sizes["bert_memory"], generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    runs = [encoder(ids, mask) for _ in range(3)]  # eager, captured, replayed
+    check(all(torch.equal(runs[0], r) for r in runs) and len({r.data_ptr() for r in runs}) == 3
+          and len(encoder.captured.graphs) == (dev.type == "cuda"), "BERT-base: eager, capture and replay")
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    memory = {"bert_base_" + "x".join(map(str, sizes["bert_memory"])): {
+        "graphs": len(encoder.captured.graphs), "pool_bytes": compile_mod.pool_bytes(encoder.captured.pool)}}
+    del encoder, runs
+    fid_line = out["fid"]["graphs"]
+    memory["inception_v3_bf16_batch200"] = {"trunk_pool_bytes": fid_line["eager_route_trunk_pool_bytes"],
+                                            "metric_pool_bytes": fid_line["metric_pool_bytes"]}
+    # a trunk's graphs are dropped past this
+    memory["trunk_pool_bound_bytes"] = compile_mod._pool_bound(dev) if dev.type == "cuda" else None
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "captured_trunks", "seconds": seconds, "memory": memory, "graphs": compile_mod.stats(), "card": smi})
+    both = [line["launches"][route] for line in out.values() for route in ("compiled", "eager")]
+    return {"seconds": seconds, "launches": {k: sum(d[k] for d in both) for k in counters}}
+
+
 class _sync_guard:
     """``torch.cuda.set_sync_debug_mode("error")`` for the block (when ``on``): a host sync in it raises."""
 
@@ -6295,9 +6558,10 @@ def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream"), default="all",
+    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks"), default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
-                             "compiled_stream: build, stream the imagenet_val data in the --order given, stop")
+                             "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
+                             "captured_trunks: build, run only the captured_trunks phase, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -6374,6 +6638,12 @@ def main() -> int:
     print(smi, flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.phase == "captured_trunks":
+        with tempfile.TemporaryDirectory() as folder:
+            phase_captured_trunks(torch, np, ce, lh, ka, kb, dev, torch.Generator(device=dev).manual_seed(args.seed + 49),
+                                  args.seed, smi, folder)
+        print(smi, flush=True)
+        return 0
     if args.phase != "all":
         logits, target = imagenet_val_data(torch, dev, gen)
         if args.phase == "compiled_path":
@@ -6604,8 +6874,10 @@ def main() -> int:
     # ------------------------------------------------------- fid_cifar10_10k
     with tempfile.TemporaryDirectory() as folder:
         fid = phase_fid(torch, np, ce, dev, gen, inception_npz(torch, np, args.seed, folder, dev, gen))
+    release_graphs(torch)
     # ----------------------------------------------------------- lpips_pairs
     lpips = phase_lpips(torch, lh, dev, gen)
+    release_graphs(torch)
     # ---------------------------------------------------------- image_timing
     image = phase_image_timing(torch, ce, lh, calls, taps["alex"], dev, gen, smi)
 
@@ -6621,9 +6893,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as folder:
         npz = bert_base_npz(torch, np, args.seed, folder)
         bert = phase_bertscore(torch, np, ka, npz, wmt)
+        release_graphs(torch)
         pairs = token_corpus(np, rng, pairs=128, width=64, min_len=10, max_len=64, mean_len=30.0,
                              vocab=BERT_BASE["vocab_size"])
         info = phase_infolm(torch, np, ka, npz, pairs)
+    release_graphs(torch)
     # ----------------------------------------------------------- text_timing
     text = phase_text_timing(torch, ka, dev, gen, wmt_mask, smi)
 
@@ -6648,6 +6922,7 @@ def main() -> int:
 
     # ------------------------------------------------ the rest of image, phases 28-32
     rest = image_rest(torch, np, ce, lh, dev, gen, args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main)
+    release_graphs(torch)
 
     # ------------------------------- regression, pairwise and retrieval, phases 33-38
     regression_retrieval(torch, np, dev, torch.Generator(device=dev).manual_seed(args.seed + 33), smi,
@@ -6656,35 +6931,45 @@ def main() -> int:
     # ------------------------- clustering, nominal association and the wrappers, phases 39-43
     cnw = clustering_nominal_wrappers(torch, np, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 39),
                                       args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main, logits, target)
+    release_graphs(torch)
 
     # ------------------------- audio, multimodal and segmentation, phases 44-47
     ams = audio_multimodal_segmentation(torch, np, dev, torch.Generator(device=dev).manual_seed(args.seed + 44),
                                         args.seed, smi, kernel_counters(kernel, ce, lh, ka), t_main, AMS_SIZES)
+    release_graphs(torch)
 
     # --------------------------- the compiled update path, last: it profiles graph replays
     compiled = phase_compiled_path(torch, np, kernel, dev, gen, logits, target, smi)
+    release_graphs(torch)
+    # ------------- the trunk metrics on the compiled update, the trunks' own graphs, phase 49
+    with tempfile.TemporaryDirectory() as folder:
+        trunks = phase_captured_trunks(torch, np, ce, lh, ka, kb, dev, torch.Generator(device=dev).manual_seed(args.seed + 49),
+                                       args.seed, smi, folder)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
     big = shapes["ade20k_update"]
     image_kernels = [
         ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"] + rest["kernel_launches"]["matmul_bias_relu"]
-         + cnw["kernel_launches"]["matmul_bias_relu"],
+         + cnw["kernel_launches"]["matmul_bias_relu"] + trunks["launches"]["B2a"],
          conv_checks["worst"]["mm_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
          "one InceptionV3 forward (40 pointwise convs), batch 200, bf16"),
         ("bias_relu", ":96", fid["launches"]["bias_relu"] + rest["kernel_launches"]["bias_relu_"]
-         + cnw["kernel_launches"]["bias_relu_"],
+         + cnw["kernel_launches"]["bias_relu_"] + trunks["launches"]["B2b"],
          conv_checks["worst"]["br_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
          "one InceptionV3 forward (54 spatial convs), batch 200, bf16; queued_ms: the launches queued ahead of the card"),
-        ("lpips_head", ":60", lpips["launches"] + rest["kernel_launches"]["lpips_head"], head_checks["max_abs_err"],
+        ("lpips_head", ":60", lpips["launches"] + rest["kernel_launches"]["lpips_head"] + trunks["launches"]["B3"],
+         head_checks["max_abs_err"],
          "torchmetrics_tpu/_kernels/lpips_head.py", "lpips_head.cu",
          "one alex LPIPS forward (5 taps), 50 pairs of 256x256, bf16 maps, queued_ms"),
     ]
     text_at = "one bertscore_wmt encoder forward (2999, 128, 768), 12 heads, float32"
     image_kernels += [
-        ("attention", ":57", bert["launches"]["attention"] + info["launches"]["attention"], att_checks["max_abs_err"],
+        ("attention", ":57", bert["launches"]["attention"] + info["launches"]["attention"] + trunks["launches"]["B4"],
+         att_checks["max_abs_err"],
          "torchmetrics_tpu/_kernels/attention.py", "attention.cu", text_at + ": 12 launches"),
-        ("layernorm_residual", ":141", bert["launches"]["layernorm_residual"] + info["launches"]["layernorm_residual"],
+        ("layernorm_residual", ":141", bert["launches"]["layernorm_residual"] + info["launches"]["layernorm_residual"]
+         + trunks["launches"]["B5"],
          ln_checks["max_abs_err"], "torchmetrics_tpu/_kernels/attention.py", "layernorm_residual.cu", text_at + ": 24 launches"),
     ]
     timings = {**image, **text}
@@ -6723,7 +7008,7 @@ def main() -> int:
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/biquad.cu",
         "replaces": "torchmetrics_tpu/functional/audio/srmr.py:130 (_biquad's lax.scan at :153; no Pallas kernel)",
-        "launches": ams["s1"]["launches"],
+        "launches": ams["s1"]["launches"] + trunks["launches"]["S1"],
         "max_abs_err": ams["s1"]["max_abs_err"],
         "ms": ams["s1"]["ms"],
         "plain_ms": ams["s1"]["plain_ms"],

@@ -63,6 +63,15 @@ def engaged(m, cache="_auto_update_fn"):
     return bool(m.__dict__.get(cache)) and not m._auto_disabled
 
 
+class _FirstPixels:
+    """A feature extractor for either package: each image's first four values, as floats."""
+
+    num_features = 4
+
+    def __call__(self, imgs):
+        return imgs.reshape(imgs.shape[0], -1)[:, :4] * 1.0
+
+
 def _batches(n=4, b=32, c=5, seed=123):
     rng = _rng(seed)
     return [(rng.random((b, c)).astype(np.float32), rng.integers(0, c, b)) for _ in range(n)]
@@ -520,8 +529,11 @@ class TestExplicitEntryPoints:
         _, tm = pair("MulticlassAccuracy", num_classes=5, auto_compile=False)
         assert tm.precompile(*(torch.from_numpy(a) for a in _batches(1)[0])) == {
             "engaged": False, "reason": "auto path disabled for this instance"}
-        fid = TM.image.FrechetInceptionDistance.__new__(TM.image.FrechetInceptionDistance)
-        assert fid._compiled_update_deferred  # its trunk's capture is a later slice
+        # FID is certified metadata-only: it compiles by default in both packages, its trunk inside the step
+        imgs = _rng(30).integers(0, 256, (6, 3, 4, 4)).astype(np.uint8)
+        reports = [pkg.image.FrechetInceptionDistance(feature=_FirstPixels(), **kw).precompile(to(imgs), real=True)
+                   for pkg, to, kw in ((JM, jnp.asarray, {}), (TM, torch.from_numpy, {"device": "cpu"}))]
+        assert reports[0] == reports[1] == {"engaged": True, "reason": None}
 
     def test_collection_precompile_and_set_dtype(self):
         cols = [cls({"mse": mse(**kw), "mae": mae(**kw)})

@@ -21,6 +21,14 @@ cannot trace; Inductor would swap the port's own kernels for generated ones;
 and a graph is exactly one executable per argument signature, the JAX
 contract. No part of this path is ``torch.compile``.
 
+A trunk's forward (InceptionV3, LPIPS, the BERT encoder and MLM head, the
+CLIP towers) is compiled on its own as well, as the JAX package compiles
+each trunk with ``jax.jit`` whether or not the metric's update is compiled:
+:class:`CapturedForward` captures a trunk's input signature with the same
+:class:`CapturedStep` when it sees it a second time, within a bound on the
+trunk's pool, and runs the trunk inline where a metric's graph will hold it
+(graphs do not nest).
+
 The first call of a signature on the card is that batch's own update: the
 step runs once on the graph's buffers on a side stream (the warm-up, which
 makes every kernel's first launch outside the capture), and is then captured
@@ -32,28 +40,109 @@ wrappers count their launches themselves, replays included
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
 import json
+import threading
 import time
 import warnings
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
-from torch import Tensor
+from torch import Tensor, nn
 
-__all__ = ["CapturedStep", "eligibility_verdict", "layout_key", "overlapping", "static_like", "stats", "warm_up"]
+__all__ = [
+    "CapturedForward",
+    "CapturedStep",
+    "device_constant",
+    "eligibility_verdict",
+    "layout_key",
+    "overlapping",
+    "pool_bytes",
+    "static_like",
+    "stats",
+    "trunks_inline",
+    "warm_up",
+]
 
 _ELIGIBILITY_PATH = Path(__file__).with_name("_eligibility.json")
 
-_STATS = {"captured": 0, "replayed": 0, "capture_seconds": 0.0}
+# a metric's steps under the plain keys, the trunks' forwards under `forward_`
+_STATS = {
+    "captured": 0, "replayed": 0, "capture_seconds": 0.0,
+    "forward_captured": 0, "forward_replayed": 0, "forward_capture_seconds": 0.0,
+}
 
 
 def stats() -> Dict[str, Any]:
-    """Graphs captured and replayed in this process, and the host seconds their captures took."""
+    """Graphs captured and replayed in this process, and the host seconds their captures took.
+
+    ``captured``/``replayed``/``capture_seconds`` count the metrics' update
+    and forward steps; the ``forward_`` keys count the trunks' forwards
+    (:class:`CapturedForward`).
+    """
     return dict(_STATS)
+
+
+# on this thread: the constant stores of the warm-ups and captures running, innermost last (`stack`),
+# and how many `trunks_inline` blocks are open (`inline`)
+_GRAPH_WORK = threading.local()
+
+
+@contextlib.contextmanager
+def _graph_work(constants: Dict[tuple, Tensor]) -> Iterator[None]:
+    """Mark a warm-up or a capture; the host data it copies to the card is kept in ``constants``."""
+    stack = _GRAPH_WORK.__dict__.setdefault("stack", [])
+    stack.append(constants)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+@contextlib.contextmanager
+def trunks_inline(on: bool = True) -> Iterator[None]:
+    """Where ``on``, the trunks' forwards in the block run plainly: no graph of their own is captured or replayed.
+
+    A metric wraps the eager update of a signature it may capture on its next
+    call in this: its graph will hold the trunk, so a graph of the trunk's
+    own beside it would only hold a second pool.
+    """
+    _GRAPH_WORK.inline = getattr(_GRAPH_WORK, "inline", 0) + on
+    try:
+        yield
+    finally:
+        _GRAPH_WORK.inline -= on
+
+
+def device_constant(value: Any, device: torch.device, dtype: Optional[torch.dtype] = None) -> Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)`` for host data a step reads (filter taps, token ids).
+
+    A graph cannot copy from the host while it is captured, and its replays
+    read what the capture saw: the JAX package's ``jit`` bakes such data into
+    its executable as constants. So on the card, inside a warm-up or a
+    capture, the copy is made once for each content (value, dtype, device)
+    and kept in the graph's own store (``CapturedStep.constants``), which
+    lives as long as the graph: the warm-up that precedes every capture
+    makes it, the capture finds it. Elsewhere this is ``torch.as_tensor``.
+    """
+    device = torch.device(device)
+    stack = getattr(_GRAPH_WORK, "stack", None)
+    if device.type != "cuda" or not stack:
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    host = np.ascontiguousarray(value.detach().cpu().numpy() if isinstance(value, Tensor) else np.asarray(value))
+    key = (host.tobytes(), host.shape, host.dtype.str, dtype, device)
+    for store in reversed(stack):
+        if key in store:
+            return store[key]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("device_constant: host data first met during a capture; the warm-up before it made no copy")
+    out = stack[-1][key] = torch.as_tensor(host, dtype=dtype, device=device)
+    return out
 
 
 @functools.lru_cache(maxsize=1)
@@ -88,16 +177,17 @@ def _side_stream(device_index: int) -> "torch.cuda.Stream":
     return torch.cuda.ExternalStream(handle.value, device=torch.device("cuda", device_index))
 
 
-def warm_up(step: Callable, bufs: Dict[str, Any], dyn: List[Tensor], device: torch.device) -> Any:
+def warm_up(step: Callable, bufs: Dict[str, Any], dyn: List[Tensor], device: torch.device, constants: Dict) -> Any:
     """Run ``step`` on the batch ``dyn`` and the graph's buffers ``bufs`` on a side stream: the batch's own update.
 
     The first launch of every kernel happens here, outside the capture: its
-    ``nvcc`` build, its block count and its ``cudaFuncSetAttribute``.
-    Returns the step's output.
+    ``nvcc`` build, its block count and its ``cudaFuncSetAttribute``; so
+    does the copy of the host data the step reads (into ``constants``, the
+    graph's store). Returns the step's output.
     """
     side, current = _side_stream(device.index), torch.cuda.current_stream(device)
     side.wait_stream(current)
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), _graph_work(constants):
         out = step(bufs, dyn)
     current.wait_stream(side)
     return out
@@ -121,6 +211,17 @@ def layout_key(x: Tensor) -> tuple:
     return tuple(x.stride()), x.data_ptr() % 16
 
 
+def pool_bytes(pool: Any) -> int:
+    """Bytes the card holds in a graph memory pool (a metric's ``_graph_pool``, a trunk's ``captured.pool``).
+
+    The pool's segments in the allocator's snapshot; 0 for no pool.
+    """
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 def overlapping(x: Tensor) -> bool:
     """True for a tensor whose elements share memory (an expanded view): no buffer can be copied into its layout."""
     return any(s == 0 and n > 1 for n, s in zip(x.shape, x.stride()))
@@ -134,10 +235,18 @@ class CapturedStep:
     them. ``dyn`` are example inputs of the signature; the graph reads
     private buffers of their layout, into which each replay copies its
     batch. The capture runs nothing, so the buffers keep their values.
+    ``constants`` holds the host data the graph reads (:func:`device_constant`),
+    as its warm-up copied it. ``stat`` prefixes the :func:`stats` keys it
+    counts under.
     """
 
-    def __init__(self, step: Callable, bufs: Dict[str, Any], dyn: List[Tensor], pool: Any, device: torch.device) -> None:
+    def __init__(
+        self, step: Callable, bufs: Dict[str, Any], dyn: List[Tensor], pool: Any, device: torch.device,
+        constants: Dict, stat: str = "",
+    ) -> None:
+        self.stat = stat
         self.bufs = bufs
+        self.constants = constants
         self.inputs = [static_like(d) for d in dyn]
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
@@ -145,6 +254,10 @@ class CapturedStep:
         # which cost tens of milliseconds a capture in a large process
         side, current = _side_stream(device.index), torch.cuda.current_stream(device)
         torch.cuda.synchronize(device)
+        # a capture cannot free the allocator's idle cached blocks (the warm-up's, a trunk's gigabytes of
+        # activations) when its pool runs short: where they exceed what the card has free, give them back now
+        if torch.cuda.mem_get_info(device)[0] < torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device):
+            torch.cuda.empty_cache()
         # the collector must not free another metric's graph during the
         # capture: destroying a graph then invalidates the capture
         collecting = gc.isenabled()
@@ -152,7 +265,7 @@ class CapturedStep:
         # the step's Python repeats its warnings while it is captured: the
         # warm-up gave them for this batch, and each replay's host side does
         try:
-            with torch.cuda.stream(side), warnings.catch_warnings():
+            with torch.cuda.stream(side), warnings.catch_warnings(), _graph_work(constants):
                 warnings.simplefilter("ignore")
                 self.graph.capture_begin(pool)
                 try:
@@ -168,12 +281,116 @@ class CapturedStep:
             if collecting:
                 gc.enable()
         current.wait_stream(side)
-        _STATS["captured"] += 1
-        _STATS["capture_seconds"] += time.perf_counter() - t0
+        _STATS[stat + "captured"] += 1
+        _STATS[stat + "capture_seconds"] += time.perf_counter() - t0
 
     def replay(self, dyn: List[Tensor]) -> Any:
         for static, x in zip(self.inputs, dyn):
             static.copy_(x, non_blocking=True)
         self.graph.replay()
-        _STATS["replayed"] += 1
+        _STATS[self.stat + "replayed"] += 1
         return self.outputs
+
+
+def _pool_bound(device: torch.device) -> int:
+    """The most a trunk's graphs may hold: an eighth of the card's memory."""
+    return torch.cuda.get_device_properties(device).total_memory // 8
+
+
+def _numerics() -> tuple:
+    """The settings outside a trunk that choose its kernels' arithmetic; a capture bakes them into its graph."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    return (
+        torch.is_autocast_enabled("cuda"), torch.get_autocast_dtype("cuda"),
+        matmul.allow_tf32, matmul.allow_fp16_reduced_precision_reduction, matmul.allow_bf16_reduced_precision_reduction,
+        cudnn.enabled, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+    )
+
+
+class CapturedForward(nn.Module):
+    """A trunk's forward as one CUDA graph per input signature (the JAX package's ``jax.jit`` of the trunk).
+
+    ``captured(fn, *inputs, statics=...)`` runs ``fn(*inputs)``, a tensor. The
+    signature is the inputs' shapes, dtypes, devices and layouts, the
+    ``statics`` that choose what ``fn`` computes (a feature tap, a tower, a
+    layer count), as the values a ``jit`` closes over, and the autocast, TF32
+    and cuDNN settings of the call (:func:`_numerics`):
+
+    - on CUDA tensors, the first call of a signature runs ``fn`` eagerly, as
+      a metric runs a signature's first update: a shape met once holds no
+      memory. The second runs ``fn`` on a side stream (the warm-up: this
+      call's result, and every kernel's first launch) and captures it with
+      :class:`CapturedStep`, in one memory pool for all the owner's graphs;
+      later calls copy their inputs into the graph's static inputs and
+      replay it;
+    - the pool holds at most an eighth of the card's memory
+      (:func:`_pool_bound`, about 10.6 GB on an H100 80GB). A graph keeps its
+      activations' memory between calls, where a ``jit`` executable frees
+      its temporaries, and a capture cannot give memory back midway, so it
+      can need far more than an eager call. A capture that leaves the pool
+      larger, or runs out of memory, drops every graph of the trunk (they
+      share the pool, which only that gives back; the others are captured
+      again at their next call), and its signature runs eagerly from then
+      on (``eager``);
+    - inside a metric's warm-up or capture, or a :func:`trunks_inline`
+      block, ``fn`` runs inline, uncounted: the metric's graph holds the
+      trunk (graphs do not nest);
+    - on CPU tensors (and with an expanded view, or an input that needs a
+      gradient) ``fn`` runs eagerly: the plain version.
+
+    A replay writes the graph's own output buffers, which the next replay
+    overwrites, so a replayed call returns copies. Held as a submodule of
+    the trunk: moving or recasting the trunk drops its graphs, which read
+    the old parameters' memory; a pickle or a deep copy holds none.
+    ``pool`` is the graphs' memory pool (:func:`pool_bytes`).
+    """
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.clear()
+
+    def forward(self, fn: Callable[..., Tensor], *inputs: Tensor, statics: tuple = ()) -> Tensor:
+        if not inputs or not all(isinstance(x, Tensor) and x.is_cuda and x.device == inputs[0].device for x in inputs):
+            return fn(*inputs)
+        if getattr(_GRAPH_WORK, "stack", None) or getattr(_GRAPH_WORK, "inline", 0) or torch.cuda.is_current_stream_capturing():
+            return fn(*inputs)
+        if any(overlapping(x) for x in inputs) or (torch.is_grad_enabled() and any(x.requires_grad for x in inputs)):
+            return fn(*inputs)
+        key = (statics, _numerics(), tuple((tuple(x.shape), x.dtype, x.device, *layout_key(x)) for x in inputs))
+        entry = self.graphs.get(key)
+        if entry is not None:
+            return entry.replay(list(inputs)).clone()
+        if key in self.eager or key not in self.seen:
+            self.seen.add(key)
+            return fn(*inputs)
+        device = inputs[0].device
+        step = lambda _bufs, dyn: fn(*dyn)  # noqa: E731
+        out = warm_up(step, {}, list(inputs), device, self.constants)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        try:
+            self.graphs[key] = CapturedStep(step, {}, list(inputs), self.pool, device, self.constants, stat="forward_")
+        except torch.cuda.OutOfMemoryError:
+            pass  # the warm-up gave this call's result
+        if key not in self.graphs or pool_bytes(self.pool) > _pool_bound(device):
+            self.graphs, self.pool, self.constants = {}, None, {}
+            self.eager.add(key)
+        return out
+
+    def clear(self) -> None:
+        """Drop the graphs, their pool and constants, and the signatures seen or kept eager."""
+        self.graphs: Dict[Any, CapturedStep] = {}
+        self.pool: Any = None
+        # the host data the trunk's graphs read, one store for all of them
+        self.constants: Dict[tuple, Tensor] = {}
+        self.seen: set = set()
+        self.eager: set = set()
+
+    def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "CapturedForward":
+        self.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        state = self.__dict__.copy()
+        state.update(graphs={}, pool=None, constants={}, seen=set(), eager=set())
+        return state

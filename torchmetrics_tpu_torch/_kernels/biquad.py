@@ -18,6 +18,7 @@ from typing import Any, Optional
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch._compile import device_constant
 from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch.utilities import nvcc
@@ -86,7 +87,7 @@ def _pack(b: Tensor, a: Tensor, gain: Optional[Tensor], device: torch.device) ->
     coefs[:, : 3 * b.shape[0]] = b.detach().to("cpu", torch.float32).permute(1, 0, 2).reshape(k, -1)
     coefs[:, 12:14] = a.detach().to("cpu", torch.float32)[:, 1:]
     coefs[:, 14] = 1.0 if gain is None else gain.detach().to("cpu", torch.float32)
-    return coefs.to(device)
+    return device_constant(coefs, device)  # a graph's replays read the taps its capture saw
 
 
 def biquad_bank(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor] = None) -> Tensor:

@@ -22,8 +22,6 @@ class SpeechReverberationModulationEnergyRatio(_AveragingAudioMetric):
         True
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     is_differentiable = False
 
     def __init__(

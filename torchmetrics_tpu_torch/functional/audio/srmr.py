@@ -27,7 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from torchmetrics_tpu_torch._compile import device_constant
 from torchmetrics_tpu_torch._kernels.biquad import biquad_bank
+from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -124,7 +126,7 @@ def _hilbert_envelope(x: Tensor) -> Tensor:
     h = np.zeros(n, dtype=np.float64)
     h[0] = h[n // 2] = 1.0
     h[1 : n // 2] = 2.0
-    analytic = torch.fft.ifft(x_fft * torch.from_numpy(h.astype(np.float32)).to(x.device), dim=-1)[..., :time]
+    analytic = torch.fft.ifft(x_fft * device_constant(h.astype(np.float32), x.device), dim=-1)[..., :time]
     return torch.sqrt(analytic.real**2 + analytic.imag**2)
 
 
@@ -168,9 +170,9 @@ def _fft_gtgram(wave: Tensor, fs: int, n_filters: int, low_freq: float) -> Tenso
     win[halff : halff - acthalflen : -1] = halfwin[:acthalflen]
 
     frames = wave.unfold(-1, nfft, nhop)  # [B, cols, nfft]: starts 0, nhop, ... as the JAX gather
-    spec = torch.fft.fft(frames * torch.from_numpy(win.astype(np.float32)).to(wave.device), dim=-1)[..., : nfft // 2 + 1]
+    spec = torch.fft.fft(frames * device_constant(win.astype(np.float32), wave.device), dim=-1)[..., : nfft // 2 + 1]
     weights = _gtgram_fft_weights(nfft, fs, n_filters, float(low_freq), nfft // 2 + 1)
-    weights = torch.from_numpy(weights.astype(np.float32)).to(wave.device)
+    weights = device_constant(weights.astype(np.float32), wave.device)
     with full_fp32():
         return torch.einsum("nf,bcf->bnc", weights, torch.abs(spec)) / nfft
 
@@ -191,7 +193,7 @@ def _frame_energy(mod_out: Tensor, time: int, w_length: int, w_inc: int) -> Tens
         return mod_out.new_zeros((*lead, 0))
     # periodic Hamming over w_length + 1 points, the last dropped (the reference's window)
     window = 0.54 - 0.46 * np.cos(2.0 * pi * np.arange(w_length) / (w_length + 1))
-    w2 = torch.from_numpy((window.astype(np.float32) ** 2)).to(mod_out.device)
+    w2 = device_constant(window.astype(np.float32) ** 2, mod_out.device)
     sq = F.pad(mod_out.reshape(-1, 1, mod_out.shape[-1]) ** 2, (0, pad))
     with full_fp32():  # sum_k (x w)^2 = sum_k x^2 w^2: one strided correlation, no (frames, window) gather
         energy = F.conv1d(sq, w2.reshape(1, 1, -1), stride=w_inc)[:, 0, :num_frames]
@@ -304,13 +306,14 @@ def speech_reverberation_modulation_energy_ratio(
     k90_idx = torch.sum((cum_low_to_high <= 90.0).to(torch.int64), dim=-1).clamp(max=n_ch - 1)
 
     erbs_ascending = np.flipud(_erb_bandwidths(_erb_centre_freqs(fs, n_cochlear_filters, low_freq))).copy()
-    bw = torch.from_numpy(erbs_ascending.astype(np.float32)).to(preds.device)[k90_idx]  # [B]
+    bw = device_constant(erbs_ascending.astype(np.float32), preds.device)[k90_idx]  # [B]
 
     # k* = the highest modulation band whose lower cutoff lies below the bandwidth (the reference's chained elifs)
     cuts = [float(np.float32(v)) for v in cutoffs]
     above = [(bw >= cuts[i]).to(torch.int64) for i in (5, 6, 7)]
     kstar = 5 + above[0] + above[0] * above[1] + above[0] * above[1] * above[2]
-    if bool(torch.any(bw < cuts[4])):  # one host read an update, as in the JAX package
+    # one host read an update, as in the JAX package, which skips it under a trace
+    if not _in_compiled_step() and bool(torch.any(bw < cuts[4])):
         raise ValueError("Something wrong with the cutoffs compared to bw values.")
 
     band_idx = torch.arange(8, device=preds.device)

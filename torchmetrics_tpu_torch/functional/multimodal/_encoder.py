@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from torchmetrics_tpu_torch._compile import device_constant
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.utilities import _threefry
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
@@ -71,6 +72,6 @@ class RandomProjectionClipEncoder:
         feats = []
         for sentence in text:
             tokens = sentence.lower().split() or [""]
-            ids = torch.tensor([_token_hash(tok) for tok in tokens], dtype=torch.int64, device=self.device)
+            ids = device_constant([_token_hash(tok) for tok in tokens], self.device, torch.int64)
             feats.append(torch.mean(_threefry.normal_rows(_TEXT_SEED, ids, _EMBED_DIM), dim=0))
         return torch.stack(feats)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from torchmetrics_tpu_torch._compile import CapturedForward
 from torchmetrics_tpu_torch._kernels.conv_epilogue import conv_bias_act
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
@@ -377,14 +378,21 @@ class InceptionFeatureExtractor(nn.Module):
         if weights_dtype is not None:
             net = net.to(weights_dtype)
         self.net = net.to(device=device, memory_format=torch.channels_last).eval().requires_grad_(False)
+        self.captured = CapturedForward()
 
     @property
     def device(self) -> torch.device:
         return self.net.fc.weight.device
 
     def forward(self, imgs: Tensor) -> Tensor:
-        """``imgs``: ``(N, 3, H, W)`` uint8 in [0, 255] or float in [0, 1]; returns ``(N, d)`` float32."""
+        """``imgs``: ``(N, 3, H, W)`` uint8 in [0, 255] or float in [0, 1]; returns ``(N, d)`` float32.
+
+        On the card, one CUDA graph per input shape and dtype (the JAX package's ``jit``).
+        """
         imgs = torch.as_tensor(imgs, device=self.device)
+        return self.captured(self._features, imgs, statics=(self.feature,))
+
+    def _features(self, imgs: Tensor) -> Tensor:
         with torch.no_grad():
             # torch-fidelity's preprocessing: floats in [0, 1] take the byte cast
             # (floor to 0..255), then the TF1.x resize, then (x - 128) / 128

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from torchmetrics_tpu_torch._compile import CapturedForward, device_constant
 from torchmetrics_tpu_torch._kernels.lpips_head import lpips_head
 from torchmetrics_tpu_torch.image._inception import init_weights_
 from torchmetrics_tpu_torch.metric import _resolve_device
@@ -158,8 +159,8 @@ class LPIPSNet(nn.Module):
 
     def forward(self, img0: Tensor, img1: Tensor) -> Tensor:
         # imgs: (N, 3, H, W) in [-1, 1], ImageNet scaling
-        shift = torch.tensor(_SHIFT, device=img0.device).view(1, 3, 1, 1)
-        scale = torch.tensor(_SCALE, device=img0.device).view(1, 3, 1, 1)
+        shift = device_constant(_SHIFT, img0.device, torch.float32).view(1, 3, 1, 1)
+        scale = device_constant(_SCALE, img0.device, torch.float32).view(1, 3, 1, 1)
         n = img0.shape[0]
         # one trunk pass over the concatenated pair batch; each tap's halves are
         # channels_last views, so their (B, H, W, C) permutes need no copy
@@ -215,14 +216,18 @@ class LPIPSExtractor(nn.Module):
             )
             init_weights_(net, seed)
         self.net = net.to(device=device, memory_format=torch.channels_last).eval().requires_grad_(False)
+        self.captured = CapturedForward()
 
     @property
     def device(self) -> torch.device:
         return self.net.lin0.weight.device
 
     def forward(self, img0: Tensor, img1: Tensor) -> Tensor:
-        """``(N,)`` distances of ``(N, 3, H, W)`` image pairs in [-1, 1]."""
+        """``(N,)`` distances of ``(N, 3, H, W)`` image pairs in [-1, 1]; on the card one CUDA graph per input shape."""
+        img0 = torch.as_tensor(img0, device=self.device).float()
+        img1 = torch.as_tensor(img1, device=self.device).float()
+        return self.captured(self._distances, img0, img1)
+
+    def _distances(self, img0: Tensor, img1: Tensor) -> Tensor:
         with torch.no_grad():
-            img0 = torch.as_tensor(img0, device=self.device).float()
-            img1 = torch.as_tensor(img1, device=self.device).float()
             return self.net(img0, img1)

@@ -54,8 +54,6 @@ class FrechetInceptionDistance(Metric):
             built-in trunk lives on the metric's device.
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     higher_is_better: bool = False
     is_differentiable: bool = False
     full_state_update: bool = False

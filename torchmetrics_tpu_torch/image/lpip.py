@@ -24,8 +24,6 @@ class LearnedPerceptualImagePatchSimilarity(Metric):
             built-in network lives on the metric's device.
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     is_differentiable: bool = True
     higher_is_better: bool = False
     full_state_update: bool = False

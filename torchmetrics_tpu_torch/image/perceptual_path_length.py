@@ -137,8 +137,6 @@ class PerceptualPathLength(Metric):
     the LPIPS-VGG network.
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     is_differentiable: bool = False
     higher_is_better: bool = False
     full_state_update: bool = True

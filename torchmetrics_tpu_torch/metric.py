@@ -73,7 +73,12 @@ _STR_REDUCTIONS = {
 
 def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        # `cuda` names the current card: give it its index, as a tensor's device has one (the compiled
+        # path takes a batch whose device equals the metric's)
+        if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "No CUDA device is available, and metric states live on `cuda` unless a device is given."
@@ -215,10 +220,6 @@ class Metric(nn.Module, ABC):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
-    # True where the update runs an encoder trunk (kernels B2a, B2b, B3, B4,
-    # B5) or SRMR's filterbanks (S1): those updates stream eagerly until
-    # their capture is ported (ROADMAP item 6b)
-    _compiled_update_deferred: bool = False
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -507,6 +508,8 @@ class Metric(nn.Module, ABC):
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
             if self._try_auto_update(args, kwargs):
                 return
+            # the first call of a signature the next call captures: that graph will hold the trunk
+            capture_next = self.__dict__.pop("_auto_capture_next", False)
             self._check_pending_violations()
             self._computed = None
             if self._states_aliased:
@@ -517,7 +520,8 @@ class Metric(nn.Module, ABC):
             guard = self._auto_eligible()
             if guard:
                 before, _keepalive = self._host_attr_snapshot()
-            update(*args, **kwargs)
+            with _compile.trunks_inline(capture_next):
+                update(*args, **kwargs)
             if guard and self._host_attr_snapshot()[0] != before:
                 self._disable_auto("update mutated unregistered host attributes")
             if self._dtype_policy is not None:
@@ -570,7 +574,6 @@ class Metric(nn.Module, ABC):
         return (
             self.auto_compile
             and not self._auto_disabled
-            and not self._compiled_update_deferred
             and not self.compute_on_cpu
             and (
                 getattr(self, "validate_args", None) is not True
@@ -1007,15 +1010,15 @@ class Metric(nn.Module, ABC):
             return out
         entry = cache.get(key)
         if entry is None:
-            step = build()
+            step, constants = build(), {}
             bufs = self._step_bufs(names, validate, count, private=True)
-            out = _compile.warm_up(step, bufs, dynamic, self._device)
+            out = _compile.warm_up(step, bufs, dynamic, self._device, constants)
             rings = {n: (b.count, b._warned_overflow) for n, b in bufs.items() if isinstance(b, RingBuffer)}
             # one memory pool for the metric's graphs; a pool whose graphs are all
             # gone is not reused (the allocator frees it lazily), so it gets a new one
             if not self._graph_buffer_ids():
                 self.__dict__["_graph_pool"] = torch.cuda.graph_pool_handle()
-            entry = _compile.CapturedStep(step, bufs, dynamic, self.__dict__["_graph_pool"], self._device)
+            entry = _compile.CapturedStep(step, bufs, dynamic, self.__dict__["_graph_pool"], self._device, constants)
             # the capture ran the step's Python but no kernel: put back the host side of each ring
             entry.ring_deltas = {n: bufs[n].count - c for n, (c, _) in rings.items()}
             for n, (c, warned) in rings.items():
@@ -1128,6 +1131,7 @@ class Metric(nn.Module, ABC):
         if sig not in seen:
             if len(seen) < self._AUTO_MAX_SIGNATURES:
                 seen[sig] = 0  # the first call runs eagerly (validation + warm-up)
+                self.__dict__["_auto_capture_next"] = True
             return False
         try:
             names = self._auto_state_names("update")
@@ -1250,12 +1254,11 @@ class Metric(nn.Module, ABC):
         """
         report: Dict[str, Any] = {"engaged": False, "reason": None}
         if not self._auto_eligible():
-            if self._auto_disabled or not self.auto_compile:
-                report["reason"] = "auto path disabled for this instance"
-            elif self._compiled_update_deferred:
-                report["reason"] = "class streams eagerly (its trunk's capture is not ported yet)"
-            else:
-                report["reason"] = "class streams eagerly (not certified for the compiled default path)"
+            report["reason"] = (
+                "auto path disabled for this instance"
+                if (self._auto_disabled or not self.auto_compile)
+                else "class streams eagerly (not certified for the compiled default path)"
+            )
             return report
         stash = self._stash_states(deep=True)
         saved_count, saved_computed = self._update_count, self._computed
@@ -1285,7 +1288,8 @@ class Metric(nn.Module, ABC):
             self._restore_state(stash)
         report["engaged"] = "_auto_update_fn" in self.__dict__ and not self._auto_disabled
         if not report["engaged"]:
-            report["reason"] = self._auto_disabled_reason or "update did not compile"
+            # the JAX package's words; the cause is in `_auto_disabled_reason` (the JAX package sends it to telemetry)
+            report["reason"] = "update did not compile (see `_auto_disabled_reason`)"
         return report
 
     def jit_update(self, *args: Any, **kwargs: Any) -> None:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from torchmetrics_tpu_torch._compile import CapturedForward, device_constant
 from torchmetrics_tpu_torch.functional.image.d_s import _resize_bilinear
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.text._bert_encoder import _LayerNorm
@@ -258,23 +259,28 @@ class ClipExtractor(nn.Module):
         net = build_on_cpu(_ClipModel, config, dtype=dtype)
         net.load_state_dict(state)
         self.net = net.to(device=_resolve_device(device)).eval().requires_grad_(False)
+        self.captured = CapturedForward()
 
     @property
     def device(self) -> torch.device:
         return self.net.visual_projection.weight.device
 
     def get_image_features(self, images: Any) -> Tensor:
+        """On the card, one CUDA graph per input shape and dtype (the JAX package's ``jit`` of the image tower)."""
+        return self.captured(self._image_features, torch.as_tensor(images, device=self.device), statics=("image",))
+
+    def _image_features(self, imgs: Tensor) -> Tensor:
         size = self.config.image_size
         with torch.no_grad(), full_fp32():
-            imgs = torch.as_tensor(images, device=self.device)
             imgs = imgs.to(torch.float32) / 255.0 if imgs.dtype == torch.uint8 else imgs.to(torch.float32)
             if tuple(imgs.shape[-2:]) != (size, size):
                 imgs = _resize_bilinear(imgs, (size, size))
-            mean = torch.tensor(_CLIP_MEAN, dtype=torch.float32, device=self.device).reshape(1, 3, 1, 1)
-            std = torch.tensor(_CLIP_STD, dtype=torch.float32, device=self.device).reshape(1, 3, 1, 1)
+            mean = device_constant(_CLIP_MEAN, imgs.device, torch.float32).reshape(1, 3, 1, 1)
+            std = device_constant(_CLIP_STD, imgs.device, torch.float32).reshape(1, 3, 1, 1)
             return self.net.image_features((imgs - mean) / std)
 
     def get_text_features(self, text: Any) -> Tensor:
+        """Tokenized on the host; on the card the tower is one CUDA graph per ``(B, L)`` (the JAX package's ``jit``)."""
         if isinstance(text, dict):
             enc = text
         else:
@@ -287,13 +293,15 @@ class ClipExtractor(nn.Module):
             enc = self.tokenizer(list(text) if not isinstance(text, str) else [text])
         # never index past the position table (CLIP: 77); a row that loses its EOS to the cut gets it back
         width = self.config.max_position
-        ids = torch.as_tensor(np.asarray(enc["input_ids"]) if not isinstance(enc["input_ids"], Tensor)
-                              else enc["input_ids"], device=self.device).to(torch.int64)
-        mask = torch.as_tensor(np.asarray(enc["attention_mask"]) if not isinstance(enc["attention_mask"], Tensor)
-                               else enc["attention_mask"], device=self.device)
+        ids, mask = (enc[k] if isinstance(enc[k], Tensor) else device_constant(np.asarray(enc[k]), self.device)
+                     for k in ("input_ids", "attention_mask"))
+        ids, mask = ids.to(device=self.device, dtype=torch.int64), mask.to(self.device)
         if ids.shape[1] > width:
             ids, mask = ids[:, :width].clone(), mask[:, :width]
             missing = ~(ids == self.config.eos_token_id).any(dim=1)
-            ids[missing, -1] = self.config.eos_token_id
+            ids[:, -1] = torch.where(missing, self.config.eos_token_id, ids[:, -1])
+        return self.captured(self._text_features, ids, mask, statics=("text",))
+
+    def _text_features(self, ids: Tensor, mask: Tensor) -> Tensor:
         with torch.no_grad(), full_fp32():
             return self.net.text_features(ids, mask)

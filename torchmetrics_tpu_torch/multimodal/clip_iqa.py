@@ -25,8 +25,6 @@ class CLIPImageQualityAssessment(Metric):
     as :class:`~torchmetrics_tpu_torch.multimodal.CLIPScore` does.
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     is_differentiable = False
     higher_is_better = True
     full_state_update = False

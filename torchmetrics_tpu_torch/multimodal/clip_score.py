@@ -26,8 +26,6 @@ class CLIPScore(Metric):
         >>> score = metric(img, "a photo of a cat")  # doctest: +SKIP
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     is_differentiable = False
     higher_is_better = True
     full_state_update = True

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from torchmetrics_tpu_torch._compile import CapturedForward
 from torchmetrics_tpu_torch._kernels.attention import attention, attention_plain, layernorm_residual
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
@@ -217,15 +218,20 @@ class BertEncoderExtractor(nn.Module):
         self.net = _load(weights_path, compute_dtype, unfused, _resolve_device(device))
         self.config = self.net.config
         self.num_layers = num_layers
+        self.captured = CapturedForward()
 
     @property
     def device(self) -> torch.device:
         return self.net.bert.word_embeddings.weight.device
 
     def forward(self, input_ids, attention_mask) -> Tensor:
+        """On the card, one CUDA graph per ``(B, L)`` and dtypes (the JAX package's ``jit``)."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        mask = torch.as_tensor(attention_mask, device=self.device)
+        return self.captured(self._hidden, ids, mask, statics=(self.num_layers,))
+
+    def _hidden(self, ids: Tensor, mask: Tensor) -> Tensor:
         with torch.no_grad(), full_fp32():
-            ids = torch.as_tensor(input_ids, device=self.device)
-            mask = torch.as_tensor(attention_mask, device=self.device)
             return self.net.bert(ids, mask, self.num_layers)
 
 
@@ -252,20 +258,37 @@ class BertMLMExtractor(nn.Module):
             )
         self.net = net
         self.config = net.config
+        self.captured = CapturedForward()
 
     @property
     def device(self) -> torch.device:
         return self.net.bert.word_embeddings.weight.device
 
-    def _hidden(self, input_ids, attention_mask) -> Tensor:
-        ids = torch.as_tensor(input_ids, device=self.device)
-        return self.net.bert(ids, torch.as_tensor(attention_mask, device=self.device))
-
     def forward(self, input_ids, attention_mask) -> Tensor:
-        with torch.no_grad(), full_fp32():
-            return self.net.mlm(self._hidden(input_ids, attention_mask))
+        """On the card, one CUDA graph per ``(B, L)`` and dtypes (the JAX package's ``jit``)."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        mask = torch.as_tensor(attention_mask, device=self.device)
+        return self.captured(self._logits, ids, mask, statics=("all",))
 
     def logits_at(self, input_ids, attention_mask, index: int) -> Tensor:
-        """``(B, vocab)`` logits at position ``index``: ``self(ids, mask)[:, index]`` with the head run there only."""
+        """``(B, vocab)`` logits at position ``index``: ``self(ids, mask)[:, index]`` with the head run there only.
+
+        The position is an input of the graph, not a static: one graph per
+        ``(B, L)`` serves every position.
+        """
+        ids = torch.as_tensor(input_ids, device=self.device)
+        mask = torch.as_tensor(attention_mask, device=self.device)
+        length = ids.shape[1]
+        if not -length <= index < length:
+            raise IndexError(f"position {index} is outside the sequence's {length} tokens")
+        # a fresh one-element tensor: the allocator aligns it alike every call, so one layout keys every position
+        at = torch.full((1,), index % length, dtype=torch.int64, device=ids.device)
+        return self.captured(self._logits_at, ids, mask, at, statics=("at",))
+
+    def _logits(self, ids: Tensor, mask: Tensor) -> Tensor:
         with torch.no_grad(), full_fp32():
-            return self.net.mlm(self._hidden(input_ids, attention_mask)[:, index])
+            return self.net.mlm(self.net.bert(ids, mask))
+
+    def _logits_at(self, ids: Tensor, mask: Tensor, at: Tensor) -> Tensor:
+        with torch.no_grad(), full_fp32():
+            return self.net.mlm(self.net.bert(ids, mask).index_select(1, at)[:, 0])

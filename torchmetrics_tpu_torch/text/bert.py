@@ -34,8 +34,6 @@ class BERTScore(Metric):
     encoder, and without either the JAX package's hash embedding is.
     """
 
-    _compiled_update_deferred = True  # its trunk streams eagerly (ROADMAP item 6b)
-
     is_differentiable = False
     higher_is_better = True
     full_state_update = False

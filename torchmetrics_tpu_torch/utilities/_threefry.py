@@ -27,6 +27,8 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from torchmetrics_tpu_torch._compile import device_constant
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # XLA's ErfInv32 coefficients (Giles, "Approximating the erfinv function"), for w < 5 and w >= 5
@@ -59,7 +61,7 @@ def threefry2x32(k1: Tensor, k2: Tensor, x1: Tensor, x2: Tensor) -> Tuple[Tensor
 
 def prng_key(seed: int, device=None) -> Tensor:
     """``jax.random.PRNGKey(seed)``'s key words for a 32-bit seed: ``[0, seed]`` as int64 of shape ``(2,)``."""
-    return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
+    return device_constant([0, seed & _MASK], torch.device(device if device is not None else "cpu"), torch.int64)
 
 
 def fold_in(key: Tensor, data: Tensor) -> Tensor:
@@ -96,9 +98,9 @@ def normal(keys: Tensor, n: int) -> Tensor:
     bits = random_bits(keys, n)
     # (bits >> 9) | bits of 1.0f is a float32 in [1, 2); the int32 view of a word below 2**31 is the word itself
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(-(1.0 - 2.0**-24), dtype=torch.float32, device=keys.device)  # float32's nextafter(-1, 0)
+    lo = torch.full((), -(1.0 - 2.0**-24), dtype=torch.float32, device=keys.device)  # float32's nextafter(-1, 0)
     u = torch.maximum(lo, f * 2.0 + lo)  # (1 - lo) rounds to 2.0 in float32, as in jax.random.uniform
-    return torch.tensor(math.sqrt(2), dtype=torch.float32, device=keys.device) * _erfinv_xla(u)
+    return torch.full((), math.sqrt(2), dtype=torch.float32, device=keys.device) * _erfinv_xla(u)
 
 
 def normal_rows(seed: int, ids: Tensor, n: int) -> Tensor:
