@@ -330,6 +330,18 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     graphs and pool bytes, host ms an update and the rates on each route
     (``--phase captured_trunks`` runs the build and this phase alone);
 
+50. ``observability``: the runtime telemetry (``_observability``) on the
+    card. The compiled imagenet_val collection of phase 48 for 100 updates
+    with every switch off (no telemetry object, no span, no ledger entry, B1
+    once an update) and again with telemetry, tracing and profiling on (the
+    counters the routes imply, one span a call, a Chrome trace that parses,
+    and the ledger's CUDA-event device seconds within 10% of an outer event
+    pair around the same updates, queued behind a sleep so the card runs
+    them back to back), the host ms an update each way; 10 compiled FID
+    batches of 200 with their counted flops an image and the MFU gauge; a
+    flight dump of an ``auto_path_disabled`` event (``--phase
+    observability`` runs the build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1-B5 and S1) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
@@ -340,6 +352,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import gc
 import importlib
 import json
@@ -1986,7 +1999,7 @@ def phase_text_timing(torch, ka, dev, gen, mask, smi: str) -> dict:
     # B4 float32 runs its products on the tensor cores in three TF32 passes: 3x the operations at the TF32
     # peak, which stays under the bytes; the float32 FMA bound of the earlier kernel is kept beside it
     cost = ka.attention_cost(q, k, v, mask, num_heads=heads)
-    att_bound, att_by = bound_ms(cost._replace(flops=3 * cost.flops), TF32_FLOPS_PER_S)
+    att_bound, att_by = bound_ms(dataclasses.replace(cost, flops=3 * cost.flops), TF32_FLOPS_PER_S)
     rows["attention"] = {
         "count": BERT_BASE["num_layers"], "bound_ms": att_bound, "bound_by": att_by,
         "bound_ms_fma": bound_ms(cost, F32_FLOPS_PER_S)[0],
@@ -4986,10 +4999,11 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
     alone_members = members()
     alone_s, alone_launches = stream(lambda imgs, is_real: [m.update(imgs, real=is_real) for m in alone_members])
     forwards = 2 * n_img // img_batch
-    # FID compiles, as the JAX runtime compiles it: from the third call of a signature its graph runs its own
-    # trunk inline, beside the cached forward KID and MiFID share, so each batch from the fifth runs two forwards
-    # (the JAX package's executable traces the trunk the same way)
-    shared_forwards = forwards + max(forwards - 4, 0)
+    # the members stay eager (where the JAX runtime compiles FID): one cached trunk forward a batch serves all three,
+    # and the trunk replays its own graph from its second call
+    shared_forwards = forwards
+    check(all(m._auto_disabled and "FeatureShare" in m._auto_disabled_reason for m in shared_members),
+          "a FeatureShare member compiles")
     check(shared_launches == (40 * shared_forwards, 54 * shared_forwards),
           f"shared trunk launches {shared_launches}, {forwards} batches, {shared_forwards} forwards expected")
     check(alone_launches == (120 * forwards, 162 * forwards), f"unshared trunk launches {alone_launches}")
@@ -5013,6 +5027,9 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
                             "launches_per_batch": [shared_launches[0] / forwards, shared_launches[1] / forwards],
                             "unshared_launches_per_batch": [alone_launches[0] / forwards, alone_launches[1] / forwards],
                             "images_per_s_shared": 2 * n_img / shared_s, "images_per_s_unshared": 2 * n_img / alone_s,
+                            # the shared rate when every member and the trunk streamed eagerly, one forward a
+                            # batch (NVIDIA H100 80GB HBM3, 700.00 W)
+                            "images_per_s_shared_all_eager": 7178,
                             "values_bitwise_equal": bitwise}
     out["trunk_launches"] = {"matmul_bias_relu": int(ce.matmul_bias_relu.launches) - trunk0[0],
                              "bias_relu_": int(ce.bias_relu_.launches) - trunk0[1]}
@@ -6309,6 +6326,236 @@ def phase_compiled_stream(torch, kernel, dev, logits, target, order, smi: str, b
         emit(line)
 
 
+# ------------------------------------------------------------ observability
+OBS_SIZES = {"updates": 100, "chunk": 20, "batch": 1024, "fid_batches": 10, "fid_batch": 200, "trunk_batches": 4,
+             "sleep_cycles": 200_000_000}
+LEDGER_RTOL = 0.10  # the ledger's device seconds against one outer event pair: the gaps between replays are not in it
+
+
+def phase_observability(torch, np, kernel, ce, dev, gen, logits, target, npz_folder: str, seed: int, smi: str,
+                        sizes=OBS_SIZES) -> dict:
+    """The runtime telemetry on the card: switches off, switches on, the FID gauges and a flight dump.
+
+    The imagenet_val collection of phase 48 (macro accuracy, the 1,000-class confusion-matrix group, a mean
+    cross-entropy), compiled, streams ``updates`` batches after two warm-up calls (the first eager, the second
+    captured), in chunks of ``chunk`` queued behind a ``torch.cuda._sleep`` so the card runs each chunk's replays
+    back to back. Off: no telemetry object, no span, no ledger bucket, B1 once an update. On (telemetry, tracing,
+    profiling): the counters the routes imply, one span a call, a Chrome trace that parses, and the ledger's
+    device seconds (one CUDA event pair a replay) within ``LEDGER_RTOL`` of the outer pairs around the chunks.
+    Then ``fid_batches`` compiled FID updates of ``fid_batch`` (the capture counts the flops), ``trunk_batches``
+    more on ``auto_compile=False`` (the trunk's own graph: a ``trunk_forward`` compile event and ledger seam),
+    and one ``auto_path_disabled`` event frozen by the flight recorder into a temporary directory.
+    """
+    import torch.nn.functional as F
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    obs = importlib.import_module("torchmetrics_tpu_torch._observability")
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    t_phase = time.perf_counter()
+    n, chunk, batch = sizes["updates"], sizes["chunk"], sizes["batch"]
+    c_in = logits.shape[1]
+    starts = list(range(0, logits.shape[0] - batch + 1, batch))  # full batches: one signature
+    ce_all = F.cross_entropy(logits, target, reduction="none")
+    b1 = kernel.confusion_matrix_cuda.launches
+    check(not (obs.OBS.enabled or obs.OBS.tracing or obs.OBS.profiling), "a telemetry switch is on by default")
+
+    def stream() -> dict:
+        kw = {"device": dev}
+        mc = tp.MetricCollection({
+            "acc": tp.classification.MulticlassAccuracy(num_classes=c_in, average="macro", **kw),
+            "cm": tp.classification.MulticlassConfusionMatrix(num_classes=c_in, **kw),
+            "jac": tp.classification.MulticlassJaccardIndex(num_classes=c_in, **kw),
+            "mcc": tp.classification.MulticlassMatthewsCorrCoef(num_classes=c_in, **kw),
+        })
+        mean_ce = tp.MeanMetric(**kw)
+        batches = [(logits[s:s + batch], target[s:s + batch], ce_all[s:s + batch]) for s in starts]
+
+        def update(i):
+            p, t, c = batches[i % len(batches)]
+            mc.update(p, t)
+            mean_ce.update(c)
+
+        b1_start = int(b1)
+        for i in range(2):  # the signature's first call (eager) and its capture
+            update(i)
+        torch.cuda.synchronize()
+        obs.LEDGER.reset()  # from here the ledger holds the steady replays alone
+        b1_0, spans_0 = int(b1), obs.TRACER.recorded
+        host_ms, outer_ms = [], 0.0
+        for lo in range(0, n, chunk):
+            torch.cuda._sleep(sizes["sleep_cycles"])  # the chunk queues up behind it, then runs back to back
+            t_span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            t_span[0].record()
+            for i in range(lo, min(lo + chunk, n)):
+                h0 = time.perf_counter()
+                update(2 + i)
+                host_ms.append((time.perf_counter() - h0) * 1e3)
+            t_span[1].record()
+            t_span[1].synchronize()
+            outer_ms += t_span[0].elapsed_time(t_span[1])
+        b1_end = int(b1)
+        return {"mc": mc, "mean_ce": mean_ce, "host_ms": host_ms, "outer_ms": outer_ms, "b1_launches": b1_end - b1_start,
+                "b1_per_update": (b1_end - b1_0) / n, "spans": obs.TRACER.recorded - spans_0}
+
+    # ------------------------------------------------------------ switches off
+    obs.REGISTRY.reset()
+    obs.TRACER.clear()
+    obs.reset_ledger()
+    off = stream()
+    members = [m for _, m in off["mc"].items(keep_base=True)] + [off["mean_ce"]]
+    check(not obs.REGISTRY.telemetries() and not any("_telem" in m.__dict__ for m in members),
+          "switches off: a telemetry object was made")
+    check(obs.TRACER.recorded == 0 and not obs.LEDGER.snapshot()["seams"], "switches off: a span or a ledger entry")
+    check(off["b1_per_update"] == 1, f"switches off: B1 {off['b1_per_update']} an update")
+    check(all(_engaged(m) for m in (off["mc"]["acc"], off["mc"]["cm"], off["mean_ce"])), "switches off: not compiled")
+    off_line = {"host_ms_per_update": statistics.median(off["host_ms"]), "outer_pair_ms": off["outer_ms"],
+                "b1_per_update": off["b1_per_update"]}
+    b1_launches = off["b1_launches"]
+    del off, members
+    release_graphs(torch)
+
+    # ------------------------------------------------------------- switches on
+    obs.set_telemetry_enabled(True)
+    obs.set_tracing_enabled(True)
+    obs.set_profiling_enabled(True)
+    try:
+        on = stream()
+        ledger = obs.LEDGER.snapshot()  # waits for every pending event pair
+        trace = json.loads(json.dumps(obs.export_chrome_trace()))
+        reports = on["mc"].telemetry_report()
+        reports["mean_ce"] = on["mean_ce"].telemetry_report()
+    finally:
+        obs.set_profiling_enabled(False)
+        obs.set_tracing_enabled(False)
+    # the routes the stream implies: every member's first call eager, then the group heads (acc, cm) and the
+    # mean replay; jac and mcc read the head's states
+    total = n + 2
+    heads = {"acc": "MulticlassAccuracy", "cm": "MulticlassConfusionMatrix", "mean_ce": "MeanMetric"}
+    for name, rep in reports.items():
+        head = name in heads
+        want = {"compiles|kind=auto_update": 1, "fingerprint|outcome=check": 1, "update_calls|path=eager": 1}
+        if head:
+            want.update({"update_calls|path=auto_compiled": total - 1})
+        got = {k: v for k, v in rep.counters.items() if not k.startswith("latency_") and k != "trace_seconds"}
+        check(got == want and (not head or rep.counters.get("trace_seconds", 0) > 0),
+              f"switches on: {name} counters {got}, expected {want}")
+    # one span a collection update, one a head's update and a mean update; the first update reaches all four members
+    want_spans = n * (1 + 2 + 1)
+    check(on["spans"] == want_spans, f"switches on: {on['spans']} spans for {n} updates, expected {want_spans}")
+    check(len(trace["traceEvents"]) == len(obs.TRACER.spans()) and trace["displayTimeUnit"] == "ms",
+          "switches on: the Chrome trace does not hold the spans")
+    rows = {(r["seam"], r["class"]): r for r in ledger["seams"]}
+    check(set(rows) == {("update_compiled", c) for c in heads.values()} and all(r["steps"] == n for r in rows.values()),
+          f"switches on: ledger buckets {[(k, r['steps']) for k, r in rows.items()]}")
+    device_ms = 1e3 * sum(r["device_seconds"] for r in rows.values())
+    check(abs(device_ms - on["outer_ms"]) <= LEDGER_RTOL * on["outer_ms"],
+          f"switches on: ledger {device_ms} ms against an outer pair's {on['outer_ms']} ms")
+    check(on["b1_per_update"] == 1 and on["b1_launches"] == b1_launches,
+          f"switches on: B1 {on['b1_per_update']} an update, {on['b1_launches']} in the stream (off: {b1_launches})")
+    b1_launches += on["b1_launches"]
+    on_line = {"host_ms_per_update": statistics.median(on["host_ms"]), "b1_per_update": on["b1_per_update"], "spans": on["spans"],
+               "ledger_device_ms": device_ms, "outer_pair_ms": on["outer_ms"],
+               "ledger_over_outer": device_ms / on["outer_ms"],
+               "counters": {k: {c: v for c, v in r.counters.items() if not c.startswith("latency_")}
+                            for k, r in reports.items()}}
+    del on
+    release_graphs(torch)
+
+    # ----------------------------------------------------------- FID gauges
+    npz = inception_npz(torch, np, seed, npz_folder, dev, gen)
+    fb = sizes["fid_batch"]
+    imgs = [torch.randint(0, 256, (fb, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
+            for _ in range(sizes["fid_batches"])]
+    l0 = int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches)
+    obs.reset_ledger()
+    obs.set_profiling_enabled(True)
+    try:
+        fid = FrechetInceptionDistance(feature=2048, weights_path=npz)
+        for x in imgs:  # one signature: its first call eager, its second captured (the flops counted), then replays
+            fid.update(x, real=True)
+        fid_ledger = obs.LEDGER.snapshot()
+        # the trunk's own graph, where the metric streams eagerly: captured at its second call, then replayed
+        obs.reset_ledger()
+        eager_fid = FrechetInceptionDistance(feature=2048, weights_path=npz, auto_compile=False)
+        for x in imgs[:sizes["trunk_batches"]]:
+            eager_fid.update(x, real=True)
+        trunk_ledger = obs.LEDGER.snapshot()
+        trunk_counters = {k: v for t in obs.REGISTRY.telemetries() if t.name.startswith("CapturedForward[")
+                          for k, v in t.counters.items() if not k.startswith("latency_")}
+    finally:
+        obs.set_profiling_enabled(False)
+    fid_launches = int(ce.matmul_bias_relu.launches) - l0[0], int(ce.bias_relu_.launches) - l0[1]
+    forwards = sizes["fid_batches"] + sizes["trunk_batches"]
+    (row,) = [r for r in fid_ledger["seams"] if r["class"] == "FrechetInceptionDistance"]
+    (exe,) = [e for e in fid_ledger["executables"].values() if e["class"] == "FrechetInceptionDistance"]
+    mfu = row.get("mfu")
+    check(_engaged(fid) and row["steps"] == sizes["fid_batches"] - 2 and exe["flops"] > 0,
+          f"FID gauges: {row}, {exe}")
+    check(mfu is not None and 0 < mfu <= 1, f"FID gauges: MFU {mfu}")
+    check(fid_launches == (40 * forwards, 54 * forwards), f"FID launches {fid_launches}, {forwards} forwards")
+    (trunk_row,) = trunk_ledger["seams"]
+    (trunk_exe,) = trunk_ledger["executables"].values()
+    check(trunk_row["seam"] == "trunk_forward" and trunk_row["steps"] == sizes["trunk_batches"] - 2
+          and trunk_exe["kind"] == "trunk_forward" and trunk_exe["flops"] > 0
+          and trunk_counters.get("compiles|kind=trunk_forward") == 1 and trunk_counters.get("trace_seconds", 0) > 0,
+          f"trunk graph: {trunk_row}, {trunk_exe}, {trunk_counters}")
+    fid_line = {"batches": sizes["fid_batches"], "batch": fb, "flops_per_image": exe["flops"] / fb,
+                "bytes_per_step": exe["bytes_accessed"], "capture_seconds": exe["compile_seconds"],
+                "steps": row["steps"], "device_ms_per_step": 1e3 * row["device_seconds"] / row["steps"],
+                "mfu": mfu, "roofline_ceiling": row.get("roofline_ceiling"), "ceilings": fid_ledger["ceilings"],
+                "trunk_graph": {"class": trunk_row["class"], "steps": trunk_row["steps"],
+                                "flops_per_image": trunk_exe["flops"] / fb, "mfu": trunk_row.get("mfu"),
+                                "device_ms_per_step": 1e3 * trunk_row["device_seconds"] / trunk_row["steps"]}}
+    del fid, eager_fid
+    release_graphs(torch)
+
+    # ----------------------------------------------------------- flight dump
+    class Counting(tp.Metric):
+        """A metric whose update also counts its calls in a plain attribute: a replay would freeze the count."""
+
+        def __init__(self):
+            super().__init__(device=dev)
+            self.add_state("total", torch.zeros((), device=dev), dist_reduce_fx="sum")
+            self.calls = 0
+
+        def update(self, x):
+            self.total += x.sum()
+            self.calls += 1
+
+        def compute(self):
+            return self.total
+
+    with tempfile.TemporaryDirectory() as flight_dir:
+        recorder = obs.arm_flight_recorder(directory=flight_dir)
+        try:
+            counting = Counting()
+            counting.update(ce_all[:batch])
+            (event,) = obs.BUS.events(kind="auto_path_disabled", source="Counting")
+            check(recorder.dump_count == 0, "auto_path_disabled is not a trigger kind, as in the JAX package")
+            dump = recorder.dump(event)  # freeze the post-mortem of this one event
+            files = sorted(os.listdir(flight_dir))
+            on_disk = json.loads(open(os.path.join(flight_dir, files[0]), encoding="utf-8").read()) if files else {}
+        finally:
+            obs.disarm_flight_recorder()
+            obs.set_telemetry_enabled(False)
+    check(len(files) == 1 and on_disk == dump and dump["seam"] == "metric.update"
+          and dump["trigger"]["kind"] == "auto_path_disabled" and "unregistered" in dump["trigger"]["detail"],
+          f"flight dump: {files}, seam {dump.get('seam')}")
+    flight_line = {"file": files[0], "seam": dump["seam"], "source": dump["trigger"]["source"],
+                   "detail": dump["trigger"]["detail"], "timeline": len(dump["timeline"])}
+    obs.REGISTRY.reset()
+    obs.BUS.clear()
+    obs.TRACER.clear()
+    obs.reset_ledger()
+    seconds = time.perf_counter() - t_phase
+    line = {"phase": "observability", "updates": n, "batch": batch, "classes": c_in,
+            "off": off_line, "on": on_line, "fid_gauges": fid_line, "flight": flight_line,
+            "seconds": seconds, "card": smi}
+    emit(line)
+    return {"seconds": seconds, "b1_launches": b1_launches, "fid_launches": fid_launches}
+
+
 # ------------------------------------------------------------ captured_trunks
 def release_graphs(torch) -> None:
     """Free the graphs of the metrics a phase dropped, and their pools' memory.
@@ -6558,10 +6805,12 @@ def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks"), default="all",
+    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability"),
+                        default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
-                             "captured_trunks: build, run only the captured_trunks phase, stop")
+                             "captured_trunks: build, run only the captured_trunks phase, stop; "
+                             "observability: build, run only the observability phase on the imagenet_val data, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -6642,6 +6891,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as folder:
             phase_captured_trunks(torch, np, ce, lh, ka, kb, dev, torch.Generator(device=dev).manual_seed(args.seed + 49),
                                   args.seed, smi, folder)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "observability":
+        logits, target = imagenet_val_data(torch, dev, gen)
+        with tempfile.TemporaryDirectory() as folder:
+            phase_observability(torch, np, kernel, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 50),
+                                logits, target, folder, args.seed, smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -6945,17 +7201,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as folder:
         trunks = phase_captured_trunks(torch, np, ce, lh, ka, kb, dev, torch.Generator(device=dev).manual_seed(args.seed + 49),
                                        args.seed, smi, folder)
+        release_graphs(torch)
+        # ------------- the runtime telemetry on the compiled path and the FID gauges, phase 50
+        observed = phase_observability(torch, np, kernel, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 50),
+                                       logits, target, folder, args.seed, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
     big = shapes["ade20k_update"]
     image_kernels = [
         ("conv_mm_bias_relu", ":67", fid["launches"]["conv_mm_bias_relu"] + rest["kernel_launches"]["matmul_bias_relu"]
-         + cnw["kernel_launches"]["matmul_bias_relu"] + trunks["launches"]["B2a"],
+         + cnw["kernel_launches"]["matmul_bias_relu"] + trunks["launches"]["B2a"] + observed["fid_launches"][0],
          conv_checks["worst"]["mm_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
          "one InceptionV3 forward (40 pointwise convs), batch 200, bf16"),
         ("bias_relu", ":96", fid["launches"]["bias_relu"] + rest["kernel_launches"]["bias_relu_"]
-         + cnw["kernel_launches"]["bias_relu_"] + trunks["launches"]["B2b"],
+         + cnw["kernel_launches"]["bias_relu_"] + trunks["launches"]["B2b"] + observed["fid_launches"][1],
          conv_checks["worst"]["br_abs"], "torchmetrics_tpu/_kernels/conv_epilogue.py", "conv_epilogue.cu",
          "one InceptionV3 forward (54 spatial convs), batch 200, bf16; queued_ms: the launches queued ahead of the card"),
         ("lpips_head", ":60", lpips["launches"] + rest["kernel_launches"]["lpips_head"] + trunks["launches"]["B3"],
@@ -6980,7 +7240,7 @@ def main() -> int:
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
-        + miou_launches + rest_launches + compiled["confmat_launches"],
+        + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

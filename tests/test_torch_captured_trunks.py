@@ -3,12 +3,13 @@
 The eleven classes that run an encoder trunk (FID, IS, KID, MiFID, LPIPS,
 PPL, CLIPScore, CLIP-IQA, BERTScore, InfoLM) or SRMR's filterbanks route
 their updates as the JAX package's runtime does: the same ``precompile``
-report (the JAX package points at its telemetry for the cause, the port at
-``_auto_disabled_reason``), the same replays per signature and the same
+report (both point at the telemetry's ``auto_path_disabled`` events for the
+cause), the same replays per signature and the same
 disabled flag after one fixed stream, by default and with
 ``cat_state_capacity`` where the class has list states. Here a CPU metric's
 step runs eagerly, so the default route equals ``auto_compile=False`` bit for
-bit; against the JAX package the values agree at the tolerances the parity
+bit; a FeatureShare's members stay eager where the JAX package's compile (item
+6d); against the JAX package the values agree at the tolerances the parity
 files state for each class (``test_torch_{generative,image,lpips,multimodal,
 srmr,bert}.py``). :class:`CapturedForward` on CPU tensors runs the trunk
 eagerly and captures nothing (``test_torch_captured_forward.py`` holds its
@@ -235,7 +236,7 @@ def test_routing_matches_the_jax_runtime(npz, stream, cls, kw):
     compiled = {"fid", "lpips", "clip_score", "srmr"} | ({"is", "kid", "mifid", "clip_iqa"} if kw else set())
     if cls in compiled and stream != "kid_real_prefix":
         assert rp == ({"engaged": True, "reason": None} if cls not in ("kid", "mifid") else
-                      {"engaged": False, "reason": "update did not compile (see `_auto_disabled_reason`)"})
+                      {"engaged": False, "reason": "update did not compile (see telemetry `auto_path_disabled` events)"})
         assert "_auto_update_fn" in pm.__dict__ and pm._auto_disabled_reason is None
         assert all(v > 0 for v in pm._auto_sigs.values())
 
@@ -392,6 +393,37 @@ def test_inception_score_without_capacity_keeps_distinct_feature_entries():
     assert metric._auto_disabled and len(metric.features) == 3
     assert len({f.data_ptr() for f in metric.features}) == 3
     assert not torch.equal(metric.features[0], metric.features[1])
+
+
+def test_feature_share_members_stay_eager_where_the_jax_members_compile():
+    """Item 6d: a FeatureShare's members stay eager in the port, so one trunk forward serves every member a batch.
+
+    The routing differs from the JAX package by design: its FID, KID and MiFID compile (KID and MiFID once both
+    rings hold a batch), and its traced update misses the cache the way a CUDA graph's copy of the batch would.
+    On the card a compiling member's graph held a trunk forward of its own, two forwards a batch.
+    """
+    from tests.test_torch_wrappers import CountingTrunk, JaxTrunk
+    from torchmetrics_tpu.wrappers import FeatureShare as JaxFeatureShare
+
+    rng = np.random.default_rng(12)
+    batches = [rng.integers(0, 256, (12, 3, 4, 4)).astype(np.uint8) for _ in range(4)]
+    trunk = CountingTrunk(0)
+    members = [PI.FrechetInceptionDistance(feature=trunk, device="cpu"),
+               PI.KernelInceptionDistance(feature=trunk, subsets=3, subset_size=10, device="cpu", cat_state_capacity=96),
+               PI.MemorizationInformedFrechetInceptionDistance(feature=trunk, device="cpu", cat_state_capacity=96)]
+    shared = PW.FeatureShare(members)
+    jax_trunk = JaxTrunk(trunk)
+    jax_members = [JI.FrechetInceptionDistance(feature=jax_trunk),
+                   JI.KernelInceptionDistance(feature=jax_trunk, subsets=3, subset_size=10, cat_state_capacity=96),
+                   JI.MemorizationInformedFrechetInceptionDistance(feature=jax_trunk, cat_state_capacity=96)]
+    jax_shared = JaxFeatureShare(jax_members)
+    for i, b in enumerate(batches):
+        shared.update(torch.from_numpy(b), real=i % 2 == 0)
+        jax_shared.update(jnp.asarray(b), real=i % 2 == 0)
+    assert trunk.calls == len(batches)
+    for m in members:
+        assert m._auto_disabled and "FeatureShare" in m._auto_disabled_reason and "_auto_update_fn" not in m.__dict__
+    assert "_auto_update_fn" in jax_members[0].__dict__ and not jax_members[0]._auto_disabled
 
 
 @pytest.mark.parametrize("inference", [False, True])

@@ -103,6 +103,24 @@ def test_row_tiles_do_not_change_the_result(monkeypatch, name, rows):
     np.testing.assert_allclose(tiled.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+ZERO_ROWS = {
+    "zero_rows": (np.array([[0, 0, 0], [1, 2, 3], [0, 1, 0]], np.float32), np.array([[1, 0, 0], [0, 0, 0]], np.float32)),
+    "subnormal_row": (np.array([[1e-39, 0, 0], [1, 2, 3], [0, 0, 0]], np.float32), np.array([[1e-39, 0, 0], [3, 2, 1]], np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZERO_ROWS))
+@pytest.mark.parametrize("with_y", [True, False])
+@pytest.mark.parametrize("zero_diagonal", [None, True, False])
+def test_cosine_similarity_of_zero_and_subnormal_rows(case, with_y, zero_diagonal):
+    """An all-zero row, or one of float32 subnormals, is NaN against every row, as XLA's flush makes it."""
+    x, y = ZERO_ROWS[case]
+    got, want = run_both("pairwise_cosine_similarity", x, y if with_y else None, zero_diagonal=zero_diagonal)
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL, equal_nan=True)
+    assert np.isnan(got.numpy()[0, 1])  # row 0 is zero (or flushes to zero) in both cases
+
+
 def test_zero_diagonal_of_a_wide_matrix():
     x, y = data(6, n=4, m=9)
     got, want = run_both("pairwise_linear_similarity", x, y, zero_diagonal=True)

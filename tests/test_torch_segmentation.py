@@ -119,6 +119,27 @@ def test_distance_transform_edge_cases_and_errors():
             P.distance_transform(**args)
 
 
+@pytest.mark.parametrize("metric", ["euclidean", "chessboard", "taxicab"])
+@pytest.mark.parametrize("sampling", [None, [0.5, 3.0]])
+@pytest.mark.parametrize("shape", [(3, 4), (1, 5), (5, 1), (7, 3)])
+def test_distance_transform_no_background_scipy_engine(metric, sampling, shape):
+    """No background pixel: scipy's own forms, as the JAX package returns them (the pytorch engine keeps inf)."""
+    x = np.full(shape, 2.0, dtype=np.float32)  # every nonzero pixel is foreground for scipy
+    got = P.distance_transform(torch.from_numpy(x), sampling=sampling, metric=metric, engine="scipy")
+    want = np.asarray(J.distance_transform(jnp.asarray(x), sampling=sampling, metric=metric, engine="scipy"))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if metric == "euclidean":
+        s0, s1 = sampling or (1.0, 1.0)
+        i, j = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]), indexing="ij")
+        np.testing.assert_array_equal(got.numpy(), np.sqrt((s0 * (i + 1)) ** 2 + (s1 * j) ** 2).astype(np.float32))
+        direct = ndimage.distance_transform_edt(x, sampling or [1, 1])
+    else:
+        assert (got == -1).all()
+        direct = ndimage.distance_transform_cdt(x, metric=metric)
+    np.testing.assert_array_equal(got.numpy(), direct.astype(np.float32))
+
+
 @pytest.mark.parametrize("crop", [True, False])
 @pytest.mark.parametrize("spacing", [None, (1, 1), (2, 3)])
 def test_mask_edges_2d_matches_jax(crop, spacing):

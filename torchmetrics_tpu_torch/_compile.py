@@ -36,6 +36,12 @@ on the same buffers, which runs nothing. Later calls replay. So each batch
 reaches the states once and every kernel launch really runs; the kernel
 wrappers count their launches themselves, replays included
 (``_kernels/launch_counter.py``).
+
+Telemetry (``_observability``) is recorded on the host side of a graph, never
+inside one: a replay runs no Python. With profiling on, a replay is timed
+on the card by a CUDA event pair (:meth:`CapturedStep.replay`), and a
+step's flops and bytes are counted during its warm-up. A trunk's capture
+reports a ``trunk_forward`` compile event, its seconds and its cost.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import contextlib
 import ctypes
 import functools
 import gc
+import hashlib
 import json
 import threading
 import time
@@ -54,6 +61,11 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 from torch import Tensor, nn
+
+from torchmetrics_tpu_torch._observability import costs as _obs_costs
+from torchmetrics_tpu_torch._observability.profiling import LEDGER as _PROF_LEDGER
+from torchmetrics_tpu_torch._observability.state import OBS as _OBS
+from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as _telemetry_for
 
 __all__ = [
     "CapturedForward",
@@ -237,8 +249,12 @@ class CapturedStep:
     batch. The capture runs nothing, so the buffers keep their values.
     ``constants`` holds the host data the graph reads (:func:`device_constant`),
     as its warm-up copied it. ``stat`` prefixes the :func:`stats` keys it
-    counts under.
+    counts under. ``seam`` and ``owner`` name the ledger bucket its replays
+    are timed into while profiling is on (None: not profiled).
     """
+
+    seam: Optional[str] = None
+    owner: str = ""
 
     def __init__(
         self, step: Callable, bufs: Dict[str, Any], dyn: List[Tensor], pool: Any, device: torch.device,
@@ -285,11 +301,22 @@ class CapturedStep:
         _STATS[stat + "capture_seconds"] += time.perf_counter() - t0
 
     def replay(self, dyn: List[Tensor]) -> Any:
+        if _OBS.profiling and self.seam is not None:
+            # timed on the card; the ledger resolves the pair on a later step or when it is read
+            start, end = _PROF_LEDGER.event_pair()
+            start.record()
+            self._replay(dyn)
+            end.record()
+            _PROF_LEDGER.record_event_pair(self.seam, self.owner, start, end)
+        else:
+            self._replay(dyn)
+        _STATS[self.stat + "replayed"] += 1
+        return self.outputs
+
+    def _replay(self, dyn: List[Tensor]) -> None:
         for static, x in zip(self.inputs, dyn):
             static.copy_(x, non_blocking=True)
         self.graph.replay()
-        _STATS[self.stat + "replayed"] += 1
-        return self.outputs
 
 
 def _pool_bound(device: torch.device) -> int:
@@ -365,7 +392,11 @@ class CapturedForward(nn.Module):
             return fn(*inputs)
         device = inputs[0].device
         step = lambda _bufs, dyn: fn(*dyn)  # noqa: E731
-        out = warm_up(step, {}, list(inputs), device, self.constants)
+        t0 = time.perf_counter()
+        with _obs_costs.count_costs(inputs) if _OBS.profiling else contextlib.nullcontext() as tally:
+            out = warm_up(step, {}, list(inputs), device, self.constants)
+            if tally is not None:
+                _obs_costs.add_output_bytes(tally, out)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         try:
@@ -375,7 +406,46 @@ class CapturedForward(nn.Module):
         if key not in self.graphs or pool_bytes(self.pool) > _pool_bound(device):
             self.graphs, self.pool, self.constants = {}, None, {}
             self.eager.add(key)
+        else:
+            entry = self.graphs[key]
+            # a trunk passes one of its own methods: the owner is the trunk's class
+            entry.seam, entry.owner = "trunk_forward", type(getattr(fn, "__self__", fn)).__name__
+            if _OBS.enabled or _OBS.profiling:
+                self._obs_captured(key, entry.owner, time.perf_counter() - t0, tally)
         return out
+
+    def _obs_captured(self, key: tuple, owner: str, seconds: float, tally: Any) -> None:
+        """Report one captured signature: a ``trunk_forward`` compile event and its seconds, and its counted cost.
+
+        The JAX package compiles a trunk inside ``jax.jit`` and reports no
+        event for it; here the trunk's own graph is the compiled thing, and it
+        is captured at a signature's second call.
+        """
+        statics, numerics, inputs = key
+        if _OBS.enabled:
+            telem = self.__dict__.get("_telem")
+            if telem is None:
+                telem = _telemetry_for(self)
+                telem.name = f"CapturedForward[{owner}]"
+            telem.compile_event("trunk_forward", {
+                "static_args": repr(statics),
+                "numerics": repr(numerics),
+                "shapes": repr(tuple(x[0] for x in inputs)),
+                "dtypes": repr(tuple(str(x[1]).replace("torch.", "") for x in inputs)),
+                "devices": repr(tuple(str(x[2]) for x in inputs)),
+                "layouts": repr(tuple(x[3:] for x in inputs)),
+            })
+            telem.inc("trace_seconds", seconds)
+            telem.observe("trace", seconds)
+        if _OBS.profiling:
+            _PROF_LEDGER.note_executable(
+                owner=f"CapturedForward[{owner}]",
+                kind="trunk_forward",
+                digest=hashlib.sha256(repr(key).encode()).hexdigest(),
+                cost=None if tally is None else tally.cost(),
+                compile_seconds=seconds,
+                source="captured",
+            )
 
     def clear(self) -> None:
         """Drop the graphs, their pool and constants, and the signatures seen or kept eager."""
@@ -393,4 +463,5 @@ class CapturedForward(nn.Module):
     def __getstate__(self) -> Dict[str, Any]:
         state = self.__dict__.copy()
         state.update(graphs={}, pool=None, constants={}, seen=set(), eager=set())
+        state.pop("_telem", None)  # a copy is a new stream of captures
         return state

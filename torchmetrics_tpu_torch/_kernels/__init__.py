@@ -21,7 +21,6 @@ from torchmetrics_tpu_torch._kernels.attention import (
 )
 from torchmetrics_tpu_torch._kernels.biquad import biquad_bank, biquad_bank_cost
 from torchmetrics_tpu_torch._kernels.conv_epilogue import (
-    KernelCost,
     bias_relu_cost,
     conv_bias_act,
     conv_bias_act_cost,
@@ -29,7 +28,6 @@ from torchmetrics_tpu_torch._kernels.conv_epilogue import (
 from torchmetrics_tpu_torch._kernels.lpips_head import lpips_head, lpips_head_cost
 
 __all__ = [
-    "KernelCost",
     "attention",
     "attention_cost",
     "bias_relu_cost",

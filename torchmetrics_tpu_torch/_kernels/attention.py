@@ -26,8 +26,10 @@ from typing import Any
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.conv_epilogue import _cuda_or_cpu
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
+from torchmetrics_tpu_torch._observability import costs as _obs_costs
+from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
@@ -116,6 +118,8 @@ def attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) 
         )
     nvcc.raise_on_error(_attention_library(), err, name)
     attention.launches.hit(q.device)
+    if _obs_costs.tallying():  # a step's cost is being counted before its capture
+        _obs_costs.tally_kernel(attention_cost(q, k, v, mask, num_heads=num_heads))
     return out
 
 
@@ -135,14 +139,14 @@ def _attention_library() -> Any:
     return lib
 
 
-def attention_cost(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) -> KernelCost:
+def attention_cost(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) -> ExecutableCost:
     """Closed-form operations and bytes (the JAX package's ``attention_cost``): q, k, v read and out written once."""
     bsz, length, hidden = q.shape
     head_dim = hidden // num_heads
     # QK^T + PV MACs, plus scale/bias/softmax (~6 flops per score)
     flops = bsz * num_heads * (4.0 * length * length * head_dim + 6.0 * length * length)
     bytes_accessed = float(q.element_size()) * 4.0 * bsz * length * hidden + 4.0 * bsz * length
-    return KernelCost(flops=float(flops), bytes_accessed=bytes_accessed)
+    return ExecutableCost(flops=float(flops), bytes_accessed=bytes_accessed)
 
 
 # ------------------------------------------------------- layernorm+residual
@@ -190,6 +194,8 @@ def layernorm_residual(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, *, eps
         )
     nvcc.raise_on_error(_layernorm_library(), err, name)
     layernorm_residual.launches.hit(x.device)
+    if _obs_costs.tallying():
+        _obs_costs.tally_kernel(layernorm_residual_cost(x, h, scale, bias))
     return out
 
 
@@ -207,9 +213,9 @@ def _layernorm_library() -> Any:
     return lib
 
 
-def layernorm_residual_cost(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor) -> KernelCost:
+def layernorm_residual_cost(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor) -> ExecutableCost:
     """Closed-form operations and bytes (the JAX package's ``layernorm_residual_cost``)."""
     elems = x.numel()
     flops = 9.0 * elems  # add, two stat passes, normalize, affine
     bytes_accessed = float(x.element_size()) * 2.0 * elems + 4.0 * (elems + 2.0 * x.shape[-1])
-    return KernelCost(flops=float(flops), bytes_accessed=bytes_accessed)
+    return ExecutableCost(flops=float(flops), bytes_accessed=bytes_accessed)

@@ -19,8 +19,10 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch._compile import device_constant
-from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.conv_epilogue import _cuda_or_cpu
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
+from torchmetrics_tpu_torch._observability import costs as _obs_costs
+from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
 
 __all__ = ["biquad_bank", "biquad_bank_cost", "biquad_bank_plain"]
@@ -112,14 +114,16 @@ def biquad_bank(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor] = None) 
         )
     nvcc.raise_on_error(_library(), err, "biquad_bank")
     biquad_bank.launches.hit(x.device)
+    if _obs_costs.tallying():  # a step's cost is being counted before its capture
+        _obs_costs.tally_kernel(biquad_bank_cost(rows, k, t_len, b.shape[0]))
     return out
 
 
 biquad_bank.launches = LaunchCounter()  # type: ignore[attr-defined]
 
 
-def biquad_bank_cost(rows: int, k: int, t_len: int, sections: int) -> KernelCost:
+def biquad_bank_cost(rows: int, k: int, t_len: int, sections: int) -> ExecutableCost:
     """Operations and bytes of one call: 9 flops a section and sample (+1 for the gain); input read once, output written once."""
     channels = rows * k
     flops = float(channels) * t_len * (9.0 * sections + (1.0 if sections == 4 else 0.0))
-    return KernelCost(flops=flops, bytes_accessed=4.0 * t_len * (rows + channels))
+    return ExecutableCost(flops=flops, bytes_accessed=4.0 * t_len * (rows + channels))

@@ -28,18 +28,19 @@ had to make of an input or of the library conv's output.
 from __future__ import annotations
 
 import functools
-from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
+from torchmetrics_tpu_torch._observability import costs as _obs_costs
+from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
 __all__ = [
-    "KernelCost",
     "bias_relu_",
     "bias_relu_cost",
     "bias_relu_plain",
@@ -53,13 +54,6 @@ SOURCE = nvcc.CSRC_DIR / "conv_epilogue.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EW_BLOCKS_PER_SM = 16
 IntPair = Union[int, Sequence[int]]
-
-
-class KernelCost(NamedTuple):
-    """Operations and device-memory bytes of one call, from shapes alone."""
-
-    flops: float
-    bytes_accessed: float
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:
@@ -179,6 +173,8 @@ def matmul_bias_relu(x2d: Tensor, w2d: Tensor, bias: Tensor, out: Optional[Tenso
         )
     nvcc.raise_on_error(_library(), err, name)
     matmul_bias_relu.launches.hit(x2d.device)
+    if _obs_costs.tallying():  # a step's cost is being counted before its capture
+        _obs_costs.tally_kernel(conv_bias_act_cost(x2d[:, :, None, None], w2d[:, :, None, None], bias))
     return out
 
 
@@ -219,6 +215,8 @@ def bias_relu_(y2d: Tensor, bias: Tensor) -> Tensor:
         )
     nvcc.raise_on_error(_library(), err, name)
     bias_relu_.launches.hit(y2d.device)
+    if _obs_costs.tallying():
+        _obs_costs.tally_kernel(bias_relu_cost(y2d, bias))
     return y2d
 
 
@@ -267,7 +265,7 @@ conv_bias_act.layout_copies = 0  # type: ignore[attr-defined]
 
 # -------------------------------------------------------------------- cost
 
-def conv_bias_act_cost(x: Tensor, weight: Tensor, bias: Tensor, stride: IntPair = 1, padding: IntPair = 0) -> KernelCost:
+def conv_bias_act_cost(x: Tensor, weight: Tensor, bias: Tensor, stride: IntPair = 1, padding: IntPair = 0) -> ExecutableCost:
     """Closed-form operations and bytes of :func:`conv_bias_act` (the JAX package's ``conv_bias_act_cost``).
 
     Reads only shapes and the element size, so meta tensors will do. Bytes
@@ -281,10 +279,10 @@ def conv_bias_act_cost(x: Tensor, weight: Tensor, bias: Tensor, stride: IntPair 
     out_elems = n * ho * wo * cout
     flops = 2.0 * out_elems * kh * kw * cin + 2.0 * out_elems  # MACs + bias + relu
     elems = n * h * w * cin + kh * kw * cin * cout + cout + out_elems
-    return KernelCost(flops=flops, bytes_accessed=float(elems * x.element_size()))
+    return ExecutableCost(flops=flops, bytes_accessed=float(elems * x.element_size()))
 
 
-def bias_relu_cost(y2d: Tensor, bias: Tensor) -> KernelCost:
+def bias_relu_cost(y2d: Tensor, bias: Tensor) -> ExecutableCost:
     """Operations and bytes of :func:`bias_relu_`: one read and one write of ``y2d``, one read of ``bias``."""
     rows, c = y2d.shape
-    return KernelCost(flops=2.0 * rows * c, bytes_accessed=float((2 * rows * c + c) * y2d.element_size()))
+    return ExecutableCost(flops=2.0 * rows * c, bytes_accessed=float((2 * rows * c + c) * y2d.element_size()))

@@ -23,8 +23,10 @@ from typing import Any, NamedTuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch._kernels.conv_epilogue import KernelCost, _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.conv_epilogue import _cuda_or_cpu
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
+from torchmetrics_tpu_torch._observability import costs as _obs_costs
+from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
@@ -143,6 +145,8 @@ def lpips_head(f0: Tensor, f1: Tensor, weight: Tensor) -> Tensor:
         )
     nvcc.raise_on_error(_library(), err, "lpips_head")
     lpips_head.launches.hit(f0.device)
+    if _obs_costs.tallying():
+        _obs_costs.tally_kernel(lpips_head_cost(f0, f1, w))
     return out
 
 
@@ -165,7 +169,7 @@ def _library() -> Any:
     return lib
 
 
-def lpips_head_cost(f0: Tensor, f1: Tensor, weight: Tensor) -> KernelCost:
+def lpips_head_cost(f0: Tensor, f1: Tensor, weight: Tensor) -> ExecutableCost:
     """Closed-form operations and bytes: the JAX package's ``lpips_head_cost`` with the maps at their element size.
 
     Float32 maps give the JAX package's numbers; bfloat16 maps, which the
@@ -175,4 +179,4 @@ def lpips_head_cost(f0: Tensor, f1: Tensor, weight: Tensor) -> KernelCost:
     pixels = n * h * w
     # per pixel: 2 norms (2C mul-add + sqrt) + 2 scale + diff + square + weighted sum
     flops = float(pixels) * (8.0 * c + 16.0)
-    return KernelCost(flops=flops, bytes_accessed=2.0 * pixels * c * f0.element_size() + 4.0 * (c + n))
+    return ExecutableCost(flops=flops, bytes_accessed=2.0 * pixels * c * f0.element_size() + 4.0 * (c + n))

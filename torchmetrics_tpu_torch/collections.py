@@ -37,6 +37,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from torchmetrics_tpu_torch._observability import tracing as _obs_trace
+from torchmetrics_tpu_torch._observability.state import OBS as _OBS
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
@@ -158,20 +160,30 @@ class MetricCollection(nn.Module):
     # ------------------------------------------------------------------ update
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update each metric (group heads only once groups are formed)."""
-        if self._groups_checked:
-            for cg in self._groups.values():
-                head = self._modules[cg[0]]
-                head._states_aliased = False  # the members are meant to see the head's in-place writes
-                head.update(*args, **head._filter_kwargs(**kwargs))
-            self._sync_compute_groups()
-        else:
-            for m in self._modules.values():
-                m.update(*args, **m._filter_kwargs(**kwargs))
-            if self._enable_compute_groups:
-                self._merge_compute_groups()
+        # the collection span parents every member's update span (JAX `collections.py:152`)
+        _sp = _obs_trace.begin_span("update", "MetricCollection") if _OBS.tracing else None
+        _sp_err: Optional[BaseException] = None
+        try:
+            if self._groups_checked:
+                for cg in self._groups.values():
+                    head = self._modules[cg[0]]
+                    head._states_aliased = False  # the members are meant to see the head's in-place writes
+                    head.update(*args, **head._filter_kwargs(**kwargs))
+                self._sync_compute_groups()
             else:
-                self._groups = {i: [name] for i, name in enumerate(self._modules)}
-                self._groups_checked = True
+                for m in self._modules.values():
+                    m.update(*args, **m._filter_kwargs(**kwargs))
+                if self._enable_compute_groups:
+                    self._merge_compute_groups()
+                else:
+                    self._groups = {i: [name] for i, name in enumerate(self._modules)}
+                    self._groups_checked = True
+        except BaseException as err:
+            _sp_err = err
+            raise
+        finally:
+            if _sp is not None:
+                _obs_trace.end_span(_sp, _sp_err)
 
     def precompile(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Warm every member's compiled update for this batch (``Metric.precompile``; JAX ``collections.py:187``).
@@ -252,15 +264,33 @@ class MetricCollection(nn.Module):
     # ----------------------------------------------------------------- compute
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Per-batch value from every metric while accumulating global state."""
-        res = {name: m(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
-        if not self._groups_checked and self._enable_compute_groups:
-            self._merge_compute_groups()
+        _sp = _obs_trace.begin_span("forward", "MetricCollection") if _OBS.tracing else None
+        _sp_err: Optional[BaseException] = None
+        try:
+            res = {name: m(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
+            if not self._groups_checked and self._enable_compute_groups:
+                self._merge_compute_groups()
+        except BaseException as err:
+            _sp_err = err
+            raise
+        finally:
+            if _sp is not None:
+                _obs_trace.end_span(_sp, _sp_err)
         return self._flatten_results(res)
 
     def compute(self) -> Dict[str, Any]:
-        if self._groups_checked:
-            self._sync_compute_groups()
-        res = {name: m.compute() for name, m in self._modules.items()}
+        _sp = _obs_trace.begin_span("compute", "MetricCollection") if _OBS.tracing else None
+        _sp_err: Optional[BaseException] = None
+        try:
+            if self._groups_checked:
+                self._sync_compute_groups()
+            res = {name: m.compute() for name, m in self._modules.items()}
+        except BaseException as err:
+            _sp_err = err
+            raise
+        finally:
+            if _sp is not None:
+                _obs_trace.end_span(_sp, _sp_err)
         return self._flatten_results(res)
 
     def _flatten_results(self, res: Dict[str, Any]) -> Dict[str, Any]:
@@ -381,6 +411,25 @@ class MetricCollection(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._modules or key in self.keys()
+
+    def telemetry_report(self, aggregate: bool = False) -> Any:
+        """Runtime telemetry for the collection (JAX ``collections.py:441``).
+
+        With ``aggregate=False`` (default), each member's
+        :class:`~torchmetrics_tpu_torch._observability.telemetry.TelemetryReport`
+        keyed like :meth:`compute` results; with ``aggregate=True``, one
+        merged report whose counters sum every member. With compute groups
+        only the group heads run ``update``, so the members' path counters
+        reflect the runtime's actual dispatch.
+        """
+        from torchmetrics_tpu_torch._observability.telemetry import TelemetryReport, report_for
+
+        reports = {self._set_name(name): m.telemetry_report() for name, m in self._modules.items()}
+        if self.__dict__.get("_telem") is not None:
+            reports["__collection__"] = report_for(self)
+        if not aggregate:
+            return reports
+        return TelemetryReport.merged(list(reports.values()), name="MetricCollection")
 
     def __repr__(self) -> str:
         repr_str = self.__class__.__name__ + "("

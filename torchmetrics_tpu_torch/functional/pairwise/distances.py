@@ -87,9 +87,20 @@ def pairwise_cosine_similarity(
         torch.Size([3, 2])
     """
     x, y, zd = _check_input(x, y, zero_diagonal)
-    x = x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True), min=1e-38)
-    y = y / torch.clamp(torch.linalg.vector_norm(y, dim=1, keepdim=True), min=1e-38)
-    return _reduce_distance_matrix(_zero_diagonal(_safe_matmul(x, y), zd), reduction)
+    return _reduce_distance_matrix(_zero_diagonal(_safe_matmul(_unit_rows(x), _unit_rows(y)), zd), reduction)
+
+
+def _unit_rows(x: Tensor) -> Tensor:
+    """Rows over their norms, with float32's subnormals flushed to 0 as XLA flushes them (JAX `distances.py:74`).
+
+    The JAX package divides by ``max(norm, 1e-38)``, and 1e-38 is a float32
+    subnormal: flushed, the clamp is 0, so an all-zero row (or one of
+    subnormals only) comes out NaN, as in the original torchmetrics.
+    """
+    tiny = torch.finfo(torch.float32).tiny
+    x = torch.where(x.abs() < tiny, torch.zeros_like(x), x)
+    norm = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    return x / torch.where(norm < tiny, torch.zeros_like(norm), norm)
 
 
 def pairwise_euclidean_distance(

@@ -181,7 +181,16 @@ def distance_transform(
         fg_mask, bg_mask = x == 1, x == 0
         scale = (sampling[0], sampling[1])
         dtype = torch.float32
-    if not bool(bg_mask.any()):  # no background: every foreground pixel is infinitely far
+    if not bool(bg_mask.any()):
+        if engine == "scipy":
+            # scipy's own answers where no pixel is background (JAX `utils.py:143-149`): the EDT measures from the
+            # point (-1, 0), (s0·(i+1), s1·j) away in float64; the chamfer transform gives -1 everywhere
+            if metric != "euclidean":
+                return torch.full(x.shape, -1.0, dtype=torch.float32, device=x.device)
+            rows = torch.arange(1, x.shape[0] + 1, dtype=torch.float64, device=x.device)[:, None] * float(sampling[0])
+            cols = torch.arange(x.shape[1], dtype=torch.float64, device=x.device)[None, :] * float(sampling[1])
+            return torch.sqrt(rows * rows + cols * cols).to(torch.float32)
+        # no background: every foreground pixel is infinitely far
         return torch.where(fg_mask, float("inf"), 0.0).to(torch.float32)
     dist = _row_min_distance(fg_mask, bg_mask, scale, metric, dtype)
     if metric == "euclidean":

@@ -35,8 +35,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import inspect
 import itertools
+import time
 import warnings
 from abc import ABC, abstractmethod
 from copy import deepcopy
@@ -46,6 +48,17 @@ import torch
 from torch import Tensor, nn
 
 from torchmetrics_tpu_torch import _compile
+
+# telemetry hot switches (``_observability/state.py``): `_OBS.enabled`,
+# `_OBS.tracing` and `_OBS.profiling` are the one check each seam pays while
+# its switch is off, a slot load and a branch; everything else lives behind it
+from torchmetrics_tpu_torch._observability import costs as _obs_costs
+from torchmetrics_tpu_torch._observability import scopes as _obs_scopes
+from torchmetrics_tpu_torch._observability import tracing as _obs_trace
+from torchmetrics_tpu_torch._observability.events import BUS as _BUS
+from torchmetrics_tpu_torch._observability.profiling import LEDGER as _PROF_LEDGER
+from torchmetrics_tpu_torch._observability.state import OBS as _OBS
+from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as _telemetry_for
 from torchmetrics_tpu_torch.utilities.checks import _compiled_step
 from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_cat,
@@ -386,11 +399,22 @@ class Metric(nn.Module, ABC):
                 "The Metric shouldn't be synced when performing ``forward``. "
                 "HINT: Did you forget to call ``unsync``?"
             )
-        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
-            self._forward_cache = self._forward_full_state_update(*args, **kwargs)
-        else:
-            handled, batch_val = self._try_auto_forward(args, kwargs)
-            self._forward_cache = batch_val if handled else self._forward_reduce_state_update(*args, **kwargs)
+        # the forward span parents the inner update/compute spans, so one
+        # forward call reads as ONE causally ordered request
+        _sp = _obs_trace.begin_span("forward", type(self).__name__) if _OBS.tracing else None
+        _sp_err: Optional[BaseException] = None
+        try:
+            if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+                self._forward_cache = self._forward_full_state_update(*args, **kwargs)
+            else:
+                handled, batch_val = self._try_auto_forward(args, kwargs)
+                self._forward_cache = batch_val if handled else self._forward_reduce_state_update(*args, **kwargs)
+        except BaseException as err:
+            _sp_err = err
+            raise
+        finally:
+            if _sp is not None:
+                _obs_trace.end_span(_sp, _sp_err)
         return self._forward_cache
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -506,30 +530,118 @@ class Metric(nn.Module, ABC):
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            if self._try_auto_update(args, kwargs):
-                return
-            # the first call of a signature the next call captures: that graph will hold the trunk
-            capture_next = self.__dict__.pop("_auto_capture_next", False)
-            self._check_pending_violations()
-            self._computed = None
-            if self._states_aliased:
-                self._unshare_states()
-            self._update_count += 1
-            # where a compiled path could engage, an update that rebinds or
-            # mutates a plain attribute turns it off: a replay would not
-            guard = self._auto_eligible()
-            if guard:
-                before, _keepalive = self._host_attr_snapshot()
-            with _compile.trunks_inline(capture_next):
-                update(*args, **kwargs)
-            if guard and self._host_attr_snapshot()[0] != before:
-                self._disable_auto("update mutated unregistered host attributes")
-            if self._dtype_policy is not None:
-                self._apply_dtype_policy()
-            if self.compute_on_cpu:
-                self._move_list_states_to_cpu()
+            # request tracing rides its own slot bool: off, this seam pays one
+            # branch and a None store; on, the span joins the ambient trace
+            _sp = _obs_trace.begin_span("update", type(self).__name__) if _OBS.tracing else None
+            _sp_err: Optional[BaseException] = None
+            try:
+                return self._update_impl(update, _sp, args, kwargs)
+            except BaseException as err:
+                _sp_err = err
+                raise
+            finally:
+                if _sp is not None:
+                    _obs_trace.end_span(_sp, _sp_err)
 
         return wrapped_func
+
+    def _update_impl(self, update: Callable, _sp: Any, args: tuple, kwargs: Dict[str, Any]) -> None:
+        """The body of every wrapped ``update`` (``_sp``: the seam's open span, or None)."""
+        if self._try_auto_update(args, kwargs):
+            if _sp is not None:
+                _sp.attrs["path"] = "auto"
+            return
+        if _sp is not None:
+            _sp.attrs["path"] = "eager"
+        # the first call of a signature the next call captures: that graph will hold the trunk
+        capture_next = self.__dict__.pop("_auto_capture_next", False)
+        self._check_pending_violations()
+        self._computed = None
+        if self._states_aliased:
+            self._unshare_states()
+        self._update_count += 1
+        # where a compiled path could engage, an update that rebinds or
+        # mutates a plain attribute turns it off: a replay would not
+        guard = self._auto_eligible()
+        if _OBS.enabled:
+            # the port fingerprints every eligible class: it has no certificate that an update
+            # mutates no plain attribute (the JAX package's "skip" outcome)
+            _telemetry_for(self).inc("fingerprint|outcome=check" if guard else "fingerprint|outcome=ineligible")
+        if guard:
+            before, _keepalive = self._host_attr_snapshot()
+        with _compile.trunks_inline(capture_next):
+            if _OBS.enabled:
+                self._obs_call("update_calls|path=eager", "update_eager", "update", lambda: update(*args, **kwargs))
+            else:
+                update(*args, **kwargs)
+        if guard and self._host_attr_snapshot()[0] != before:
+            self._disable_auto("update mutated unregistered host attributes")
+        if self._dtype_policy is not None:
+            self._apply_dtype_policy()
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
+
+    # ------------------------------------------------------------- telemetry
+    # The helpers below run only with telemetry ENABLED (callers guard on
+    # `_OBS.enabled`); they may allocate, probe dicts and read the clock. All
+    # of it is host side, at eager boundaries: never inside a captured graph.
+
+    def _obs_call(self, counter_key: Optional[str], op: str, method: str, fn: Callable) -> Any:
+        """Run ``fn`` counted, latency-sampled and profiler-annotated (JAX ``metric.py:635``)."""
+        telem = _telemetry_for(self)
+        if counter_key:
+            telem.inc(counter_key)
+        sample = telem.sample_due(op)
+        t0 = time.perf_counter() if sample else 0.0
+        if _OBS.profile_scopes:
+            with _obs_scopes.annotation(f"{type(self).__name__}.{method}", self._device.type == "cuda"):
+                out = fn()
+        else:
+            out = fn()
+        if sample:
+            telem.observe(op, time.perf_counter() - t0)
+        return out
+
+    def _obs_compile_event(self, kind: str, treedef: Any, statics: Tuple, sig_inputs: Tuple, built: bool = True) -> None:
+        """Report one compiled-path cache key for recompile-churn tracking (JAX ``metric.py:656``).
+
+        The components are the signature's: the JAX package's structure,
+        statics, shapes, dtypes and dtype policy, and the port's devices and
+        layouts (a graph per device and input layout). Deduplicated on the
+        hashable signature before any string is built.
+        """
+        seen = self.__dict__.setdefault("_obs_seen_sigs", set())
+        policy = "none" if self._dtype_policy is None else str(self._dtype_policy).replace("torch.", "")
+        sig_key = (kind, treedef, statics, sig_inputs, policy)
+        if sig_key in seen:
+            return
+        if len(seen) < 512:  # churn streams must not grow host memory without bound
+            seen.add(sig_key)
+        components = {
+            "arg_structure": str(treedef),
+            "static_args": repr(statics),
+            "shapes": repr(tuple(s[0] for s in sig_inputs)),
+            "dtypes": repr(tuple(str(s[1]).replace("torch.", "") for s in sig_inputs)),
+            "devices": repr(tuple(str(s[2]) for s in sig_inputs)),
+            "layouts": repr(tuple(s[3:] for s in sig_inputs)),
+            "dtype_policy": policy,
+        }
+        _telemetry_for(self).compile_event(kind, components, built=built)
+
+    def telemetry_report(self) -> Any:
+        """Runtime telemetry snapshot for this metric (JAX ``metric.py:689``).
+
+        A :class:`~torchmetrics_tpu_torch._observability.telemetry.TelemetryReport`
+        with per-path update counters, fingerprint and deferred-violation
+        counts, compile and recompile-churn statistics, sync calls, and
+        sampled latency reservoirs. With telemetry disabled (the default) the
+        report is empty with ``enabled=False``; enable collection with
+        ``TM_TPU_TELEMETRY=1`` or
+        :func:`torchmetrics_tpu_torch._observability.set_telemetry_enabled`.
+        """
+        from torchmetrics_tpu_torch._observability.telemetry import report_for
+
+        return report_for(self)
 
     def _unshare_states(self) -> None:
         """Take private copies of the tensor states other metrics of a compute group hold (copy on write).
@@ -556,11 +668,29 @@ class Metric(nn.Module, ABC):
     _AUTO_MAX_SIGNATURES = 8
     _COMPILED_CACHES = ("_auto_update_fn", "_auto_forward_fn", "_jit_update_fn", "_scan_update_fn")
 
-    def _disable_auto(self, reason: str) -> None:
-        """Turn the compiled update and forward off for this instance, recording why."""
-        self._auto_disabled = self._auto_forward_disabled = True
+    def _disable_auto(self, reason: str, forward_only: bool = False, observe: bool = True) -> None:
+        """Turn the compiled update and forward (or the forward alone) off for this instance, recording why.
+
+        With telemetry on, the cause also goes out as an ``auto_path_disabled``
+        counter and bus event (JAX ``metric.py:684``), where the JAX package
+        sends one; ``observe=False`` where it does not.
+        """
+        self._auto_forward_disabled = True
+        if not forward_only:
+            self._auto_disabled = True
         if self._auto_disabled_reason is None:
             self._auto_disabled_reason = reason
+        if _OBS.enabled and observe:
+            self._obs_auto_disabled(reason, "metric.forward" if forward_only else "metric.update")
+
+    def _obs_auto_disabled(self, reason: str, seam: str = "metric.update") -> None:
+        """Record why a compiled path switched off: a counter and a bus event (telemetry on).
+
+        The event names its seam (``data["seam"]``), so a flight dump of it
+        names the seam too; the JAX package's event carries no data.
+        """
+        _telemetry_for(self).inc("auto_path_disabled")
+        _BUS.publish("auto_path_disabled", type(self).__name__, reason, data={"seam": seam})
 
     def _auto_eligible(self) -> bool:
         """Base gate for the compiled ``update``/``forward`` (JAX ``metric.py:1501``).
@@ -647,6 +777,12 @@ class Metric(nn.Module, ABC):
         errors = [m for m, s, v in zip(self._viol_msgs, sevs, vals) if v and s == "error"]
         warns = [m for m, s, v in zip(self._viol_msgs, sevs, vals) if v and s == "warn"]
         self._viol_flags = torch.zeros_like(flags)
+        if _OBS.enabled:
+            telem = _telemetry_for(self)
+            if errors:
+                telem.inc("deferred_violations|severity=error", len(errors))
+            if warns:
+                telem.inc("deferred_violations|severity=warn", len(warns))
         for msg in warns:
             rank_zero_warn(
                 f"{msg} (surfaced asynchronously: this warn-severity check ran fused inside the compiled update)",
@@ -828,7 +964,11 @@ class Metric(nn.Module, ABC):
         try:
             for n in names:
                 object.__setattr__(self, n, states[n])
-            self.update.__wrapped__(*args, **kwargs)
+            if _OBS.enabled and _OBS.profile_scopes:
+                with _obs_scopes.named_scope(f"{type(self).__name__}.update"):
+                    self.update.__wrapped__(*args, **kwargs)
+            else:
+                self.update.__wrapped__(*args, **kwargs)
             new_states = {n: getattr(self, n) for n in names}
             if self._dtype_policy is not None:
                 new_states = {
@@ -846,6 +986,9 @@ class Metric(nn.Module, ABC):
         try:
             for n in names:
                 object.__setattr__(self, n, states[n])
+            if _OBS.enabled and _OBS.profile_scopes:
+                with _obs_scopes.named_scope(f"{type(self).__name__}.compute"):
+                    return self.compute.__wrapped__()
             return self.compute.__wrapped__()
         finally:
             for n, v in saved.items():
@@ -978,6 +1121,44 @@ class Metric(nn.Module, ABC):
             bufs[_COUNT] = torch.full((), self._update_count, dtype=torch.int64, device=self._device)
         return bufs
 
+    # compile-cache attribute -> the churn detector's compile kind, and the profiled seam of its steps
+    _COMPILE_KINDS = {
+        "_auto_update_fn": ("auto_update", "update_compiled"),
+        "_auto_forward_fn": ("auto_forward", "forward_compiled"),
+        "_jit_update_fn": ("jit_update", "update_jit"),
+        "_scan_update_fn": ("scan_update", "update_scan"),
+    }
+
+    def _obs_built(self, cache_name: str, key: Any, seconds: float, tally: Any) -> None:
+        """Report a step just built (captured on the card, first run on the CPU): its seconds and counted cost.
+
+        The first call of a JAX executable pays its trace and compile
+        (``trace_seconds``, JAX ``metric.py:1481``); the port's pays its
+        warm-up and capture, or on the CPU its first eager run.
+        """
+        if _OBS.enabled:
+            telem = _telemetry_for(self)
+            telem.inc("trace_seconds", seconds)
+            telem.observe("trace", seconds)
+        if _OBS.profiling:
+            kind = self._COMPILE_KINDS[cache_name][0]
+            _PROF_LEDGER.note_executable(
+                owner=f"{type(self).__module__}.{type(self).__qualname__}",
+                kind=kind,
+                digest=hashlib.sha256(repr((kind, key)).encode()).hexdigest(),
+                cost=None if tally is None else tally.cost(),
+                compile_seconds=seconds,
+                source="captured" if self._device.type == "cuda" else "compiled",
+            )
+
+    @staticmethod
+    def _counted_run(fn: Callable, dynamic: List[Tensor], bufs: Dict[str, Any]) -> Tuple[Any, Any]:
+        """``fn()`` under a count of its flops and bytes (profiling on, a step's first run): ``(out, tally)``."""
+        with _obs_costs.count_costs(dynamic, bufs) as tally:
+            out = fn()
+            _obs_costs.add_output_bytes(tally, out)
+        return out, tally
+
     def _run_compiled(
         self, cache_name: str, key: Any, names: List[str], dynamic: List[Tensor], build: Callable, validate: bool, count: bool = False
     ) -> Any:
@@ -987,7 +1168,9 @@ class Metric(nn.Module, ABC):
         card the first call captures: the warm-up applies this batch to the
         graph's own copies of the states, then the capture on those copies
         runs nothing, so the batch reaches the states once. A failure
-        anywhere leaves the metric's states as they were.
+        anywhere leaves the metric's states as they were. With profiling on,
+        a replay is timed by a CUDA event pair (``CapturedStep.replay``) and
+        a CPU step by the host clock; the first call is the step's build.
         """
         key = (key, None if self._dtype_policy is None else str(self._dtype_policy))
         cache = self.__dict__.setdefault(cache_name, {})
@@ -1000,25 +1183,42 @@ class Metric(nn.Module, ABC):
                 cnt = self.__dict__.get("_auto_cnt")
                 if cnt is not None and cnt[0] == self._update_count:
                     bufs[_COUNT] = cnt[1]
+            t0 = time.perf_counter() if (first and _OBS.enabled) or _OBS.profiling else None
+            tally = None
             try:
-                out = cache[key](bufs, dynamic)
+                if first and _OBS.profiling:
+                    out, tally = self._counted_run(lambda: cache[key](bufs, dynamic), dynamic, bufs)
+                else:
+                    out = cache[key](bufs, dynamic)
             except Exception:
                 if first:
                     del cache[key]
                 raise
+            if t0 is not None:
+                elapsed = time.perf_counter() - t0
+                if first:
+                    self._obs_built(cache_name, key, elapsed, tally)
+                elif _OBS.profiling:
+                    _PROF_LEDGER.record_step(self._COMPILE_KINDS[cache_name][1], type(self).__name__, elapsed)
             self._commit_compiled_states(names, bufs, validate, count)
             return out
         entry = cache.get(key)
         if entry is None:
+            t0 = time.perf_counter()
             step, constants = build(), {}
             bufs = self._step_bufs(names, validate, count, private=True)
-            out = _compile.warm_up(step, bufs, dynamic, self._device, constants)
+            warm = functools.partial(_compile.warm_up, step, bufs, dynamic, self._device, constants)
+            out, tally = self._counted_run(warm, dynamic, bufs) if _OBS.profiling else (warm(), None)
             rings = {n: (b.count, b._warned_overflow) for n, b in bufs.items() if isinstance(b, RingBuffer)}
             # one memory pool for the metric's graphs; a pool whose graphs are all
             # gone is not reused (the allocator frees it lazily), so it gets a new one
             if not self._graph_buffer_ids():
                 self.__dict__["_graph_pool"] = torch.cuda.graph_pool_handle()
             entry = _compile.CapturedStep(step, bufs, dynamic, self.__dict__["_graph_pool"], self._device, constants)
+            # replays are timed on the card under this seam and class while profiling is on
+            entry.seam, entry.owner = self._COMPILE_KINDS[cache_name][1], type(self).__name__
+            if _OBS.enabled or _OBS.profiling:
+                self._obs_built(cache_name, key, time.perf_counter() - t0, tally)
             # the capture ran the step's Python but no kernel: put back the host side of each ring
             entry.ring_deltas = {n: bufs[n].count - c for n, (c, _) in rings.items()}
             for n, (c, warned) in rings.items():
@@ -1132,6 +1332,13 @@ class Metric(nn.Module, ABC):
             if len(seen) < self._AUTO_MAX_SIGNATURES:
                 seen[sig] = 0  # the first call runs eagerly (validation + warm-up)
                 self.__dict__["_auto_capture_next"] = True
+                if _OBS.enabled:
+                    # a new signature means a new graph (captured at its next call): churn tracking
+                    self._obs_compile_event("auto_update", treedef, statics, sig[2])
+            elif _OBS.enabled:
+                # the signature cache is full: this shape streams eagerly, and no graph is ever built for it
+                _telemetry_for(self).inc("signature_overflow")
+                self._obs_compile_event("auto_update", treedef, statics, sig[2], built=False)
             return False
         try:
             names = self._auto_state_names("update")
@@ -1145,22 +1352,28 @@ class Metric(nn.Module, ABC):
             try:
                 validate = self._prime_violation_state(treedef, dynamic, statics)
             except Exception as err:
-                self._disable_auto(f"traced validation failed: {type(err).__name__}: {err}")
+                self._disable_auto(f"traced validation failed: {type(err).__name__}: {err}", observe=False)
                 return False
         if self._states_aliased:
             self._unshare_states()
+        obs_sample = _OBS.enabled and _telemetry_for(self).sample_due("update_compiled")
+        t0 = time.perf_counter() if obs_sample else 0.0
+        key = (treedef, statics, sig[2], validate)
+        build = lambda: self._update_step(names, treedef, statics, validate)  # noqa: E731
         try:
-            self._run_compiled(
-                "_auto_update_fn",
-                (treedef, statics, sig[2], validate),
-                names,
-                dynamic,
-                lambda: self._update_step(names, treedef, statics, validate),
-                validate,
-            )
+            if _OBS.enabled and _OBS.profile_scopes:
+                with _obs_scopes.annotation(f"{type(self).__name__}.update[compiled]", self._device.type == "cuda"):
+                    self._run_compiled("_auto_update_fn", key, names, dynamic, build, validate)
+            else:
+                self._run_compiled("_auto_update_fn", key, names, dynamic, build, validate)
         except Exception as err:
             self._disable_auto(f"compiled update failed: {type(err).__name__}: {err}")
             return False
+        if _OBS.enabled:
+            telem = _telemetry_for(self)
+            telem.inc("update_calls|path=auto_compiled")
+            if obs_sample:
+                telem.observe("update_compiled", time.perf_counter() - t0)
         seen[sig] += 1
         self._computed = None
         self._update_count += 1
@@ -1190,8 +1403,7 @@ class Metric(nn.Module, ABC):
         try:
             sig, treedef, dynamic, statics = self._auto_signature(args, kwargs)
         except (TorchMetricsUserError, TypeError) as err:
-            self._auto_forward_disabled = True
-            self._auto_disabled_reason = self._auto_disabled_reason or f"unsupported forward arguments: {err}"
+            self._disable_auto(f"unhashable/unsupported forward arguments: {err}", forward_only=True)
             return False, None
         if not dynamic or any(d.device != self._device or _compile.overlapping(d) for d in dynamic):
             return False, None
@@ -1199,15 +1411,21 @@ class Metric(nn.Module, ABC):
         if sig not in seen:
             if len(seen) < self._AUTO_MAX_SIGNATURES:
                 seen[sig] = 0
+                if _OBS.enabled:
+                    self._obs_compile_event("auto_forward", treedef, statics, sig[2])
+            elif _OBS.enabled:
+                _telemetry_for(self).inc("signature_overflow")
+                self._obs_compile_event("auto_forward", treedef, statics, sig[2], built=False)
             return False, None
         try:
             names = self._auto_state_names("forward")
         except TorchMetricsUserError as err:
-            self._auto_forward_disabled = True
-            self._auto_disabled_reason = self._auto_disabled_reason or f"states unsupported by the compiled forward: {err}"
+            self._disable_auto(f"states unsupported by the compiled forward: {err}", forward_only=True)
             return False, None
         if names is None or not self._auto_forward_mergeable(names):
             self._auto_forward_disabled = True
+            if names is not None and _OBS.enabled:
+                self._obs_auto_disabled("state reductions do not merge functionally under trace", "metric.forward")
             return False, None
         validate = self._auto_validate()
         if validate:
@@ -1218,22 +1436,24 @@ class Metric(nn.Module, ABC):
                 return False, None
         if self._states_aliased:  # the step merges into the states in place
             self._unshare_states()
+        obs_sample = _OBS.enabled and _telemetry_for(self).sample_due("forward_compiled")
+        t0 = time.perf_counter() if obs_sample else 0.0
+        key = (treedef, statics, sig[2], validate)
+        build = lambda: self._forward_step(names, treedef, statics, validate)  # noqa: E731
         try:
-            batch_val = self._run_compiled(
-                "_auto_forward_fn",
-                (treedef, statics, sig[2], validate),
-                names,
-                dynamic,
-                lambda: self._forward_step(names, treedef, statics, validate),
-                validate,
-                count=True,
-            )
+            if _OBS.enabled and _OBS.profile_scopes:
+                with _obs_scopes.annotation(f"{type(self).__name__}.forward[compiled]", self._device.type == "cuda"):
+                    batch_val = self._run_compiled("_auto_forward_fn", key, names, dynamic, build, validate, count=True)
+            else:
+                batch_val = self._run_compiled("_auto_forward_fn", key, names, dynamic, build, validate, count=True)
         except Exception as err:
-            self._auto_forward_disabled = True
-            self._auto_disabled_reason = self._auto_disabled_reason or (
-                f"compiled forward failed: {type(err).__name__}: {err}"
-            )
+            self._disable_auto(f"compiled forward failed: {type(err).__name__}: {err}", forward_only=True)
             return False, None
+        if _OBS.enabled:
+            telem = _telemetry_for(self)
+            telem.inc("update_calls|path=forward_compiled")
+            if obs_sample:
+                telem.observe("forward_compiled", time.perf_counter() - t0)
         seen[sig] += 1
         self._update_count += 1
         self._computed = None
@@ -1267,17 +1487,21 @@ class Metric(nn.Module, ABC):
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
                 try:
-                    sig, _, dynamic, _ = self._auto_signature(args, kwargs)
+                    sig, treedef, dynamic, statics = self._auto_signature(args, kwargs)
                 except (TorchMetricsUserError, TypeError):
                     sig = dynamic = None
                 if dynamic and sig not in self._auto_sigs:
                     if len(self._auto_sigs) >= self._AUTO_MAX_SIGNATURES:
+                        if _OBS.enabled:
+                            _telemetry_for(self).inc("signature_overflow")
                         report["reason"] = (
                             f"signature cache saturated ({self._AUTO_MAX_SIGNATURES} shapes):"
                             " this signature streams eagerly"
                         )
                         return report
                     self._auto_sigs[sig] = 0
+                    if _OBS.enabled:
+                        self._obs_compile_event("auto_update", treedef, statics, sig[2])
                 self.update(*args, **kwargs)
                 if "_auto_update_fn" not in self.__dict__ and not self._auto_disabled:
                     # a lazily shaped ring buffer warms up on the first pass
@@ -1288,8 +1512,7 @@ class Metric(nn.Module, ABC):
             self._restore_state(stash)
         report["engaged"] = "_auto_update_fn" in self.__dict__ and not self._auto_disabled
         if not report["engaged"]:
-            # the JAX package's words; the cause is in `_auto_disabled_reason` (the JAX package sends it to telemetry)
-            report["reason"] = "update did not compile (see `_auto_disabled_reason`)"
+            report["reason"] = "update did not compile (see telemetry `auto_path_disabled` events)"
         return report
 
     def jit_update(self, *args: Any, **kwargs: Any) -> None:
@@ -1307,7 +1530,8 @@ class Metric(nn.Module, ABC):
         sig, treedef, dynamic, statics = self._auto_signature(args, kwargs, "jit_update")
         if self._states_aliased:
             self._unshare_states()
-        self._run_compiled(
+        run = functools.partial(
+            self._run_compiled,
             "_jit_update_fn",
             (treedef, statics, sig[2]),
             names,
@@ -1315,6 +1539,11 @@ class Metric(nn.Module, ABC):
             lambda: self._update_step(names, treedef, statics, False),
             False,
         )
+        if _OBS.enabled:
+            self._obs_compile_event("jit_update", treedef, statics, sig[2])
+            self._obs_call("update_calls|path=jit", "update_jit", "jit_update", run)
+        else:
+            run()
         self._computed = None
         self._update_count += 1
 
@@ -1343,7 +1572,8 @@ class Metric(nn.Module, ABC):
         n_steps = int(dynamic[0].shape[0])
         if self._states_aliased:
             self._unshare_states()
-        self._run_compiled(
+        run = functools.partial(
+            self._run_compiled,
             "_scan_update_fn",
             (treedef, statics, sig[2]),
             names,
@@ -1351,6 +1581,12 @@ class Metric(nn.Module, ABC):
             lambda: self._update_step(names, treedef, statics, False, steps=n_steps),
             False,
         )
+        if _OBS.enabled:
+            self._obs_compile_event("scan_update", treedef, statics, sig[2])
+            self._obs_call("update_calls|path=scan", "update_scan", "scan_update", run)
+            _telemetry_for(self).inc("scan_steps", n_steps)
+        else:
+            run()
         self._computed = None
         self._update_count += n_steps
 
@@ -1389,6 +1625,18 @@ class Metric(nn.Module, ABC):
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            _sp = _obs_trace.begin_span("compute", type(self).__name__) if _OBS.tracing else None
+            _sp_err: Optional[BaseException] = None
+            try:
+                return _compute_impl(_sp, args, kwargs)
+            except BaseException as err:
+                _sp_err = err
+                raise
+            finally:
+                if _sp is not None:
+                    _obs_trace.end_span(_sp, _sp_err)
+
+        def _compute_impl(_sp: Any, args: tuple, kwargs: Dict[str, Any]) -> Any:
             self._check_pending_violations()
             if not self.update_called:
                 rank_zero_warn(
@@ -1398,13 +1646,26 @@ class Metric(nn.Module, ABC):
                     UserWarning,
                 )
             if self._computed is not None:
+                if _sp is not None:
+                    _sp.attrs["outcome"] = "cache_hit"
+                if _OBS.enabled:
+                    _telemetry_for(self).inc("compute_calls|outcome=cache_hit")
                 return self._computed
+            # the sync inside sync_context opens its own child span: a traced
+            # compute reads update -> sync -> compute causally
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn,
                 should_sync=self._to_sync,
                 should_unsync=self._should_unsync,
             ):
-                value = _squeeze_if_scalar(compute(*args, **kwargs))
+                if _OBS.enabled:
+                    value = _squeeze_if_scalar(
+                        self._obs_call(
+                            "compute_calls|outcome=computed", "compute", "compute", lambda: compute(*args, **kwargs)
+                        )
+                    )
+                else:
+                    value = _squeeze_if_scalar(compute(*args, **kwargs))
             if self.compute_with_cache:
                 self._computed = value
             return value
@@ -1441,7 +1702,22 @@ class Metric(nn.Module, ABC):
         if dist_sync_fn is None:
             dist_sync_fn = self.dist_sync_fn or gather_all_tensors
         self._cache = self._copy_state_dict()
-        self._sync_dist(dist_sync_fn, process_group=process_group or self.process_group)
+        group = process_group or self.process_group
+        _sp = _obs_trace.begin_span("sync", type(self).__name__, mode="unguarded") if _OBS.tracing else None
+        _sp_err: Optional[BaseException] = None
+        try:
+            if _OBS.enabled:
+                self._obs_call(
+                    "sync_calls|mode=unguarded", "sync", "sync", lambda: self._sync_dist(dist_sync_fn, process_group=group)
+                )
+            else:
+                self._sync_dist(dist_sync_fn, process_group=group)
+        except BaseException as err:
+            _sp_err = err
+            raise
+        finally:
+            if _sp is not None:
+                _obs_trace.end_span(_sp, _sp_err)
         self._is_synced = True
 
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
@@ -1655,7 +1931,11 @@ class Metric(nn.Module, ABC):
 
     def __getstate__(self) -> Dict[str, Any]:
         """Pickle support: drop the wrapped bound methods (reference ``metric.py:694-702``)."""
-        dropped = ("update", "compute", "_update_signature", "_auto_sigs", "_auto_fwd_sigs", "_auto_cnt", "_graph_pool")
+        # telemetry is per-instance stream history: a pickled or cloned metric is a new stream
+        dropped = (
+            "update", "compute", "_update_signature", "_auto_sigs", "_auto_fwd_sigs", "_auto_cnt", "_graph_pool",
+            "_telem", "_obs_seen_sigs",
+        )
         state = {k: v for k, v in self.__dict__.items() if k not in dropped + self._COMPILED_CACHES}
         state["_computed"] = None
         return state

@@ -16,6 +16,14 @@ tensor's version counter: a buffer refilled between two updates misses the
 cache. An inference tensor (made under ``torch.inference_mode``) has no
 version counter, so its features are kept only for the length of one
 ``FeatureShare.update`` or ``forward``.
+
+The members stay eager (``Metric._disable_auto``, an ``auto_path_disabled``
+event with telemetry on). A member's CUDA graph reads private copies of the
+batch, which miss the cache, and would hold a trunk forward of its own
+beside the one the other members share: two forwards a batch. Eager, every
+member reaches the one cached forward, and the trunk itself still runs as
+its own captured graph (``_compile.CapturedForward``). The JAX package's
+members compile, and its traced update misses the cache the same way.
 """
 
 from __future__ import annotations
@@ -145,6 +153,7 @@ class FeatureShare(MetricCollection):
                     " `feature_network` attribute."
                 )
             setattr(metric, str(metric.feature_network), cached)
+            metric._disable_auto("a FeatureShare member stays eager: its graph would run the shared trunk again")
 
     def _network_cache(self) -> NetworkCache:
         first = next(iter(self._modules.values()))
