@@ -342,6 +342,18 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     flight dump of an ``auto_path_disabled`` event (``--phase
     observability`` runs the build and this phase alone);
 
+51. ``resilience``: the resilience runtime (``_resilience``) on the
+    imagenet_val data through BASELINE config 2's collection (macro
+    accuracy, precision, recall, F1, binned AUROC, the 1,000-class confusion
+    matrix on B1, a NaN-sensitive mean cross-entropy and ECE): batches 5, 17
+    and 33 NaN-poisoned under ``nan_policy="quarantine"``, a snapshot
+    manager journaling every update, a preemption after 29 updates and a
+    restore, bit for bit with an uninterrupted stream, eager and on the
+    compiled path; a corrupted ``cm`` state refused and repaired; a retried
+    and a degraded guarded sync in a simulated world, a one-rank NCCL
+    guarded sync in a spawned child; the chaos smoke schedules on the card
+    (``--phase resilience`` runs the build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1-B5 and S1) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
@@ -359,12 +371,14 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import multiprocessing
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
@@ -6556,6 +6570,356 @@ def phase_observability(torch, np, kernel, ce, dev, gen, logits, target, npz_fol
     return {"seconds": seconds, "b1_launches": b1_launches, "fid_launches": fid_launches}
 
 
+# ----------------------------------------------------------------- resilience
+RES_SIZES = {"batch": 1024, "poisoned": (5, 17, 33), "kill_after": 29, "every_n": 8, "keep": 2,
+             "chaos_metric_seeds": (0, 1, 2), "chaos_collection_seed": 100, "chaos_stall_seed": 101}
+RES_LOSS_RTOL = 1e-5  # float32 sums of 46 batch means' terms (~47,000 CEs of 3-10) against float64
+
+
+def _resilience_collection(tp, c_in: int, dev, nan_policy=None):
+    """BASELINE config 2's members, a NaN-sensitive mean loss and ECE (cat states: the sentinel's incremental scan)."""
+    cls, kw = tp.classification, {"device": dev}
+    mc = tp.MetricCollection({
+        "acc": cls.MulticlassAccuracy(num_classes=c_in, **kw),
+        "precision": cls.MulticlassPrecision(num_classes=c_in, **kw),
+        "recall": cls.MulticlassRecall(num_classes=c_in, **kw),
+        "f1": cls.MulticlassF1Score(num_classes=c_in, **kw),
+        "auroc_binned": cls.MulticlassAUROC(num_classes=c_in, thresholds=100, **kw),
+        "cm": cls.MulticlassConfusionMatrix(num_classes=c_in, **kw),
+        # `disable`: a NaN reaches the state (the default `warn` drops NaNs before the sentinel could see them)
+        "loss": tp.MeanMetric(nan_strategy="disable", **kw),
+        "ece": cls.MulticlassCalibrationError(num_classes=c_in, n_bins=15, **kw),
+    })
+    if nan_policy is not None:
+        mc.set_resilience_policy(nan_policy=nan_policy)
+    return mc
+
+
+def _host_states(mc) -> dict:
+    """Every state as host numpy (``state_dict(all_states=True)``), and each member's update count."""
+    out = mc.state_dict(all_states=True, _host=True)
+    out.update({f"{name}.#count": m.update_count for name, m in mc.items(keep_base=True)})
+    return out
+
+
+def _same_bytes(np, a: dict, b: dict) -> list:
+    """Keys whose values differ in dtype, shape or a single byte."""
+    def flat(v):
+        return v if isinstance(v, list) else [v]
+
+    bad = sorted(set(a) ^ set(b))
+    for key in set(a) & set(b):
+        xs, ys = flat(a[key]), flat(b[key])
+        if len(xs) != len(ys) or any(
+            np.asarray(x).dtype != np.asarray(y).dtype or np.shape(x) != np.shape(y)
+            or np.asarray(x).tobytes() != np.asarray(y).tobytes() for x, y in zip(xs, ys)
+        ):
+            bad.append(key)
+    return bad
+
+
+def _compute_diffs(torch, got: dict, want: dict) -> dict:
+    """``{key: max abs difference}`` of two ``compute()`` dicts (0.0 where bit for bit)."""
+    out = {}
+    for key in want:
+        g, w = got[key], want[key]
+        same = g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        out[key] = 0.0 if same else float((g.double() - w.double()).abs().max())
+    return out
+
+
+_NCCL_CHILD = r"""
+import json, sys, time, warnings
+warnings.simplefilter("ignore")
+sys.path.insert(0, sys.argv[2])
+import torch
+import torch.distributed as dist
+from torchmetrics_tpu_torch._resilience import RetryPolicy, SyncPolicy
+from torchmetrics_tpu_torch.classification import MulticlassConfusionMatrix
+from torchmetrics_tpu_torch.functional.classification import _confmat_kernel as kernel
+port, seed = int(sys.argv[1]), int(sys.argv[3])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+try:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m = MulticlassConfusionMatrix(num_classes=1000, sync_policy=SyncPolicy(retry=RetryPolicy(timeout=60.0, max_retries=0)))
+    for _ in range(3):
+        m.update(torch.randint(0, 1000, (1024,), generator=gen, device="cuda"),
+                 torch.randint(0, 1000, (1024,), generator=gen, device="cuda"))
+    local = m.confmat.clone()
+    ms, equal = [], []
+    for _ in range(2):  # the first sync runs the handshake and the gather, the second the gather alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.sync()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        equal.append(bool(m._is_synced) and bool(torch.equal(m.confmat, local)))
+        m.unsync()
+    print(json.dumps({"backend": dist.get_backend(), "world": dist.get_world_size(),
+                      "handshake_and_gather_ms": ms[0], "gather_ms": ms[1], "equal_unsynced": all(equal),
+                      "healthy": m.resilience_report().healthy, "handshake_cached": "_handshake_ok_digest" in m.__dict__,
+                      "b1_launches": int(kernel.confusion_matrix_cuda.launches)}))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def phase_resilience(torch, np, kernel, dev, logits, target, seed: int, smi: str) -> dict:
+    """The resilience runtime on the card, on the imagenet_val data through BASELINE config 2's collection.
+
+    1. Quarantine and durability, eager: ``nan_policy="quarantine"``, batches ``poisoned`` NaN-poisoned on the
+       card, a ``SnapshotManager`` journaling every update, a preemption after ``kill_after`` updates, a restore
+       into a fresh collection and the rest of the stream: states bit for bit with an uninterrupted stream,
+       three quarantines on ``loss`` and ``ece``, ``loss`` against float64, ``cm`` against a host bincount, two
+       more fresh restores byte-identical.
+    2. The same kill and restore on the compiled path (clean batches, B1 replayed from graphs), bit for bit,
+       with the host ms of a compiled update with and without a manager.
+    3. Integrity: a corrupted ``cm`` state refused with every member untouched, repaired alone, and an
+       integrity-checked ``merge_state``.
+    4. Guarded sync in a simulated world of 2 (a retried and a degraded sync), then a one-rank NCCL guarded
+       sync in a spawned child (no process group leaks into the other phases).
+    5. The chaos smoke schedules with factories on the card.
+    """
+    import torch.nn.functional as F
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    res = importlib.import_module("torchmetrics_tpu_torch._resilience")
+    fi = importlib.import_module("torchmetrics_tpu_torch._resilience.faultinject")
+    chaos = importlib.import_module("torchmetrics_tpu_torch._resilience.chaos")
+
+    t_phase = time.perf_counter()
+    b1 = kernel.confusion_matrix_cuda.launches
+    sizes = RES_SIZES
+    n_val, c_in = logits.shape
+    batch, poisoned, kill = sizes["batch"], set(sizes["poisoned"]), sizes["kill_after"]
+    starts = list(range(0, n_val, batch))
+    n_b = len(starts)
+    tgts = [target[s:s + batch] for s in starts]
+    clean_p = [logits[s:s + batch] for s in starts]
+    poisoned_p = [fi.poison_nans(p, frac=0.5) if i in poisoned else p for i, p in enumerate(clean_p)]
+    batches = {
+        "poisoned": [(p, t, F.cross_entropy(p, t, reduction="none")) for p, t in zip(poisoned_p, tgts)],
+        "clean": [(p, t, F.cross_entropy(p, t, reduction="none")) for p, t in zip(clean_p, tgts)],
+    }
+    cm_updates = 0
+
+    def make(policy=None):
+        return _resilience_collection(tp, c_in, dev, policy)
+
+    def update(mc, kind, i, host_ms=None):
+        nonlocal cm_updates
+        p, t, c = batches[kind][i]
+        h0 = time.perf_counter()
+        mc.update(preds=p, target=t, value=c)  # each member takes its own arguments (`_filter_kwargs`)
+        if host_ms is not None:
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+        cm_updates += 1
+
+    def policy(**kw):
+        return res.SnapshotPolicy(every_n_updates=sizes["every_n"], keep=sizes["keep"], **kw)
+
+    def restore_into(directory, **kw):
+        nonlocal cm_updates
+        mc = make(kw.pop("nan_policy", None))
+        mgr = res.SnapshotManager(mc, directory, policy(**kw))
+        report = mgr.restore_latest()
+        cm_updates += report.replayed  # every journaled entry is a collection update
+        return mc, mgr, report
+
+    # ------------------------------------------------ 1. quarantine and durability, eager
+    b1_0 = int(b1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the quarantines and the restore warn by design
+        ref = make("quarantine")
+        for i in range(n_b):
+            update(ref, "poisoned", i)
+        with tempfile.TemporaryDirectory() as folder:
+            live = make("quarantine")
+            mgr = res.SnapshotManager(live, folder, policy())
+            t0 = time.perf_counter()
+            for i in range(kill):
+                update(live, "poisoned", i)
+            journaled_ms = (time.perf_counter() - t0) * 1e3 / kill
+            mgr.simulate_preemption()
+            restored, mgr2, r1 = restore_into(folder, nan_policy="quarantine")
+            for i in range(kill, n_b):
+                update(restored, "poisoned", i)
+            mgr2.close()
+            again = [restore_into(folder, nan_policy="quarantine", async_write=False) for _ in range(2)]
+            for _, m, _ in again:
+                m.close()
+    ref_states, restored_states = _host_states(ref), _host_states(restored)
+    again_states = [_host_states(mc) for mc, _, _ in again]
+    check(not _same_bytes(np, restored_states, ref_states),
+          f"eager restore: states differ from the uninterrupted stream: {_same_bytes(np, restored_states, ref_states)}")
+    check(not _same_bytes(np, again_states[0], again_states[1]) and not _same_bytes(np, again_states[0], ref_states),
+          "a second fresh restore is not byte-identical")
+    ref_vals, restored_vals = ref.compute(), restored.compute()
+    eager_diffs = _compute_diffs(torch, restored_vals, ref_vals)
+    # ECE bins its confidences with float32 index_add_, whose order of adds on the card varies from call to call:
+    # its states are bit for bit (above), its value is held to CALIBRATION_ATOL
+    check(all(v == 0.0 for k, v in eager_diffs.items() if k != "ece") and eager_diffs["ece"] <= CALIBRATION_ATOL,
+          f"eager restore: compute() differs: {eager_diffs}")
+    q_ref = {k: r.quarantined_updates for k, r in ref.resilience_report().items()}
+    q_split = {k: live.resilience_report()[k].quarantined_updates + r.quarantined_updates
+               for k, r in restored.resilience_report().items()}
+    want_q = {k: (len(poisoned) if k in ("loss", "ece") else 0) for k in q_ref}
+    check(q_ref == want_q and q_split == want_q, f"quarantines: uninterrupted {q_ref}, killed + restored {q_split}")
+    clean_idx = [i for i in range(n_b) if i not in poisoned]
+    host_logits, host_target = logits.cpu().numpy(), target.cpu().numpy()
+    ce_sum, ce_n = 0.0, 0
+    for i in clean_idx:
+        x = host_logits[starts[i]:starts[i] + batch].astype(np.float64)
+        t = host_target[starts[i]:starts[i] + batch]
+        m = x.max(axis=1)
+        ce_sum += float((m + np.log(np.exp(x - m[:, None]).sum(axis=1)) - x[np.arange(len(t)), t]).sum())
+        ce_n += len(t)
+    loss_rel = abs(float(ref_vals["loss"]) - ce_sum / ce_n) / (ce_sum / ce_n)
+    check(loss_rel <= RES_LOSS_RTOL, f"loss {float(ref_vals['loss'])} against float64 {ce_sum / ce_n}")
+    labels = np.concatenate([torch.argmax(p, dim=1).cpu().numpy() for p, _, _ in batches["poisoned"]])
+    host_cm = np.bincount(host_target * c_in + labels, minlength=c_in * c_in).reshape(c_in, c_in)
+    check(np.array_equal(ref_vals["cm"].cpu().numpy(), host_cm), "cm != host bincount of torch's argmax labels")
+    part1_b1 = int(b1) - b1_0
+    check(part1_b1 == cm_updates, f"B1 {part1_b1} launches for {cm_updates} cm updates")
+    eager_line = {"updates": n_b, "poisoned": sorted(poisoned), "kill_after": kill,
+                  "restore": {"generation": r1.generation, "replayed": r1.replayed, "fell_back": r1.fell_back},
+                  "again_replayed": [r.replayed for _, _, r in again], "quarantined": q_ref,
+                  "quarantined_killed_plus_restored": q_split, "loss": float(ref_vals["loss"]),
+                  "loss_rel_err_vs_float64": loss_rel, "ece_diff": eager_diffs["ece"],
+                  "journaled_update_ms": journaled_ms, "b1_launches": part1_b1, "cm_updates": cm_updates}
+    del live, again
+
+    # ------------------------------------------------ 2. durability on the compiled path
+    b1_1, cm_1 = int(b1), cm_updates
+    ms_plain, ms_managed = [], []
+    ref2 = make()
+    for i in range(n_b):
+        update(ref2, "clean", i, ms_plain)
+    with tempfile.TemporaryDirectory() as folder:
+        live2 = make()
+        mgr = res.SnapshotManager(live2, folder, policy())
+        for i in range(kill):
+            update(live2, "clean", i, ms_managed)
+        mgr.simulate_preemption()
+        restored2, mgr2, r2 = restore_into(folder)
+        for i in range(kill, n_b):
+            update(restored2, "clean", i)
+        mgr2.close()
+    routes = {name: _engaged(m) for name, m in restored2.items(keep_base=True)}
+    check(all(routes[k] for k in ("acc", "auroc_binned", "cm", "loss")) and not routes["ece"]
+          and routes == {name: _engaged(m) for name, m in ref2.items(keep_base=True)},
+          f"compiled routes after the restore: {routes}")
+    bad = _same_bytes(np, _host_states(restored2), _host_states(ref2))
+    check(not bad, f"compiled restore: states differ from the uninterrupted compiled stream: {bad}")
+    compiled_diffs = _compute_diffs(torch, restored2.compute(), ref2.compute())
+    check(all(v == 0.0 for k, v in compiled_diffs.items() if k != "ece") and compiled_diffs["ece"] <= CALIBRATION_ATOL,
+          f"compiled restore: compute() differs: {compiled_diffs}")
+    part2_b1 = int(b1) - b1_1
+    check(part2_b1 == cm_updates - cm_1, f"B1 {part2_b1} launches for {cm_updates - cm_1} cm updates")
+    steady = slice(2, kill)  # past the eager first call and the capture; the managed stream's updates
+    compiled_line = {"restore": {"generation": r2.generation, "replayed": r2.replayed}, "routes": routes,
+                     "host_ms_per_update_no_manager": statistics.median(ms_plain[steady]),
+                     "host_ms_per_update_with_manager": statistics.median(ms_managed[steady]),
+                     "ece_diff": compiled_diffs["ece"], "b1_launches": part2_b1}
+    del live2, restored2, ref2
+
+    # ------------------------------------------------ 3. integrity
+    b1_2 = int(b1)
+    sd = ref.state_dict(integrity=True, all_states=True)
+    bad_sd = fi.corrupt_state_dict(sd, key="cm.confmat")
+    victim = make()
+    update(victim, "clean", 0)
+    before = _host_states(victim)
+    try:
+        victim.load_state_dict(bad_sd)
+        refused = None
+    except res.StateCorruptionError as err:
+        refused = sorted(err.corrupted)
+    check(refused == ["cm.confmat"] and not _same_bytes(np, _host_states(victim), before),
+          f"a corrupted cm: refused {refused}, members untouched: {not _same_bytes(np, _host_states(victim), before)}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        victim.load_state_dict(bad_sd, strict="repair")
+    repaired = {k: [e.kind for e in r.events] for k, r in victim.resilience_report().items()}
+    after = victim.state_dict(all_states=True, _host=True)
+    want = {k: v for k, v in ref.state_dict(all_states=True, _host=True).items() if not k.startswith("cm.")}
+    check(not victim["cm"].confmat.any() and repaired == {k: (["state_repair"] if k == "cm" else []) for k in repaired}
+          and not _same_bytes(np, {k: v for k, v in after.items() if not k.startswith("cm.")}, want),
+          f"repair: {repaired}")
+    merged = [tp.classification.MulticlassConfusionMatrix(num_classes=c_in, device=dev) for _ in range(2)]
+    for m in merged:
+        m.update(*batches["clean"][1][:2])
+        cm_updates += 1
+    merged[0].merge_state(ref["cm"].state_dict(all_states=True, integrity=True))
+    merged[1].merge_state(ref["cm"].state_dict(all_states=True))
+    check(torch.equal(merged[0].confmat, merged[1].confmat), "integrity-checked merge_state != plain merge")
+    integrity_line = {"refused": refused, "repaired": repaired, "merge_equal": True,
+                      "digests": len(sd["cm.#integrity"]["states"]), "b1_launches": int(b1) - b1_2}
+
+    # ------------------------------------------------ 4. guarded sync
+    b1_3 = int(b1)
+    gs = make()
+    for i in range(3):
+        update(gs, "clean", i)
+    local = {name: m.state_dict(all_states=True) for name, m in gs.items(keep_base=True)}
+    gs.set_resilience_policy(sync_policy=res.SyncPolicy(retry=res.RetryPolicy(max_retries=2, backoff_base=0.01, backoff_max=0.05)))
+    with fi.simulated_world(2), fi.inject_collective_failure(first_n=2) as stats:
+        t0 = time.perf_counter()
+        synced = gs.compute()
+        retried_ms = (time.perf_counter() - t0) * 1e3
+    healthy = {k: r.healthy for k, r in gs.resilience_report().items()}
+    check(stats.injected == 2 and all(healthy.values()), f"retried sync: {stats}, healthy {healthy}")
+    check(torch.equal(synced["cm"], 2 * local["cm"]["confmat"]), "retried sync: cm is not the doubled local sum")
+    check(torch.equal(gs["cm"].confmat, local["cm"]["confmat"]), "retried sync: the local state was not restored")
+    lone = tp.classification.MulticlassConfusionMatrix(
+        num_classes=c_in, device=dev, sync_policy=res.SyncPolicy(handshake=False, retry=res.RetryPolicy(timeout=0.5, max_retries=0)))
+    lone.update(*batches["clean"][0][:2])
+    cm_updates += 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with fi.simulated_world(2), fi.inject_collective_timeout(first_n=99, hang=5.0):
+            t0 = time.perf_counter()
+            degraded = lone.compute()
+            degraded_ms = (time.perf_counter() - t0) * 1e3
+    events = [e.kind for e in lone.resilience_report().events]
+    check(events == ["sync_degraded"] and torch.equal(degraded, lone.confmat) and degraded_ms < 2000.0,
+          f"degraded sync: {events}, {degraded_ms} ms")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    child = subprocess.run([sys.executable, "-c", _NCCL_CHILD, str(port), os.path.dirname(os.path.abspath(__file__)),
+                            str(seed)], capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, f"the NCCL child failed: {child.stderr[-2000:]}")
+    nccl = json.loads(child.stdout.strip().splitlines()[-1])
+    check(nccl["backend"] == "nccl" and nccl["world"] == 1 and nccl["equal_unsynced"] and nccl["healthy"]
+          and nccl["handshake_cached"], f"the NCCL child: {nccl}")
+    sync_line = {"retried": {"injected": stats.injected, "calls": stats.calls, "ms": retried_ms},
+                 "degraded": {"events": events, "ms": degraded_ms}, "nccl_child": nccl, "b1_launches": int(b1) - b1_3}
+    del gs, lone, victim, merged
+
+    # ------------------------------------------------ 5. chaos smoke on the card
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric_factory = lambda: chaos.default_metric_factory(device=dev)  # noqa: E731
+        runs = [chaos.run_chaos_schedule(s, factory=metric_factory) for s in sizes["chaos_metric_seeds"]]
+        runs.append(chaos.run_chaos_schedule(sizes["chaos_collection_seed"],
+                                             factory=lambda: chaos.default_collection_factory(device=dev)))
+        runs.append(chaos.run_chaos_schedule(sizes["chaos_stall_seed"], factory=metric_factory,
+                                             spec=chaos.ChaosSpec(stall_final=True)))
+    check(all(r.ok for r in runs), "chaos: " + "; ".join(r.describe() for r in runs if not r.ok))
+    chaos_line = [{"seed": r.seed, "seconds": r.elapsed_s, "preemptions": r.preemptions, "replayed": r.replayed_total,
+                   "faults": sorted({e.kind for e in r.events})} for r in runs]
+
+    b1_launches = int(b1) - b1_0
+    check(b1_launches == cm_updates, f"B1 {b1_launches} launches for {cm_updates} cm updates")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "resilience", "samples": n_val, "classes": c_in, "batch": batch, "eager": eager_line,
+          "compiled": compiled_line, "integrity": integrity_line, "guarded_sync": sync_line, "chaos": chaos_line,
+          "b1_launches": b1_launches, "seconds": seconds, "card": smi})
+    return {"seconds": seconds, "b1_launches": b1_launches}
+
+
 # ------------------------------------------------------------ captured_trunks
 def release_graphs(torch) -> None:
     """Free the graphs of the metrics a phase dropped, and their pools' memory.
@@ -6805,12 +7169,14 @@ def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability"),
+    parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
+                                            "resilience"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
                              "captured_trunks: build, run only the captured_trunks phase, stop; "
-                             "observability: build, run only the observability phase on the imagenet_val data, stop")
+                             "observability: build, run only the observability phase on the imagenet_val data, stop; "
+                             "resilience: build, run only the resilience phase on the imagenet_val data, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -6898,6 +7264,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as folder:
             phase_observability(torch, np, kernel, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 50),
                                 logits, target, folder, args.seed, smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "resilience":
+        logits, target = imagenet_val_data(torch, dev, gen)
+        phase_resilience(torch, np, kernel, dev, logits, target, args.seed, smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -7205,6 +7576,9 @@ def main() -> int:
         # ------------- the runtime telemetry on the compiled path and the FID gauges, phase 50
         observed = phase_observability(torch, np, kernel, ce, dev, torch.Generator(device=dev).manual_seed(args.seed + 50),
                                        logits, target, folder, args.seed, smi)
+    release_graphs(torch)
+    # ------------- the resilience runtime on the imagenet_val collection, phase 51
+    resilient = phase_resilience(torch, np, kernel, dev, logits, target, args.seed, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -7240,7 +7614,8 @@ def main() -> int:
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
-        + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"],
+        + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"]
+        + resilient["b1_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],

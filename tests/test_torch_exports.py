@@ -258,3 +258,35 @@ def test_audio_multimodal_names_reach_the_top_level():
             assert name in TF_ALL.__all__ and getattr(TF_ALL, name) is getattr(module, name)
     # as in the JAX package, the segmentation utilities stay in their submodule
     assert not set(TFS.__all__) & set(TF_ALL.__all__) and TF_ALL.segmentation is TFS
+
+
+def test_resilience_all_equals_the_jax_package():
+    """``_resilience.__all__``: the JAX package's 22 names, each defined."""
+    import torchmetrics_tpu_torch._resilience as TRES
+
+    want = _jax_all("_resilience/__init__.py")
+    assert len(want) == 22
+    assert sorted(TRES.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(TRES, name)]
+
+
+@pytest.mark.parametrize(
+    "family", ["quarantined_batches", "sync_attempts", "sync_retries", "degradations", "snapshot_writes", "snapshot_bytes"]
+)
+def test_resilience_families_are_declared_and_emitted(family):
+    """The observability families the resilience layer emits are declared as the JAX package declares them,
+    and some module of the port's runtime increments each."""
+    import glob
+
+    from torchmetrics_tpu_torch._observability.export import EXPORT_SCHEMA
+
+    with open(os.path.join(ROOT, "torchmetrics_tpu", "_observability", "export.py")) as fh:
+        tree = ast.parse(fh.read())
+    jax_schema = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == "EXPORT_SCHEMA"
+    )
+    assert EXPORT_SCHEMA[family] == {"kind": jax_schema[family]["kind"], "labels": tuple(jax_schema[family]["labels"])}
+    sources = glob.glob(os.path.join(ROOT, "torchmetrics_tpu_torch", "**", "*.py"), recursive=True)
+    emitters = [path for path in sources if f'"{family}' in open(path).read() and "_observability" not in path]
+    assert emitters, family

@@ -5,10 +5,10 @@ The triggers, the seam table, trace attribution, the merged timeline, the
 bounded windows, the on-disk artifacts and their retention, the
 ``perf_regression`` dump with its profiling section; SLO validation,
 latency SLOs over the pooled reservoirs, windowed error budgets and the
-readiness report. Where the JAX tests drive a quarantine (``nan_policy``,
-which waits for ``_resilience/``), these publish the degradation event or
-bump the counter family that a quarantine would, so the recorder and the
-budget math are exercised the same way.
+readiness report. Where the JAX tests drive a quarantine, the tests first
+ported here publish the degradation event or bump the counter family that a
+quarantine would; the ``*_real_quarantine`` tests beside them drive the
+port's own ``nan_policy="quarantine"``.
 """
 
 import json
@@ -479,3 +479,95 @@ def test_health_report_goes_unhealthy_on_violation(telemetry):
     assert not report.healthy
     assert report.status_of("impossible").status == "violated"
     assert health_report().healthy is False
+
+
+# ------------------------------------------------- on a real quarantine
+def _quarantining():
+    return tm.MeanSquaredError(nan_policy="quarantine", **CPU)
+
+
+def _nan(n):
+    return torch.full((n,), float("nan")), torch.zeros(n)
+
+
+def test_dump_carries_the_ambient_trace_id_real_quarantine(flight):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric = _quarantining()
+        with trace_context("request") as root:
+            metric.update(*_nan(4))
+    (dump,) = flight.dumps()
+    assert dump["trigger"]["data"]["kind"] == "nan_quarantine"
+    assert dump["seam"] == "metric.update"
+    assert dump["trace_attribution"] == "ambient"
+    assert dump["trace_id"] == root.trace_id
+    assert metric.resilience_report().quarantined_updates == 1
+
+
+def test_disabled_telemetry_means_no_triggers_real_quarantine(flight):
+    set_telemetry_enabled(False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric = _quarantining()
+        metric.update(*_nan(4))
+    # recorded on the metric, never published: the recorder (a bus subscriber) has nothing
+    assert flight.dump_count == 0 and metric.resilience_report().quarantined_updates == 1
+
+
+def test_error_rate_slo_lifetime_then_windowed_real_quarantine(telemetry):
+    good = torch.ones(8), torch.zeros(8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric = _quarantining()
+        for _ in range(9):
+            metric.update(*good)
+        metric.update(*_nan(8))  # 1 quarantined of 10 updates
+    tracker = SloTracker([SLO(name="q", bad=("quarantined_batches",), total=("update_calls",), objective=0.8)])
+    status = tracker.health_report().status_of("q")
+    assert status.compliance == pytest.approx(0.9)
+    assert status.burn_rate == pytest.approx(0.1 / 0.2)
+    assert status.status == "ok"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(5):
+            metric.update(*good)
+    status = tracker.health_report().status_of("q")
+    assert status.observed["bad"] == 0.0 and status.compliance == 1.0 and status.burn_rate == 0.0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric.update(*_nan(8))
+    status = tracker.health_report().status_of("q")
+    assert status.compliance == pytest.approx(5.0 / 6.0)
+    assert status.burn_rate == pytest.approx((1.0 / 6.0) / 0.2)
+    assert status.status == "ok"
+
+
+def test_error_rate_burst_after_window_expiry_is_at_risk_real_quarantine(telemetry):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric = _quarantining()
+        for _ in range(50):
+            metric.update(torch.ones(8), torch.zeros(8))
+    tracker = SloTracker([SLO(name="q", bad=("quarantined_batches",), total=("update_calls",), objective=0.8,
+                              window_s=0.01)])
+    tracker.health_report()
+    time.sleep(0.05)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric.update(*_nan(8))
+    status = tracker.health_report().status_of("q")
+    assert status.compliance == pytest.approx(0.0)
+    assert status.burn_rate == pytest.approx(1.0 / 0.2)
+    assert status.status == "at_risk"
+
+
+def test_bad_events_with_zero_denominator_traffic_never_read_ok_real_quarantine(telemetry):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _quarantining().update(*_nan(4))
+    tracker = SloTracker([SLO(name="d", bad=("degradations",), total=("sync_calls",), objective=0.9)])
+    status = tracker.health_report().status_of("d")
+    assert status.observed["bad"] >= 1 and status.observed["total"] == 0.0
+    assert status.compliance == 0.0
+    assert status.burn_rate == pytest.approx(1.0 / 0.1)
+    assert status.status == "at_risk"

@@ -4,9 +4,8 @@ From ``tests/unittests/observability/test_telemetry.py`` and
 ``test_telemetry_e2e.py``: the reservoir and event-bus building blocks, the
 counters each runtime seam records, the kill switches, the registry and its
 retirement of collected metrics, the exports (checked with
-``prometheus_client``'s parser), a collection's report. The tests that need
-``nan_policy``, guarded sync or snapshots wait for ``_resilience/`` (ROADMAP
-item 7). Added for the port: a metric's telemetry stays out of
+``prometheus_client``'s parser), a collection's report, and the counters of
+``nan_policy``, guarded sync and snapshots (``_resilience/``). Added for the port: a metric's telemetry stays out of
 ``state_dict``, ``.to()``, ``clone`` and pickling, and the metrics that
 wrappers and ``FeatureShare`` hold retire from the registry when collected.
 """
@@ -518,3 +517,119 @@ def test_sweep_totals_match_update_counts(telemetry):
     rep = metric.telemetry_report()
     assert rep.total_updates == 7
     assert rep.total_updates == metric.update_count
+
+
+# ------------------------------------------------- resilience + durability
+def test_quarantine_counter_and_degradation_on_bus(telemetry):
+    metric = tm.MeanSquaredError(nan_policy="quarantine", **CPU)
+    metric.update(torch.ones(4), torch.zeros(4))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        metric.update(torch.tensor([1.0, float("nan")]), torch.zeros(2))
+    rep = metric.telemetry_report()
+    assert rep.counter("quarantined_batches") == 1
+    assert rep.counter("degradations|kind=nan_quarantine") == 1
+    events = BUS.events(kind="degradation", source="MeanSquaredError")
+    assert events and events[-1].data["kind"] == "nan_quarantine"
+
+
+def test_cloned_collection_telemetry_reaches_the_registry(telemetry, tmp_path):
+    from torchmetrics_tpu_torch._resilience import SnapshotManager, SnapshotPolicy
+
+    mc = MetricCollection({"mse": tm.MeanSquaredError(**CPU)}, compute_groups=False)
+    mgr = SnapshotManager(mc, tmp_path, SnapshotPolicy(every_n_updates=2, async_write=False))
+    mc.update(torch.ones(4), torch.zeros(4))  # registers the collection-level telemetry
+    mgr.close()
+    clone = mc.clone()
+    assert clone.__dict__.get("_telem") is None  # not a registry-invisible copy
+    mgr2 = SnapshotManager(clone, tmp_path / "clone", SnapshotPolicy(every_n_updates=1, async_write=False))
+    clone.update(torch.ones(4), torch.zeros(4))
+    clone.update(torch.ones(4), torch.zeros(4))
+    mgr2.close()
+    agg = REGISTRY.aggregate()["MetricCollection"]
+    assert agg["instances"] == 2
+    assert agg["counters"]["snapshot_writes"] >= 2
+
+
+def test_collection_level_snapshot_telemetry_surfaces(telemetry, tmp_path):
+    from torchmetrics_tpu_torch._resilience import SnapshotManager, SnapshotPolicy
+
+    mc = MetricCollection({"mse": tm.MeanSquaredError(**CPU)}, compute_groups=False)
+    mgr = SnapshotManager(mc, tmp_path, SnapshotPolicy(every_n_updates=2, async_write=False))
+    for _ in range(4):
+        mc.update(torch.ones(4), torch.zeros(4))
+    mgr.close()
+    reports = mc.telemetry_report()
+    assert reports["__collection__"].counter("snapshot_writes") >= 1
+    merged = mc.telemetry_report(aggregate=True)
+    assert merged.counter("snapshot_writes") >= 1
+    assert merged.counter("journal_entries") >= 1
+
+
+def test_guarded_sync_attempt_and_retry_counters(telemetry):
+    from torchmetrics_tpu_torch._resilience.faultinject import inject_collective_failure, simulated_world
+    from torchmetrics_tpu_torch._resilience.policy import RetryPolicy, SyncPolicy
+
+    with simulated_world(2):
+        metric = tm.MeanSquaredError(sync_policy=SyncPolicy(retry=RetryPolicy(max_retries=1, backoff_base=0.0)), **CPU)
+        metric.update(torch.ones(4), torch.zeros(4))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with inject_collective_failure(first_n=10):
+                metric.compute()
+    rep = metric.telemetry_report()
+    assert rep.counter("sync_calls|mode=guarded") == 1
+    assert rep.counter("sync_attempts") == 2
+    assert rep.counter("sync_retries") == 1
+    assert rep.counter("degradations|kind=handshake_degraded") == 1
+    assert BUS.events(kind="degradation")
+
+
+def test_snapshot_and_restore_counters(telemetry, tmp_path):
+    from torchmetrics_tpu_torch._resilience import SnapshotManager, SnapshotPolicy
+
+    metric = tm.MeanSquaredError(**CPU)
+    mgr = SnapshotManager(metric, tmp_path, SnapshotPolicy(every_n_updates=2, async_write=False))
+    for i in range(5):
+        metric.update(torch.ones(4) * i, torch.zeros(4))
+    mgr.close()
+    rep = metric.telemetry_report()
+    assert rep.counter("snapshot_writes") >= 2
+    assert rep.counter("snapshot_bytes") > 0
+    assert rep.counter("journal_entries") >= 1
+    assert rep.counter("journal_bytes") > 0
+    assert BUS.events(kind="snapshot_write")
+    fresh = tm.MeanSquaredError(**CPU)
+    mgr2 = SnapshotManager(fresh, tmp_path, SnapshotPolicy(async_write=False))
+    mgr2.restore_latest()
+    mgr2.close()
+    assert fresh.telemetry_report().counter("restores|outcome=ok") == 1
+    restore_events = BUS.events(kind="snapshot_restore")
+    assert restore_events and restore_events[-1].data["outcome"] == "ok"
+    assert torch.allclose(fresh.compute(), metric.compute())
+
+
+def test_resilience_counters_export_under_their_families(telemetry, tmp_path):
+    """The six families declared for the resilience layer carry its counts in the exposition."""
+    from torchmetrics_tpu_torch._observability import export
+    from torchmetrics_tpu_torch._resilience import SnapshotManager, SnapshotPolicy
+    from torchmetrics_tpu_torch._resilience.faultinject import inject_collective_failure, simulated_world
+    from torchmetrics_tpu_torch._resilience.policy import RetryPolicy, SyncPolicy
+
+    metric = tm.MeanSquaredError(nan_policy="quarantine", **CPU)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with SnapshotManager(metric, tmp_path, SnapshotPolicy(every_n_updates=1, async_write=False)):
+            metric.update(torch.ones(4), torch.zeros(4))
+            metric.update(torch.tensor([float("nan")] * 4), torch.zeros(4))
+            metric.update(torch.ones(4), torch.zeros(4))
+        metric.set_resilience_policy(sync_policy=SyncPolicy(retry=RetryPolicy(max_retries=1, backoff_base=0.0)))
+        with simulated_world(2), inject_collective_failure(first_n=1):
+            metric.compute()
+    text = REGISTRY.render_prometheus()
+    for family in ("quarantined_batches", "sync_attempts", "sync_retries", "degradations", "snapshot_writes",
+                   "snapshot_bytes"):
+        assert export.EXPORT_SCHEMA[family]["kind"] == "counter"
+        lines = [line for line in text.splitlines()
+                 if line.startswith(f"tmtpu_{family}_total") and 'metric="MeanSquaredError"' in line]
+        assert lines and all(float(line.rsplit(" ", 1)[1]) > 0 for line in lines), family

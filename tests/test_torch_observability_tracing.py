@@ -3,10 +3,10 @@
 From ``tests/unittests/observability/test_tracing.py`` and ``test_churn.py``:
 span lifecycle and contextvar parentage, the update/compute/forward seams
 and a collection's fan-out, the bounded recorder ring, the Chrome
-trace-event export, the disabled path; churn warnings naming the changed
+trace-event export, the disabled path, the guarded sync's attempts and the
+snapshot write and restore spans; churn warnings naming the changed
 cache-key components, the bus events, the signature overflow. The span
-tests through guarded sync, snapshots and the stream pool wait for
-``_resilience/`` and ``_streams/`` (ROADMAP item 7). Added for the port: a
+tests through the stream pool wait for ``_streams/`` (ROADMAP item 7). Added for the port: a
 signature on another layout is a component of its own (``layouts``).
 """
 
@@ -155,6 +155,51 @@ def test_metric_update_compute_tree(tracing):
     assert paths == ["eager", "auto"]
     assert tree["children"][3]["attrs"]["outcome"] == "cache_hit"
     assert tree["children"][0]["t1_mono"] <= tree["children"][2]["t0_mono"]
+
+
+def test_metric_update_sync_compute_tree(tracing):
+    """The guarded path's tree: update and compute under the request, the guarded sync and its attempts under compute."""
+    from torchmetrics_tpu_torch._resilience.faultinject import simulated_world
+    from torchmetrics_tpu_torch._resilience.policy import RetryPolicy, SyncPolicy
+
+    with simulated_world(2):
+        metric = tm.MeanSquaredError(sync_policy=SyncPolicy(retry=RetryPolicy(max_retries=1)), **CPU)
+        with trace_context("eval") as root:
+            metric.update(torch.ones(4), torch.zeros(4))
+            metric.compute()
+    (tree,) = span_tree(root.trace_id)
+    assert tree["name"] == "eval"
+    children = {c["name"]: c for c in tree["children"]}
+    assert set(children) == {"update", "compute"}
+    assert children["update"]["attrs"]["path"] == "eager"
+    (sync,) = children["compute"]["children"]
+    assert sync["name"] == "sync" and sync["attrs"]["mode"] == "guarded"
+    attempts = [c for c in sync["children"] if c["name"] == "sync_attempt"]
+    assert len(attempts) == 2  # the handshake and the state gather, one attempt each
+    assert all(a["parent_id"] == sync["span_id"] for a in attempts)
+    assert children["update"]["t1_mono"] <= children["compute"]["t0_mono"]
+
+
+def test_snapshot_write_and_restore_spans(tracing, tmp_path):
+    from torchmetrics_tpu_torch._resilience import SnapshotManager, SnapshotPolicy
+
+    metric = mse()
+    with SnapshotManager(metric, tmp_path, SnapshotPolicy(every_n_updates=10, async_write=False)):
+        with trace_context("ingest") as root:
+            # the first update anchors the base snapshot; the next two journal
+            for i in range(3):
+                metric.update(torch.ones(4) * i, torch.zeros(4))
+    writes = [s for s in TRACER.spans(trace_id=root.trace_id) if s.name == "snapshot.write"]
+    assert writes and writes[0].source == "MeanSquaredError"
+    assert writes[0].attrs["generation"] == 0
+    fresh = mse()
+    with SnapshotManager(fresh, tmp_path, SnapshotPolicy(async_write=False)) as mgr:
+        with trace_context("recover") as root2:
+            mgr.restore_latest()
+    restores = [s for s in TRACER.spans(trace_id=root2.trace_id) if s.name == "snapshot.restore"]
+    assert restores and restores[0].attrs["replayed"] == 2
+    # the restore replays through the real update path, inside the same recovery trace
+    assert [s for s in TRACER.spans(trace_id=root2.trace_id) if s.name == "update"]
 
 
 def test_forward_parents_the_inner_dance(tracing):

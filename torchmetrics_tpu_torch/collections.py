@@ -39,6 +39,7 @@ from torch import nn
 
 from torchmetrics_tpu_torch._observability import tracing as _obs_trace
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
+from torchmetrics_tpu_torch._resilience import integrity as _integrity
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
@@ -96,6 +97,10 @@ class MetricCollection(nn.Module):
         self._enable_compute_groups = compute_groups
         self._groups_checked = False
         self._groups: Dict[int, List[str]] = {}
+        # collection-level update-journal hook: one SnapshotManager attached
+        # here journals whole-collection updates (members stay hook-free, so
+        # nothing is journaled twice)
+        self._snapshot_hook: Optional[Any] = None
         self.add_metrics(metrics, *additional_metrics)
 
     # ------------------------------------------------------------- construction
@@ -184,6 +189,18 @@ class MetricCollection(nn.Module):
         finally:
             if _sp is not None:
                 _obs_trace.end_span(_sp, _sp_err)
+        self._journal_record("update", args, kwargs)
+
+    def _journal_record(self, method: str, args: tuple, kwargs: Dict[str, Any]) -> None:
+        """Feed one completed collection-wide update to the SnapshotManager (JAX ``collections.py:174``).
+
+        Fires after every member (or group head, and the members given its
+        states) committed, so a snapshot taken here captures a mutually
+        consistent set of member states.
+        """
+        hook = self.__dict__.get("_snapshot_hook")
+        if hook is not None:
+            hook.record(self, method, args, kwargs)
 
     def precompile(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Warm every member's compiled update for this batch (``Metric.precompile``; JAX ``collections.py:187``).
@@ -276,6 +293,9 @@ class MetricCollection(nn.Module):
         finally:
             if _sp is not None:
                 _obs_trace.end_span(_sp, _sp_err)
+        # forward and update leave the same accumulated state, so the journal
+        # replays either through collection.update()
+        self._journal_record("update", args, kwargs)
         return self._flatten_results(res)
 
     def compute(self) -> Dict[str, Any]:
@@ -312,8 +332,20 @@ class MetricCollection(nn.Module):
 
     # -------------------------------------------------------------- maintenance
     def reset(self) -> None:
+        # a member's reset() may surface its pending deferred violation
+        # (clear, then raise): every member still gets reset, and one call
+        # raises the first violation
+        pending: Optional[BaseException] = None
         for m in self._modules.values():
-            m.reset()
+            try:
+                m.reset()
+            except RuntimeError as err:
+                pending = pending or err
+        # journaled as Metric.reset is: a restore must not bring back the
+        # accumulation a reset mid-stream discarded
+        self._journal_record("reset", (), {})
+        if pending is not None:
+            raise pending
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         mc = deepcopy(self)
@@ -327,17 +359,53 @@ class MetricCollection(nn.Module):
         for m in self._modules.values():
             m.persistent(mode)
 
-    def state_dict(self, prefix: str = "", all_states: bool = False) -> Dict[str, Any]:  # type: ignore[override]
-        """Every member's :meth:`Metric.state_dict` under ``{prefix}{name}.``."""
+    def state_dict(  # type: ignore[override]
+        self, prefix: str = "", integrity: bool = False, all_states: bool = False, _host: bool = False
+    ) -> Dict[str, Any]:
+        """Every member's :meth:`Metric.state_dict` under ``{prefix}{name}.``, each with its integrity block if asked."""
         destination: Dict[str, Any] = {}
         for name, m in self._modules.items():
-            m.state_dict(destination, prefix=f"{prefix}{name}.", all_states=all_states)
+            m.state_dict(destination, prefix=f"{prefix}{name}.", integrity=integrity, all_states=all_states, _host=_host)
         return destination
 
-    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True, prefix: str = "") -> None:  # type: ignore[override]
-        """Restore every member's states from ``{prefix}{name}.``-keyed entries."""
+    def load_state_dict(  # type: ignore[override]
+        self, state_dict: Dict[str, Any], strict: Union[bool, str] = True, prefix: str = ""
+    ) -> None:
+        """Restore member states; ``strict="repair"`` resets corrupted states only (JAX ``collections.py:351-392``).
+
+        Each member verifies its own integrity block (when present) under its
+        ``{prefix}{name}.`` namespace. The verification of ALL members runs
+        before ANY member loads, so a corrupted later member cannot leave the
+        collection half restored: the whole load proceeds (repairing under
+        ``strict="repair"``) or it raises with every member untouched.
+        """
+        if strict != "repair":
+            corrupted_all: Dict[str, str] = {}
+            for name, m in self._modules.items():
+                member_prefix = f"{prefix}{name}."
+                meta = state_dict.get(_integrity.integrity_key(member_prefix))
+                if meta is not None:
+                    bad = _integrity.verify_states(
+                        state_dict, member_prefix, meta, type(m).__name__, include_missing=strict is not False
+                    )
+                    corrupted_all.update({f"{name}.{k}": v for k, v in bad.items()})
+            if corrupted_all:
+                _integrity.raise_corrupted(f"MetricCollection(prefix={prefix!r})", corrupted_all)
+            # the pre-pass hashed every state: the members skip it
+            for name, m in self._modules.items():
+                m.load_state_dict(state_dict, strict=strict, prefix=f"{prefix}{name}.", _verified=True)
+            self._journal_record("external", (), {})
+            return
+        # repair: a member's verification raises only on an unknown schema
+        # version, so every block is validated before any member loads
+        for name, m in self._modules.items():
+            meta = state_dict.get(_integrity.integrity_key(f"{prefix}{name}."))
+            if meta is not None:
+                _integrity.validate_version(meta, type(m).__name__)
         for name, m in self._modules.items():
             m.load_state_dict(state_dict, strict=strict, prefix=f"{prefix}{name}.")
+        # a manual load mid-stream: anchor the transition the journal cannot replay
+        self._journal_record("external", (), {})
 
     def merge_state(self, incoming: "MetricCollection") -> None:
         """Merge another collection's state member by member.
@@ -365,6 +433,21 @@ class MetricCollection(nn.Module):
                 )
         for name, m in self._modules.items():
             m.merge_state(incoming._modules[name])
+
+    # ------------------------------------------------------------- resilience
+    def set_resilience_policy(self, **kwargs: Any) -> "MetricCollection":
+        """``Metric.set_resilience_policy`` on every member (``sync_policy``, ``nan_policy``; JAX ``collections.py:424``).
+
+        Only the arguments passed change. A compute group's head and members
+        share the policies, so degradation behaves alike within a group.
+        """
+        for m in self._modules.values():
+            m.set_resilience_policy(**kwargs)
+        return self
+
+    def resilience_report(self) -> Dict[str, Any]:
+        """Per-member resilience reports, keyed like :meth:`compute` results."""
+        return {self._set_name(name): m.resilience_report() for name, m in self._modules.items()}
 
     def sync(self, **kwargs: Any) -> None:
         for m in self._modules.values():
@@ -426,6 +509,8 @@ class MetricCollection(nn.Module):
 
         reports = {self._set_name(name): m.telemetry_report() for name, m in self._modules.items()}
         if self.__dict__.get("_telem") is not None:
+            # a collection-level SnapshotManager counts its snapshots, journal
+            # and restores on the COLLECTION object (JAX ``collections.py:455-461``)
             reports["__collection__"] = report_for(self)
         if not aggregate:
             return reports

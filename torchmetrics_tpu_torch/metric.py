@@ -59,6 +59,8 @@ from torchmetrics_tpu_torch._observability.events import BUS as _BUS
 from torchmetrics_tpu_torch._observability.profiling import LEDGER as _PROF_LEDGER
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
 from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as _telemetry_for
+from torchmetrics_tpu_torch._resilience import integrity as _integrity
+from torchmetrics_tpu_torch._resilience import policy as _res_policy
 from torchmetrics_tpu_torch.utilities.checks import _compiled_step
 from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_cat,
@@ -69,11 +71,13 @@ from torchmetrics_tpu_torch.utilities.data import (
 )
 from torchmetrics_tpu_torch.utilities.distributed import distributed_available as _default_distributed_available
 from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors
-from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
 
 State = Union[Tensor, List[Tensor], RingBuffer]
+
+_UNSET = object()  # `set_resilience_policy`: an argument not passed
 
 _STR_REDUCTIONS = {
     "sum": dim_zero_sum,
@@ -277,6 +281,21 @@ class Metric(nn.Module, ABC):
                 "Expected keyword argument `cat_state_capacity` to be `None` or a positive integer"
                 f" but got {self.cat_state_capacity}"
             )
+        # resilience knobs (`_resilience/`): `sync_policy` opts the eager
+        # multi-process sync into the guarded path (handshake, timeout/retry/
+        # backoff, graceful degradation); `nan_policy` arms the NaN/Inf state
+        # sentinel after every eager update. An EXPLICIT `sync_policy=None`
+        # opts out of the process-wide default policy; omitting it inherits it.
+        self._sync_policy_explicit = "sync_policy" in kwargs
+        self.sync_policy = kwargs.pop("sync_policy", None)
+        self.nan_policy = kwargs.pop("nan_policy", None)
+        self._validate_resilience_knobs()
+        self._resilience_events: List[Any] = []
+        self._quarantined_updates: int = 0
+        # update-journal hook: a SnapshotManager binds itself here; every
+        # completed update/forward then journals its batch for restore and
+        # replay. None (the default) costs one dict probe per update.
+        self._snapshot_hook: Optional[Any] = None
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -384,6 +403,9 @@ class Metric(nn.Module, ABC):
             self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
+        # registering a state changes the cross-process structure contract:
+        # the next guarded sync must run the handshake again
+        self.__dict__.pop("_handshake_ok_digest", None)
 
     # --------------------------------------------------------------- forward
     def forward(self, *args: Any, **kwargs: Any) -> Any:
@@ -399,6 +421,12 @@ class Metric(nn.Module, ABC):
                 "The Metric shouldn't be synced when performing ``forward``. "
                 "HINT: Did you forget to call ``unsync``?"
             )
+        # the stash/reset/update/compute/merge dance runs update() on
+        # batch-local state: suspend the snapshot journal for its duration
+        # and record the batch ONCE below, when the global state is final
+        suspended = "_journal_suspend" in self.__dict__
+        if not suspended:
+            self.__dict__["_journal_suspend"] = True
         # the forward span parents the inner update/compute spans, so one
         # forward call reads as ONE causally ordered request
         _sp = _obs_trace.begin_span("forward", type(self).__name__) if _OBS.tracing else None
@@ -415,11 +443,21 @@ class Metric(nn.Module, ABC):
         finally:
             if _sp is not None:
                 _obs_trace.end_span(_sp, _sp_err)
+            if not suspended:
+                self.__dict__.pop("_journal_suspend", None)
+        # replay re-runs a forward entry through plain update(): the state
+        # transition is the same, so the journal tags it "update"
+        self._journal_record("update", args, kwargs)
         return self._forward_cache
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Double-update path (reference ``metric.py:308-351``)."""
         self.update(*args, **kwargs)
+        if self.nan_policy == "quarantine" and self.__dict__.get("_nan_last_quarantined"):
+            # the NaN sentinel dropped this batch from the global state; the
+            # batch-value replay would re-update (and re-record the quarantine)
+            # and then compute on an empty state
+            return None
         self._to_sync = self.dist_sync_on_step
         # reset() rebinds every state to a fresh default, so the accumulated
         # states can be stashed by reference (a graph's buffers are copied:
@@ -428,7 +466,13 @@ class Metric(nn.Module, ABC):
         update_count = self._update_count
         try:
             self.reset()
-            self.update(*args, **kwargs)
+            # the batch-only replay must not advance the NaN sentinel's stream
+            # ordinal a second time (the first update above already did)
+            self.__dict__["_nan_replay"] = True
+            try:
+                self.update(*args, **kwargs)
+            finally:
+                self.__dict__.pop("_nan_replay", None)
             return self.compute()
         finally:
             # success or a failed batch replay: the accumulated state lives
@@ -456,15 +500,25 @@ class Metric(nn.Module, ABC):
         self._should_unsync = False
         try:
             self.update(*args, **kwargs)
-            batch_val = self.compute()
+            quarantined = self.nan_policy == "quarantine" and self.__dict__.get("_nan_last_quarantined")
+            # a quarantined batch's state was rolled back to reset-empty:
+            # computing on it would crash cat-state metrics, so the dropped
+            # batch yields no batch value
+            batch_val = None if quarantined else self.compute()
         except Exception:
             # one bad batch must not destroy the whole accumulation
             self._update_count = update_count
             self._restore_state(global_state)
             raise
         else:
-            self._update_count = update_count + 1
-            self._reduce_states(global_state)
+            if quarantined:
+                # the global state stays untouched: merging the rolled-back
+                # defaults would contaminate mean-reduced states
+                self._update_count = update_count
+                self._restore_state(global_state)
+            else:
+                self._update_count = update_count + 1
+                self._reduce_states(global_state)
         finally:
             self._should_unsync = True
             self._to_sync = self.sync_on_compute
@@ -550,6 +604,7 @@ class Metric(nn.Module, ABC):
         if self._try_auto_update(args, kwargs):
             if _sp is not None:
                 _sp.attrs["path"] = "auto"
+            self._journal_record("update", args, kwargs)
             return
         if _sp is not None:
             _sp.attrs["path"] = "eager"
@@ -569,6 +624,20 @@ class Metric(nn.Module, ABC):
             _telemetry_for(self).inc("fingerprint|outcome=check" if guard else "fingerprint|outcome=ineligible")
         if guard:
             before, _keepalive = self._host_attr_snapshot()
+        # quarantine is the only nan_policy needing a rollback point; the
+        # pre-update list lengths let the sentinel scan only the elements
+        # THIS batch appended (cat-state streams stay O(batch), not O(n))
+        pre_state = pre_lens = None
+        if self.nan_policy is not None:
+            # stream-position ordinal for the sentinel's events: forward()'s
+            # stash/reset dance makes `_update_count` batch-local (the
+            # full-state forward's batch-only replay does not count)
+            if not self.__dict__.get("_nan_replay"):
+                self.__dict__["_nan_seen_batches"] = self.__dict__.get("_nan_seen_batches", 0) + 1
+            pre_lens = {n: len(v) for n in self._defaults if isinstance(v := getattr(self, n), list)}
+            if self.nan_policy == "quarantine":
+                pre_state = self._quarantine_snapshot()
+                self.__dict__["_nan_last_quarantined"] = False
         with _compile.trunks_inline(capture_next):
             if _OBS.enabled:
                 self._obs_call("update_calls|path=eager", "update_eager", "update", lambda: update(*args, **kwargs))
@@ -576,10 +645,27 @@ class Metric(nn.Module, ABC):
                 update(*args, **kwargs)
         if guard and self._host_attr_snapshot()[0] != before:
             self._disable_auto("update mutated unregistered host attributes")
+        if self.nan_policy is not None:
+            self._guard_nonfinite_states(pre_state, pre_lens)
         if self._dtype_policy is not None:
             self._apply_dtype_policy()
         if self.compute_on_cpu:
             self._move_list_states_to_cpu()
+        self._journal_record("update", args, kwargs)
+
+    def _journal_record(self, method: str, args: tuple, kwargs: Dict[str, Any]) -> None:
+        """Feed one *completed* state transition to the attached SnapshotManager (JAX ``metric.py:607``).
+
+        Runs only after the update committed (and after quarantine rollback,
+        dtype policy and CPU offload), so the journal never records a batch
+        whose effects replaying it would not reproduce. The inner updates of
+        forward's stash/reset dance are suppressed by ``_journal_suspend``:
+        mid-dance state is batch-local. One dict probe when no manager is
+        attached.
+        """
+        hook = self.__dict__.get("_snapshot_hook")
+        if hook is not None and "_journal_suspend" not in self.__dict__:
+            hook.record(self, method, args, kwargs)
 
     # ------------------------------------------------------------- telemetry
     # The helpers below run only with telemetry ENABLED (callers guard on
@@ -658,6 +744,171 @@ class Metric(nn.Module, ABC):
                 setattr(self, attr, list(cur))
         self._states_aliased = False
 
+    # ------------------------------------------------------------ resilience
+    def _validate_resilience_knobs(self) -> None:
+        if self.sync_policy is not None and not isinstance(self.sync_policy, _res_policy.SyncPolicy):
+            raise ValueError(
+                f"Expected keyword argument `sync_policy` to be a `SyncPolicy` or None but got {self.sync_policy}"
+            )
+        if self.nan_policy not in _res_policy.NAN_POLICIES:
+            raise ValueError(
+                f"Expected keyword argument `nan_policy` to be one of {_res_policy.NAN_POLICIES} but got {self.nan_policy}"
+            )
+
+    def set_resilience_policy(self, sync_policy: Any = _UNSET, nan_policy: Any = _UNSET) -> "Metric":
+        """Attach/replace resilience policies after construction (chainable; JAX ``metric.py:1138``).
+
+        Only the arguments actually passed change; ``None`` explicitly
+        disables a policy. Replacing the sync policy invalidates the cached
+        handshake digest so the next guarded sync re-verifies structure.
+        """
+        old_sync, old_nan = self.sync_policy, self.nan_policy
+        if sync_policy is not _UNSET:
+            self.sync_policy = sync_policy
+        if nan_policy is not _UNSET:
+            self.nan_policy = nan_policy
+        try:
+            self._validate_resilience_knobs()
+        except ValueError:
+            # a rejected call must not leave the invalid value attached
+            self.sync_policy, self.nan_policy = old_sync, old_nan
+            raise
+        if sync_policy is not _UNSET:
+            # an explicit None here is an opt-out from the process default
+            self._sync_policy_explicit = True
+            self.__dict__.pop("_handshake_ok_digest", None)
+        return self
+
+    def resilience_report(self) -> Any:
+        """Degradation record of this metric (JAX ``metric.py:1165``).
+
+        A :class:`~torchmetrics_tpu_torch._resilience.policy.ResilienceReport`
+        with every recorded ``DegradationEvent`` (degraded syncs, quarantined
+        batches, repaired restores). Events survive ``reset()``: they describe
+        the stream, not the metric's state.
+        """
+        return _res_policy.ResilienceReport(
+            metric=type(self).__name__,
+            events=tuple(self.__dict__.get("_resilience_events", ())),
+            quarantined_updates=self.__dict__.get("_quarantined_updates", 0),
+            dropped_events=self.__dict__.get("_resilience_events_dropped", 0),
+        )
+
+    def _record_degradation(self, kind: str, detail: str, attempts: int = 0) -> None:
+        event = _res_policy.DegradationEvent(kind=kind, metric=type(self).__name__, detail=detail, attempts=attempts)
+        if _OBS.enabled:
+            # one bus for degradations, restores, churn and heartbeats
+            _telemetry_for(self).inc(f"degradations|kind={kind}")
+            _BUS.publish(
+                "degradation", type(self).__name__, f"{kind}: {detail}",
+                data={"kind": kind, "attempts": attempts},
+            )
+        events = self.__dict__.setdefault("_resilience_events", [])
+        events.append(event)
+        if len(events) > _res_policy.MAX_EVENTS:
+            # a permanently degraded long-running job records one event per
+            # sync: cap the log, keep the eviction count in the report
+            evict = len(events) - _res_policy.MAX_EVENTS
+            del events[:evict]
+            self.__dict__["_resilience_events_dropped"] = self.__dict__.get("_resilience_events_dropped", 0) + evict
+        rank_zero_warn(
+            f"{type(self).__name__} degraded ({kind}): {detail} — see `Metric.resilience_report()`.",
+            TorchMetricsUserWarning,
+        )
+
+    def _quarantine_snapshot(self) -> Dict[str, Any]:
+        """Rollback point for the NaN quarantine (JAX ``metric.py:1207``).
+
+        The JAX package keeps its immutable array states by reference. Here
+        updates write into the state tensors (``state += batch``, kernel B1's
+        ``out=``), so a reference would "roll back" to the poisoned tensor:
+        every tensor state is cloned on its device. A list gets a shallow
+        copy (its tensors are appended, never written); a ring buffer a copy
+        whose storage is copied before either side writes.
+        """
+        snap: Dict[str, Any] = {}
+        for attr in self._defaults:
+            v = getattr(self, attr)
+            if isinstance(v, RingBuffer):
+                snap[attr] = v.copy()
+            elif isinstance(v, list):
+                snap[attr] = list(v)
+            else:
+                snap[attr] = v.clone()
+        return snap
+
+    def _guard_nonfinite_states(self, pre_state: Optional[Dict[str, Any]], pre_lens: Optional[Dict[str, int]] = None) -> None:
+        """NaN/Inf sentinel after an eager update (the ``nan_policy`` knob; JAX ``metric.py:1226``).
+
+        ``raise`` surfaces the poisoned state at once (left as is, so it can
+        be inspected; ``reset()`` clears it); ``warn`` only warns;
+        ``quarantine`` rolls the whole update back, so one bad batch adds
+        nothing. The scan is one device reduction an array and one host read
+        (``nonfinite_state_report``). ``pre_lens`` (the pre-update list
+        lengths) limits it to the chunks this batch appended.
+        """
+        if not self._defaults:
+            # wrappers and compositions hold their accumulators in child
+            # metrics: the sentinel has nothing to guard, and silence here
+            # would read as protection, so say so once
+            if not self.__dict__.get("_nan_policy_noop_warned"):
+                self.__dict__["_nan_policy_noop_warned"] = True
+                rank_zero_warn(
+                    f"`nan_policy={self.nan_policy!r}` on {type(self).__name__} guards nothing:"
+                    " this metric registers no states of its own (wrappers and compositions hold"
+                    " their accumulators in child metrics). Set `nan_policy` on the wrapped"
+                    " metric(s) instead.",
+                    TorchMetricsUserWarning,
+                )
+            return
+        bad = _integrity.nonfinite_state_report(self, list_scan_from=pre_lens)
+        if not bad:
+            return
+        desc = ", ".join(f"`{k}` ({v})" for k, v in sorted(bad.items()))
+        batch = self.__dict__.get("_nan_seen_batches", self._update_count)
+        policy = self.nan_policy
+        if policy == "raise":
+            raise RuntimeError(
+                f"Non-finite values detected in state(s) {desc} of {type(self).__name__} after"
+                f" guarded batch {batch} (`nan_policy='raise'`). The state is poisoned:"
+                " every downstream `compute()` would silently return garbage. Call `reset()`,"
+                " or use `nan_policy='quarantine'` to drop bad batches automatically."
+            )
+        if policy == "warn":
+            rank_zero_warn(
+                f"Non-finite values detected in state(s) {desc} of {type(self).__name__} after"
+                f" guarded batch {batch} (`nan_policy='warn'`): downstream `compute()`"
+                " results are now suspect.",
+                TorchMetricsUserWarning,
+            )
+            return
+        # quarantine: roll back this batch's contribution
+        if pre_state is None:
+            return
+        self._restore_state(pre_state)
+        if _integrity.nonfinite_state_report(self, list_scan_from=pre_lens):
+            # the poison predates this batch (policy enabled mid-stream):
+            # rollback cannot recover, so surface it instead of looping
+            rank_zero_warn(
+                f"State(s) {desc} of {type(self).__name__} were already non-finite before this"
+                " update; `nan_policy='quarantine'` cannot recover a pre-poisoned metric —"
+                " call `reset()`.",
+                TorchMetricsUserWarning,
+            )
+            return
+        self._update_count -= 1
+        self._computed = None
+        # `forward`'s reduce-state path reads this flag, so a dropped batch
+        # is not merged into the stashed global state either
+        self.__dict__["_nan_last_quarantined"] = True
+        self.__dict__["_quarantined_updates"] = self.__dict__.get("_quarantined_updates", 0) + 1
+        if _OBS.enabled:
+            _telemetry_for(self).inc("quarantined_batches")
+        self._record_degradation(
+            "nan_quarantine",
+            detail=f"guarded batch {batch} produced non-finite state(s) {desc}; batch dropped",
+        )
+
     # ------------------------------------------------------- compiled update
     # The compiled paths (JAX ``metric.py:1310-2175``). A *step* is the raw
     # update as a function of buffers (the states under their names, the
@@ -705,6 +956,9 @@ class Metric(nn.Module, ABC):
             self.auto_compile
             and not self._auto_disabled
             and not self.compute_on_cpu
+            # the NaN sentinel reads the states back after every update: it
+            # must observe every one, so it pins the eager path
+            and self.nan_policy is None
             and (
                 getattr(self, "validate_args", None) is not True
                 or self._supports_traced_validation()
@@ -1483,6 +1737,7 @@ class Metric(nn.Module, ABC):
         stash = self._stash_states(deep=True)
         saved_count, saved_computed = self._update_count, self._computed
         saved_viol = None if self._viol_flags is None else self._viol_flags.clone()
+        self.__dict__["_journal_suspend"] = True  # the warm-up's batches are not the stream's
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
@@ -1507,6 +1762,7 @@ class Metric(nn.Module, ABC):
                     # a lazily shaped ring buffer warms up on the first pass
                     self.update(*args, **kwargs)
         finally:
+            self.__dict__.pop("_journal_suspend", None)
             self._update_count, self._computed = saved_count, saved_computed
             self._viol_flags = saved_viol
             self._restore_state(stash)
@@ -1546,6 +1802,7 @@ class Metric(nn.Module, ABC):
             run()
         self._computed = None
         self._update_count += 1
+        self._journal_record("update", args, kwargs)
 
     def scan_update(self, *args: Any, **kwargs: Any) -> None:
         """Consume a stacked stream of batches in one compiled step (JAX ``metric.py:2127``).
@@ -1589,6 +1846,9 @@ class Metric(nn.Module, ABC):
             run()
         self._computed = None
         self._update_count += n_steps
+        # "scan" replays through scan_update: the arguments carry a leading
+        # stream axis that plain update() must not see as one batch
+        self._journal_record("scan", args, kwargs)
 
     def _apply_dtype_policy(self) -> None:
         """Re-cast floating states to the ``set_dtype`` policy after an update (JAX ``metric.py:782``)."""
@@ -1610,6 +1870,9 @@ class Metric(nn.Module, ABC):
         compiled before the call is never replayed after it.
         """
         self._dtype_policy = dst_type
+        # state dtypes are part of the cross-process structure contract: the
+        # next guarded sync must run the handshake again
+        self.__dict__.pop("_handshake_ok_digest", None)
         self._apply_dtype_policy()
         return self
 
@@ -1690,7 +1953,14 @@ class Metric(nn.Module, ABC):
     ) -> None:
         """Gather + reduce state across processes (reference ``metric.py:490-532``).
 
-        Does nothing when no ``torch.distributed`` process group is initialised.
+        Does nothing when no ``torch.distributed`` process group is
+        initialised (nor a simulated world, ``_resilience.faultinject``). With
+        a :class:`~torchmetrics_tpu_torch._resilience.policy.SyncPolicy`
+        attached (the metric's ``sync_policy`` or the process-wide default)
+        the gather runs guarded (JAX ``metric.py:894-949``): structure
+        handshake, per-attempt timeout, retry with backoff and, once the
+        attempts are spent, local-only state with a recorded
+        ``DegradationEvent`` in place of a hang or an exception.
         """
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
@@ -1701,31 +1971,74 @@ class Metric(nn.Module, ABC):
             return
         if dist_sync_fn is None:
             dist_sync_fn = self.dist_sync_fn or gather_all_tensors
-        self._cache = self._copy_state_dict()
+        self.__dict__.pop("_degraded_unsync_ok", None)  # a stale pairing flag
         group = process_group or self.process_group
-        _sp = _obs_trace.begin_span("sync", type(self).__name__, mode="unguarded") if _OBS.tracing else None
+        policy = self.sync_policy
+        if policy is None and not self.__dict__.get("_sync_policy_explicit"):
+            # the process-wide default, only where the metric expressed no
+            # choice: an explicit sync_policy=None means unguarded
+            policy = _res_policy.default_sync_policy()
+        self._cache = self._copy_state_dict()
+        _sp = None
+        if _OBS.tracing:
+            _sp = _obs_trace.begin_span("sync", type(self).__name__, mode="unguarded" if policy is None else "guarded")
         _sp_err: Optional[BaseException] = None
         try:
-            if _OBS.enabled:
-                self._obs_call(
-                    "sync_calls|mode=unguarded", "sync", "sync", lambda: self._sync_dist(dist_sync_fn, process_group=group)
-                )
-            else:
-                self._sync_dist(dist_sync_fn, process_group=group)
+            self._sync_guarded_or_not(dist_sync_fn, group, policy)
         except BaseException as err:
             _sp_err = err
             raise
         finally:
             if _sp is not None:
                 _obs_trace.end_span(_sp, _sp_err)
-        self._is_synced = True
 
-    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
-        """Reference ``metric.py:427-457``: pre-concat lists, gather, reduce.
+    def _sync_guarded_or_not(self, dist_sync_fn: Callable, group: Any, policy: Any) -> None:
+        """The committed half of :meth:`sync` (the seam's span brackets exactly the collective work)."""
+        if policy is None:
+            if _OBS.enabled:
+                self._obs_call(
+                    "sync_calls|mode=unguarded", "sync", "sync", lambda: self._sync_dist(dist_sync_fn, process_group=group)
+                )
+            else:
+                self._sync_dist(dist_sync_fn, process_group=group)
+            self._is_synced = True
+            return
+        from torchmetrics_tpu_torch._resilience.guard import guarded_metric_sync
 
-        A ring buffer gathers its live rows, like a pre-concatenated list (JAX
-        ``metric.py:989``); after the sync the state is their concatenation
-        over the ranks, rank by rank.
+        try:
+            if _OBS.enabled:
+                synced = self._obs_call(
+                    "sync_calls|mode=guarded", "sync", "sync",
+                    lambda: guarded_metric_sync(self, dist_sync_fn, group, policy),
+                )
+            else:
+                synced = guarded_metric_sync(self, dist_sync_fn, group, policy)
+        except Exception:
+            # on_exhausted="raise" or a handshake mismatch: the metric keeps
+            # its intact local state, never half-committed
+            self._restore_state(self._cache)
+            self._cache = None
+            self._is_synced = False
+            raise
+        if synced:
+            self._is_synced = True
+        else:
+            # degraded: keep local-only state (the gather is pure, but an
+            # overridden `_sync_dist` may fuse gather and commit). The flag
+            # keeps a manual sync()/unsync() pairing graceful: the paired
+            # unsync does nothing instead of raising
+            self._restore_state(self._cache)
+            self._cache = None
+            self._is_synced = False
+            self.__dict__["_degraded_unsync_ok"] = True
+
+    def _dist_gather(self, dist_sync_fn: Callable, process_group: Optional[Any] = None) -> Dict[str, Any]:
+        """Gather every state across processes: a pure read, no state changes (JAX ``metric.py:979``).
+
+        Side-effect free, so the guarded sync can run it on a watchdog
+        thread: an abandoned attempt that completes later has nothing it
+        can corrupt. A ring buffer gathers its live rows, like a
+        pre-concatenated list (JAX ``metric.py:989``).
         """
         input_dict = {attr: getattr(self, attr) for attr in self._reductions}
         for attr, value in input_dict.items():
@@ -1734,12 +2047,26 @@ class Metric(nn.Module, ABC):
             # pre-concatenate list states to minimize the number of all_gathers
             elif isinstance(value, list) and len(value) >= 1:
                 input_dict[attr] = [dim_zero_cat(value)]
-        for attr, reduction_fn in self._reductions.items():
-            value = input_dict[attr]
+        output_dict: Dict[str, Any] = {}
+        for attr, value in input_dict.items():
             if isinstance(value, list):
-                gathered = _flatten_maybe([dist_sync_fn(v, process_group) for v in value])
+                output_dict[attr] = _flatten_maybe([dist_sync_fn(v, process_group) for v in value])
             else:
-                gathered = dist_sync_fn(value, process_group)
+                output_dict[attr] = dist_sync_fn(value, process_group)
+        return output_dict
+
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
+        """Reference ``metric.py:427-457``: pre-concat lists, gather, reduce.
+
+        After the sync a ring buffer's state is the concatenation of its live
+        rows over the ranks, rank by rank.
+        """
+        self._commit_gathered(self._dist_gather(dist_sync_fn, process_group))
+
+    def _commit_gathered(self, output_dict: Dict[str, Any]) -> None:
+        """Reduce the gathered per-process states into this metric's states (JAX ``metric.py:1008``)."""
+        for attr, reduction_fn in self._reductions.items():
+            gathered = output_dict[attr]
             if isinstance(gathered, list) and len(gathered) == 0:
                 setattr(self, attr, [])
                 continue
@@ -1754,6 +2081,8 @@ class Metric(nn.Module, ABC):
         if not should_unsync:
             return
         if not self._is_synced:
+            if self.__dict__.pop("_degraded_unsync_ok", False):
+                return  # the paired sync() degraded to local-only: nothing to undo
             raise TorchMetricsUserError("The Metric has already been un-synced.")
         if self._cache is None:
             raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
@@ -1800,6 +2129,13 @@ class Metric(nn.Module, ABC):
 
         Applies the declared per-state reductions, as forward accumulation and
         distributed sync do. A raw dict counts as one update.
+
+        A raw state dict that carries an integrity block (saved with
+        ``state_dict(integrity=True)``) is verified before anything merges
+        (JAX ``metric.py:2176-2212``): a checksum mismatch or a NaN-poisoned
+        payload raises
+        :class:`~torchmetrics_tpu_torch._resilience.errors.StateCorruptionError`
+        instead of folding a corrupt contribution into this metric.
         """
         if isinstance(incoming, Metric):
             if type(incoming) is not type(self):
@@ -1809,11 +2145,21 @@ class Metric(nn.Module, ABC):
             incoming_state = incoming.metric_state
             incoming_count = incoming._update_count
         else:
-            unknown = [k for k in incoming if not k.isidentifier()]
-            if unknown:
-                raise ValueError(f"Cannot merge state entries {unknown}: integrity blocks are not supported yet")
+            meta = incoming.get(_integrity.integrity_key(""))
+            if meta is not None:
+                # the dict announced verifiability: honouring the block is not
+                # optional, or a bit-flipped payload merges as clean data
+                corrupted = _integrity.verify_states(incoming, "", meta, type(self).__name__, include_missing=True)
+                if corrupted:
+                    _integrity.raise_corrupted(type(self).__name__, corrupted)
             incoming_state = incoming
             incoming_count = 1
+        self._merge_from(incoming_state, incoming_count)
+        # a merge is a real stream transition: journal it (state and count),
+        # so a restore after a crash replays the merged contribution too
+        self._journal_record("merge", ({k: incoming_state[k] for k in self._defaults}, incoming_count), {})
+
+    def _merge_from(self, incoming_state: Dict[str, Any], incoming_count: int) -> None:
         self._release_graph_buffers()
         prev_count = self._update_count
         self._update_count = prev_count + incoming_count
@@ -1846,10 +2192,15 @@ class Metric(nn.Module, ABC):
         self._cache = None
         self._is_synced = False
         self._states_aliased = False
+        # a mid-stream reset is a state transition like any other: without a
+        # journal entry, a restore after a crash would bring back the
+        # accumulation reset() discarded
+        self._journal_record("reset", (), {})
         if pending is not None:
             raise pending
 
     def _reset_state_to_default(self, attr: str) -> None:
+        """Rebind one state to its default (``reset`` and ``load_state_dict(strict="repair")`` share it)."""
         default = self._defaults[attr]
         if isinstance(default, RingBuffer):
             setattr(self, attr, default.copy_empty())
@@ -1862,12 +2213,16 @@ class Metric(nn.Module, ABC):
 
     # ----------------------------------------------------------- persistence
     def _to_state(self, value: Any) -> State:
-        """A private copy of ``value`` on the metric's device (states are mutated in place)."""
+        """A private copy of ``value`` on the metric's device (states are mutated in place).
+
+        Numpy arrays (a snapshot's or the JAX package's checkpoint) load too,
+        ``bfloat16`` ones included.
+        """
         if isinstance(value, RingBuffer):
             return value.copy().to_device(self._device)
         if isinstance(value, list):
-            return [torch.as_tensor(v, device=self._device).clone() for v in value]
-        return torch.as_tensor(value, device=self._device).clone()
+            return [_integrity.from_host(v, self._device).clone() for v in value]
+        return _integrity.from_host(value, self._device).clone()
 
     def _copy_state_dict(self) -> Dict[str, State]:
         def _copy(cur: State) -> State:
@@ -1891,50 +2246,137 @@ class Metric(nn.Module, ABC):
         destination: Optional[Dict] = None,
         prefix: str = "",
         keep_vars: bool = False,
+        integrity: bool = False,
         all_states: bool = False,
+        _host: bool = False,
     ) -> Dict[str, State]:
         """Copies of the persistent states under their names (reference ``metric.py:839-871``).
 
         ``all_states=True`` includes every registered state regardless of its
-        ``persistent`` flag. Values are copies, since live states are
-        updated in place. A ring buffer saves its live rows as one tensor.
+        ``persistent`` flag (what the snapshot layer needs: a preemption must
+        not lose non-persistent accumulators). Values are copies, since live
+        states are updated in place. A ring buffer saves its live rows as one
+        tensor.
+
+        ``integrity=True`` also writes a checksummed, versioned metadata block
+        under the non-identifier key ``{prefix}#integrity``
+        (``_resilience/integrity.py``): a restore then verifies every state's
+        checksum and the schema version, and rejects a corrupt or
+        NaN-poisoned checkpoint. ``_host=True`` gives host numpy copies
+        (one device-to-host copy a state, its digest taken from it).
         """
         destination = {} if destination is None else destination
+        copy = _integrity.to_host if _host else (lambda t: t.detach().clone())
         for key, current in self.metric_state.items():
             if not (all_states or self._persistent[key]):
                 continue
             if isinstance(current, RingBuffer):
-                destination[prefix + key] = current.values().detach().clone()
+                destination[prefix + key] = copy(current.values())
             elif isinstance(current, list):
-                destination[prefix + key] = [v.detach().clone() for v in current]
+                destination[prefix + key] = [copy(v) for v in current]
             else:
-                destination[prefix + key] = current.detach().clone()
+                destination[prefix + key] = copy(current)
+        if integrity:
+            _integrity.attach_integrity(destination, list(self._defaults), prefix, type(self).__name__)
         return destination
 
-    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True, prefix: str = "") -> None:  # type: ignore[override]
-        """Restore states from a :meth:`state_dict` mapping; tensors or numpy arrays."""
-        self._release_graph_buffers()
+    def _loaded_value(self, key: str, value: Any) -> State:
+        """A checkpoint's value of state ``key`` as this metric holds it.
+
+        Integer counts take the default's integer dtype: the JAX package keeps
+        int32 where the port keeps int64 (and back), so a checkpoint of either
+        loads into the other, after its checksum was verified on what came in.
+        """
+        val = self._to_state(value)
+        default = self._defaults[key]
+        if isinstance(default, RingBuffer):
+            ring = default.copy_empty()
+            if not isinstance(val, Tensor) or val.numel():
+                ring.extend(val)
+            return ring
+        if isinstance(default, list):
+            # one concatenated array loaded into a list state
+            return ([val] if val.numel() else []) if isinstance(val, Tensor) else val
+        if (
+            not val.is_floating_point() and not default.is_floating_point()
+            and val.dtype != default.dtype and val.dtype != torch.bool and default.dtype != torch.bool
+        ):
+            val = val.to(default.dtype)
+        return val
+
+    def load_state_dict(  # type: ignore[override]
+        self, state_dict: Dict[str, Any], strict: Union[bool, str] = True, prefix: str = "", _verified: bool = False
+    ) -> None:
+        """Restore states from a :meth:`state_dict` mapping; tensors or numpy arrays (JAX ``metric.py:2330``).
+
+        When the checkpoint carries an integrity block (saved with
+        ``state_dict(integrity=True)``) every covered state is verified
+        before anything loads: a checksum mismatch, an unknown schema version
+        or a NaN-poisoned payload raises
+        :class:`~torchmetrics_tpu_torch._resilience.errors.StateCorruptionError`
+        naming the states. ``strict="repair"`` instead resets only the
+        corrupted states to their defaults, loads the rest and records a
+        ``state_repair`` degradation (it also NaN-screens a checkpoint
+        without an integrity block). ``_verified``: a collection's atomic
+        pre-pass has already hashed every state.
+        """
+        corrupted: Dict[str, str] = {}
+        meta = state_dict.get(_integrity.integrity_key(prefix))
+        if meta is not None and not _verified:
+            corrupted = _integrity.verify_states(
+                state_dict,
+                prefix,
+                meta,
+                type(self).__name__,
+                # strict=False tolerates missing keys by contract (filtered or
+                # partial checkpoints); present-but-corrupt states still raise
+                include_missing=strict is not False,
+            )
+        elif meta is None and strict == "repair":
+            corrupted = _integrity.screen_nonfinite(state_dict, prefix, list(self._defaults))
+        if corrupted and strict != "repair":
+            _integrity.raise_corrupted(type(self).__name__, corrupted)
+        # every value is converted before any state binds: a bad one leaves the metric as it was
+        loaded: Dict[str, State] = {}
         for key in self._defaults:
+            if key in corrupted:
+                continue
             if prefix + key in state_dict:
-                val = self._to_state(state_dict[prefix + key])
-                if isinstance(self._defaults[key], RingBuffer):
-                    ring = self._defaults[key].copy_empty()
-                    if not isinstance(val, Tensor) or val.numel():
-                        ring.extend(val)
-                    val = ring
-                elif isinstance(self._defaults[key], list) and isinstance(val, Tensor):
-                    # one concatenated array loaded into a list state
-                    val = [val] if val.numel() else []
-                setattr(self, key, val)
+                loaded[key] = self._loaded_value(key, state_dict[prefix + key])
+            elif strict == "repair" and self._persistent[key]:
+                # repair does not depend on whether an integrity block survived:
+                # a missing persistent state goes back to its default
+                corrupted[key] = "missing from the checkpoint"
             elif strict and self._persistent[key]:
                 raise KeyError(f"Missing key {key!r} in state_dict for {self.__class__.__name__}")
+        self._release_graph_buffers()
+        for key in self._defaults:
+            if key in corrupted:
+                self._reset_state_to_default(key)
+            elif key in loaded:
+                setattr(self, key, loaded[key])
+        if corrupted:  # strict == "repair"
+            self._record_degradation(
+                "state_repair",
+                detail=(
+                    'load_state_dict(strict="repair") reset corrupted state(s) to defaults: '
+                    + "; ".join(f"`{k}`: {v}" for k, v in sorted(corrupted.items()))
+                ),
+            )
+            self._computed = None
+        # restored dtypes and shapes may differ from what the last handshake saw
+        self.__dict__.pop("_handshake_ok_digest", None)
+        # a manual load mid-stream is a transition update entries cannot
+        # reconstruct: the journal anchors it with a fresh snapshot
+        self._journal_record("external", (), {})
 
     def __getstate__(self) -> Dict[str, Any]:
         """Pickle support: drop the wrapped bound methods (reference ``metric.py:694-702``)."""
         # telemetry is per-instance stream history: a pickled or cloned metric is a new stream
+        # a SnapshotManager holds threads and file handles: clones and pickles travel without it
         dropped = (
             "update", "compute", "_update_signature", "_auto_sigs", "_auto_fwd_sigs", "_auto_cnt", "_graph_pool",
-            "_telem", "_obs_seen_sigs",
+            "_telem", "_obs_seen_sigs", "_snapshot_hook",
         )
         state = {k: v for k, v in self.__dict__.items() if k not in dropped + self._COMPILED_CACHES}
         state["_computed"] = None
@@ -1949,6 +2391,11 @@ class Metric(nn.Module, ABC):
         self._auto_sigs = {}
         self._auto_fwd_sigs = {}
         self._auto_names = None
+        # pickles written before the resilience knobs existed lack them
+        for key, value in (("sync_policy", None), ("nan_policy", None), ("_sync_policy_explicit", False),
+                           ("_quarantined_updates", 0), ("_snapshot_hook", None)):
+            self.__dict__.setdefault(key, value)
+        self.__dict__.setdefault("_resilience_events", [])
 
     def __setattr__(self, name: str, value: Any) -> None:
         """Class-flag immutability guard (reference ``metric.py:715-726``)."""

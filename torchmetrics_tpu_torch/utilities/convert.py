@@ -9,6 +9,7 @@ Trunk weights come as the JAX package's flat ``.npz`` variables; see below.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
@@ -21,15 +22,17 @@ def state_from_jax(
 ) -> Dict[str, Union[Tensor, List[Tensor]]]:
     """Copy a JAX metric's ``state_dict(all_states=True)`` onto ``device`` as tensors.
 
-    Dtypes are kept as numpy gives them (int32 counts stay int32). A checkpoint
-    saved with ``integrity=True`` carries a non-identifier ``#integrity`` key
-    whose check is not ported yet, so it is refused rather than dropped.
+    Dtypes are kept as numpy gives them (int32 counts stay int32 here;
+    ``Metric.load_state_dict`` casts integer counts to its own). An integrity
+    block (``integrity=True``, the non-identifier ``#integrity`` keys) is
+    carried over as it is: its digests hash dtype, shape and bytes, which the
+    tensors keep, so ``load_state_dict`` verifies the JAX checkpoint.
     """
     out: Dict[str, Union[Tensor, List[Tensor]]] = {}
     for key, value in state.items():
-        if not key.replace(".", "_").isidentifier():
-            raise ValueError(f"Cannot carry over state entry {key!r}: integrity blocks are not supported yet")
-        if isinstance(value, list):
+        if key.endswith("#integrity"):
+            out[key] = copy.deepcopy(value)
+        elif isinstance(value, list):
             out[key] = [torch.tensor(np.asarray(v), device=device) for v in value]
         else:
             out[key] = torch.tensor(np.asarray(value), device=device)
