@@ -251,7 +251,11 @@ in phase 43's trunk forwards):
     on the imagenet_val data, its loop route (10 copies, each equal to its
     own metric on the numpy-drawn indices) and its stacked route (100
     copies, within 1e-6 of a float64 count-weighted accuracy under the
-    counts it drew); ``MetricTracker``, ``ClasswiseWrapper``,
+    counts it drew); ``BootStrapper(MulticlassConfusionMatrix(1000))``, 10
+    copies, each route forced at batches of 64, 256 and 1,024 (exact
+    against numpy; ms a batch and peak memory; the route that
+    ``_STACKED_DELTA_BYTES`` picks no more than 1.5x the faster one);
+    ``MetricTracker``, ``ClasswiseWrapper``,
     ``MinMaxMetric``, ``MultioutputWrapper`` and ``MultitaskWrapper`` equal
     to their metrics run alone; ``FeatureShare`` over FID, KID and MiFID on
     fid_cifar10_10k's 10,000 + 10,000 images: one trunk forward a batch (B2a
@@ -354,8 +358,22 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     guarded sync in a spawned child; the chaos smoke schedules on the card
     (``--phase resilience`` runs the build and this phase alone);
 
+52. ``stream_pool``: multi-tenant stream pools (``_streams``) through
+    ``to_stream_pool``: a 1,000-class ``MulticlassConfusionMatrix`` pool of
+    128 tenants growing to 256 (one doubling), 196 vmapped micro-batches of
+    64 tenants x 1,024 labels (50,000 a tenant), each one CUDA graph replay
+    with B1 counting its 64 lanes in one launch (``confmat_lanes``), with
+    reset and detach/attach churn and a label outside [0, C); every
+    tenant's matrix bit for bit against numpy, 8 against eager twins, the
+    journal's ``restore_stream`` of two tenants and ``restore_latest`` bit
+    for bit; a 64-tenant pool of the collection's stat-score members
+    against eager twins; host and device ms a step, ``compute_all`` ms, the
+    lane-batched kernel's ``queued_ms`` beside its bound and the lanes'
+    gather and scatter (``--phase stream_pool`` runs the build and this
+    phase alone);
+
 the card's name and power limit, the
-``kernels`` line (B1-B5 and S1) and, last,
+``kernels`` line (B1, B1 across lanes, B2a-B5 and S1) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -4865,6 +4883,76 @@ def _bootstrap_copies_vs_own(torch, np, Acc, BootStrapper, logits, target, batch
     return {"batches_per_s": -(-len(target) // batch) / seconds, "mean": float(raw.mean()), "std": float(raw.std())}
 
 
+def _bootstrap_confmat_routes(torch, np, BootStrapper, CM, logits, target, seed: int, sizes=(64, 256, 1024),
+                              batches: int = 6, copies: int = 10, classes: int = 1000) -> dict:
+    """BootStrapper over a 1000-class confusion matrix, each route forced at each batch size, against the route that
+    ``_STACKED_DELTA_BYTES`` picks: the loop's copies equal their own metrics on the numpy-drawn indices, the stacked
+    copies equal a numpy bincount weighted by the counts they drew, both exactly; ms per batch after the first (the
+    loop's, untimed) and the peak memory the route allocated. The stacked route's per-sample deltas launch B1's
+    lane-batched kernel once a batch."""
+    boot = importlib.import_module("torchmetrics_tpu_torch.wrappers.bootstrapping")
+    kernel = importlib.import_module("torchmetrics_tpu_torch.functional.classification._confmat_kernel")
+    shipped_bound, out = boot._STACKED_DELTA_BYTES, {}
+    pred_all, target_all = logits.argmax(dim=1).cpu().numpy(), target.cpu().numpy()
+    try:
+        for size in sizes:
+            spans = [(b * size, (b + 1) * size) for b in range(batches)]
+            res = {}
+            for route, bound in (("loop", 0), ("stacked", float("inf"))):
+                boot._STACKED_DELTA_BYTES = bound
+                wrapper = BootStrapper(CM(num_classes=classes, validate_args=False), num_bootstraps=copies, seed=seed,
+                                       raw=True)
+                drawn, draw = [], wrapper._draw_counts
+                wrapper._draw_counts = lambda n, _d=draw, _l=drawn: _l.append(_d(n)) or _l[-1]
+                wrapper.update(logits[:size], target[:size])  # a stream's first batch takes the loop
+                lanes0 = int(kernel.confusion_matrix_lanes.launches)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                for lo, hi in spans[1:]:
+                    wrapper.update(logits[lo:hi], target[lo:hi])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                lanes = int(kernel.confusion_matrix_lanes.launches) - lanes0
+                want_routes = {"loop": batches, "stacked": 0} if route == "loop" else {"loop": 1, "stacked": batches - 1}
+                check(wrapper.route_counts == want_routes, f"confmat bootstrap {route} at {size}: {wrapper.route_counts}")
+                check(lanes == (0 if route == "loop" else batches - 1),
+                      f"confmat bootstrap {route} at {size}: {lanes} lane-batched B1 launches")
+                raw = wrapper.compute()["raw"].cpu().numpy().astype(np.int64)
+                rng = np.random.default_rng(seed)
+                want = np.zeros((copies, classes * classes), np.int64)
+                for b, (lo, hi) in enumerate(spans if route == "loop" else spans[:1]):
+                    cells = target_all[lo:hi] * classes + pred_all[lo:hi]
+                    for k in range(copies):
+                        idx = boot._bootstrap_sampler(hi - lo, "poisson", rng)
+                        want[k] += np.bincount(cells[idx], minlength=classes * classes)
+                for counts, (lo, hi) in zip(drawn, spans[1:]):
+                    cells = target_all[lo:hi] * classes + pred_all[lo:hi]
+                    for k, row in enumerate(counts.cpu().numpy()):
+                        want[k] += np.rint(np.bincount(cells, weights=row, minlength=classes * classes)).astype(np.int64)
+                check(np.array_equal(raw.reshape(copies, -1), want),
+                      f"confmat bootstrap {route} at {size}: the copies' matrices != numpy")
+                res[route] = {"ms_per_batch": 1e3 * seconds / (batches - 1), "peak_gb": peak / 2**30,
+                              "lane_launches": lanes}
+                delta_bytes = wrapper._delta_bytes(list(wrapper.metrics[0]._defaults), size)
+                del wrapper, drawn
+                torch.cuda.empty_cache()
+            picked = "stacked" if delta_bytes <= shipped_bound else "loop"
+            faster = min(("loop", "stacked"), key=lambda r: res[r]["ms_per_batch"])
+            res.update(picked=picked, faster=faster, delta_gb=delta_bytes / 2**30)
+            emit({"phase": "bootstrap_confmat", "batch": size, **res})
+            # the bound must not send a batch down a route that is clearly the slower one
+            check(picked == faster or res[picked]["ms_per_batch"] <= 1.5 * res[faster]["ms_per_batch"],
+                  f"confmat bootstrap at {size}: the bound picks {picked}, {res}")
+            out[size] = res
+    finally:
+        boot._STACKED_DELTA_BYTES = shipped_bound
+    return {"classes": classes, "copies": copies, "batches": batches, "delta_bytes_bound": shipped_bound,
+            "by_batch": out}
+
+
 def _macro_accuracy64(np, counts, pred, target, classes: int = 1000):
     """Macro accuracy of each copy in float64 under an (N, n) count matrix; classes without tp, fp or fn dropped."""
     correct = pred == target
@@ -4922,6 +5010,12 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
     out["bootstrap_stacked"] = {"copies": stacked_copies, "batches_per_s": len(batches) / stacked_s,
                                 "max_abs_err": stacked_err, "count_mean": float(counts.mean()),
                                 "routes": wrapper.route_counts}
+    # --- a 1000-class confusion matrix: the two routes by batch size, against the route the bound picks
+    b1 = importlib.import_module("torchmetrics_tpu_torch.functional.classification._confmat_kernel").confusion_matrix_cuda
+    b1_0 = int(b1.launches)
+    out["bootstrap_confmat"] = _bootstrap_confmat_routes(torch, np, BootStrapper, T.MulticlassConfusionMatrix, logits,
+                                                         target, seed)
+    out["b1_launches"] = int(b1.launches) - b1_0
     # --- MetricTracker over 5 epochs of 10,000 samples
     tracker = MetricTracker(T.MulticlassAccuracy(num_classes=1000))
     epochs = [(e * n // 5, (e + 1) * n // 5) for e in range(5)]
@@ -5053,7 +5147,8 @@ def phase_wrappers_imagenet_cifar10(torch, np, ce, dev, gen, logits, target, npz
 
 def clustering_nominal_wrappers(torch, np, ce, dev, gen, seed: int, smi: str, counters: dict, t_main: float, logits,
                                 target, n_clusters: int = 50_000, classes: int = 1000) -> dict:
-    """Phases 39-43; B1, B3, B4 and B5 must not launch, B2a/B2b only in phase 43's trunk forwards."""
+    """Phases 39-43; B3, B4 and B5 must not launch, B1 only in phase 43's confusion-matrix BootStrapper and B2a/B2b
+    only in its trunk forwards."""
     t0 = time.perf_counter()
     for counter in counters.values():
         counter.launches.reset()
@@ -5081,6 +5176,7 @@ def clustering_nominal_wrappers(torch, np, ce, dev, gen, seed: int, smi: str, co
     launches = {name: int(counter.launches) for name, counter in counters.items()}
     expected = {name: 0 for name in counters}
     expected.update(wrappers["trunk_launches"])
+    expected["confmat"] = wrappers["b1_launches"]
     check(launches == expected, f"clustering, nominal and the wrappers launched {launches}, expected {expected}")
     out = {"phase": "clustering_nominal_wrappers", "seconds": time.perf_counter() - t0, "phase_seconds": seconds,
            "seconds_since_start": time.perf_counter() - t_main, "kernel_launches": launches}
@@ -7165,18 +7261,281 @@ class _sync_guard:
             self.torch.cuda.set_sync_debug_mode(self.mode)
 
 
+# ------------------------------------------------------------------ stream_pool
+# phase 52: a MulticlassConfusionMatrix pool at ImageNet's 1,000 classes, 128 tenants growing to 256 (one
+# doubling), micro-batches of 64 tenants x 1,024 labels, 50,000 labels a tenant (49 rows each: 196 steps, the
+# last row of each tenant padded with void labels); the stat-score members of classification_collection as a
+# 64-tenant collection pool
+STREAM_SIZES = {"classes": 1000, "tenants": 256, "capacity": 128, "lanes": 64, "rows": 1024,
+                "labels_per_tenant": 50_000, "collection_tenants": 64, "collection_batch": 256,
+                "collection_steps": 4, "timed_steps": 24}
+STREAM_TWINS = 8  # tenants also streamed into eager twins
+
+
+def stream_pool_labels(torch, dev, gen, tenants: int, chunks: int, rows: int, classes: int, per_tenant: int):
+    """``(tenants, chunks, rows)`` int64 predicted and true labels, 76% right; labels past ``per_tenant`` are void (-1)."""
+    shape = (tenants, chunks, rows)
+    target = torch.randint(0, classes, shape, generator=gen, device=dev)
+    right = torch.rand(shape, generator=gen, device=dev) < 0.76
+    preds = torch.where(right, target, torch.randint(0, classes, shape, generator=gen, device=dev))
+    void = (torch.arange(chunks * rows, device=dev) >= per_tenant).reshape(chunks, rows)
+    target[:, void] = -1
+    preds[:, void] = -1
+    return preds, target
+
+
+def phase_stream_pool(torch, np, kernel, dev, gen, smi: str, sizes=None) -> dict:
+    """Multi-tenant stream pools (``_streams``) on the card, through ``to_stream_pool``.
+
+    1. A ``MulticlassConfusionMatrix(num_classes=1000, ignore_index=-1)`` pool: ``warm_start`` at capacity 128,
+       128 tenants, then 128 more attached mid-round (one doubling, the next step captured again), 196 vmapped
+       micro-batches of 64 tenants x 1,024 labels with kernel B1 counting each micro-batch's 64 matrices in one
+       launch; resets and detach/attach churn between rounds (a detached slot's row is padding, -1, until its slot
+       is attached again); one row with a label outside [0, C) (the class has no traced flags: it is counted as
+       its eager twin without ``validate_args`` counts it, i.e. not at all). Every tenant's matrix bit for bit
+       against a numpy bincount of the rows it took, 8 tenants against eager twins, B1's lane-batched launches
+       equal to the steps, the lane-batched kernel against its plain version, a ``StreamSnapshotManager``
+       journaling every step and its ``restore_stream`` of two tenants and ``restore_latest``, bit for bit.
+    2. The stat-score members of ``classification_collection`` (micro accuracy, macro precision, recall and
+       F1 at 1,000 classes, one compute group) as a 64-tenant collection pool against eager twin collections.
+    3. Host and device ms per step, ``compute_all`` ms, B1's lane-batched ``queued_ms`` at (64, 1024, 1000)
+       beside its bound, its plain version and ``bincount``, and the lanes' gather and scatter.
+    """
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    streams = importlib.import_module("torchmetrics_tpu_torch._streams")
+    res = importlib.import_module("torchmetrics_tpu_torch._resilience")
+    compiled = importlib.import_module("torchmetrics_tpu_torch._compile")
+    sizes = dict(STREAM_SIZES, **(sizes or {}))
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    c, n_ten, cap0, lanes, rows = (sizes[k] for k in ("classes", "tenants", "capacity", "lanes", "rows"))
+    chunks = -(-sizes["labels_per_tenant"] // rows)
+    per_round = n_ten // lanes
+    preds, target = stream_pool_labels(torch, dev, gen, n_ten, chunks, rows, c, sizes["labels_per_tenant"])
+    odd_tenant, odd_chunk = 7, 3
+    target[odd_tenant, odd_chunk, 0] = c  # outside [0, C)
+    host_p, host_t = preds.cpu().numpy(), target.cpu().numpy()
+    lanes_k, b1 = kernel.confusion_matrix_lanes.launches, kernel.confusion_matrix_cuda.launches
+    b1_0 = int(b1)
+
+    def make(**kw):
+        return tp.classification.MulticlassConfusionMatrix(num_classes=c, ignore_index=-1, device=dev, **kw)
+
+    # the lifecycle between rounds: (round, action, slot); an attach must hand out the slot detached before
+    c1, c3 = chunks // 5, chunks // 2
+    gap = max(1, chunks // 8)
+    churn = {c1: [("reset", 3), ("detach", n_ten // 2 + 2)], c1 + gap: [("attach", n_ten // 2 + 2)],
+             c3: [("reset", ((3 * n_ten) // 4 + 8) % n_ten), ("detach", 5)], c3 + gap: [("attach", 5)],
+             (3 * chunks) // 4: [("reset", n_ten // 4)]}
+    applied = {}  # slot -> the chunks it took since its last attach or reset
+    pool = make().to_stream_pool(capacity=cap0)
+    with tempfile.TemporaryDirectory() as folder:
+        mgr = streams.StreamSnapshotManager(
+            pool, folder, res.SnapshotPolicy(every_n_updates=10**6, journal_max_entries=10**6, async_write=False))
+        for _ in range(cap0):
+            applied[pool.attach()] = []
+        lanes_k.reset()  # the main path: counted from here
+        warm = pool.warm_start(np.arange(lanes), preds[:lanes, 0], target[:lanes, 0])
+        check(warm["stream_step"] == "compiled", f"warm_start: {warm}")
+        steps, stream_host_ms = 0, []
+        t0 = time.perf_counter()
+        for r in range(chunks):
+            for action, slot in churn.get(r, ()):
+                if action == "reset":
+                    pool.reset(slot)
+                elif action == "detach":
+                    pool.detach(slot)
+                else:
+                    check(pool.attach() == slot, f"attach did not recycle slot {slot}")
+                applied[slot] = []
+            for s in range(per_round):
+                if r == 0 and s * lanes == cap0:
+                    for _ in range(n_ten - cap0):  # the 129th attach doubles the capacity
+                        applied[pool.attach()] = []
+                    check(pool.capacity == 2 * cap0 and pool.growths == 1, f"capacity {pool.capacity}")
+                active = set(pool.active_streams)
+                ids = np.array([sl if sl in active else -1 for sl in range(s * lanes, (s + 1) * lanes)], np.int64)
+                h0 = time.perf_counter()
+                pool.update(ids, preds[s * lanes:(s + 1) * lanes, r], target[s * lanes:(s + 1) * lanes, r])
+                stream_host_ms.append((time.perf_counter() - h0) * 1e3)
+                for sl in ids[ids >= 0].tolist():
+                    applied[sl].append(r)
+                steps += 1
+        if on_card:
+            torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        lanes_launches = int(lanes_k)  # the main path: read here
+        mgr.simulate_preemption()
+        t_all = time.perf_counter()
+        got = pool.compute_all()
+        if on_card:
+            torch.cuda.synchronize()
+        compute_all_ms = (time.perf_counter() - t_all) * 1e3
+        check(sorted(got) == list(range(n_ten)), "compute_all's tenants")
+        check(steps == chunks * per_round, f"{steps} steps")
+        check(lanes_launches == (steps + 1 if on_card else 0),
+              f"B1 lane-batched launches {lanes_launches} for {steps} steps and one warm_start")
+        check(pool.capture_failures == {}, f"captures failed: {pool.capture_failures}")
+        if on_card:
+            check(all(isinstance(e, compiled.CapturedStep) for e in pool._step_fns.values()),
+                  "a step of the card's pool is not a CUDA graph")
+        check(pool.pending_violations(odd_tenant) == 0 and pool.stream_update_count(odd_tenant) == len(applied[odd_tenant]),
+              "the row with a label outside [0, C) was dropped")
+        mismatched = []
+        for sl in range(n_ten):
+            t = host_t[sl, applied[sl]].reshape(-1)
+            p = host_p[sl, applied[sl]].reshape(-1)
+            keep = (t >= 0) & (t < c) & (p >= 0) & (p < c)
+            ref = np.bincount(t[keep] * c + p[keep], minlength=c * c).reshape(c, c)
+            if not np.array_equal(got[sl].cpu().numpy(), ref):
+                mismatched.append(sl)
+        check(not mismatched, f"tenants whose matrix != the numpy bincount of their rows: {mismatched[:10]}")
+        twin_slots = [0, 3, 5, odd_tenant, n_ten // 4, n_ten // 2 + 2, ((3 * n_ten) // 4 + 8) % n_ten, n_ten - 1][:STREAM_TWINS]
+        for sl in twin_slots:
+            eager = make(validate_args=False)
+            for r in applied[sl]:
+                eager.update(preds[sl, r], target[sl, r])
+            check(torch.equal(eager.compute(), got[sl]), f"tenant {sl} != its eager twin")
+        # restores from the journal: two tenants into a fresh pool, then the whole pool into another
+        restored = {}
+        fresh = make().to_stream_pool(capacity=n_ten)
+        for _ in range(n_ten):
+            fresh.attach()
+        mgr2 = streams.StreamSnapshotManager(fresh, folder, res.SnapshotPolicy(async_write=False))
+        for sl in (odd_tenant, n_ten // 2 + 2):
+            report = mgr2.restore_stream(sl)
+            check(torch.equal(fresh.compute(sl), got[sl]) and report.replayed >= 1 and not report.fell_back,
+                  f"restore_stream({sl}): {report}")
+            restored[sl] = {"generation": report.generation, "replayed": report.replayed}
+        mgr2.close()
+        whole = make().to_stream_pool(capacity=cap0)
+        mgr3 = streams.StreamSnapshotManager(whole, folder, res.SnapshotPolicy(async_write=False))
+        report = mgr3.restore_latest()
+        mgr3.close()
+        again = whole.compute_all()
+        check(sorted(again) == sorted(got) and all(torch.equal(again[sl], got[sl]) for sl in got),
+              f"restore_latest: {report}")
+        restored["latest"] = {"generation": report.generation, "replayed": report.replayed, "capacity": whole.capacity}
+        del fresh, whole, again
+
+    # the lane-batched kernel against its plain version at the pool's shape, and its times
+    lane_p = preds[:lanes, 0].contiguous()
+    lane_t = target[:lanes, 0].contiguous()
+    lane_p2, lane_t2 = preds[:lanes, chunks - 1].contiguous(), target[:lanes, chunks - 1].contiguous()  # void tails
+    lane_err = 0.0
+    for p, t in ((lane_p, lane_t), (lane_p2, lane_t2)):
+        valid = t != -1
+        got_lanes = kernel.confusion_matrix_lanes(p, t, c, valid)
+        want_lanes = kernel.confusion_matrix_lanes_plain(p, t, c, valid)
+        check(torch.equal(got_lanes, want_lanes), "the lane-batched kernel != its plain version")
+        lane_err = max(lane_err, float((got_lanes.double() - want_lanes.double()).abs().max()))
+    timing = {}
+    if on_card:
+        valid = lane_t != -1
+        buf = torch.zeros((lanes, c, c), dtype=torch.int32, device=dev)
+        fused = ((lane_t * c + lane_p) + torch.arange(lanes, device=dev)[:, None] * (c * c))[valid]
+        label_bytes = lane_p.numel() * (2 * lane_p.element_size() + valid.element_size())
+        states = pool._states[""]["confmat"]
+        idx = torch.arange(lanes, device=dev)
+        gathered = states.index_select(0, idx)
+        timing = {
+            "ms": queued_ms(torch, lambda: kernel.confusion_matrix_lanes(lane_p, lane_t, c, valid, out=buf), reps=50),
+            "call_ms": median_ms(torch, lambda: kernel.confusion_matrix_lanes(lane_p, lane_t, c, valid, out=buf), reps=50),
+            "plain_ms": median_ms(torch, lambda: kernel.confusion_matrix_lanes_plain(lane_p, lane_t, c, valid), reps=10),
+            "library_ms": median_ms(torch, lambda: torch.bincount(fused, minlength=lanes * c * c), reps=20),
+            "bound_ms": label_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            # each step gathers the 64 lanes' (C, C) int32 rows and writes them back: 2 x 256 MB at C = 1000
+            "gather_ms": median_ms(torch, lambda: states.index_select(0, idx), reps=20),
+            "scatter_ms": median_ms(torch, lambda: states.index_copy_(0, idx, gathered), reps=20),
+            "gather_scatter_bound_ms": 4 * gathered.numel() * gathered.element_size() / HBM_BYTES_PER_S * 1e3,
+        }
+        # steady steps of the captured pool: host ms to return, device ms between events around each step
+        host_ms, events = [], []
+        for k in range(sizes["timed_steps"]):
+            s, r = k % per_round, k % chunks
+            ids = np.arange(s * lanes, (s + 1) * lanes)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            pool.update(ids, preds[s * lanes:(s + 1) * lanes, r], target[s * lanes:(s + 1) * lanes, r])
+            end.record()
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            events.append((start, end))
+        torch.cuda.synchronize()
+        timing["host_ms_per_step"] = statistics.median(host_ms)
+        timing["device_ms_per_step"] = statistics.median(s.elapsed_time(e) for s, e in events)
+    del pool, got
+
+    # ------------------------------------------------ 2. the collection pool: the stat-score members
+    n_col, batch, col_steps = sizes["collection_tenants"], sizes["collection_batch"], sizes["collection_steps"]
+
+    def members():
+        return {
+            "acc": tp.MulticlassAccuracy(num_classes=c, average="micro", device=dev),
+            "precision": tp.MulticlassPrecision(num_classes=c, device=dev),
+            "recall": tp.MulticlassRecall(num_classes=c, device=dev),
+            "f1": tp.MulticlassF1Score(num_classes=c, device=dev),
+        }
+
+    col_pool = tp.MetricCollection(members()).to_stream_pool(capacity=n_col)
+    slots = [col_pool.attach() for _ in range(n_col)]
+    twins = [tp.MetricCollection(members()) for _ in range(n_col)]
+    col_host_ms = []
+    for _ in range(col_steps):
+        logits = torch.randn((n_col, batch, c), generator=gen, device=dev)
+        labels = torch.randint(0, c, (n_col, batch), generator=gen, device=dev)
+        hit = torch.rand((n_col, batch), generator=gen, device=dev) < 0.76
+        logits.scatter_add_(2, labels[..., None], 10.0 * hit[..., None].float())
+        h0 = time.perf_counter()
+        col_pool.update(slots, logits, labels)
+        col_host_ms.append((time.perf_counter() - h0) * 1e3)
+        for i, twin in enumerate(twins):
+            twin.update(logits[i], labels[i])
+    col_got = col_pool.compute_all()
+    check(len(col_pool._units) == 1 and sorted(col_pool._units[0].members[k][0] for k in range(4))
+          == ["acc", "f1", "precision", "recall"], "the stat-score members share one compute group's rows")
+    col_err = 0.0
+    for i, sl in enumerate(slots):
+        want = twins[i].compute()
+        check(float(col_got[sl]["acc"]) == float(want["acc"]), f"tenant {sl}: micro accuracy != its eager twin")
+        for name in ("precision", "recall", "f1"):
+            err = abs(float(col_got[sl][name]) - float(want[name]))
+            col_err = max(col_err, err)
+            check(err <= COLLECTION_RATIO_ATOL, f"tenant {sl}: macro {name} vs its eager twin: {err}")
+    del col_pool, twins
+
+    b1_launches = int(b1) - b1_0
+    seconds = time.perf_counter() - t_phase
+    out = {
+        "phase": "stream_pool", "classes": c, "tenants": n_ten, "capacity": [cap0, 2 * cap0], "growths": 1,
+        "lanes": lanes, "rows": rows, "labels_per_tenant": sizes["labels_per_tenant"], "steps": steps,
+        "warm_start": warm, "lanes_launches": lanes_launches, "b1_unbatched_launches": b1_launches,
+        "restored": restored, "max_abs_err": lane_err, "eager_twins": twin_slots,
+        "stream_seconds": stream_s, "stream_host_ms_median": statistics.median(stream_host_ms),
+        "compute_all_ms": compute_all_ms, "timing": timing,
+        "collection": {"tenants": n_col, "batch": batch, "steps": col_steps, "max_ratio_err": col_err,
+                       "host_ms_per_step": statistics.median(col_host_ms)},
+        "tolerance": {"counts": "exact", "micro_accuracy": "exact", "macro_ratios": COLLECTION_RATIO_ATOL},
+        "seconds": seconds, "card": smi,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
-                                            "resilience"),
+                                            "resilience", "stream_pool"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
                              "captured_trunks: build, run only the captured_trunks phase, stop; "
                              "observability: build, run only the observability phase on the imagenet_val data, stop; "
-                             "resilience: build, run only the resilience phase on the imagenet_val data, stop")
+                             "resilience: build, run only the resilience phase on the imagenet_val data, stop; "
+                             "stream_pool: build, run only the stream_pool phase, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -7269,6 +7628,10 @@ def main() -> int:
     if args.phase == "resilience":
         logits, target = imagenet_val_data(torch, dev, gen)
         phase_resilience(torch, np, kernel, dev, logits, target, args.seed, smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "stream_pool":
+        phase_stream_pool(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 52), smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -7579,6 +7942,9 @@ def main() -> int:
     release_graphs(torch)
     # ------------- the resilience runtime on the imagenet_val collection, phase 51
     resilient = phase_resilience(torch, np, kernel, dev, logits, target, args.seed, smi)
+    release_graphs(torch)
+    # ------------- multi-tenant stream pools, B1 across the lanes of each micro-batch, phase 52
+    pooled = phase_stream_pool(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 52), smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -7615,7 +7981,7 @@ def main() -> int:
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
         + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"]
-        + resilient["b1_launches"],
+        + resilient["b1_launches"] + pooled["b1_unbatched_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -7624,6 +7990,20 @@ def main() -> int:
         "library_ms": big["library_ms"],
         "bound_ms_fresh": big["bound_ms_fresh"],
         "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask, into the state, queued_ms",
+    }, {
+        "name": "confmat_lanes",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
+        "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
+        "launches": pooled["lanes_launches"],
+        "max_abs_err": pooled["max_abs_err"],
+        "ms": pooled["timing"]["ms"],
+        "plain_ms": pooled["timing"]["plain_ms"],
+        "bound_ms": pooled["timing"]["bound_ms"],
+        "bound_by": pooled["timing"]["bound_by"],
+        "library_ms": pooled["timing"]["library_ms"],
+        "at": f"one stream_pool micro-batch: ({pooled['lanes']}, {pooled['rows']}) int64 labels + bool mask, "
+              f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap",
     }] + [{
         "name": name,
         "route": "cuda",

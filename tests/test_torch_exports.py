@@ -290,3 +290,39 @@ def test_resilience_families_are_declared_and_emitted(family):
     sources = glob.glob(os.path.join(ROOT, "torchmetrics_tpu_torch", "**", "*.py"), recursive=True)
     emitters = [path for path in sources if f'"{family}' in open(path).read() and "_observability" not in path]
     assert emitters, family
+
+
+@pytest.mark.parametrize(
+    ("relpath", "count"),
+    [("_streams/__init__.py", 8), ("_streams/adapters.py", 2), ("_streams/pool.py", 5), ("_streams/durability.py", 2),
+     ("_streams/telemetry.py", 2)],
+)
+def test_streams_all_equals_the_jax_package(relpath, count):
+    """``_streams``' names: the JAX package's 8, and each module's own (the adapters' two wrappers among them)."""
+    import importlib
+
+    module = importlib.import_module("torchmetrics_tpu_torch." + relpath[:-3].replace("/__init__", "").replace("/", "."))
+    want = _jax_all(relpath)
+    assert len(want) == count
+    assert sorted(module.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(module, name)]
+
+
+@pytest.mark.parametrize(
+    "family",
+    ["pool_stream_updates", "pool_quarantined", "pool_violations", "pool_attach", "pool_detach", "pool_growths",
+     "pool_computes", "pool_cost_device_seconds", "pool_cost_flops", "pool_cost_state_byte_updates"],
+)
+def test_stream_pool_families_are_declared_and_emitted(family):
+    """The families a stream pool emits are declared as the JAX package declares them, and the pool increments each."""
+    from torchmetrics_tpu_torch._observability.export import EXPORT_SCHEMA
+
+    with open(os.path.join(ROOT, "torchmetrics_tpu", "_observability", "export.py")) as fh:
+        tree = ast.parse(fh.read())
+    jax_schema = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == "EXPORT_SCHEMA"
+    )
+    assert EXPORT_SCHEMA[family] == {"kind": jax_schema[family]["kind"], "labels": tuple(jax_schema[family]["labels"])}
+    with open(os.path.join(ROOT, "torchmetrics_tpu_torch", "_streams", "pool.py")) as fh:
+        assert f'"{family}' in fh.read()

@@ -6,8 +6,10 @@ the roofline math, the ceilings' resolution order, the ledger's buckets and
 gauges, the EWMA+MAD regression detector, the metric seams feeding the
 ledger; the classic and OpenMetrics expositions (checked with
 ``prometheus_client``'s parsers), exemplars, histograms, the export schema;
-the frozen manifest. The stream-pool tenant costs and ``tools/perf_report.py``
-wait for ``_streams/`` and the tools (ROADMAP item 7).
+the frozen manifest; a stream pool's tenant cost apportionment (the
+``pool_cost_*`` families from the ledger's ``stream_step`` seam), and the
+pool's traffic in the expositions. ``tools/perf_report.py`` waits for the
+port's tools (ROADMAP item 7).
 
 Added for the port: the ceilings are the H100's (the figures ``chip_smoke.py``
 divides by); a step's cost is counted once, on its first run
@@ -287,6 +289,63 @@ def test_event_pairs_feed_the_regression_detector_in_order(profiling):
     assert event.data["observed_seconds"] == pytest.approx(0.05)
 
 
+def test_pool_tenant_cost_apportionment(profiling):
+    """Each replayed step's seconds (host-timed here; a CUDA event pair on the card) split equally across its rows.
+
+    The JAX test also expects ``pool_cost_flops``: XLA's cost analysis counts
+    the elementwise flops of MeanMetric's update. The port counts a step's
+    flops with ``FlopCounterMode``, which counts none for elementwise ops, so
+    this step claims 0 flops and writes no ``pool_cost_flops`` family; the
+    flops split is checked on a step that claims some (a matmul in the update).
+    """
+    set_telemetry_enabled(True)
+    pool = tm.aggregation.MeanMetric(**CPU).to_stream_pool(capacity=8)
+    ids = [pool.attach() for _ in range(4)]
+    for step in range(6):
+        pool.update(ids, torch.ones((4, 3)) * step)
+    totals = REGISTRY.counter_totals()
+    per_stream = {k.partition("=")[2]: v for k, v in totals.items() if k.startswith("pool_cost_device_seconds|")}
+    assert set(per_stream) == {str(s) for s in ids}
+    # equal-share apportionment: every tenant in a uniform batch pays the same
+    vals = list(per_stream.values())
+    assert all(v == pytest.approx(vals[0]) for v in vals)
+    # the metered seconds reconcile with the ledger's stream_step bucket (the first step is the build)
+    row = next(r for r in LEDGER.snapshot()["seams"] if r["seam"] == "stream_step")
+    assert row["steps"] == 5 and row["unattributed_steps"] == 0
+    assert sum(vals) == pytest.approx(row["device_seconds"], rel=1e-6)
+    assert not [k for k in totals if k.startswith("pool_cost_flops|")]
+    # predicted state bytes metered per applied row (MeanMetric has an exact claim: value and weight)
+    sbytes = [v for k, v in totals.items() if k.startswith("pool_cost_state_byte_updates|")]
+    assert sbytes == [pytest.approx(5 * 8.0)] * 4
+    assert owner_class("StreamPool[MeanMetric]") == "MeanMetric"
+    assert any(rec["kind"] == "stream_step" for rec in LEDGER.snapshot()["executables"].values())
+
+    class _Projected(tm.Metric):
+        """A pooled update with a matmul in it, so its step claims flops."""
+
+        full_state_update = False
+
+        def __init__(self):
+            super().__init__(**CPU)
+            self.add_state("s", torch.zeros(2), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.s += (x @ torch.ones((3, 2))).sum(0)
+
+        def compute(self):
+            return self.s
+
+    proj = _Projected().to_stream_pool(capacity=4, enforce_manifest=False)
+    pids = [proj.attach() for _ in range(2)]
+    for _ in range(3):
+        proj.update(pids, torch.ones((2, 5, 3)))
+    cost = LEDGER.cost_for("stream_step", "_Projected")
+    assert cost is not None and cost.flops == 2 * 2 * 5 * 3 * 2  # two lanes' (5, 3) @ (3, 2)
+    flops = {k: v for k, v in REGISTRY.counter_totals().items() if k.startswith("pool_cost_flops|")}
+    assert sorted(flops) == [f"pool_cost_flops|stream={s}" for s in pids]
+    assert all(v == pytest.approx(2 * cost.flops / 2) for v in flops.values())  # two steps, two rows each
+
+
 # ------------------------------------------------------------ anomaly detector
 def _fresh_ledger(warmup=16, sustain=4):
     led = CostLedger()
@@ -489,6 +548,11 @@ def _drive_traffic():
         metric.compute()
         mc.compute()
     telemetry_for(metric).set_gauge("predicted_state_bytes|scope=replica", 8.0)
+    # and a stream pool's tenants (the JAX helper's traffic)
+    pool = tm.aggregation.MeanMetric(**CPU).to_stream_pool(capacity=4)
+    ids = [pool.attach() for _ in range(2)]
+    for step in range(3):
+        pool.update(ids, torch.ones((2, 3)) * step)
     BUS.publish("degradation", "MeanSquaredError", "synthetic")
     return metric, mc
 

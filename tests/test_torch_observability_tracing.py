@@ -4,10 +4,10 @@ From ``tests/unittests/observability/test_tracing.py`` and ``test_churn.py``:
 span lifecycle and contextvar parentage, the update/compute/forward seams
 and a collection's fan-out, the bounded recorder ring, the Chrome
 trace-event export, the disabled path, the guarded sync's attempts and the
-snapshot write and restore spans; churn warnings naming the changed
-cache-key components, the bus events, the signature overflow. The span
-tests through the stream pool wait for ``_streams/`` (ROADMAP item 7). Added for the port: a
-signature on another layout is a component of its own (``layouts``).
+snapshot write and restore spans, a stream pool's micro-batch as one causal
+tree with bounded ``streams`` attribution; churn warnings naming the changed
+cache-key components, the bus events, the signature overflow. Added for the
+port: a signature on another layout is a component of its own (``layouts``).
 """
 
 import json
@@ -232,6 +232,59 @@ def test_seam_spans_are_roots_outside_any_context(tracing):
 
 
 # ----------------------------------------------------------------- exports
+# ------------------------------------------------------------- StreamPool
+def test_stream_pool_micro_batch_exports_one_causal_chrome_tree(tracing, tmp_path):
+    """One StreamPool micro-batch under one trace_context exports as valid Chrome trace-event JSON
+    whose spans form a single causally linked tree."""
+    pool = mse().to_stream_pool(capacity=4)
+    a, b = pool.attach(), pool.attach()
+    with trace_context("ingest") as root:
+        pool.update([a, b], torch.ones((2, 8)), torch.zeros((2, 8)))
+        pool.compute_all()
+
+    out = tmp_path / "trace.json"
+    payload = export_chrome_trace(trace_id=root.trace_id, path=str(out))
+    loaded = json.loads(out.read_text(encoding="utf-8"))
+    assert loaded == json.loads(json.dumps(payload))
+    events = loaded["traceEvents"]
+    assert events, "empty trace"
+    for ev in events:
+        assert ev["ph"] == "X"
+        for key in ("name", "cat", "ts", "dur", "pid", "tid", "args"):
+            assert key in ev, f"missing {key} in {ev}"
+        assert ev["dur"] >= 0
+
+    ids = {ev["args"]["span_id"] for ev in events}
+    roots = [ev for ev in events if ev["args"]["parent_id"] not in ids]
+    assert len(roots) == 1 and roots[0]["name"] == "ingest"
+    assert all(ev["args"]["trace_id"] == root.trace_id for ev in events)
+    trees = span_tree(root.trace_id)
+    assert len(trees) == 1
+    top = {c["name"]: c for c in trees[0]["children"]}
+    # the micro-batch update and its compute, causally ordered
+    assert "update" in top and "compute" in top
+    assert top["update"]["source"] == "StreamPool"
+    assert top["update"]["t1_mono"] <= top["compute"]["t0_mono"]
+    # the vmapped step nests under the micro-batch span
+    assert "stream_step" in [c["name"] for c in top["update"]["children"]]
+    # bounded stream attribution on the micro-batch span
+    assert top["update"]["attrs"]["rows"] == 2
+    assert "streams" in top["update"]["attrs"]
+
+
+def test_stream_pool_span_attribution_uses_bounded_labels(tracing):
+    pool = mse().to_stream_pool(capacity=4, telemetry_streams=1)
+    a, b = pool.attach(), pool.attach()
+    p, t = torch.ones((2, 4)), torch.zeros((2, 4))
+    pool.update([a, b], p, t)  # the first batch: the labeler assigns its single slot
+    pool.update([a, b], p, t)
+    span = [s for s in TRACER.spans(name="update") if s.source == "StreamPool"][-1]
+    labels = span.attrs["streams"].split(",")
+    # at most k=1 exact ids; the other tenant rides the overflow bucket
+    assert "__overflow__" in labels
+    assert len([x for x in labels if x not in ("__overflow__", "…")]) <= 1
+
+
 def test_chrome_export_is_loadable_without_a_trace_filter(tracing, tmp_path):
     with trace_context("one"):
         mse().update(torch.ones(4), torch.zeros(4))

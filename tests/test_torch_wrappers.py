@@ -394,6 +394,22 @@ class HostReadSum(Metric):
         return self.total
 
 
+class BincountPairs(Metric):
+    """A pair histogram counted with an integer ``bincount``, which has no batching rule."""
+
+    full_state_update = False
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("counts", torch.zeros(9, dtype=torch.int64), dist_reduce_fx="sum")
+
+    def update(self, preds, target):
+        self.counts += torch.bincount(target * 3 + preds, minlength=9)
+
+    def compute(self):
+        return self.counts
+
+
 @pytest.mark.parametrize(("make", "reason"), [
     (lambda: BatchMax(device="cpu"), "additivity"),
     (lambda: HostReadSum(device="cpu"), "vmap"),
@@ -401,7 +417,7 @@ class HostReadSum(Metric):
     (lambda: PT.MaxMetric(device="cpu"), "max state"),
     (lambda: PT.MulticlassAccuracy(num_classes=3, device="cpu"), "validate_args"),
     # an integer bincount has no batching rule: its per-sample vmap fallback is an error on this route
-    (lambda: PT.MulticlassConfusionMatrix(num_classes=3, validate_args=False, device="cpu"), "bincount"),
+    (lambda: BincountPairs(device="cpu"), "bincount"),
 ])
 def test_stacked_route_switches_to_the_loop(make, reason):
     metric = PW.BootStrapper(make(), num_bootstraps=3, seed=1)
@@ -415,6 +431,36 @@ def test_stacked_route_switches_to_the_loop(make, reason):
     assert metric._fast_disabled
     assert torch._C._functorch._is_vmap_fallback_enabled()  # the wrapper restores the global switch
     metric.compute()
+
+
+def test_a_confusion_matrix_takes_the_stacked_route():
+    """Kernel B1's plain version counts with an out-of-place ``index_add`` under vmap (a stream pool's lanes),
+    so a confusion matrix's per-sample deltas vmap and BootStrapper stacks its copies."""
+    metric = PW.BootStrapper(PT.MulticlassConfusionMatrix(num_classes=3, validate_args=False, device="cpu"),
+                             num_bootstraps=4, seed=1, raw=True)
+    x = torch.tensor([0, 3, 1, 2, 1, 1])
+    for _ in range(3):
+        metric.update(x % 3, torch.tensor([0, 2, 1, 2, 1, 0]))
+    assert metric.route_counts == {"loop": 1, "stacked": 2} and not metric._fast_disabled
+    raw = metric.compute()["raw"]
+    assert raw.shape == (4, 3, 3) and bool((raw >= 0).all()) and torch.equal(raw, raw.round())
+
+
+def test_a_batch_whose_per_sample_deltas_pass_the_bound_takes_the_loop(monkeypatch):
+    """The stacked route holds a batch's per-sample deltas; a batch that would hold more than the bound takes the
+    loop, that batch only (a 1000-class confusion matrix at a batch of 1024 would hold 8 GB)."""
+    boot = importlib.import_module("torchmetrics_tpu_torch.wrappers.bootstrapping")
+    metric = PW.BootStrapper(PT.MulticlassConfusionMatrix(num_classes=3, validate_args=False, device="cpu"),
+                             num_bootstraps=4, seed=1, raw=True)
+    # 9 int32 cells a sample, each also in float32: 72 bytes a sample
+    assert metric._delta_bytes(["confmat"], 6) == 6 * 9 * (4 + 4)
+    monkeypatch.setattr(boot, "_STACKED_DELTA_BYTES", 5 * 72)
+    x, y = torch.tensor([0, 2, 1, 2, 1, 1]), torch.tensor([0, 2, 1, 2, 1, 0])
+    for size in (6, 6, 5, 6, 5):
+        metric.update(x[:size], y[:size])
+    assert metric.route_counts == {"loop": 3, "stacked": 2} and not metric._fast_disabled
+    raw = metric.compute()["raw"]
+    assert raw.shape == (4, 3, 3) and bool((raw >= 0).all()) and torch.equal(raw, raw.round())
 
 
 def test_stacked_route_counts_have_their_law_and_resume_after_pickling():

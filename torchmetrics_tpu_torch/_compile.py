@@ -300,14 +300,19 @@ class CapturedStep:
         _STATS[stat + "captured"] += 1
         _STATS[stat + "capture_seconds"] += time.perf_counter() - t0
 
-    def replay(self, dyn: List[Tensor]) -> Any:
+    def replay(self, dyn: List[Tensor], then: Optional[Callable[[float], None]] = None) -> Any:
+        """Copy the batch ``dyn`` into the graph's inputs and replay; with profiling on, timed on the card.
+
+        ``then`` (profiling on) gets the replay's seconds once the ledger
+        resolves its event pair.
+        """
         if _OBS.profiling and self.seam is not None:
             # timed on the card; the ledger resolves the pair on a later step or when it is read
             start, end = _PROF_LEDGER.event_pair()
             start.record()
             self._replay(dyn)
             end.record()
-            _PROF_LEDGER.record_event_pair(self.seam, self.owner, start, end)
+            _PROF_LEDGER.record_event_pair(self.seam, self.owner, start, end, then)
         else:
             self._replay(dyn)
         _STATS[self.stat + "replayed"] += 1

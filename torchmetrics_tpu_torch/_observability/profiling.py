@@ -169,9 +169,9 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
         self._buckets: Dict[Tuple[str, str], Dict[str, float]] = {}
         # concurrency: guarded-by _lock — seam -> rolling baseline
         self._baselines: Dict[str, _Baseline] = {}
-        # concurrency: guarded-by _lock — (seam, class, start, end) event
+        # concurrency: guarded-by _lock — (seam, class, start, end, then) event
         # pairs recorded on the card and not yet resolved, oldest first
-        self._pending: "deque[Tuple[str, str, Any, Any]]" = deque()
+        self._pending: "deque[Tuple[str, str, Any, Any, Any]]" = deque()
         # concurrency: guarded-by _lock — resolved pairs' events for reuse
         self._free_events: List[Tuple[Any, Any]] = []
         self.warmup = self.WARMUP
@@ -242,39 +242,44 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
 
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def record_event_pair(self, seam: str, cls: str, start: Any, end: Any) -> None:
+    def record_event_pair(self, seam: str, cls: str, start: Any, end: Any, then: Any = None) -> None:
         """Account one step timed on the card between ``start`` and ``end`` (both recorded).
 
         The pair joins the pending queue; the pairs before it whose end
         event has completed are resolved now, in order. Nothing here waits
-        for the card.
+        for the card. ``then``, if given, is called with the step's seconds
+        once the pair is resolved (a stream pool meters them to its tenants).
         """
         with self._lock:
-            self._pending.append((seam, cls, start, end))
+            self._pending.append((seam, cls, start, end, then))
             ready = self._take_resolved(wait=False)
-        for item in ready:
-            self._account(*item)
+        self._account_resolved(ready)
 
-    def _take_resolved(self, wait: bool) -> List[Tuple[str, str, float]]:  # concurrency: guarded-by _lock
+    def _take_resolved(self, wait: bool) -> List[Tuple[str, str, float, Any]]:  # concurrency: guarded-by _lock
         """Pop the pending pairs whose end has completed (all of them with ``wait``), as seconds."""
-        out: List[Tuple[str, str, float]] = []
+        out: List[Tuple[str, str, float, Any]] = []
         while self._pending:
-            seam, cls, start, end = self._pending[0]
+            seam, cls, start, end, then = self._pending[0]
             if wait:
                 end.synchronize()
             elif not end.query():
                 break
             self._pending.popleft()
-            out.append((seam, cls, start.elapsed_time(end) / 1e3))
+            out.append((seam, cls, start.elapsed_time(end) / 1e3, then))
             self._free_events.append((start, end))
         return out
+
+    def _account_resolved(self, ready: List[Tuple[str, str, float, Any]]) -> None:
+        for seam, cls, seconds, then in ready:
+            self._account(seam, cls, seconds)
+            if then is not None:
+                then(seconds)
 
     def flush(self) -> None:
         """Wait for every pending event pair and account it (done by each read of the ledger)."""
         with self._lock:
             ready = self._take_resolved(wait=True)
-        for item in ready:
-            self._account(*item)
+        self._account_resolved(ready)
 
     # ------------------------------------------------------------------ steps
     def record_step(self, seam: str, cls: str, seconds: float) -> None:

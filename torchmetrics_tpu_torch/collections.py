@@ -211,6 +211,18 @@ class MetricCollection(nn.Module):
         """
         return {name: m.precompile(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
 
+    def to_stream_pool(self, *, capacity: int = 8, **kwargs: Any) -> Any:
+        """N independent streams of this (fresh) collection, one vmapped step (JAX ``collections.py:480``).
+
+        Compute groups share stacked states: each group's head updates once
+        per lane, every member computes from the head's slot rows, and
+        ``pool.compute(i)`` returns a dict keyed like :meth:`compute`. Every
+        member class must pass the stream-pool gate.
+        """
+        from torchmetrics_tpu_torch._streams import StreamPool
+
+        return StreamPool(self, capacity=capacity, **kwargs)
+
     def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
         """``Metric.set_dtype`` on every member (JAX ``collections.py:493``)."""
         for m in self._modules.values():

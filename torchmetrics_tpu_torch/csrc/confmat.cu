@@ -41,6 +41,12 @@
 //
 // Cell indices are int32: C <= 46340.
 //
+// Lane-batched form (tm_confmat_lanes): a StreamPool's micro-batch of B
+// tenants counts B matrices in one launch, one grid row (blockIdx.y) per
+// lane, each lane's rows and matrix at its own stride, the same body as
+// above. It reads B * N * (2 * index_bytes + weight_bytes) and adds into the
+// gathered (B, C, C) lanes.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through the plain C entry point tm_confmat with ctypes.
 
@@ -136,16 +142,15 @@ __device__ __forceinline__ Val<Kind> row_value(const void* weights, int64_t i, b
   }
 }
 
-// grid-stride over 8-row steps of rows [head, head + 8 * steps), warp-uniform
-// (every lane reaches the warp's collectives), then a scalar loop over the
-// rows before `head` and after the last step
+// One block's share of one matrix: a grid-stride loop over 8-row steps of
+// rows [head, head + 8 * steps), warp-uniform (every lane reaches the warp's
+// collectives), then a scalar loop over the rows before `head` and after the
+// last step; the block's diagonal counters live in `diag_s` (C values).
 template <typename Idx, int Kind>
-__global__ void __launch_bounds__(kThreads, 2)
-    confmat_kernel(const Idx* __restrict__ preds, const Idx* __restrict__ target, const void* __restrict__ weights,
-                   int64_t n, int64_t num_classes, int64_t head, Val<Kind>* __restrict__ out) {
+__device__ __forceinline__ void count_rows(const Idx* __restrict__ preds, const Idx* __restrict__ target,
+                                           const void* __restrict__ weights, int64_t n, int64_t num_classes,
+                                           int64_t head, Val<Kind>* __restrict__ out, Val<Kind>* diag_s) {
   using V = Val<Kind>;
-  extern __shared__ unsigned char smem[];
-  V* diag_s = reinterpret_cast<V*>(smem);
   for (int64_t c = threadIdx.x; c < num_classes; c += kThreads) diag_s[c] = 0;
   __syncthreads();
 
@@ -231,6 +236,52 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <typename Idx, int Kind>
+__global__ void __launch_bounds__(kThreads, 2)
+    confmat_kernel(const Idx* __restrict__ preds, const Idx* __restrict__ target, const void* __restrict__ weights,
+                   int64_t n, int64_t num_classes, int64_t head, Val<Kind>* __restrict__ out) {
+  extern __shared__ unsigned char smem[];
+  count_rows<Idx, Kind>(preds, target, weights, n, num_classes, head, out, reinterpret_cast<Val<Kind>*>(smem));
+}
+
+// The first row at which a lane's labels (and weights) all sit on a 16-byte
+// boundary (8 bytes for a bool mask), or n: vector_head() of the wrapper,
+// taken per lane on the card, since each lane starts at its own address.
+__device__ __forceinline__ int64_t lane_head(const void* preds, const void* target, const void* weights, int idx_bytes,
+                                             int weight_bytes, int64_t n) {
+  for (int h = 0; h < kRows; ++h) {
+    bool ok = (reinterpret_cast<uintptr_t>(preds) + h * idx_bytes) % 16 == 0 &&
+              (reinterpret_cast<uintptr_t>(target) + h * idx_bytes) % 16 == 0;
+    if (weights != nullptr) {
+      ok = ok && (reinterpret_cast<uintptr_t>(weights) + h * weight_bytes) % (weight_bytes == 1 ? 8 : 16) == 0;
+    }
+    if (ok) return h < n ? h : n;
+  }
+  return n;
+}
+
+// Lane-batched counts for a pool's micro-batch: lane `blockIdx.y` reads rows
+// [lane * n, (lane + 1) * n) of the (lanes, n) labels and adds into matrix
+// `lane` of the (lanes, C, C) output, at lane stride C * C. Each block counts
+// one lane's diagonal in its own shared memory, as confmat_kernel does.
+template <typename Idx, int Kind>
+__global__ void __launch_bounds__(kThreads, 2)
+    confmat_lanes_kernel(const Idx* __restrict__ preds, const Idx* __restrict__ target,
+                         const void* __restrict__ weights, int64_t n, int64_t num_classes,
+                         Val<Kind>* __restrict__ out) {
+  extern __shared__ unsigned char smem[];
+  const int64_t lane = blockIdx.y;
+  constexpr int weight_bytes = Kind == kWeightMask ? 1 : 4;
+  const Idx* p = preds + lane * n;
+  const Idx* t = target + lane * n;
+  const void* w = weights == nullptr
+                      ? nullptr
+                      : static_cast<const void*>(static_cast<const uint8_t*>(weights) + lane * n * weight_bytes);
+  const int64_t head = lane_head(p, t, w, sizeof(Idx), weight_bytes, n);
+  count_rows<Idx, Kind>(p, t, w, n, num_classes, head, out + lane * num_classes * num_classes,
+                        reinterpret_cast<Val<Kind>*>(smem));
+}
+
+template <typename Idx, int Kind>
 cudaError_t launch(const void* preds, const void* target, const void* weights, int64_t n, int64_t num_classes,
                    int64_t head, void* out, int64_t blocks, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(num_classes) * sizeof(Val<Kind>);
@@ -241,6 +292,22 @@ cudaError_t launch(const void* preds, const void* target, const void* weights, i
   }
   confmat_kernel<Idx, Kind><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const Idx*>(preds), static_cast<const Idx*>(target), weights, n, num_classes, head,
+      static_cast<Val<Kind>*>(out));
+  return cudaGetLastError();
+}
+
+template <typename Idx, int Kind>
+cudaError_t launch_lanes(const void* preds, const void* target, const void* weights, int64_t lanes, int64_t n,
+                         int64_t num_classes, void* out, int64_t blocks, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(num_classes) * sizeof(Val<Kind>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(confmat_lanes_kernel<Idx, Kind>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
+  confmat_lanes_kernel<Idx, Kind><<<grid, kThreads, smem, stream>>>(
+      static_cast<const Idx*>(preds), static_cast<const Idx*>(target), weights, n, num_classes,
       static_cast<Val<Kind>*>(out));
   return cudaGetLastError();
 }
@@ -317,6 +384,29 @@ extern "C" int tm_confmat_row_atomics(const void* preds, const void* target, con
                                       int64_t blocks, void* stream) {
   return dispatch(kRowAtomics, preds, target, weights, n, num_classes, idx_kind, weight_kind, head, out, blocks,
                   stream);
+}
+
+using LanesLauncher = cudaError_t (*)(const void*, const void*, const void*, int64_t, int64_t, int64_t, void*, int64_t,
+                                      cudaStream_t);
+
+// Lane-batched counts: `lanes` (<= 65535) matrices of C * C cells in `out`,
+// contiguous, one for each lane of the contiguous (lanes, n) labels and
+// weights. Arguments otherwise as tm_confmat; each lane's head is found on
+// the card.
+extern "C" int tm_confmat_lanes(const void* preds, const void* target, const void* weights, int64_t lanes, int64_t n,
+                                int64_t num_classes, int idx_kind, int weight_kind, void* out, int64_t blocks,
+                                void* stream) {
+  static constexpr LanesLauncher kLanes[6] = {
+      launch_lanes<int32_t, kWeightNone>, launch_lanes<int32_t, kWeightMask>, launch_lanes<int32_t, kWeightFloat>,
+      launch_lanes<int64_t, kWeightNone>, launch_lanes<int64_t, kWeightMask>, launch_lanes<int64_t, kWeightFloat>,
+  };
+  if (n <= 0 || lanes <= 0) return cudaSuccess;
+  if (lanes > 65535 || blocks < 1 || blocks > 0x7fffffffLL || num_classes < 1 || num_classes > kMaxClasses ||
+      idx_kind < 0 || idx_kind > 1 || weight_kind < 0 || weight_kind > 2 || (weights == nullptr) != (weight_kind == 0)) {
+    return cudaErrorInvalidValue;
+  }
+  return kLanes[idx_kind * 3 + weight_kind](preds, target, weights, lanes, n, num_classes, out, blocks,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tm_cuda_error_string(int err) {

@@ -11,7 +11,7 @@ from typing import Tuple, Union
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _vmapped
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 
@@ -37,8 +37,11 @@ def _r2_score_compute(
     adjusted: int = 0,
     multioutput: str = "uniform_average",
 ) -> Tensor:
-    n = int(total)
-    if n < 2:
+    # a vmapped lane (a stream pool's compute) has no host value: the checks
+    # and warnings are skipped and the adjusted score is chosen on the
+    # device, as under the JAX package's trace
+    n = None if _vmapped(total) else int(total)
+    if n is not None and n < 2:
         raise ValueError("Needs at least two samples to calculate r2 score.")
     mean_obs = sum_obs / total
     tss = sum_squared_obs - sum_obs * mean_obs
@@ -67,6 +70,10 @@ def _r2_score_compute(
 
     if not isinstance(adjusted, int) or adjusted < 0:
         raise ValueError("`adjusted` parameter should be an integer larger or equal to 0.")
+    if adjusted != 0 and n is None:
+        denom = total - adjusted - 1
+        adj = 1 - (1 - r2) * (total - 1) / torch.where(denom > 0, denom, 1)
+        return torch.where(denom > 0, adj, r2)
     if adjusted != 0:
         if adjusted > n - 1:
             rank_zero_warn(

@@ -1850,6 +1850,22 @@ class Metric(nn.Module, ABC):
         # stream axis that plain update() must not see as one batch
         self._journal_record("scan", args, kwargs)
 
+    def to_stream_pool(self, *, capacity: int = 8, **kwargs: Any) -> Any:
+        """N independent streams of this (fresh) metric behind one vmapped step (JAX ``metric.py:1085``).
+
+        Returns a :class:`~torchmetrics_tpu_torch._streams.StreamPool` that
+        stacks ``capacity`` independent copies of this metric's states along
+        a leading slot axis on its device and updates any micro-batch of them
+        in one step (``pool.update(stream_ids, *args)``), with O(1)
+        ``attach``/``detach``/``reset(i)`` and per-stream ``compute(i)``. The
+        metric itself is the template: it never accumulates. Classes whose
+        update or compute does not trace raise
+        :class:`~torchmetrics_tpu_torch._streams.StreamPoolUnsupported`.
+        """
+        from torchmetrics_tpu_torch._streams import StreamPool
+
+        return StreamPool(self, capacity=capacity, **kwargs)
+
     def _apply_dtype_policy(self) -> None:
         """Re-cast floating states to the ``set_dtype`` policy after an update (JAX ``metric.py:782``)."""
         dst = self._dtype_policy

@@ -46,6 +46,23 @@ def _compiled_step() -> Iterator[None]:
         _STEP.depth -= 1
 
 
+def _vmapped(*tensors: Any) -> bool:
+    """True when a tensor is a lane of ``torch.func.vmap`` (a stream pool's step): it has no host value to read."""
+    return any(isinstance(x, Tensor) and torch._C._functorch.is_batchedtensor(x) for x in tensors)
+
+
+@contextlib.contextmanager
+def _no_vmap_fallback() -> Iterator[None]:
+    """Make an op without a batching rule raise under ``vmap`` instead of looping over the lanes one by one."""
+    functorch = torch._C._functorch
+    was_enabled = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        functorch._set_vmap_fallback_enabled(was_enabled)
+
+
 def _check_same_shape(preds: Tensor, target: Tensor) -> None:
     """Raise if shapes differ (reference ``checks.py:33-39``)."""
     if preds.shape != target.shape:

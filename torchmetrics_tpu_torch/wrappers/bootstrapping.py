@@ -21,7 +21,11 @@ Two routes, entered under the JAX package's conditions:
   or an update that cannot run under ``vmap`` (a host read such as
   ``.item()``, control flow on a value, or an op without a batching rule
   such as ``torch.bincount``, whose per-sample fallback is turned into an
-  error here), switches the wrapper to the loop for good.
+  error here), switches the wrapper to the loop for good. A batch whose
+  per-sample deltas would take more than ``_STACKED_DELTA_BYTES`` (in the
+  states' dtypes and again in float32) takes the loop too, that batch only:
+  a 1000-class confusion matrix holds 8 MB of them a sample, 8 GB at a
+  batch of 1024, where the loop's ``N`` updates cost less.
 
 ``route_counts`` says how many updates each route took. The stacked route's
 draws are not ``jax.random``'s; its counts have the same law.
@@ -29,7 +33,6 @@ draws are not ``jax.random``'s; its counts have the same law.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -38,8 +41,15 @@ import torch
 from torch import Tensor, nn
 
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.checks import _no_vmap_fallback
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 from torchmetrics_tpu_torch.wrappers.abstract import WrapperMetric
+
+
+# the most bytes of per-sample deltas the stacked route materialises for one batch; past it the loop's N updates
+# are the faster route: over a 1000-class confusion matrix on an H100 the stacked route wins at a batch of 256
+# (1.9 GB of deltas) and loses at 1,024 (7.6 GB; chip_smoke.py phase 43, PERF.md)
+_STACKED_DELTA_BYTES = 1 << 31
 
 
 def _bootstrap_sampler(size: int, sampling_strategy: str, rng: np.random.Generator) -> np.ndarray:
@@ -50,18 +60,6 @@ def _bootstrap_sampler(size: int, sampling_strategy: str, rng: np.random.Generat
     if sampling_strategy == "multinomial":
         return rng.integers(0, size, size)
     raise ValueError("Unknown sampling strategy")
-
-
-@contextmanager
-def _no_vmap_fallback():
-    """Make an op without a batching rule raise under ``vmap`` instead of looping over the samples one by one."""
-    functorch = torch._C._functorch
-    was_enabled = functorch._is_vmap_fallback_enabled()
-    functorch._set_vmap_fallback_enabled(False)
-    try:
-        yield
-    finally:
-        functorch._set_vmap_fallback_enabled(was_enabled)
 
 
 def _split_batch(args: tuple, kwargs: Dict[str, Any]) -> Tuple[List[Tensor], List[Tuple[str, Any]]]:
@@ -174,6 +172,11 @@ class BootStrapper(WrapperMetric):
             for n, value in saved.items():
                 setattr(template, n, value)
 
+    def _delta_bytes(self, names: List[str], size: int) -> int:
+        """Bytes of a batch's per-sample deltas: each state ``size`` times in its dtype and again in float32."""
+        defaults = self.metrics[0]._defaults
+        return size * sum(defaults[n].numel() * (defaults[n].element_size() + 4) for n in names)
+
     def _zeros(self, names: List[str], lead: Tuple[int, ...] = ()) -> Dict[str, Tensor]:
         defaults = self.metrics[0]._defaults
         return {n: torch.zeros(lead + tuple(defaults[n].shape), dtype=defaults[n].dtype, device=defaults[n].device)
@@ -221,6 +224,8 @@ class BootStrapper(WrapperMetric):
             self._fast_disabled = True
             return False
         size = sizes.pop()
+        if self._delta_bytes(names, size) > _STACKED_DELTA_BYTES:
+            return False  # this batch's per-sample deltas outweigh the loop
         if size == 1 and not self._fast_checked_sizes:
             # a single sample passes the additivity check for any metric, yet scaling its delta by a count k
             # equals k repeated samples only for an additive update: size-1 batches never license the route

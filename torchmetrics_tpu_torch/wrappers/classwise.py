@@ -1,7 +1,7 @@
 """ClasswiseWrapper (port of ``torchmetrics_tpu/wrappers/classwise.py``).
 
-The JAX package's ``to_stream_pool`` belongs to its multi-tenant stream
-pools, which are not ported yet.
+``to_stream_pool`` gives the multi-tenant form: N independent classwise
+streams in one pool (``_streams.adapters.PooledClasswise``).
 """
 
 from __future__ import annotations
@@ -62,6 +62,17 @@ class ClasswiseWrapper(WrapperMetric):
 
     def compute(self) -> Dict[str, Tensor]:
         return self._convert(self.metric.compute())
+
+    def to_stream_pool(self, *, capacity: int = 8, **kwargs: Any) -> Any:
+        """Multi-tenant fast path: N independent classwise streams in one pool (JAX ``classwise.py:67``).
+
+        Returns a :class:`~torchmetrics_tpu_torch._streams.adapters.PooledClasswise`
+        whose ``compute(i)`` gives this wrapper's labelled per-class dict for
+        stream ``i``, while every stream shares one vmapped update step.
+        """
+        from torchmetrics_tpu_torch._streams.adapters import PooledClasswise
+
+        return PooledClasswise(self, capacity=capacity, **kwargs)
 
     def reset(self) -> None:
         self.metric.reset()

@@ -1,8 +1,9 @@
 """MultitaskWrapper (port of ``torchmetrics_tpu/wrappers/multitask.py``).
 
-The task metrics are an ``nn.ModuleDict``, so ``.to()`` moves them. The JAX
-package's ``to_stream_pool`` belongs to its multi-tenant stream pools, which
-are not ported yet.
+The task metrics are an ``nn.ModuleDict``, so ``.to()`` moves them.
+``to_stream_pool`` gives the homogeneous-task fast path: one pool slot per
+task, every task updated in one vmapped step
+(``_streams.adapters.PooledMultitask``).
 """
 
 from __future__ import annotations
@@ -96,6 +97,19 @@ class MultitaskWrapper(WrapperMetric):
         if postfix is not None:
             mt._postfix = postfix
         return mt
+
+    def to_stream_pool(self, **kwargs: Any) -> Any:
+        """Homogeneous-task fast path: one vmapped pool slot per task (JAX ``multitask.py:88``).
+
+        Returns a :class:`~torchmetrics_tpu_torch._streams.adapters.PooledMultitask`
+        that updates every task in one vmapped step instead of one Python
+        dispatch per task. Every task metric must be of one class with one
+        state structure (heterogeneous wrappers keep this eager path); the
+        per-task batch rows must share one shape.
+        """
+        from torchmetrics_tpu_torch._streams.adapters import PooledMultitask
+
+        return PooledMultitask(self, **kwargs)
 
     def items(self, flatten: bool = True) -> Iterator[Tuple[str, Any]]:
         """(task name, metric) pairs; with ``flatten`` a collection's members as ``{task}_{metric}``."""
