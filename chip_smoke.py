@@ -372,8 +372,25 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     gather and scatter (``--phase stream_pool`` runs the build and this
     phase alone);
 
+53. ``trunk_pools``: the trunk metrics the JAX package pools, through
+    ``to_stream_pool``: FID (InceptionV3 2048, 16 tenants, micro-batches of
+    8 lanes x 25 CIFAR-10-sized images, real and fake alternating), LPIPS
+    alex (8 lanes x 8 pairs of 256x256), CLIPScore ViT-B/16 (8 lanes x 8
+    images, one caption list a micro-batch) and SRMR (8 lanes x 2 reverberant
+    8 s utterances at 16 kHz); ``warm_start`` for each key, then each
+    micro-batch one CUDA graph replay whose trunk forward runs inline, each
+    trunk kernel launched once a micro-batch through its wrapper's vmap rule
+    (a step launches what one forward launches); every tenant's states and
+    ``compute(i)`` against an eager twin, FID's ``compute_all`` raising, the
+    pool graphs' bytes against ``_compile._pool_bound``, host and device ms a
+    step against the eager twins' for the same images; each lane-batched
+    launch at the folded shapes against its plain version and a launch a lane,
+    its ``queued_ms`` beside its bound (``--phase trunk_pools`` runs the build
+    and this phase alone);
+
 the card's name and power limit, the
-``kernels`` line (B1, B1 across lanes, B2a-B5 and S1) and, last,
+``kernels`` line (B1, B1 across lanes, B2a-B5 and S1, and B2a-B5 and S1
+across lanes) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -481,20 +498,21 @@ def median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def queued_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
+def queued_ms(torch, fn, reps: int = 30, warmup: int = 3, launches: int = 1) -> float:
     """Median device time of ``fn`` with the host's launches queued ahead of the card.
 
     A spin kernel (``torch.cuda._sleep``) holds the stream while every call
     and its two events are enqueued, so each pair of events brackets the
     kernels alone: for a call shorter than its host-side launch cost,
-    :func:`median_ms` measures the host instead.
+    :func:`median_ms` measures the host instead. ``launches``: the wrapper
+    calls in one ``fn``, each given the spin's host allowance.
     """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    torch.cuda._sleep(int(reps * 2e5))  # ~0.1 ms a call at the H100's clock: more than a wrapper's host cost
+    torch.cuda._sleep(int(reps * launches * 2e5))  # ~0.1 ms a call at the H100's clock: more than a wrapper's host cost
     for start, end in zip(starts, ends):
         start.record()
         fn()
@@ -7523,19 +7541,430 @@ def phase_stream_pool(torch, np, kernel, dev, gen, smi: str, sizes=None) -> dict
     return out
 
 
+# ------------------------------------------------------------------ trunk_pools
+# phase 53: the trunk metrics in stream pools, each trunk kernel once a micro-batch across its lanes. FID at 2048
+# features on InceptionV3 (16 tenants, capacity 16, micro-batches of 8 lanes x 25 CIFAR-10-sized images: the batch of
+# 200 that image_timing times B2a and B2b at, real and fake alternating), LPIPS alex (8 lanes x 8 pairs of 256x256),
+# CLIPScore ViT-B/16 (8 lanes x 8 images, one caption list a micro-batch, shared by its lanes), SRMR (8 lanes x 2
+# reverberant 8 s utterances at 16 kHz, srmr_reverb's configuration)
+TRUNK_POOL_SIZES = {"tenants": 16, "lanes": 8, "fid_images": 25, "fid_rounds": 4, "lpips_pairs": 8, "lpips_side": 256,
+                    "lpips_rounds": 2, "clip": CLIP_B16, "clip_images": 8, "clip_rounds": 2, "srmr_utterances": 2,
+                    "srmr_samples": 128_000, "srmr_rounds": 1, "s1_plain_samples": 4_000, "timed_steps": 8}
+# a pooled tenant against its eager twin, by relative norm of each state and of the value. FID: the pool's spatial
+# convs run cuDNN at 200 images, the twin's at 25, and cuDNN picks its algorithm by the batch; with calibrated
+# BatchNorm a random bf16 InceptionV3 is chaotic, so one rounding apart grows as TRUNK_BF16_RTOL says. LPIPS: the same
+# for alex's five bf16 layers, and B3's cluster plan depends on the rows. CLIPScore: cuBLAS sums a batched product of
+# the lanes in another order than one lane's. SRMR: S1 is the same recurrence a row; cuFFT's plan depends on the rows.
+TRUNK_POOL_RTOL = {"fid": TRUNK_BF16_RTOL, "lpips": 1e-2, "clip": 1e-4, "srmr": 1e-4}
+
+
+def _tensor_rel(torch, got, want) -> float:
+    num = float(torch.linalg.vector_norm((got.double() - want.double()).flatten()))
+    den = float(torch.linalg.vector_norm(want.double().flatten()))
+    return num / den if den else num
+
+
+def _under_vmap(torch, fn, *lanes, in_dims=0):
+    from torchmetrics_tpu_torch.utilities.checks import _no_vmap_fallback
+
+    with torch.no_grad(), _no_vmap_fallback():
+        return torch.func.vmap(fn, in_dims=in_dims)(*lanes)
+
+
+def trunk_lane_kernels(torch, np, ce, lh, ka, kb, dev, gen, calls, taps, sizes) -> dict:
+    """Each trunk kernel's lane-batched launch at the pooled main path's folded shapes.
+
+    Under ``torch.func.vmap`` (fallback off) each wrapper runs its custom op's rule: the lanes folded into one
+    launch. Held against the plain version (the tolerances of the single-launch phases) and against a loop of one
+    launch a lane (bit for bit, but B3, whose cluster plan depends on the rows: ``HEAD_RTOL``), and timed: the
+    folded launch's ``queued_ms`` beside its bound, the loop's, the plain version's and the library call's, summed
+    over one forward's launches. ``calls``: one lane's InceptionV3 convs (25 images); ``taps``: one lane's alex taps.
+    """
+    import torch.nn.functional as F
+
+    lanes = sizes["lanes"]
+    on_card = dev.type == "cuda"
+
+    def like_loop(got, loop, rtol):
+        """The folded launch against a launch a lane: on the card bit for bit (a kernel's rows or heads do not
+        depend on the batch, but B3's cluster plan); the CPU's plain versions (a CPU rehearsal) sum BLAS tiles
+        by the batch, so there within ``rtol`` of the output's scale."""
+        if on_card:
+            return torch.equal(got, loop)
+        return float((got.float() - loop.float()).abs().max()) <= rtol * float(loop.float().abs().max())
+
+    meta = lambda shape: torch.empty(shape, device="meta", dtype=torch.bfloat16)  # noqa: E731
+    rows = {k: [] for k in ("B2a", "B2b", "B3", "B4", "B5", "S1")}
+
+    def timed(folded, loop, plain, library, reps=20, plain_reps=5):
+        if not on_card:
+            return {}
+        return {"ms": queued_ms(torch, folded, reps=reps), "loop_ms": queued_ms(torch, loop, reps=reps, launches=lanes),
+                "plain_ms": median_ms(torch, plain, reps=plain_reps, warmup=1),
+                "library_ms": None if library is None else median_ms(torch, library, reps=reps)}
+
+    # B2a and B2b: each conv of a forward at 8 lanes x 25 images, through conv_bias_act's rule
+    for call, count in collections.Counter(calls).items():
+        (n, cin, h, w), wshape, stride, padding, _ = call
+        xs = torch.randn((lanes, n, h, w, cin), generator=gen, device=dev).relu_().bfloat16().permute(0, 1, 4, 2, 3)
+        weight = (torch.randn(wshape, generator=gen, device=dev) / (cin * wshape[2] * wshape[3]) ** 0.5).bfloat16()
+        bias = (0.1 * torch.randn(wshape[0], generator=gen, device=dev)).bfloat16()
+        before = (int(ce.matmul_bias_relu.launches), int(ce.bias_relu_.launches))
+        got = _under_vmap(torch, lambda x: ce.conv_bias_act(x, weight, bias, stride, padding), xs)
+        launched = (int(ce.matmul_bias_relu.launches) - before[0], int(ce.bias_relu_.launches) - before[1])
+        loop = torch.stack([ce.conv_bias_act(x, weight, bias, stride, padding) for x in xs])
+        if is_pointwise(call):
+            m, k, nout = lanes * n * h * w, cin, wshape[0]
+            x2d = xs.permute(0, 1, 3, 4, 2).reshape(m, k)
+            w2d = weight.reshape(nout, k)
+            ref = ce.matmul_bias_relu_plain(x2d, w2d, bias).reshape(lanes, n, h, w, nout).permute(0, 1, 4, 2, 3)
+            err = (got.float() - ref.float()).abs()
+            scale = float(ref.float().abs().max())
+            check(bool((err <= GEMM_BF16_ULP * ref.float().abs() + GEMM_F32_RTOL * scale).all()),
+                  f"B2a across lanes {call}: max abs err {float(err.max())} against its plain version")
+            check(like_loop(got, loop, GEMM_BF16_ULP), f"B2a across lanes {call}: differs from a launch a lane")
+            check(launched == ((1, 0) if on_card else (0, 0)), f"B2a across lanes {call}: launches {launched}")
+            per_lane = x2d.reshape(lanes, n * h * w, k)
+            bound, by = bound_ms(ce.conv_bias_act_cost(meta((lanes * n, cin, h, w)), meta(wshape), meta((nout,))),
+                                 BF16_FLOPS_PER_S)
+            rows["B2a"].append({"shape": [m, k, nout], "count": count, "max_abs_err": float(err.max()),
+                                "bound_ms": bound, "bound_by": by, **timed(
+                lambda: ce.matmul_bias_relu(x2d, w2d, bias), lambda: [ce.matmul_bias_relu(p, w2d, bias) for p in per_lane],
+                lambda: ce.matmul_bias_relu_plain(x2d, w2d, bias), lambda: torch.addmm(bias, x2d, w2d.T).relu_())})
+        else:
+            # the library conv runs at 200 images here and at 25 in the loop: cuDNN may pick another algorithm, so
+            # B2b is held on its own, on the folded conv's output, against its plain version and a launch a lane
+            check(launched == ((0, 1) if on_card else (0, 0)), f"B2b across lanes {call}: launches {launched}")
+            y = F.conv2d(xs.flatten(0, 1), weight, None, stride, padding).contiguous(memory_format=torch.channels_last)
+            y2d = y.permute(0, 2, 3, 1).reshape(-1, wshape[0])
+            ref = ce.bias_relu_plain(y2d, bias)
+            folded = ce.bias_relu_(y2d.clone(), bias)
+            per_lane = y2d.reshape(lanes, -1, wshape[0])
+            looped = torch.cat([ce.bias_relu_(p.clone(), bias) for p in per_lane])
+            err = float((folded.float() - ref.float()).abs().max())
+            check(torch.equal(folded, ref) and torch.equal(looped, folded),
+                  f"B2b across lanes {call}: max abs err {err} against its plain version, or the loop differs")
+            work = y2d.clone()
+            bound, by = bound_ms(ce.bias_relu_cost(y2d, bias), F32_FLOPS_PER_S)
+            rows["B2b"].append({"shape": list(y2d.shape), "count": count, "max_abs_err": err, "bound_ms": bound,
+                                "bound_by": by, "conv_vs_loop_rel": _tensor_rel(torch, got, loop), **timed(
+                lambda: ce.bias_relu_(work, bias), lambda: [ce.bias_relu_(p, bias) for p in work.view(lanes, -1, wshape[0])],
+                lambda: ce.bias_relu_plain(y2d, bias), lambda: torch.add(y2d, bias).relu_())})
+
+    # B3: alex's five taps at 8 lanes x 8 pairs, bf16 maps as the trunk hands them over
+    for shape in taps:
+        f0 = torch.randn((lanes, *shape), generator=gen, device=dev).relu_().bfloat16()
+        f1 = (f0.float() + 0.3 * torch.randn((lanes, *shape), generator=gen, device=dev)).relu_().bfloat16()
+        wt = torch.rand(shape[-1], generator=gen, device=dev)
+        before = int(lh.lpips_head.launches)
+        got = _under_vmap(torch, lambda a, b: lh.lpips_head(a, b, wt), f0, f1)
+        launched = int(lh.lpips_head.launches) - before
+        loop = torch.stack([lh.lpips_head(a, b, wt) for a, b in zip(f0, f1)])
+        ref = lh.lpips_head_plain(f0.flatten(0, 1), f1.flatten(0, 1), wt).reshape(lanes, -1)
+        err = (got - ref).abs()
+        check(bool((err <= HEAD_RTOL * ref.abs() + 1e-7).all()) and bool(((got - loop).abs() <= HEAD_RTOL * loop.abs() + 1e-7).all()),
+              f"B3 across lanes {shape}: max abs err {float(err.max())}, against the loop {float((got - loop).abs().max())}")
+        check(launched == (1 if on_card else 0), f"B3 across lanes {shape}: launches {launched}")
+        a2, b2 = f0.flatten(0, 1), f1.flatten(0, 1)
+        bound, by = bound_ms(lh.lpips_head_cost(a2, b2, wt), F32_FLOPS_PER_S)
+        rows["B3"].append({"shape": [lanes * shape[0], *shape[1:]], "count": 1, "max_abs_err": float(err.max()),
+                           "loop_rel": float(((got - loop).abs() / loop.abs().clamp_min(1e-30)).max()),
+                           "bound_ms": bound, "bound_by": by, **timed(
+            lambda: lh.lpips_head(a2, b2, wt), lambda: [lh.lpips_head(a, b, wt) for a, b in zip(f0, f1)],
+            lambda: lh.lpips_head_plain(a2, b2, wt), None)})
+
+    # B4 and B5: the ViT-B/16 image tower's shapes at 8 lanes x 8 images, float32, as a pool would fold them (no
+    # pooled class reaches them: the CLIP towers run plain softmax and LayerNorm, as the JAX package's flax towers)
+    cfg = sizes["clip"]
+    tokens, hidden, heads = (cfg["image_size"] // cfg["patch_size"]) ** 2 + 1, cfg["vision_hidden"], cfg["vision_heads"]
+    n_img = sizes["clip_images"]
+    q, k, v = (torch.randn((lanes, n_img, tokens, hidden), generator=gen, device=dev) for _ in range(3))
+    mask = torch.ones((n_img, tokens), device=dev)  # shared by the lanes
+    before = int(ka.attention.launches)
+    got = _under_vmap(torch, lambda a, b, c: ka.attention(a, b, c, mask, num_heads=heads), q, k, v)
+    launched = int(ka.attention.launches) - before
+    loop = torch.stack([ka.attention(a, b, c, mask, num_heads=heads) for a, b, c in zip(q, k, v)])
+    q2, k2, v2 = (t.flatten(0, 1) for t in (q, k, v))
+    m2 = mask.expand(lanes, *mask.shape).flatten(0, 1)
+    ref = ka.attention_plain(q2, k2, v2, m2, num_heads=heads).reshape(got.shape)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(err <= ATT_F32_RTOL * scale and like_loop(got, loop, ATT_F32_RTOL) and launched == (1 if on_card else 0),
+          f"B4 across lanes: max abs err {err} at scale {scale}, equal to the loop {torch.equal(got, loop)}, {launched} launches")
+    split = lambda t: t.view(lanes * n_img, tokens, heads, hidden // heads).transpose(1, 2)  # noqa: E731
+    cost = ka.attention_cost(q2, k2, v2, m2, num_heads=heads)
+    bound, by = bound_ms(dataclasses.replace(cost, flops=3 * cost.flops), TF32_FLOPS_PER_S)
+    rows["B4"].append({"shape": [lanes * n_img, tokens, hidden], "count": cfg["vision_layers"], "max_abs_err": err,
+                       "bound_ms": bound, "bound_by": by, **timed(
+        lambda: ka.attention(q2, k2, v2, m2, num_heads=heads),
+        lambda: [ka.attention(a, b, c, mask, num_heads=heads) for a, b, c in zip(q, k, v)],
+        lambda: ka.attention_plain(q2, k2, v2, m2, num_heads=heads),
+        lambda: F.scaled_dot_product_attention(split(q2), split(k2), split(v2)), reps=10)})
+    scale_w, shift = torch.rand(hidden, generator=gen, device=dev) + 0.5, 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    before = int(ka.layernorm_residual.launches)
+    got = _under_vmap(torch, lambda a, b: ka.layernorm_residual(a, b, scale_w, shift, eps=1e-5), q, k)
+    launched = int(ka.layernorm_residual.launches) - before
+    loop = torch.stack([ka.layernorm_residual(a, b, scale_w, shift, eps=1e-5) for a, b in zip(q, k)])
+    ref = ka.layernorm_residual_plain(q, k, scale_w, shift, eps=1e-5)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(err <= LN_RTOL * scale and like_loop(got, loop, LN_RTOL) and launched == (1 if on_card else 0),
+          f"B5 across lanes: max abs err {err} at scale {scale}, equal to the loop {torch.equal(got, loop)}, {launched} launches")
+    bound, by = bound_ms(ka.layernorm_residual_cost(q, k, scale_w, shift), F32_FLOPS_PER_S)
+    rows["B5"].append({"shape": [lanes * n_img * tokens, hidden], "count": 2 * cfg["vision_layers"], "max_abs_err": err,
+                       "bound_ms": bound, "bound_by": by, **timed(
+        lambda: ka.layernorm_residual(q, k, scale_w, shift, eps=1e-5),
+        lambda: [ka.layernorm_residual(a, b, scale_w, shift, eps=1e-5) for a, b in zip(q, k)],
+        lambda: ka.layernorm_residual_plain(q, k, scale_w, shift, eps=1e-5),
+        lambda: F.layer_norm(q + k, (hidden,), scale_w, shift, 1e-5), reps=10)})
+    del q, k, v, q2, k2, v2, got, loop, ref
+
+    # S1: SRMR's two banks at 8 lanes x 2 utterances of 8 s (23 gammatone channels, then 8 modulation bands each);
+    # the plain loop at a cut length, where a step a sample stays within the phase's time
+    srmr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    num, den, gain = (torch.from_numpy(a.astype(np.float32)) for a in srmr._gammatone_coefs(16_000, 23, 125.0))
+    mod_num, mod_den, _ = srmr._modulation_filterbank(4.0, 128.0, 8, 16_000.0, 2.0)
+    mnum = torch.from_numpy((mod_num / mod_den[:, :1]).astype(np.float32))[None]
+    mden = torch.from_numpy((mod_den / mod_den[:, :1]).astype(np.float32))
+    utt, samples, cut = sizes["srmr_utterances"], sizes["srmr_samples"], sizes["s1_plain_samples"]
+    x = reverb_utterances(torch, dev, gen, lanes * utt, samples, 16_000).view(lanes, utt, samples)
+    for bank, (b, a, g), rows_in in (("gammatone", (num, den, gain), x),
+                                     ("modulation", (mnum, mden, None), None)):
+        if rows_in is None:  # the modulation bank filters the gammatone bank's envelopes: its own rows
+            rows_in = torch.rand((lanes, utt * 23, samples), generator=gen, device=dev)
+        before = int(kb.biquad_bank.launches)
+        got = _under_vmap(torch, lambda t: kb.biquad_bank(t, b, a, g), rows_in)
+        launched = int(kb.biquad_bank.launches) - before
+        loop = torch.stack([kb.biquad_bank(t, b, a, g) for t in rows_in])
+        short = rows_in[..., :cut].contiguous()
+        got_short = _under_vmap(torch, lambda t: kb.biquad_bank(t, b, a, g), short)
+        ref = kb.biquad_bank_plain(short.flatten(0, 1), b, a, g).reshape(got_short.shape)
+        err = float((got_short - ref).abs().max())
+        check(torch.equal(got, loop) and torch.equal(got_short, ref) and launched == (1 if on_card else 0),
+              f"S1 across lanes ({bank}): equal to the loop {torch.equal(got, loop)}, max abs err {err} against "
+              f"its plain loop at {cut} samples, {launched} launches")
+        folded = rows_in.flatten(0, 1)
+        cost = kb.biquad_bank_cost(folded.shape[0], b.shape[1], samples, b.shape[0])
+        bound, by = bound_ms(cost, F32_FLOPS_PER_S)
+        short2 = short.flatten(0, 1)
+        rows["S1"].append({"bank": bank, "shape": [folded.shape[0], b.shape[1], samples], "count": 1,
+                           "max_abs_err": err, "bound_ms": bound, "bound_by": by, **timed(
+            lambda: kb.biquad_bank(folded, b, a, g), lambda: [kb.biquad_bank(t, b, a, g) for t in rows_in],
+            lambda: kb.biquad_bank_plain(short2, b, a, g), None, reps=5, plain_reps=2)})
+        del got, loop, got_short, ref
+    per_forward = {}
+    for name, kernel_rows in rows.items():
+        total = {"launches_per_forward": sum(r["count"] for r in kernel_rows),
+                 "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+                 "bound_ms": sum(r["bound_ms"] * r["count"] for r in kernel_rows),
+                 "bound_by": collections.Counter(r["bound_by"] for r in kernel_rows).most_common(1)[0][0]}
+        for key in ("ms", "loop_ms", "plain_ms", "library_ms"):
+            vals = [r.get(key) for r in kernel_rows]
+            total[key] = None if None in vals else sum(v * r["count"] for v, r in zip(vals, kernel_rows))
+        per_forward[name] = total
+    return {"per_forward": per_forward, "rows": rows}
+
+
+def _pool_run(torch, np, name, make, steps, keys, counters, tenants: int, lanes: int, on_card: bool) -> dict:
+    """One trunk pool: ``warm_start`` for each key, then the counted steps; its graphs and host ms a step.
+
+    ``steps``: ``(group, round, args, kwargs)``, whose lanes are tenants ``group * lanes`` on; ``keys``: one
+    example step for each key.
+    """
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    pool = make().to_stream_pool(capacity=tenants)
+    slots = [pool.attach() for _ in range(tenants)]
+    ids = lambda g: np.asarray(slots[g * lanes:(g + 1) * lanes])  # noqa: E731
+    t0 = time.perf_counter()
+    warm = [pool.warm_start(ids(g), *args, **kwargs) for g, _, args, kwargs in keys]
+    check(all(w["stream_step"] == "compiled" for w in warm), f"{name}: warm_start {warm}")
+    warm_seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    host = []
+    t0 = time.perf_counter()
+    for g, _, args, kwargs in steps:  # the main path: counted from here
+        h0 = time.perf_counter()
+        pool.update(ids(g), *args, **kwargs)
+        host.append((time.perf_counter() - h0) * 1e3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: int(c) for k, c in counters.items()}  # the main path: read here
+    check(pool.capture_failures == {}, f"{name}: captures failed: {pool.capture_failures}")
+    if on_card:
+        check(len(pool._step_fns) == len(keys) and all(isinstance(e, compile_mod.CapturedStep)
+                                                       for e in pool._step_fns.values()),
+              f"{name}: {len(pool._step_fns)} steps for {len(keys)} keys, not all CUDA graphs")
+    check(all(pool.stream_update_count(s) == sum(1 for g, *_ in steps if s // lanes == g) for s in slots),
+          f"{name}: update counts {[pool.stream_update_count(s) for s in slots]}")
+    return {"pool": pool, "slots": slots, "ids": ids, "warm": warm, "warm_seconds": warm_seconds,
+            "launches": launches, "seconds": seconds, "host_ms_median": statistics.median(host),
+            "pool_bytes": compile_mod.pool_bytes(pool._graph_pool) if on_card else 0,
+            "pool_bound_bytes": compile_mod._pool_bound(pool.device) if on_card else None}
+
+
+def _pool_step_ms(torch, run, steps, reps: int) -> dict:
+    """Host ms to return and device ms between CUDA events of the pool's replayed steps (medians)."""
+    host, events = [], []
+    for i in range(reps):
+        g, _, args, kwargs = steps[i % len(steps)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        run["pool"].update(run["ids"](g), *args, **kwargs)
+        end.record()
+        host.append((time.perf_counter() - h0) * 1e3)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return {"host_ms_per_step": statistics.median(host),
+            "device_ms_per_step": statistics.median(s.elapsed_time(e) for s, e in events)}
+
+
+def phase_trunk_pools(torch, np, ce, lh, ka, kb, dev, gen, seed: int, smi: str, npz_folder: str,
+                      sizes=None) -> dict:
+    """Phase 53: the four trunk metrics the JAX package pools, through ``to_stream_pool`` on the card.
+
+    FID (2048 features), LPIPS alex, CLIPScore ViT-B/16 and SRMR, each a pool of 16 tenants: ``warm_start`` per key,
+    then micro-batches of 8 lanes whose trunk forward runs inline in the pool's CUDA graph, each trunk kernel
+    launched once a micro-batch through its vmap rule (a pooled step launches what one forward launches, replays
+    counted). Every tenant's states and ``compute(i)`` against an eager twin fed the same batches
+    (``TRUNK_POOL_RTOL``), FID's ``compute_all`` raising (the host read of its ``compute`` under vmap, as the JAX
+    pool's ``compute`` under jit), the pool graph's bytes against ``_compile._pool_bound``, host and device ms a
+    step against the eager twins' for the same images, and each kernel's lane-batched launch
+    (:func:`trunk_lane_kernels`).
+    """
+    from torchmetrics_tpu_torch.audio import SpeechReverberationModulationEnergyRatio
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance, LearnedPerceptualImagePatchSimilarity
+    from torchmetrics_tpu_torch.image._inception import InceptionFeatureExtractor
+    from torchmetrics_tpu_torch.multimodal import CLIPScore
+
+    sizes = dict(TRUNK_POOL_SIZES, **(sizes or {}))
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    tenants, lanes = sizes["tenants"], sizes["lanes"]
+    groups = tenants // lanes
+    counters = {name: fn.launches for name, fn in (("B2a", ce.matmul_bias_relu), ("B2b", ce.bias_relu_),
+                                                   ("B3", lh.lpips_head), ("B4", ka.attention),
+                                                   ("B5", ka.layernorm_residual), ("S1", kb.biquad_bank))}
+    rng = np.random.default_rng([seed, 53])
+    inception = inception_npz(torch, np, seed, npz_folder, dev, gen)
+    clip_b = clip_npz(torch, np, sizes["clip"], seed + 2, npz_folder, dev)
+    fi, fr = sizes["fid_images"], sizes["fid_rounds"]
+    lp, ls, lr = sizes["lpips_pairs"], sizes["lpips_side"], sizes["lpips_rounds"]
+    ci, cr, cs = sizes["clip_images"], sizes["clip_rounds"], sizes["clip"]["image_size"]
+    su, ss, sr = sizes["srmr_utterances"], sizes["srmr_samples"], sizes["srmr_rounds"]
+    # (tenants, rounds, ...) batches made on the card; a micro-batch is the rows of one group's tenants
+    fid_imgs = torch.randint(0, 256, (tenants, fr, fi, 3, 32, 32), generator=gen, device=dev, dtype=torch.uint8)
+    lp0 = torch.rand((tenants, lr, lp, 3, ls, ls), generator=gen, device=dev) * 2 - 1
+    lp1 = (lp0 + 0.3 * torch.randn(lp0.shape, generator=gen, device=dev)).clamp_(-1, 1)
+    clip_imgs = natural_images(torch, dev, gen, tenants * cr * ci, cs, cs).float().div_(255).view(tenants, cr, ci, 3, cs, cs)
+    captions = [coco_captions(np, rng, ci) for _ in range(cr)]
+    audio = reverb_utterances(torch, dev, gen, tenants * sr * su, ss, 16_000).view(tenants, sr, su, ss)
+    rows = lambda t, g, r: t[g * lanes:(g + 1) * lanes, r]  # noqa: E731
+    cases = {  # name: (make(auto_compile), steps (group, round, args, kwargs), launches a forward, a tenant's batch)
+        "fid": (lambda auto=True: FrechetInceptionDistance(feature=2048, weights_path=inception, auto_compile=auto),
+                [(g, r, (rows(fid_imgs, g, r),), {"real": r % 2 == 0}) for r in range(fr) for g in range(groups)],
+                {"B2a": 40, "B2b": 54}, lambda t, r: ((fid_imgs[t, r],), {"real": r % 2 == 0})),
+        "lpips_alex": (lambda auto=True: LearnedPerceptualImagePatchSimilarity(net_type="alex", auto_compile=auto),
+                       [(g, r, (rows(lp0, g, r), rows(lp1, g, r)), {}) for r in range(lr) for g in range(groups)],
+                       {"B3": 5}, lambda t, r: ((lp0[t, r], lp1[t, r]), {})),
+        "clipscore_vit_b16": (lambda auto=True: CLIPScore(weights_path=clip_b, tokenizer=ClipTokenizer(), auto_compile=auto),
+                              [(g, r, (rows(clip_imgs, g, r), captions[r]), {}) for r in range(cr) for g in range(groups)],
+                              {}, lambda t, r: ((clip_imgs[t, r], captions[r]), {})),
+        "srmr": (lambda auto=True: SpeechReverberationModulationEnergyRatio(16_000, auto_compile=auto),
+                 [(g, r, (rows(audio, g, r),), {}) for r in range(sr) for g in range(groups)],
+                 {"S1": 2}, lambda t, r: ((audio[t, r],), {})),
+    }
+    out, memory = {}, {}
+    for name, (make, steps, per_forward, twin_batch) in cases.items():
+        # one example step a key: FID's real and fake flags, CLIPScore's caption lists
+        keys = list({repr((kw, [a for a in args if not isinstance(a, torch.Tensor)])): (g, r, args, kw)
+                     for g, r, args, kw in steps}.values())
+        run = _pool_run(torch, np, name, make, steps, keys, counters, tenants, lanes, on_card)
+        pool = run["pool"]
+        want = {k: per_forward.get(k, 0) * len(steps) * on_card for k in counters}
+        check(run["launches"] == want, f"{name}: launches {run['launches']}, expected {want} (one forward a step)")
+        check(not on_card or run["pool_bytes"] <= run["pool_bound_bytes"],
+              f"{name}: the pool's graphs hold {run['pool_bytes']} bytes, over {run['pool_bound_bytes']}")
+        # every tenant against one eager twin, reset between tenants and fed the tenant's rows of each step
+        twin, states = make(False), pool.state_dict()
+        state_rel, value_rel, twin_ms, values = 0.0, 0.0, [], {}
+        for s, slot in enumerate(run["slots"]):
+            twin.reset()
+            for r in [r for g, r, _, _ in steps if g == s // lanes]:
+                args, kwargs = twin_batch(s, r)
+                h0 = time.perf_counter()
+                twin.update(*args, **kwargs)
+                torch.cuda.synchronize()
+                twin_ms.append((time.perf_counter() - h0) * 1e3)
+            for key in twin._defaults:
+                state_rel = max(state_rel, _tensor_rel(torch, torch.as_tensor(states[key][slot]), getattr(twin, key).cpu()))
+            values[slot] = pool.compute(slot)
+            value_rel = max(value_rel, _tensor_rel(torch, values[slot].reshape(-1).cpu(), twin.compute().reshape(-1).cpu()))
+        tol = TRUNK_POOL_RTOL[name.split("_")[0].replace("clipscore", "clip")]
+        check(state_rel <= tol and value_rel <= tol,
+              f"{name}: pooled tenants vs eager twins: states {state_rel}, values {value_rel} (tolerance {tol})")
+        raised = None
+        if name == "fid":  # the host read of FID's compute under vmap, as the JAX pool's compute under jit
+            try:
+                pool.compute_all()
+            except RuntimeError as err:
+                raised = str(err)[:100]
+            check(raised is not None, "fid: compute_all did not raise")
+        else:
+            every = pool.compute_all()
+            check(all(torch.allclose(every[s], values[s], rtol=1e-5, atol=1e-6) for s in run["slots"]),
+                  f"{name}: compute_all != compute(i)")
+        steady = _pool_step_ms(torch, run, steps, sizes["timed_steps"]) if on_card else {}
+        units = steps[0][2][0].shape[0] * steps[0][2][0].shape[1]  # images, pairs or utterances a step
+        line = {
+            "phase": "trunk_pools", "metric": name, "tenants": tenants, "lanes": lanes, "steps": len(steps),
+            "units_per_step": units, "keys": len(keys), "warm_start": run["warm"][0],
+            "warm_seconds": run["warm_seconds"], "launches": run["launches"], "expected_launches": want,
+            "max_rel": {"states": state_rel, "values": value_rel}, "tolerance": tol, "compute_all_raised": raised,
+            "graph_pool_bytes": run["pool_bytes"], "pool_bound_bytes": run["pool_bound_bytes"],
+            "counted_seconds": run["seconds"], "host_ms_median_counted": run["host_ms_median"], **steady,
+            # the eager twin's ms (host clock, synchronized) for one tenant's update, times the lanes: the same units
+            "eager_twin_ms_per_step": statistics.median(twin_ms) * lanes, "card": smi,
+        }
+        emit(line)
+        out[name] = line
+        memory[name] = {"graph_pool_bytes": run["pool_bytes"], "keys": len(keys)}
+        del pool, run, twin, values, states
+        release_graphs(torch)
+    del fid_imgs, lp0, lp1, clip_imgs, audio
+
+    # each kernel's lane-batched launch at the folded shapes
+    probe = InceptionFeatureExtractor(feature="2048", device=dev)
+    calls = inception_conv_calls(probe, torch.zeros((fi, 3, 32, 32), dtype=torch.uint8, device=dev))
+    del probe
+    taps = lpips_tap_shapes(torch, dev, "alex", pairs=lp, side=ls)
+    kernels = trunk_lane_kernels(torch, np, ce, lh, ka, kb, dev, gen, calls, taps, sizes)
+    release_graphs(torch)
+    seconds = time.perf_counter() - t_phase
+    launches = {k: sum(line["launches"][k] for line in out.values()) for k in counters}
+    emit({"phase": "trunk_pools", "seconds": seconds, "launches": launches, "memory": memory,
+          "lane_kernels_per_forward": kernels["per_forward"],
+          "at": "per forward of the pooled main path, folded over 8 lanes: FID 8 x 25 images (40 B2a, 54 B2b), alex "
+                "8 x 8 pairs of 256x256 (5 B3), ViT-B/16 image tower 8 x 8 images (12 B4, 24 B5, float32; no pooled "
+                "class launches them), SRMR 8 x 2 x 128,000 samples (2 S1); ms: queued_ms of the folded launch; "
+                "loop_ms: queued_ms of one launch a lane", "card": smi})
+    return {"seconds": seconds, "launches": launches, "kernels": kernels["per_forward"], "pools": out}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
-                                            "resilience", "stream_pool"),
+                                            "resilience", "stream_pool", "trunk_pools"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
                              "captured_trunks: build, run only the captured_trunks phase, stop; "
                              "observability: build, run only the observability phase on the imagenet_val data, stop; "
                              "resilience: build, run only the resilience phase on the imagenet_val data, stop; "
-                             "stream_pool: build, run only the stream_pool phase, stop")
+                             "stream_pool: build, run only the stream_pool phase, stop; "
+                             "trunk_pools: build, run only the trunk_pools phase, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -7632,6 +8061,12 @@ def main() -> int:
         return 0
     if args.phase == "stream_pool":
         phase_stream_pool(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 52), smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "trunk_pools":
+        with tempfile.TemporaryDirectory() as folder:
+            phase_trunk_pools(torch, np, ce, lh, ka, kb, dev, torch.Generator(device=dev).manual_seed(args.seed + 53),
+                              args.seed, smi, folder)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -7945,6 +8380,11 @@ def main() -> int:
     release_graphs(torch)
     # ------------- multi-tenant stream pools, B1 across the lanes of each micro-batch, phase 52
     pooled = phase_stream_pool(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 52), smi)
+    release_graphs(torch)
+    # ------------- the trunk metrics in stream pools, each trunk kernel across the lanes of a micro-batch, phase 53
+    with tempfile.TemporaryDirectory() as folder:
+        trunk_pools = phase_trunk_pools(torch, np, ce, lh, ka, kb, dev,
+                                        torch.Generator(device=dev).manual_seed(args.seed + 53), args.seed, smi, folder)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -8035,7 +8475,38 @@ def main() -> int:
         "chain_estimate_ms_main_path": ams["s1"]["chain_estimate_ms_main_path"],
         "at": "one SRMR update's two launches (23 gammatone channels, then their 8 modulation bands) on 2 utterances "
               "of 16,000 samples at 16 kHz, where the plain loop was timed; *_main_path: 16 utterances of 128,000",
-    }]})
+    }] + [{
+        "name": f"{name}_lanes",
+        "route": "cuda",
+        "source": f"torchmetrics_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": trunk_pools["launches"][key],
+        "max_abs_err": trunk_pools["kernels"][key]["max_abs_err"],
+        "ms": trunk_pools["kernels"][key]["ms"],
+        "plain_ms": trunk_pools["kernels"][key]["plain_ms"],
+        "bound_ms": trunk_pools["kernels"][key]["bound_ms"],
+        "bound_by": trunk_pools["kernels"][key]["bound_by"],
+        "library_ms": trunk_pools["kernels"][key]["library_ms"],
+        "loop_ms": trunk_pools["kernels"][key]["loop_ms"],
+        "at": f"across lanes, one pooled forward: {at}; ms and loop_ms: queued_ms of the folded launches and of one "
+              "launch a lane; the vmap rule of the wrapper's custom op (torchmetrics_tpu_torch/_kernels/lanes.py)",
+    } for name, key, source, replaces, at in (
+        ("conv_mm_bias_relu", "B2a", "conv_epilogue.cu", "torchmetrics_tpu/_kernels/conv_epilogue.py:67",
+         "FID 8 lanes x 25 images, 40 launches, bf16"),
+        ("bias_relu", "B2b", "conv_epilogue.cu", "torchmetrics_tpu/_kernels/conv_epilogue.py:96",
+         "FID 8 lanes x 25 images, 54 launches, bf16"),
+        ("lpips_head", "B3", "lpips_head.cu", "torchmetrics_tpu/_kernels/lpips_head.py:60",
+         "LPIPS alex 8 lanes x 8 pairs of 256x256, 5 launches, bf16 maps"),
+        ("attention", "B4", "attention.cu", "torchmetrics_tpu/_kernels/attention.py:57",
+         "ViT-B/16 image tower's shapes, 8 lanes x 8 images, 12 launches, float32; no pooled class launches it "
+         "(the CLIP towers' attention is a plain softmax, as in the JAX package), so its main-path launches are 0"),
+        ("layernorm_residual", "B5", "layernorm_residual.cu", "torchmetrics_tpu/_kernels/attention.py:141",
+         "ViT-B/16 image tower's shapes, 8 lanes x 8 images, 24 launches, float32; no pooled class launches it "
+         "(the CLIP towers' LayerNorm is plain, as in the JAX package), so its main-path launches are 0"),
+        ("biquad_bank", "S1", "biquad.cu",
+         "torchmetrics_tpu/functional/audio/srmr.py:130 (_biquad's lax.scan at :153; no Pallas kernel)",
+         "SRMR 8 lanes x 2 utterances of 128,000 samples, 2 launches; plain_ms at 4,000 samples"),
+    )]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}})
     return 0
 

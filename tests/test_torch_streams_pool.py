@@ -8,8 +8,7 @@ on the same seeded numpy batches (the port with ``device="cpu"``) and the
 results are compared. Added for the port: kernel B1's plain version and its
 lane-batched custom op under ``torch.func.vmap``, bit for bit with a call a
 lane; an op with no batching rule raises inside a pooled update (no per-lane
-fallback); the trunk classes the JAX package pools and the port refuses;
-``warm_start``'s outcomes (the card's tests are in ``test_torch_streams_card.py``).
+fallback); ``warm_start``'s outcomes (the card's tests are in ``test_torch_streams_card.py``).
 """
 
 import types
@@ -36,7 +35,6 @@ from torchmetrics_tpu_torch._observability.telemetry import REGISTRY as T_REGIST
 from torchmetrics_tpu_torch._observability.telemetry import RecompileChurnWarning as TChurn
 from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as t_telemetry_for
 from torchmetrics_tpu_torch._streams.manifest import stream_pool_eligible
-from torchmetrics_tpu_torch._streams.pool import TRUNK_KERNELS_WITHOUT_VMAP_RULE
 from torchmetrics_tpu_torch._streams.telemetry import OVERFLOW_LABEL
 from torchmetrics_tpu_torch.functional.classification import _confmat_kernel as K
 from torchmetrics_tpu_torch.metric import Metric as TMetric
@@ -479,30 +477,6 @@ def test_an_op_without_a_batching_rule_raises_inside_a_pooled_update():
     assert torch._C._functorch._is_vmap_fallback_enabled()  # switched back on after the step
     assert pool.stream_update_count(a) == pool.stream_update_count(b) == 0
     assert torch.equal(pool.compute(a), torch.zeros(4, dtype=torch.int64))
-
-
-REFUSED_TRUNK_CLASSES = {
-    "torchmetrics_tpu_torch.image.fid.FrechetInceptionDistance",
-    "torchmetrics_tpu_torch.image.lpip.LearnedPerceptualImagePatchSimilarity",
-    "torchmetrics_tpu_torch.multimodal.clip_score.CLIPScore",
-    "torchmetrics_tpu_torch.audio.srmr.SpeechReverberationModulationEnergyRatio",
-}
-
-
-@pytest.mark.parametrize("qualname", sorted(REFUSED_TRUNK_CLASSES))
-def test_trunk_classes_the_jax_package_pools_are_refused_naming_the_kernel(qualname):
-    """These pool in the JAX package; here their update launches a kernel with no vmap rule yet."""
-    import importlib
-
-    assert set(TRUNK_KERNELS_WITHOUT_VMAP_RULE) == REFUSED_TRUNK_CLASSES
-    module, _, name = qualname.rpartition(".")
-    cls = getattr(importlib.import_module(module), name)
-    jax_module = importlib.import_module(module.replace("torchmetrics_tpu_torch", "torchmetrics_tpu", 1))
-    assert jax_stream_pool_eligible(getattr(jax_module, name)) in ("safe", "runtime")
-    assert stream_pool_eligible(cls) in ("safe", "runtime")  # only the missing vmap rule refuses it
-    # the gate reads the class before anything of the instance: no trunk is built for it
-    with pytest.raises(t_streams.StreamPoolUnsupported, match="no vmap rule"):
-        t_streams.StreamPool(cls.__new__(cls), enforce_manifest=False)
 
 
 def test_warm_start_builds_the_step_without_consuming_a_batch():

@@ -66,6 +66,7 @@ from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability.profiling import LEDGER as _PROF_LEDGER
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
 from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as _telemetry_for
+from torchmetrics_tpu_torch.utilities.checks import _vmapped
 
 __all__ = [
     "CapturedForward",
@@ -365,7 +366,8 @@ class CapturedForward(nn.Module):
       again at their next call), and its signature runs eagerly from then
       on (``eager``);
     - inside a metric's warm-up or capture, or a :func:`trunks_inline`
-      block, ``fn`` runs inline, uncounted: the metric's graph holds the
+      block, and on a vmapped lane (a stream pool's step, whose graph is the
+      pool's), ``fn`` runs inline, uncounted: the metric's graph holds the
       trunk (graphs do not nest);
     - on CPU tensors (and with an expanded view, or an input that needs a
       gradient) ``fn`` runs eagerly: the plain version.
@@ -385,6 +387,8 @@ class CapturedForward(nn.Module):
         if not inputs or not all(isinstance(x, Tensor) and x.is_cuda and x.device == inputs[0].device for x in inputs):
             return fn(*inputs)
         if getattr(_GRAPH_WORK, "stack", None) or getattr(_GRAPH_WORK, "inline", 0) or torch.cuda.is_current_stream_capturing():
+            return fn(*inputs)
+        if _vmapped(*inputs):  # a lane has the lanes' shapes behind it: no graph of its own can replay it
             return fn(*inputs)
         if any(overlapping(x) for x in inputs) or (torch.is_grad_enabled() and any(x.requires_grad for x in inputs)):
             return fn(*inputs)

@@ -14,7 +14,10 @@ Port of ``torchmetrics_tpu/_kernels/attention.py``.
 The ``*_plain`` functions are the JAX package's XLA versions in PyTorch. A
 wrapper takes its plain version only for CPU tensors; on CUDA tensors it
 launches its kernel or raises, and counts its launches in ``.launches``. Both
-sources say what bounds their kernel and how they are built.
+sources say what bounds their kernel and how they are built. A vmapped lane
+goes through the custom op ``torchmetrics_tpu_torch::attention`` or
+``::layernorm_residual``, whose rule folds the lanes into the batch or the
+rows and calls the wrapper once (:mod:`._kernels.lanes`).
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch._kernels.conv_epilogue import _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.lanes import fold, lane_op, lanes_first, shared_only, unfold
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
+from torchmetrics_tpu_torch.utilities.checks import _vmapped
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
 __all__ = [
@@ -87,8 +92,11 @@ def attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) 
     and the data pointers must be multiples of 4 elements, as any
     ``F.linear`` output's are). ``mask``: ``(B, L)``, any numeric or bool
     dtype, 1 for a key to attend to. Returns a contiguous ``(B, L, hidden)``
-    tensor of ``q``'s dtype.
+    tensor of ``q``'s dtype. Vmapped inputs take the custom op, whose rule
+    makes this call once for every lane.
     """
+    if _vmapped(q, k, v, mask):
+        return _attention_op()(q, k, v, mask, num_heads)
     name = "attention"
     on_cuda = _cuda_or_cpu(name, q, k, v, mask)
     _check_attention(q, k, v, mask, num_heads)
@@ -124,6 +132,24 @@ def attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) 
 
 
 attention.launches = LaunchCounter()  # type: ignore[attr-defined]
+
+
+def _attention_rule(info: Any, in_dims: tuple, q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int) -> tuple:
+    """The vmap rule of ``attention``: the lanes' ``(L, B, S, hidden)`` and ``(L, B, S)`` as one batch of ``L * B``.
+
+    An unbatched input (a mask, say) is shared by every lane.
+    """
+    lanes = info.batch_size
+    q, k, v, mask = (fold(t, d, lanes) for t, d in zip((q, k, v, mask), in_dims))
+    return unfold(attention(q, k, v, mask, num_heads=num_heads), lanes)
+
+
+@functools.cache
+def _attention_op() -> Any:
+    def attention_lanes(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int) -> Tensor:
+        return attention(q, k, v, mask, num_heads=num_heads)
+
+    return lane_op("attention", attention_lanes, _attention_rule)
 
 
 @functools.cache
@@ -170,8 +196,11 @@ def layernorm_residual(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, *, eps
     """Kernel B5: ``LayerNorm(x + h) * scale + bias`` over the last axis, float32 out, at any width.
 
     ``x`` and ``h``: contiguous tensors of one shape, each float32 or
-    bfloat16 (they may differ); ``scale``, ``bias``: ``(C,)``.
+    bfloat16 (they may differ); ``scale``, ``bias``: ``(C,)``. Vmapped
+    inputs take the custom op, whose rule makes this call once for every lane.
     """
+    if _vmapped(x, h, scale, bias):
+        return _layernorm_op()(x, h, scale, bias, eps)
     name = "layernorm_residual"
     on_cuda = _cuda_or_cpu(name, x, h, scale, bias)
     _check_layernorm(x, h, scale, bias)
@@ -200,6 +229,22 @@ def layernorm_residual(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, *, eps
 
 
 layernorm_residual.launches = LaunchCounter()  # type: ignore[attr-defined]
+
+
+def _layernorm_rule(info: Any, in_dims: tuple, x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, eps: float) -> tuple:
+    """The vmap rule of ``layernorm_residual``: the lanes' rows as more rows of one call (``h`` may be shared)."""
+    shared_only("layernorm_residual", in_dims, ("x", "h", "scale", "bias"), ("scale", "bias"))
+    lanes = info.batch_size
+    x, h = (lanes_first(t, d, lanes).contiguous() for t, d in zip((x, h), in_dims))
+    return layernorm_residual(x, h, scale, bias, eps=eps), 0
+
+
+@functools.cache
+def _layernorm_op() -> Any:
+    def layernorm_residual_lanes(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
+        return layernorm_residual(x, h, scale, bias, eps=eps)
+
+    return lane_op("layernorm_residual", layernorm_residual_lanes, _layernorm_rule)
 
 
 @functools.cache

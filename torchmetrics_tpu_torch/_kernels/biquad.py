@@ -8,6 +8,8 @@ A CUDA tensor launches kernel S1 (``torchmetrics_tpu_torch/csrc/biquad.cu``),
 which says what bounds it; a CPU tensor takes :func:`biquad_bank_plain`, a
 per-step loop with the same operations in the same order. There is no switch
 between the two and no fallback. Launches are counted in ``biquad_bank.launches``.
+A vmapped lane goes through the custom op ``torchmetrics_tpu_torch::biquad_bank``,
+whose rule folds the lanes into the rows and calls :func:`biquad_bank` once.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ from torch import Tensor
 
 from torchmetrics_tpu_torch._compile import device_constant
 from torchmetrics_tpu_torch._kernels.conv_epilogue import _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.lanes import fold, lane_op, shared_only, unfold
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
+from torchmetrics_tpu_torch.utilities.checks import _vmapped
 
 __all__ = ["biquad_bank", "biquad_bank_cost", "biquad_bank_plain"]
 
@@ -96,8 +100,11 @@ def biquad_bank(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor] = None) 
     """Kernel S1: ``(rows, K, T)`` float32, each row of ``x`` through ``K`` cascades of ``S`` biquads.
 
     Arguments as :func:`biquad_bank_plain`, whose values it gives. ``x``
-    must be contiguous on a CUDA card; the coefficients may lie anywhere.
+    must be contiguous on a CUDA card; the coefficients may lie anywhere. A
+    vmapped ``x`` takes the custom op, whose rule makes this call once for every lane.
     """
+    if _vmapped(x, b, a, gain):
+        return _biquad_op()(x, b, a, gain)
     _check(x, b, a, gain)
     if not _cuda_or_cpu("biquad_bank", x):
         return biquad_bank_plain(x, b, a, gain)
@@ -120,6 +127,21 @@ def biquad_bank(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor] = None) 
 
 
 biquad_bank.launches = LaunchCounter()  # type: ignore[attr-defined]
+
+
+def _biquad_rule(info: Any, in_dims: tuple, x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor]) -> tuple:
+    """The vmap rule of ``biquad_bank``: the lanes' ``(L, rows, T)`` as ``L * rows`` rows of one call."""
+    shared_only("biquad_bank", in_dims, ("x", "b", "a", "gain"), ("b", "a", "gain"))
+    lanes = info.batch_size
+    return unfold(biquad_bank(fold(x, in_dims[0], lanes).contiguous(), b, a, gain), lanes)
+
+
+@functools.cache
+def _biquad_op() -> Any:
+    def biquad_bank_lanes(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor]) -> Tensor:
+        return biquad_bank(x, b, a, gain)
+
+    return lane_op("biquad_bank", biquad_bank_lanes, _biquad_rule)
 
 
 def biquad_bank_cost(rows: int, k: int, t_len: int, sections: int) -> ExecutableCost:

@@ -22,22 +22,27 @@ Tensors are NCHW in shape and channels_last in memory, weights OIHW. A
 wrapper takes the plain version only for a CPU tensor; on a CUDA tensor it
 launches its kernel or raises. Each counts its launches in ``.launches``;
 :func:`conv_bias_act` counts in ``.layout_copies`` every channels_last copy it
-had to make of an input or of the library conv's output.
+had to make of an input or of the library conv's output. A vmapped lane (a
+stream pool's step) goes through the custom op
+``torchmetrics_tpu_torch::conv_bias_act``, whose vmap rule folds the lanes
+into ``N`` and calls :func:`conv_bias_act` once (:mod:`._kernels.lanes`).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from torchmetrics_tpu_torch._kernels.lanes import fold, lane_op, shared_only, unfold
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
+from torchmetrics_tpu_torch.utilities.checks import _vmapped
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
 __all__ = [
@@ -243,9 +248,12 @@ def conv_bias_act(x: Tensor, weight: Tensor, bias: Tensor, stride: IntPair = 1, 
     counted), ``weight`` ``(Cout, Cin, kh, kw)``, ``bias`` ``(Cout,)``, all
     of one dtype, float32 or bfloat16: the inputs come promoted to the
     compute dtype, as in the JAX package. Returns a channels_last
-    ``(N, Cout, Ho, Wo)`` tensor of that dtype.
+    ``(N, Cout, Ho, Wo)`` tensor of that dtype. A vmapped ``x`` takes the
+    custom op, whose rule makes this call once for every lane.
     """
     stride, padding = _pair(stride), _pair(padding)
+    if _vmapped(x, weight, bias):
+        return _conv_op()(x, weight, bias, list(stride), list(padding))
     if x.ndim != 4 or weight.ndim != 4 or weight.shape[1] != x.shape[1]:
         raise ValueError(f"conv_bias_act: shapes {tuple(x.shape)} and {tuple(weight.shape)} do not fit")
     x = _channels_last(x)
@@ -261,6 +269,22 @@ def conv_bias_act(x: Tensor, weight: Tensor, bias: Tensor, stride: IntPair = 1, 
 
 
 conv_bias_act.layout_copies = 0  # type: ignore[attr-defined]
+
+
+def _conv_rule(info: Any, in_dims: tuple, x: Tensor, weight: Tensor, bias: Tensor, stride: List[int],
+               padding: List[int]) -> tuple:
+    """The vmap rule of ``conv_bias_act``: the lanes ``(L, N, C, H, W)`` as one batch of ``L * N``, one call."""
+    shared_only("conv_bias_act", in_dims, ("x", "weight", "bias"), ("weight", "bias"))
+    lanes = info.batch_size
+    return unfold(conv_bias_act(fold(x, in_dims[0], lanes), weight, bias, stride, padding), lanes)
+
+
+@functools.cache
+def _conv_op() -> Any:
+    def conv_bias_act_lanes(x: Tensor, weight: Tensor, bias: Tensor, stride: List[int], padding: List[int]) -> Tensor:
+        return conv_bias_act(x, weight, bias, stride, padding)
+
+    return lane_op("conv_bias_act", conv_bias_act_lanes, _conv_rule)
 
 
 # -------------------------------------------------------------------- cost

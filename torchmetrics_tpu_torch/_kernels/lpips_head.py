@@ -12,7 +12,9 @@ the trunk's own dtype (float32 or bfloat16, widened in registers), and writes
 only the ``(B,)`` result, in one deterministic launch. The launch plan is
 :func:`head_plan`. :func:`lpips_head` takes the plain version only for CPU
 tensors; on CUDA tensors it launches the kernel or raises, and counts its
-launches in ``lpips_head.launches``.
+launches in ``lpips_head.launches``. A vmapped lane goes through the custom op
+``torchmetrics_tpu_torch::lpips_head``, whose rule folds the lanes into ``B``
+and calls :func:`lpips_head` once.
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch._kernels.conv_epilogue import _cuda_or_cpu
+from torchmetrics_tpu_torch._kernels.lanes import fold, lane_op, shared_only, unfold
 from torchmetrics_tpu_torch._kernels.launch_counter import LaunchCounter
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability.costs import ExecutableCost
 from torchmetrics_tpu_torch.utilities import nvcc
+from torchmetrics_tpu_torch.utilities.checks import _vmapped
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 
 __all__ = ["head_plan", "lpips_head", "lpips_head_cost", "lpips_head_plain"]
@@ -123,8 +127,11 @@ def lpips_head(f0: Tensor, f1: Tensor, weight: Tensor) -> Tensor:
     ``permute(0, 2, 3, 1)`` view of a channels_last NCHW map), read as they
     are in float32 or bfloat16 and cast to float32 otherwise. ``weight``: the
     head's ``C`` weights in any shape (flax's ``(1, 1, C, 1)``, torch's
-    ``(1, C, 1, 1)`` or flat).
+    ``(1, C, 1, 1)`` or flat). Vmapped maps take the custom op, whose rule
+    makes this call once for every lane.
     """
+    if _vmapped(f0, f1, weight):
+        return _head_op()(f0, f1, weight)
     f0, f1, w = _prepare(f0, f1, weight)
     if not _cuda_or_cpu("lpips_head", f0, f1, w):
         return lpips_head_plain(f0, f1, w)
@@ -151,6 +158,26 @@ def lpips_head(f0: Tensor, f1: Tensor, weight: Tensor) -> Tensor:
 
 
 lpips_head.launches = LaunchCounter()  # type: ignore[attr-defined]
+
+
+def _head_rule(info: Any, in_dims: tuple, f0: Tensor, f1: Tensor, weight: Tensor) -> tuple:
+    """The vmap rule of ``lpips_head``: the lanes' ``(L, B, H, W, C)`` maps as one batch of ``L * B``, one call.
+
+    The folded maps are made contiguous, as the kernel reads them: a lane's
+    half of a pair batch is contiguous, but the lanes' halves are not one run.
+    """
+    shared_only("lpips_head", in_dims, ("f0", "f1", "weight"), ("weight",))
+    lanes = info.batch_size
+    f0, f1 = (fold(f, d, lanes).contiguous() for f, d in zip((f0, f1), in_dims))
+    return unfold(lpips_head(f0, f1, weight), lanes)
+
+
+@functools.cache
+def _head_op() -> Any:
+    def lpips_head_lanes(f0: Tensor, f1: Tensor, weight: Tensor) -> Tensor:
+        return lpips_head(f0, f1, weight)
+
+    return lane_op("lpips_head", lpips_head_lanes, _head_rule)
 
 
 @functools.cache

@@ -21,7 +21,10 @@ N dispatches per batch; the pool makes it one batched step instead:
   per-lane fallback switched off: an op with no batching rule raises, as an
   untraceable body fails at trace time in the JAX package; nothing loops
   over the lanes unseen. Kernel B1 has a batching rule that counts the whole
-  micro-batch in one launch (``_confmat_kernel.confusion_matrix_lanes``).
+  micro-batch in one launch (``_confmat_kernel.confusion_matrix_lanes``), and
+  the trunk kernels (B2a/B2b, B3, B4, B5, S1) have rules that fold the lanes
+  into one launch (``_kernels/lanes.py``): a trunk metric's forward runs
+  inline in the step, its kernels once a micro-batch.
 - **On the card, one CUDA graph per key.** The key is the JAX package's:
   the argument signature, the physical capacity and the dtype policy. The
   key's first call runs the step on a side stream (the batch's own update,
@@ -116,23 +119,8 @@ _memory_ceiling: Optional[float] = (
     float(os.environ[_MEM_CEILING_ENV]) if os.environ.get(_MEM_CEILING_ENV) else None
 )
 
-# classes the JAX package pools whose update here launches a hand-written trunk kernel through ctypes:
-# a vmapped lane has no data pointer, and these kernels have no vmap rule yet
-TRUNK_KERNELS_WITHOUT_VMAP_RULE: Dict[str, str] = {
-    "torchmetrics_tpu_torch.image.fid.FrechetInceptionDistance": (
-        "B2a `matmul_bias_relu` and B2b `bias_relu_` (csrc/conv_epilogue.cu), in InceptionV3's forward"
-    ),
-    "torchmetrics_tpu_torch.image.lpip.LearnedPerceptualImagePatchSimilarity": (
-        "B3 `lpips_head` (csrc/lpips_head.cu), in LPIPS's heads"
-    ),
-    "torchmetrics_tpu_torch.multimodal.clip_score.CLIPScore": (
-        "B4 `attention` and B5 `layernorm_residual` (csrc/attention.cu, csrc/layernorm_residual.cu),"
-        " in the CLIP towers"
-    ),
-    "torchmetrics_tpu_torch.audio.srmr.SpeechReverberationModulationEnergyRatio": (
-        "S1 `biquad_bank` (csrc/biquad.cu), in SRMR's filterbanks"
-    ),
-}
+class _PoolBoundExceeded(RuntimeError):
+    """A capture left the pool's graph memory above ``_compile._pool_bound``."""
 
 
 def set_memory_ceiling(limit_bytes: Optional[float]) -> None:
@@ -263,13 +251,6 @@ class StreamPool:
         self.target = target
         metrics = list(target._modules.values()) if self._collection is not None else [target]
         for m in metrics:
-            qualname = f"{type(m).__module__}.{type(m).__qualname__}"
-            if qualname in TRUNK_KERNELS_WITHOUT_VMAP_RULE:
-                raise StreamPoolUnsupported(
-                    f"{type(m).__name__}'s update launches kernel {TRUNK_KERNELS_WITHOUT_VMAP_RULE[qualname]}"
-                    " through ctypes, which has no vmap rule yet, so it cannot run as a lane of the pool's"
-                    " vmapped step; drive independent eager instances instead."
-                )
             facet = stream_pool_eligible(type(m))
             if facet in ("host_bound", "unsupported") and enforce_manifest:
                 raise StreamPoolUnsupported(
@@ -762,12 +743,26 @@ class StreamPool:
         warned of once (a key fails once), and with telemetry on published
         as the compiled path publishes a switch-off, an ``auto_path_disabled``
         counter and bus event naming the seam and the key.
+
+        The pool's graphs share one memory pool, which keeps each step's
+        temporaries between replays: a trunk metric's step holds its forward's
+        activations for every lane of the micro-batch. A capture that leaves
+        the pool above an eighth of the card (``_compile._pool_bound``, as a
+        trunk's own graphs are held) or runs out of memory counts as a failed
+        capture, and drops every graph of the pool, which only that gives back
+        (the other keys capture again at their next call).
         """
         try:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             entry = _compile.CapturedStep(step, self._states, dyn, self._graph_pool, self.device, self._graph_constants)
+            held, bound = _compile.pool_bytes(self._graph_pool), _compile._pool_bound(self.device)
+            if held > bound:
+                del entry
+                raise _PoolBoundExceeded(f"the pool's graphs hold {held} bytes of the card, over the bound of {bound}")
         except Exception as err:  # noqa: BLE001 - any capture fault leaves the key eager, reported below
+            if isinstance(err, (_PoolBoundExceeded, torch.cuda.OutOfMemoryError)):
+                self._drop_steps()
             reason = f"{type(err).__name__}: {err}"
             self.capture_failures[key] = reason
             cls_name = type(self.target).__name__

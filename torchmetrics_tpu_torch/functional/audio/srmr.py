@@ -29,7 +29,7 @@ from torch import Tensor
 
 from torchmetrics_tpu_torch._compile import device_constant
 from torchmetrics_tpu_torch._kernels.biquad import biquad_bank
-from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step
+from torchmetrics_tpu_torch.utilities.checks import _in_compiled_step, _vmapped
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -312,8 +312,8 @@ def speech_reverberation_modulation_energy_ratio(
     cuts = [float(np.float32(v)) for v in cutoffs]
     above = [(bw >= cuts[i]).to(torch.int64) for i in (5, 6, 7)]
     kstar = 5 + above[0] + above[0] * above[1] + above[0] * above[1] * above[2]
-    # one host read an update, as in the JAX package, which skips it under a trace
-    if not _in_compiled_step() and bool(torch.any(bw < cuts[4])):
+    # one host read an update, as in the JAX package, which skips it under a trace (a pool's lane among them)
+    if not _in_compiled_step() and not _vmapped(bw) and bool(torch.any(bw < cuts[4])):
         raise ValueError("Something wrong with the cutoffs compared to bw values.")
 
     band_idx = torch.arange(8, device=preds.device)

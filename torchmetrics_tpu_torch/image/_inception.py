@@ -8,7 +8,10 @@ taps and ``logits_unbiased``. Submodules carry the flax module names
 through :mod:`torchmetrics_tpu_torch.utilities.convert` unchanged.
 
 Tensors are NCHW in shape and channels_last in memory from the input on, so
-every conv's ``(N*H*W, C)`` view is the memory itself. A BN-folded trunk
+every conv's ``(N*H*W, C)`` view is the memory itself. The layout is set and
+the branches are concatenated through :mod:`._kernels.lanes`, which keeps it
+on a vmapped lane too (a stream pool's step), where the convs fold the lanes
+into ``N``. A BN-folded trunk
 (``fuse_bn=True``) runs every ``BasicConv2d`` through
 :func:`torchmetrics_tpu_torch._kernels.conv_epilogue.conv_bias_act`: its 40
 pointwise convs are kernel B2a alone and its 54 spatial convs are the
@@ -30,6 +33,7 @@ from torch import Tensor, nn
 
 from torchmetrics_tpu_torch._compile import CapturedForward
 from torchmetrics_tpu_torch._kernels.conv_epilogue import conv_bias_act
+from torchmetrics_tpu_torch._kernels.lanes import cat_channels, channels_last
 from torchmetrics_tpu_torch.metric import _resolve_device
 from torchmetrics_tpu_torch.utilities.compute import full_fp32
 from torchmetrics_tpu_torch.utilities.convert import build_on_cpu, inception_state_dict_from_variables, load_variables_npz
@@ -111,7 +115,7 @@ class InceptionA(nn.Module):
         b5 = self.BasicConv2d_2(self.BasicConv2d_1(x))
         b3 = self.BasicConv2d_5(self.BasicConv2d_4(self.BasicConv2d_3(x)))
         bp = self.BasicConv2d_6(_avg_pool(x))
-        return torch.cat([b1, b5, b3, bp], dim=1)
+        return cat_channels([b1, b5, b3, bp])
 
 
 class InceptionB(nn.Module):
@@ -127,7 +131,7 @@ class InceptionB(nn.Module):
         b3 = self.BasicConv2d_0(x)
         bd = self.BasicConv2d_3(self.BasicConv2d_2(self.BasicConv2d_1(x)))
         bp = F.max_pool2d(x, 3, stride=2)
-        return torch.cat([b3, bd, bp], dim=1)
+        return cat_channels([b3, bd, bp])
 
 
 class InceptionC(nn.Module):
@@ -153,7 +157,7 @@ class InceptionC(nn.Module):
         for unit in (self.BasicConv2d_5, self.BasicConv2d_6, self.BasicConv2d_7, self.BasicConv2d_8):
             bd = unit(bd)
         bp = self.BasicConv2d_9(_avg_pool(x))
-        return torch.cat([b1, b7, bd, bp], dim=1)
+        return cat_channels([b1, b7, bd, bp])
 
 
 class InceptionD(nn.Module):
@@ -173,7 +177,7 @@ class InceptionD(nn.Module):
         for unit in (self.BasicConv2d_3, self.BasicConv2d_4, self.BasicConv2d_5):
             b7 = unit(b7)
         bp = F.max_pool2d(x, 3, stride=2)
-        return torch.cat([b3, b7, bp], dim=1)
+        return cat_channels([b3, b7, bp])
 
 
 class InceptionE(nn.Module):
@@ -194,12 +198,12 @@ class InceptionE(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         b1 = self.BasicConv2d_0(x)
         b3 = self.BasicConv2d_1(x)
-        b3 = torch.cat([self.BasicConv2d_2(b3), self.BasicConv2d_3(b3)], dim=1)
+        b3 = cat_channels([self.BasicConv2d_2(b3), self.BasicConv2d_3(b3)])
         bd = self.BasicConv2d_5(self.BasicConv2d_4(x))
-        bd = torch.cat([self.BasicConv2d_6(bd), self.BasicConv2d_7(bd)], dim=1)
+        bd = cat_channels([self.BasicConv2d_6(bd), self.BasicConv2d_7(bd)])
         bp = _avg_pool(x) if self.pool_type == "avg" else F.max_pool2d(x, 3, stride=1, padding=1)
         bp = self.BasicConv2d_8(bp)
-        return torch.cat([b1, b3, bd, bp], dim=1)
+        return cat_channels([b1, b3, bd, bp])
 
 
 class InceptionV3(nn.Module):
@@ -401,6 +405,6 @@ class InceptionFeatureExtractor(nn.Module):
             else:
                 x = torch.floor(torch.clamp(imgs.float(), 0.0, 1.0) * 255.0)
             x = (_resize_bilinear_tf1(x, 299, 299) - 128.0) / 128.0
-            x = x.contiguous(memory_format=torch.channels_last)
+            x = channels_last(x)
             with full_fp32():
                 return self.net(x, self.feature).float()

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from torchmetrics_tpu_torch._compile import CapturedForward, device_constant
+from torchmetrics_tpu_torch._kernels.lanes import cat_channels, channels_last
 from torchmetrics_tpu_torch._kernels.lpips_head import lpips_head
 from torchmetrics_tpu_torch.image._inception import init_weights_
 from torchmetrics_tpu_torch.metric import _resolve_device
@@ -112,7 +113,7 @@ class SqueezeNetFeatures(nn.Module):
         s = _conv_relu(getattr(self, f"fire{idx}_squeeze"), x, self.dtype)
         e1 = _conv_relu(getattr(self, f"fire{idx}_expand1"), s, self.dtype)
         e3 = _conv_relu(getattr(self, f"fire{idx}_expand3"), s, self.dtype)
-        return torch.cat([e1, e3], dim=1)
+        return cat_channels([e1, e3])
 
     def forward(self, x: Tensor) -> List[Tensor]:
         # torch MaxPool2d(3, 2, ceil_mode=True), the JAX package's _max_pool_ceil
@@ -164,7 +165,7 @@ class LPIPSNet(nn.Module):
         n = img0.shape[0]
         # one trunk pass over the concatenated pair batch; each tap's halves are
         # channels_last views, so their (B, H, W, C) permutes need no copy
-        x = torch.cat([(img0 - shift) / scale, (img1 - shift) / scale]).contiguous(memory_format=torch.channels_last)
+        x = channels_last(torch.cat([(img0 - shift) / scale, (img1 - shift) / scale]))
         return self.heads(self.net(x), n)
 
     def heads(self, feats: List[Tensor], n: int) -> Tensor:
