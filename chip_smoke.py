@@ -388,9 +388,23 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     its ``queued_ms`` beside its bound (``--phase trunk_pools`` runs the build
     and this phase alone);
 
+54. ``spmd_collection``: the SPMD engine (``_spmd``) through
+    ``MetricCollection.to_spmd``: BASELINE config 2's in-graph members (macro
+    accuracy and F1, the 1,000-class confusion matrix, MCC and Jaccard; AUROC
+    is certified host-bound and refused) on a mesh of 8 rows on the card, the
+    imagenet_val data in global batches of 1,024 (8 x 128, the last of 848);
+    every step against the eager stream (the matrix bit for bit), B1 across
+    the rows once a step, two CUDA graphs and every later step a replay; the
+    default mesh (every visible card); replica groups; an injected step
+    failure and a snapshot restore, each bit for bit with the uninterrupted
+    stream; LPIPS alex through the engine (B3 once a tap a step); host and
+    device ms a step against the eager stream, kernels a step, graph memory,
+    and B1 and B3 across the 8 rows beside their bounds (``--phase
+    spmd_collection`` runs the build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1, B1 across lanes, B2a-B5 and S1, and B2a-B5 and S1
-across lanes) and, last,
+across lanes; the lane rows count phase 54's steps too) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -7951,12 +7965,319 @@ def phase_trunk_pools(torch, np, ce, lh, ka, kb, dev, gen, seed: int, smi: str, 
     return {"seconds": seconds, "launches": launches, "kernels": kernels["per_forward"], "pools": out}
 
 
+# ------------------------------------------------------------------ spmd_collection
+# phase 54: BASELINE config 2's collection through the SPMD engine on one card: a mesh of 8 rows on the card, the
+# imagenet_val data (50,000 x 1,000 classes) in global batches of 1,024 (8 rows x 128), the last batch of 848 a
+# second signature; LPIPS alex through the engine at 8 rows x 8 pairs of 256x256
+SPMD_SIZES = {"rows": 8, "batch": 1024, "fault_at": 20, "snapshot_every": 10, "short_steps": 30, "group_steps": 6,
+              "default_steps": 3, "lpips_pairs": 8, "lpips_side": 256, "lpips_steps": 3, "timed_steps": 24}
+SPMD_RATIO_ATOL = 1e-6  # accuracy, F1, MCC and Jaccard of the engine against the eager stream: float32 ratios of equal counts
+
+
+def spmd_members(tp, c: int, dev, **kw) -> dict:
+    """BASELINE config 2's in-graph members: macro accuracy and F1, the confusion matrix, MCC and Jaccard."""
+    return {
+        "acc": tp.MulticlassAccuracy(num_classes=c, device=dev, **kw),
+        "f1": tp.MulticlassF1Score(num_classes=c, device=dev, **kw),
+        "cm": tp.MulticlassConfusionMatrix(num_classes=c, device=dev, **kw),
+        "mcc": tp.MulticlassMatthewsCorrCoef(num_classes=c, device=dev, **kw),
+        "jaccard": tp.MulticlassJaccardIndex(num_classes=c, device=dev, **kw),
+    }
+
+
+def _spmd_diff(torch, got: dict, want: dict) -> dict:
+    """The confusion matrix equal (a bool), and the largest absolute difference of each ratio."""
+    out = {"cm_equal": bool(torch.equal(got["cm"], want["cm"]))}
+    for k in ("acc", "f1", "mcc", "jaccard"):
+        out[k] = float((got[k].double() - want[k].double()).abs().max())
+    return out
+
+
+def _spmd_ok(d: dict) -> bool:
+    return d["cm_equal"] and all(d[k] <= SPMD_RATIO_ATOL for k in ("acc", "f1", "mcc", "jaccard"))
+
+
+def phase_spmd_collection(torch, np, kernel, lh, dev, gen, logits, target, smi: str, sizes=None) -> dict:
+    """Phase 54: the SPMD engine (``_spmd``) on the card, through ``MetricCollection.to_spmd``.
+
+    1. The main path: BASELINE config 2's in-graph members (``spmd_members``; its AUROC is certified ``host_bound``
+       and keeps the eager gather, which the phase checks) on a mesh of 8 rows on the card, the imagenet_val data in
+       global batches of 1,024 (8 x 128), the last of 848. Every step's value against the eager stream
+       (``update`` then ``compute``): the confusion matrix bit for bit, the ratios within ``SPMD_RATIO_ATOL``; the
+       final matrix against a numpy bincount. B1's lane-batched launches rise by one a step; two keys, two CUDA
+       graphs, every later step a replay.
+    2. ``to_spmd()`` on the default mesh (every visible card: a world of 1 here), against the eager stream.
+    3. Replica groups ``[[0, 1, 2, 3], [4, 5, 6, 7]]``: each replica's value against an eager collection fed only its
+       group's shards.
+    4. A step failure injected at step 20 of 30 (``inject_step_failure(times=1)``): the fold and the eager
+       continuation end bit for bit with the uninterrupted eager stream.
+    5. A ``SnapshotManager`` on an engine, every 10 steps: a restore into a fresh engine at step 25's newest boundary
+       (20) finishes the 30 steps bit for bit with the uninterrupted engine.
+    6. LPIPS alex through the engine, 8 rows x 8 pairs of 256x256: B3 once a tap a step, the value against an eager
+       LPIPS on the same pairs.
+    7. Host and device ms a step (medians) of the engine's replays and of the eager stream with a compute a step,
+       kernels a step, graph memory, and the lane-batched B1 and B3 launches at this phase's shapes: ``queued_ms``
+       beside the bound and the plain version.
+    """
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    spmd = importlib.import_module("torchmetrics_tpu_torch._spmd")
+    spmd_fi = importlib.import_module("torchmetrics_tpu_torch._spmd.faultinject")
+    res = importlib.import_module("torchmetrics_tpu_torch._resilience")
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    specs = importlib.import_module("torchmetrics_tpu_torch._spmd.specs")
+    sizes = dict(SPMD_SIZES, **(sizes or {}))
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    n_val, c = logits.shape
+    rows, batch = sizes["rows"], sizes["batch"]
+    starts = list(range(0, n_val, batch))
+    batches = [(logits[s:s + batch], target[s:s + batch]) for s in starts]
+    check(batches[-1][0].shape[0] % rows == 0, f"the last batch of {batches[-1][0].shape[0]} does not shard over {rows}")
+    mesh = spmd.build_mesh(devices=[dev] * rows)
+    lanes_k, b1 = kernel.confusion_matrix_lanes.launches, kernel.confusion_matrix_cuda.launches
+
+    def collection(**kw):
+        return tp.MetricCollection(spmd_members(tp, c, dev, **kw))
+
+    # AUROC keeps the eager gather, as in the JAX package
+    auroc_facet = specs.in_graph_sync_eligible(tp.MulticlassAUROC)
+    check(auroc_facet == "host_bound", f"MulticlassAUROC's in_graph_sync facet is {auroc_facet}")
+    try:
+        tp.MetricCollection({**spmd_members(tp, c, dev), "auroc": tp.MulticlassAUROC(num_classes=c, thresholds=100,
+                                                                                     device=dev)}).to_spmd(mesh=mesh)
+        auroc_refused = None
+    except spmd.InGraphSyncUnsupported as err:
+        auroc_refused = str(err)[:120]
+    check(auroc_refused is not None, "a collection with AUROC was let onto the in-graph path")
+
+    # ------------------------------------------------------------ 1. the main path
+    eng = collection().to_spmd(mesh=mesh)
+    eager = collection(auto_compile=False)  # the graphs counted below are the engine's alone
+    short = sizes["short_steps"]
+    keep = {sizes["fault_at"] + 1, short}  # the uninterrupted streams' values the later parts end on
+    eager_at, engine_at, worst = {}, {}, {"cm_equal": True, "acc": 0.0, "f1": 0.0, "mcc": 0.0, "jaccard": 0.0}
+    per_step, host_ms = [], []
+    stats0 = compile_mod.stats()
+    b1_0 = int(b1)
+    lanes_k.reset()  # the main path: counted from here
+    for i, (p, t) in enumerate(batches):
+        before = int(lanes_k)
+        h0 = time.perf_counter()
+        got = eng.step(p, t)
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        per_step.append(int(lanes_k) - before)
+        eager.update(p, t)
+        want = eager.compute()
+        d = _spmd_diff(torch, got, want)
+        check(_spmd_ok(d), f"step {i}: the engine against the eager stream: {d}")
+        worst = {k: (worst[k] and v) if k == "cm_equal" else max(worst[k], v) for k, v in d.items()}
+        if i + 1 in keep:
+            eager_at[i + 1], engine_at[i + 1] = want, got
+    if on_card:
+        torch.cuda.synchronize()
+    lanes_launches = int(lanes_k)  # the main path: read here
+    stats1 = compile_mod.stats()
+    steps = len(batches)
+    check(lanes_launches == (steps if on_card else 0) and set(per_step) == {1 if on_card else 0},
+          f"B1 lane-batched launches {lanes_launches} for {steps} steps ({sorted(set(per_step))} a step)")
+    check(not eng.degraded and eng.capture_failures == {}, f"degraded {eng.degraded}, captures {eng.capture_failures}")
+    check(len(eng._step_fns) == 2, f"{len(eng._step_fns)} keys for two batch shapes")
+    graphs = {"captured": stats1["captured"] - stats0["captured"], "replayed": stats1["replayed"] - stats0["replayed"]}
+    if on_card:
+        check(all(isinstance(e, compile_mod.CapturedStep) for e in eng._step_fns.values()), "a key is not a CUDA graph")
+        check(graphs == {"captured": 2, "replayed": steps - 2}, f"graphs {graphs} for {steps} steps")
+    check(len(eng._units) == 2 and sorted(len(u.members) for u in eng._units) == [2, 3],
+          f"compute groups {[[n for n, _ in u.members] for u in eng._units]}")
+    preds_all = logits.argmax(-1).cpu().numpy()
+    ref = np.bincount(target.cpu().numpy() * c + preds_all, minlength=c * c).reshape(c, c)
+    check(np.array_equal(got["cm"].cpu().numpy(), ref), "the engine's final confusion matrix != the numpy bincount")
+    graph_bytes = compile_mod.pool_bytes(eng._graph_pool) if on_card else 0
+    main = {"steps": steps, "batch": batch, "last_batch": int(batches[-1][0].shape[0]), "rows": rows,
+            "lanes_launches": lanes_launches, "graphs": graphs, "worst_vs_eager": worst,
+            "host_ms_median_checked_stream": statistics.median(host_ms), "graph_pool_bytes": graph_bytes,
+            "groups": [[n for n, _ in u.members] for u in eng._units]}
+
+    # ------------------------------------------------------------ 2. the default mesh
+    default = collection().to_spmd()
+    twin = collection()
+    for p, t in batches[:sizes["default_steps"]]:
+        got_default = default.step(p, t)
+        twin.update(p, t)
+    d = _spmd_diff(torch, got_default, twin.compute())
+    check(_spmd_ok(d) and default.world == torch.cuda.device_count(), f"default mesh: world {default.world}, {d}")
+    default_line = {"world": default.world, "steps": sizes["default_steps"], "vs_eager": d}
+    del default, twin
+
+    # ------------------------------------------------------------ 3. replica groups
+    groups = [list(range(rows // 2)), list(range(rows // 2, rows))]
+    grouped = collection().to_spmd(mesh=mesh, groups=groups)
+    replicas = [collection() for _ in groups]
+    for p, t in batches[:sizes["group_steps"]]:
+        out = grouped.step(p, t)
+        shard = p.shape[0] // rows
+        for gi, g in enumerate(groups):
+            idx = torch.cat([torch.arange(r * shard, (r + 1) * shard, device=dev) for r in g])
+            replicas[gi].update(p[idx], t[idx])
+    group_diffs = [_spmd_diff(torch, out[gi], replicas[gi].compute()) for gi in range(len(groups))]
+    check(sorted(out) == [0, 1] and all(_spmd_ok(d) for d in group_diffs), f"replica groups: {group_diffs}")
+    del grouped, replicas
+
+    # ------------------------------------------------------------ 4. an injected step failure
+    faulted = collection().to_spmd(mesh=mesh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for i, (p, t) in enumerate(batches[:short]):
+            if i == sizes["fault_at"]:
+                with spmd_fi.inject_step_failure(times=1):
+                    last = faulted.step(p, t)
+                check(faulted.degraded, "the injected failure did not degrade the engine")
+                d = _spmd_diff(torch, last, eager_at[i + 1])
+                check(d["cm_equal"] and all(d[k] == 0.0 for k in ("acc", "f1", "mcc", "jaccard")),
+                      f"the fold and the failed batch run eagerly vs the uninterrupted eager stream: {d}")
+            else:
+                last = faulted.step(p, t)
+    events = [e for m in faulted.target.values() for e in m.resilience_report().events if e.kind == "spmd_degraded"]
+    check(len(events) == 1 and "restarts" not in events[0].detail, f"degradation events {[e.detail for e in events]}")
+    d = _spmd_diff(torch, last, eager_at[short])
+    check(d["cm_equal"] and all(d[k] == 0.0 for k in ("acc", "f1", "mcc", "jaccard")),
+          f"fold + eager continuation vs the uninterrupted eager stream: {d}")
+    fault_line = {"at_step": sizes["fault_at"], "steps": short, "vs_uninterrupted_eager": d,
+                  "event": events[0].detail[:160]}
+    del faulted
+
+    # ------------------------------------------------------------ 5. snapshot and restore
+    with tempfile.TemporaryDirectory() as folder:
+        live = collection().to_spmd(mesh=mesh)
+        mgr = res.SnapshotManager(live, folder, res.SnapshotPolicy(every_n_updates=sizes["snapshot_every"],
+                                                                  async_write=False))
+        cut = sizes["fault_at"] + sizes["snapshot_every"] // 2
+        for p, t in batches[:cut]:
+            live.step(p, t)
+        mgr.close()  # the process is preempted here
+        restored = collection().to_spmd(mesh=mesh)
+        mgr2 = res.SnapshotManager(restored, folder, res.SnapshotPolicy(async_write=False))
+        report = mgr2.restore_latest()
+        mgr2.close()
+        resume = restored.steps
+        for p, t in batches[resume:short]:
+            last = restored.step(p, t)
+        d = _spmd_diff(torch, last, engine_at[short])
+        check(d["cm_equal"] and all(d[k] == 0.0 for k in ("acc", "f1", "mcc", "jaccard")) and not restored.degraded,
+              f"restore at {resume} and stream to {short} vs the uninterrupted engine: {d}")
+        snapshot_line = {"preempted_at": cut, "restored_at": resume, "generation": report.generation,
+                         "vs_uninterrupted_engine": d}
+        del live, restored
+
+    # ------------------------------------------------------------ 6. LPIPS alex through the engine
+    lp, ls = sizes["lpips_pairs"], sizes["lpips_side"]
+    img0 = torch.rand((sizes["lpips_steps"], rows * lp, 3, ls, ls), generator=gen, device=dev) * 2 - 1
+    img1 = (img0 + 0.3 * torch.randn(img0.shape, generator=gen, device=dev)).clamp_(-1, 1)
+    lp_eng = tp.LearnedPerceptualImagePatchSimilarity(net_type="alex", device=dev).to_spmd(mesh=mesh)
+    lp_eager = tp.LearnedPerceptualImagePatchSimilarity(net_type="alex", device=dev, auto_compile=False)
+    b3 = lh.lpips_head.launches
+    b3.reset()  # this part's main path: counted from here
+    for k in range(sizes["lpips_steps"]):
+        lp_got = lp_eng.step(img0[k], img1[k])
+    if on_card:
+        torch.cuda.synchronize()
+    b3_launches = int(b3)  # read here
+    for k in range(sizes["lpips_steps"]):
+        lp_eager.update(img0[k], img1[k])
+    lp_want = lp_eager.compute()
+    lp_rel = abs(float(lp_got) - float(lp_want)) / abs(float(lp_want))
+    check(b3_launches == (5 * sizes["lpips_steps"] if on_card else 0), f"B3 launches {b3_launches}")
+    check(lp_rel <= TRUNK_POOL_RTOL["lpips"] and not lp_eng.degraded and lp_eng.capture_failures == {},
+          f"LPIPS through the engine: rel {lp_rel}, degraded {lp_eng.degraded}, captures {lp_eng.capture_failures}")
+    lpips_line = {"rows": rows, "pairs_per_row": lp, "side": ls, "steps": sizes["lpips_steps"],
+                  "b3_launches": b3_launches, "value_rel_vs_eager": lp_rel, "tolerance": TRUNK_POOL_RTOL["lpips"],
+                  "graph_pool_bytes": compile_mod.pool_bytes(lp_eng._graph_pool) if on_card else 0}
+
+    # ------------------------------------------------------------ 7. timings
+    timing = {}
+    if on_card:
+        p, t = batches[0]
+
+        def host_device(fn, reps):
+            hosts, events = [], []
+            for _ in range(reps):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                start.record()
+                fn()
+                end.record()
+                hosts.append((time.perf_counter() - h0) * 1e3)
+                events.append((start, end))
+            torch.cuda.synchronize()
+            return {"host_ms": statistics.median(hosts), "device_ms": statistics.median(s.elapsed_time(e) for s, e in events)}
+
+        timing["engine_step"] = host_device(lambda: eng.step(p, t), sizes["timed_steps"])
+        timing["eager_update_compute"] = host_device(lambda: (eager.update(p, t), eager.compute()), sizes["timed_steps"])
+        compiled = collection()  # the default path: each head's update a CUDA graph, compute eager
+        timing["compiled_update_compute"] = host_device(lambda: (compiled.update(p, t), compiled.compute()),
+                                                        sizes["timed_steps"])
+        timing["engine_kernels"] = device_time_by_kernel(torch, lambda: eng.step(p, t), top=6)
+        timing["eager_kernels"] = device_time_by_kernel(torch, lambda: (eager.update(p, t), eager.compute()), top=6)
+        timing["compiled_kernels"] = device_time_by_kernel(torch, lambda: (compiled.update(p, t), compiled.compute()),
+                                                           top=6)
+        del compiled
+        timing["lpips_engine_step"] = host_device(lambda: lp_eng.step(img0[0], img1[0]), 8)
+        # B1 across the 8 rows at this phase's shape: (8, 128) int64 labels under a bool mask into (8, C, C) int32 rows
+        rp, rt = p.argmax(-1).reshape(rows, -1).contiguous(), t.reshape(rows, -1).contiguous()
+        rv = torch.ones_like(rt, dtype=torch.bool)
+        buf = torch.zeros((rows, c, c), dtype=torch.int32, device=dev)
+        got_lanes = kernel.confusion_matrix_lanes(rp, rt, c, rv)
+        want_lanes = kernel.confusion_matrix_lanes_plain(rp, rt, c, rv)
+        check(torch.equal(got_lanes, want_lanes), "B1 across the rows != its plain version")
+        fused = (rt * c + rp + torch.arange(rows, device=dev)[:, None] * (c * c)).reshape(-1)
+        timing["b1_lanes"] = {
+            "shape": [rows, rp.shape[1], c], "max_abs_err": float((got_lanes - want_lanes).abs().max()),
+            "ms": queued_ms(torch, lambda: kernel.confusion_matrix_lanes(rp, rt, c, rv, out=buf), reps=50),
+            "plain_ms": median_ms(torch, lambda: kernel.confusion_matrix_lanes_plain(rp, rt, c, rv), reps=10),
+            "library_ms": median_ms(torch, lambda: torch.bincount(fused, minlength=rows * c * c), reps=20),
+            # the labels and the mask, read once (as phase 52 bounds B1 across lanes)
+            "bound_ms": rp.numel() * (2 * rp.element_size() + rv.element_size()) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+        }
+        # B3 across the 8 rows: alex's five taps at 8 rows x 8 pairs, one folded launch each
+        b3_rows = []
+        for shape in lpips_tap_shapes(torch, dev, "alex", pairs=lp, side=ls):
+            f0 = torch.randn((rows * shape[0], *shape[1:]), generator=gen, device=dev).relu_().bfloat16()
+            f1 = (f0.float() + 0.3 * torch.randn(f0.shape, generator=gen, device=dev)).relu_().bfloat16()
+            wt = torch.rand(shape[-1], generator=gen, device=dev)
+            got3, want3 = lh.lpips_head(f0, f1, wt), lh.lpips_head_plain(f0, f1, wt)
+            err = (got3 - want3).abs()
+            check(bool((err <= HEAD_RTOL * want3.abs() + 1e-7).all()), f"B3 across the rows {shape}: {float(err.max())}")
+            bound, by = bound_ms(lh.lpips_head_cost(f0, f1, wt), F32_FLOPS_PER_S)
+            b3_rows.append({"shape": list(f0.shape), "max_abs_err": float(err.max()), "bound_ms": bound, "bound_by": by,
+                            "ms": queued_ms(torch, lambda: lh.lpips_head(f0, f1, wt), reps=30),
+                            "plain_ms": median_ms(torch, lambda: lh.lpips_head_plain(f0, f1, wt), reps=5, warmup=1)})
+        timing["b3_lanes"] = {
+            "taps": b3_rows, **{k: sum(r[k] for r in b3_rows) for k in ("ms", "plain_ms", "bound_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in b3_rows),
+            "bound_by": "operations" if sum(r["bound_by"] == "operations" for r in b3_rows) > 2 else "bytes",
+        }
+    del eng, eager, lp_eng, lp_eager
+    release_graphs(torch)
+    seconds = time.perf_counter() - t_phase
+    out = {
+        "phase": "spmd_collection", "samples": n_val, "classes": c, "members": ["acc", "f1", "cm", "mcc", "jaccard"],
+        "auroc": {"facet": auroc_facet, "refused": auroc_refused}, "main": main, "default_mesh": default_line,
+        "replica_groups": {"groups": groups, "steps": sizes["group_steps"], "vs_eager": group_diffs},
+        "injected_failure": fault_line, "snapshot_restore": snapshot_line, "lpips_alex": lpips_line,
+        "timing": timing, "b1_unbatched_launches": int(b1) - b1_0,
+        "tolerance": {"confusion_matrix": "exact", "ratios": SPMD_RATIO_ATOL, "lpips_rel": TRUNK_POOL_RTOL["lpips"]},
+        "seconds": seconds, "card": smi,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
-                                            "resilience", "stream_pool", "trunk_pools"),
+                                            "resilience", "stream_pool", "trunk_pools", "spmd_collection"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
@@ -7964,7 +8285,9 @@ def main() -> int:
                              "observability: build, run only the observability phase on the imagenet_val data, stop; "
                              "resilience: build, run only the resilience phase on the imagenet_val data, stop; "
                              "stream_pool: build, run only the stream_pool phase, stop; "
-                             "trunk_pools: build, run only the trunk_pools phase, stop")
+                             "trunk_pools: build, run only the trunk_pools phase, stop; "
+                             "spmd_collection: build, run only the spmd_collection phase on the imagenet_val data, "
+                             "stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -8067,6 +8390,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as folder:
             phase_trunk_pools(torch, np, ce, lh, ka, kb, dev, torch.Generator(device=dev).manual_seed(args.seed + 53),
                               args.seed, smi, folder)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "spmd_collection":
+        logits, target = imagenet_val_data(torch, dev, gen)
+        phase_spmd_collection(torch, np, kernel, lh, dev, torch.Generator(device=dev).manual_seed(args.seed + 54),
+                              logits, target, smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -8385,6 +8714,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as folder:
         trunk_pools = phase_trunk_pools(torch, np, ce, lh, ka, kb, dev,
                                         torch.Generator(device=dev).manual_seed(args.seed + 53), args.seed, smi, folder)
+    release_graphs(torch)
+    # ------------- BASELINE config 2's collection through the SPMD engine, B1 and B3 folded over 8 rows, phase 54
+    spmd_run = phase_spmd_collection(torch, np, kernel, lh, dev, torch.Generator(device=dev).manual_seed(args.seed + 54),
+                                     logits, target, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -8435,15 +8768,17 @@ def main() -> int:
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
-        "launches": pooled["lanes_launches"],
-        "max_abs_err": pooled["max_abs_err"],
+        "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"],
+        "max_abs_err": max(pooled["max_abs_err"], spmd_run["timing"]["b1_lanes"]["max_abs_err"]),
         "ms": pooled["timing"]["ms"],
         "plain_ms": pooled["timing"]["plain_ms"],
         "bound_ms": pooled["timing"]["bound_ms"],
         "bound_by": pooled["timing"]["bound_by"],
         "library_ms": pooled["timing"]["library_ms"],
         "at": f"one stream_pool micro-batch: ({pooled['lanes']}, {pooled['rows']}) int64 labels + bool mask, "
-              f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap",
+              f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap; launches: "
+              "phase 52's micro-batches and phase 54's SPMD steps",
+        "spmd_rows": {k: spmd_run["timing"]["b1_lanes"][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -8480,7 +8815,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"torchmetrics_tpu_torch/csrc/{source}",
         "replaces": replaces,
-        "launches": trunk_pools["launches"][key],
+        "launches": trunk_pools["launches"][key] + (spmd_run["lpips_alex"]["b3_launches"] if key == "B3" else 0),
         "max_abs_err": trunk_pools["kernels"][key]["max_abs_err"],
         "ms": trunk_pools["kernels"][key]["ms"],
         "plain_ms": trunk_pools["kernels"][key]["plain_ms"],
@@ -8488,8 +8823,11 @@ def main() -> int:
         "bound_by": trunk_pools["kernels"][key]["bound_by"],
         "library_ms": trunk_pools["kernels"][key]["library_ms"],
         "loop_ms": trunk_pools["kernels"][key]["loop_ms"],
+        **({"spmd_rows": {k: spmd_run["timing"]["b3_lanes"][k] for k in ("ms", "plain_ms", "bound_ms")}}
+           if key == "B3" else {}),
         "at": f"across lanes, one pooled forward: {at}; ms and loop_ms: queued_ms of the folded launches and of one "
-              "launch a lane; the vmap rule of the wrapper's custom op (torchmetrics_tpu_torch/_kernels/lanes.py)",
+              "launch a lane; the vmap rule of the wrapper's custom op (torchmetrics_tpu_torch/_kernels/lanes.py)"
+              + ("; launches: phase 53's pool and phase 54's SPMD steps (8 rows x 8 pairs)" if key == "B3" else ""),
     } for name, key, source, replaces, at in (
         ("conv_mm_bias_relu", "B2a", "conv_epilogue.cu", "torchmetrics_tpu/_kernels/conv_epilogue.py:67",
          "FID 8 lanes x 25 images, 40 launches, bf16"),

@@ -211,6 +211,19 @@ class MetricCollection(nn.Module):
         """
         return {name: m.precompile(*args, **m._filter_kwargs(**kwargs)) for name, m in self._modules.items()}
 
+    def to_spmd(self, *, mesh: Any = None, axis_name: str = "dp", **kwargs: Any) -> Any:
+        """Hand the (fresh) collection to the SPMD in-graph engine (JAX ``collections.py:467``).
+
+        Compute groups share ONE step: each group's head updates and syncs
+        once over the mesh's rows, every member computes from the head's
+        synced states in the same step, and ``step()`` returns a dict keyed
+        like :meth:`compute`. Every member class must pass the eligibility
+        copy's ``in_graph_sync`` gate.
+        """
+        from torchmetrics_tpu_torch._spmd import SpmdEngine
+
+        return SpmdEngine(self, mesh=mesh, axis_name=axis_name, **kwargs)
+
     def to_stream_pool(self, *, capacity: int = 8, **kwargs: Any) -> Any:
         """N independent streams of this (fresh) collection, one vmapped step (JAX ``collections.py:480``).
 

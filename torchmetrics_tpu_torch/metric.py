@@ -70,7 +70,7 @@ from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_sum,
 )
 from torchmetrics_tpu_torch.utilities.distributed import distributed_available as _default_distributed_available
-from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors
+from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors, sync_in_jit
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
@@ -1849,6 +1849,40 @@ class Metric(nn.Module, ABC):
         # "scan" replays through scan_update: the arguments carry a leading
         # stream axis that plain update() must not see as one batch
         self._journal_record("scan", args, kwargs)
+
+    def to_spmd(self, *, mesh: Any = None, axis_name: str = "dp", **kwargs: Any) -> Any:
+        """Hand this (fresh) metric to the SPMD in-graph engine (JAX ``metric.py:1069``).
+
+        Returns a :class:`~torchmetrics_tpu_torch._spmd.SpmdEngine` whose
+        ``step(batch)`` runs update, the sync over the mesh's rows and compute
+        as one step, one CUDA graph a signature on the card, in place of
+        streaming ``update()`` and syncing after. ``mesh``: a
+        :func:`~torchmetrics_tpu_torch._spmd.build_mesh` mesh whose rows all
+        lie on this metric's device (default: every visible card). Classes the
+        eligibility copy's ``in_graph_sync`` facet certifies host-bound raise
+        :class:`~torchmetrics_tpu_torch._spmd.InGraphSyncUnsupported` and keep
+        the eager path.
+        """
+        from torchmetrics_tpu_torch._spmd import SpmdEngine
+
+        return SpmdEngine(self, mesh=mesh, axis_name=axis_name, **kwargs)
+
+    def sync_in_jit(self, state: Dict[str, Any], axis_name: str, axis_index_groups: Optional[Any] = None) -> Dict[str, Any]:
+        """Sync an explicit row-stacked state dict over a mesh axis by this metric's reductions (JAX ``metric.py:1104``).
+
+        See :func:`~torchmetrics_tpu_torch.utilities.distributed.sync_in_jit`.
+        ``axis_index_groups`` partitions the rows into independent groups (the
+        in-graph form of ``process_group``). A flat ``process_group`` names one
+        subset, not a partition of the whole axis, so it cannot be translated:
+        it must be spelled out here.
+        """
+        if axis_index_groups is None and self.process_group is not None:
+            raise TorchMetricsUserError(
+                "This metric was constructed with `process_group`, which the in-jit sync cannot infer a"
+                " mesh partition from. Pass `axis_index_groups` explicitly, e.g."
+                " `metric.sync_in_jit(state, 'dp', axis_index_groups=[[0, 1], [2, 3]])`."
+            )
+        return sync_in_jit(state, self._reductions, axis_name, axis_index_groups=axis_index_groups)
 
     def to_stream_pool(self, *, capacity: int = 8, **kwargs: Any) -> Any:
         """N independent streams of this (fresh) metric behind one vmapped step (JAX ``metric.py:1085``).

@@ -1,7 +1,6 @@
 """Utility layer: safe math, data ops, distributed gather, checks, enums, state carry-over, ring buffers.
 
-``__all__`` lists the JAX package's names but ``sync_in_jit`` (it belongs to
-``_spmd``'s ``to_spmd``, not ported yet); ``normalize_logits_if_needed`` and
+``__all__`` lists the JAX package's names; ``normalize_logits_if_needed`` and
 ``state_from_jax`` are importable from here as well, outside that list.
 """
 
@@ -25,7 +24,7 @@ from torchmetrics_tpu_torch.utilities.data import (
     to_categorical,
     to_onehot,
 )
-from torchmetrics_tpu_torch.utilities.distributed import class_reduce, gather_all_tensors, reduce
+from torchmetrics_tpu_torch.utilities.distributed import class_reduce, gather_all_tensors, reduce, sync_in_jit
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_info, rank_zero_warn
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer, ring_push
@@ -56,4 +55,5 @@ __all__ = [
     "rank_zero_warn",
     "RingBuffer",
     "ring_push",
+    "sync_in_jit",
 ]

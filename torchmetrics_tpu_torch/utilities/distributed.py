@@ -10,11 +10,14 @@ Every eager collective of the guarded sync flows through
 ``utilities/distributed.py:176-300``): a simulated world, failing or stalling
 transports. With neither set and a real process group, :func:`gather_all_tensors`
 keeps its padded ``dist.all_gather``.
+
+:func:`sync_in_jit` is the SPMD engine's sync: each state's reduction over
+the rows of a row-stacked state, inside the engine's step.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -171,3 +174,120 @@ def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: s
     if class_reduction in ("none", None):
         return fraction
     raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
+
+
+# ---------------------------------------------------------------------------
+# The in-graph sync over the rows of a stacked state (JAX ``distributed.py:363``)
+# ---------------------------------------------------------------------------
+
+
+def sync_in_jit(
+    state: Dict[str, Any],
+    reductions: Dict[str, Union[str, Callable, None]],
+    axis_name: str = "dp",
+    axis_index_groups: Optional[Sequence[Sequence[int]]] = None,
+) -> Dict[str, Any]:
+    """What each row of a row-stacked metric state holds after the collective of its declared reduction.
+
+    The JAX function runs inside ``shard_map`` on each device's local value
+    and lowers each reduction to a named-axis collective over ``axis_name``.
+    ``torch.func.vmap`` has no named-axis collectives, so here each state
+    comes with the mesh axis leading, ``(D, *s)`` for ``D`` rows (the SPMD
+    engine's stacked layout), or, for a ring buffer, its stacked leaves
+    ``{"data": (D, cap, *row), "valid": (D, cap), "count": (D,)}``. The result
+    is still row-stacked: row ``d`` holds what device ``d`` holds after the
+    collective:
+
+    - ``"sum"``/``"mean"``/``"max"``/``"min"``: the reduction over the rows
+      (``psum``/``pmean``/``pmax``/``pmin``);
+    - ``"cat"``: the rows' values concatenated (a tiled ``all_gather``);
+    - ``None``: the rows' values stacked, ``(D, *s)`` in each row (``all_gather``);
+    - a callable: applied to the stacked ``(D, *s)`` values;
+    - a ring buffer: its data and valid mask concatenated, its count summed.
+
+    Without groups every row holds the same value, so the result is an
+    ``expand`` of it, not ``D`` copies. ``axis_index_groups`` partitions the
+    rows into equal-sized disjoint groups that each reduce their own rows
+    (the in-graph ``process_group``: ``[[0, 1], [2, 3]]`` keeps two
+    independent replicas), and each row holds its group's value. Rows are
+    read with integer indexing and stacked, so the sync reads no host data
+    and can be captured in a CUDA graph.
+    """
+    select = None if axis_index_groups is None else _grouped_member_selector(axis_name, axis_index_groups)
+    out: Dict[str, Any] = {}
+    for name, value in state.items():
+        red = reductions.get(name, "sum")
+        if red not in _COLLECTIVES and not callable(red):
+            raise ValueError(f"Unknown reduction {red!r} for state {name!r}")
+        if isinstance(value, dict):
+            # a ring buffer's stacked leaves: the storage and the mask gather, the cursor sums
+            if red not in ("cat", None):
+                raise ValueError(f"RingBuffer state {name!r} requires a 'cat' reduction, got {red!r}")
+            out[name] = {
+                "data": _over_rows(value["data"], _COLLECTIVES["cat"], select),
+                "valid": _over_rows(value["valid"], _COLLECTIVES["cat"], select),
+                "count": _over_rows(value["count"], _COLLECTIVES["sum"], select),
+            }
+            continue
+        out[name] = _over_rows(value, _COLLECTIVES[red] if red in _COLLECTIVES else red, select)
+    return out
+
+
+# reduction kind -> its reduction over the gathered leading (row) axis: over
+# every row, or over one group's rows. One row per kind, as the JAX table.
+# Sums keep the state's dtype, as psum does (torch would widen int32 to int64).
+_COLLECTIVES: Dict[Any, Callable[[Tensor], Tensor]] = {
+    "sum": lambda m: m.sum(0, dtype=m.dtype),
+    "mean": lambda m: m.sum(0, dtype=m.dtype) / m.shape[0],  # pmean is psum / n, also for integer states
+    "max": lambda m: m.amax(0),
+    "min": lambda m: m.amin(0),
+    "cat": lambda m: m.reshape(m.shape[0] * m.shape[1], *m.shape[2:]),
+    None: lambda m: m,
+}
+
+
+def _over_rows(value: Tensor, local: Callable[[Tensor], Tensor], select: Optional[Callable]) -> Tensor:
+    """``local`` over the rows each row syncs with: all of them (one value, expanded), or its group's."""
+    if select is None:
+        res = local(value)
+        return res.unsqueeze(0).expand(value.shape[0], *res.shape)
+    return select(value, local)
+
+
+def validate_axis_groups(groups: Sequence[Sequence[int]], world: Optional[int] = None) -> None:
+    """The ``axis_index_groups`` invariant, in one place: equal-sized disjoint groups partitioning ``0..world-1``.
+
+    ``world`` defaults to the total membership; callers who know their axis
+    size pass it so a wrong-sized partition fails too. The grouped selector
+    and the SPMD engine's construction check both call this.
+    """
+    sizes = {len(g) for g in groups}
+    if len(sizes) != 1:
+        raise ValueError(f"All `axis_index_groups` must have the same size, got sizes {sorted(sizes)}")
+    expected = sum(len(g) for g in groups) if world is None else world
+    seen = sorted(i for g in groups for i in g)
+    if seen != list(range(expected)):
+        raise ValueError(f"`axis_index_groups` must partition 0..{expected - 1}, got {groups}")
+
+
+def _grouped_member_selector(axis_name: str, groups: Sequence[Sequence[int]]) -> Callable[[Tensor, Callable], Tensor]:
+    """Build ``(value, local) -> (D, *r)``: row ``d`` holds ``local`` over the rows of ``d``'s group.
+
+    Groups must be equal-sized and partition the rows (the constraints the
+    JAX package's ``axis_index_groups`` primitives have). ``axis_name`` is
+    the mesh axis the rows run over; the rows of one tensor need no name to
+    find each other.
+    """
+    validate_axis_groups(groups)
+    world = sum(len(g) for g in groups)
+    group_of = [0] * world
+    for gid, g in enumerate(groups):
+        for rank in g:
+            group_of[rank] = gid
+    members = [[int(i) for i in g] for g in groups]
+
+    def select(value: Tensor, local: Callable[[Tensor], Tensor]) -> Tensor:
+        per_group = [local(torch.stack([value[i] for i in g])) for g in members]
+        return torch.stack([per_group[group_of[d]] for d in range(world)])
+
+    return select
