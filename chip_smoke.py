@@ -402,9 +402,25 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     and B1 and B3 across the 8 rows beside their bounds (``--phase
     spmd_collection`` runs the build and this phase alone);
 
+55. ``metric_server``: the serving runtime (``_serving``): a
+    ``MetricServer`` over phase 52's 1,000-class confusion-matrix pool, 256
+    tenants of 50,000 labels in requests of 1,024 rows (the last of 848),
+    12,544 requests from 8 client threads with one request a tenant in
+    flight, after ``warm`` (a CUDA graph a bucket, 1 to 64 lanes); every ack
+    acked, every tenant's ``compute(i)`` bit for bit against numpy, B1 across
+    lanes once a micro-batch, every warmed key replayed, a ``compute(i)``
+    from a client thread while the worker captures an 848-row bucket; a
+    burst into a queue of 8 (rejected with retry hints), a shed episode
+    (one canary admitted), a preemption and recovery from the journal, each
+    bit for bit with the acked rows; requests, micro-batches, live rows a
+    micro-batch, host and device ms a micro-batch, ack latency, the first
+    request after ``warm`` against the steady p99, rows/s, graphs and their
+    bytes (``--phase metric_server`` runs the build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1, B1 across lanes, B2a-B5 and S1, and B2a-B5 and S1
-across lanes; the lane rows count phase 54's steps too) and, last,
+across lanes; the lane rows count phase 54's steps and phase 55's
+micro-batches too) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -415,6 +431,7 @@ import argparse
 import collections
 import dataclasses
 import gc
+import hashlib
 import importlib
 import json
 import os
@@ -8272,12 +8289,483 @@ def phase_spmd_collection(torch, np, kernel, lh, dev, gen, logits, target, smi: 
     return out
 
 
+# ------------------------------------------------------------------ metric_server
+# phase 55: the serving runtime (`_serving.MetricServer`) over phase 52's 1,000-class confusion-matrix pool: 256
+# tenants, 50,000 labels each in requests of 1,024 rows (the last of 848), 12,544 requests from 8 client threads
+# that own 32 tenants each; every micro-batch is one replay of its bucket's CUDA graph, B1 once across its lanes
+SERVER_SIZES = {"classes": 1000, "tenants": 256, "capacity": 256, "queue_capacity": 1024, "max_batch": 64,
+                "rows": 1024, "labels_per_tenant": 50_000, "clients": 8, "warm_boot_requests": 200,
+                "burst_queue": 8, "burst": 64, "burst_tenants": 4, "shed_tenants": 2, "shed_burst": 16,
+                "recovery_tenants": 8, "recovery_rounds": 12, "snapshot_every": 16}
+
+
+def _bincount_cm(np, preds, target, c: int):
+    """The (C, C) counts of the rows whose labels are both in [0, C), in int64 (numpy's reference)."""
+    p, t = np.concatenate(preds) if preds else np.zeros(0, np.int64), np.concatenate(target) if target else np.zeros(0, np.int64)
+    keep = (t >= 0) & (t < c) & (p >= 0) & (p < c)
+    return np.bincount(t[keep] * c + p[keep], minlength=c * c).reshape(c, c)
+
+
+def _digest(np, value) -> str:
+    host = value.cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(host).tobytes() + str(host.dtype).encode()).hexdigest()
+
+
+def _served_equal(np, server, rows_of: dict, c: int):
+    """Tenants whose served matrix is not bit for bit the numpy count of exactly its acked rows, and each digest."""
+    bad, digests = [], {}
+    for sid, rows in rows_of.items():
+        want = _bincount_cm(np, [p for p, _ in rows], [t for _, t in rows], c)
+        got = server.compute(sid)
+        digests[sid] = _digest(np, got)
+        if not np.array_equal(got.cpu().numpy(), want):
+            bad.append(sid)
+    return bad, digests
+
+
+def _percentile(values, q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))] if s else float("nan")
+
+
+def _submit_until_admitted(serving, server, sid, p, t, retries: list, deadline: float):
+    """Submit, honouring each ``BackpressureError``'s ``retry_after_s``; the ack, or None past ``deadline``."""
+    while time.monotonic() < deadline:
+        try:
+            return server.submit(sid, p, t)
+        except serving.BackpressureError as err:
+            check(err.retry_after_s > 0.0, f"retry_after_s {err.retry_after_s}")
+            retries.append(err.kind)
+            time.sleep(err.retry_after_s)
+    return None
+
+
+def phase_metric_server(torch, np, kernel, dev, gen, smi: str, sizes=None) -> dict:
+    """The serving runtime on the card: a ``MetricServer`` ingesting concurrent multi-tenant traffic.
+
+    1. ``MetricServer(MulticlassConfusionMatrix(num_classes=1000, ignore_index=-1), capacity=256,
+       queue_capacity=1024, controller=ControllerConfig(max_batch=64))`` with 256 tenants; ``warm`` with one
+       request's shapes (7 buckets, 1 to 64: each bucket's step run once with every row as padding, then captured);
+       the first request alone, then 200 more one at a time (the warm-boot ratio of the JAX suite's slow test);
+       then 8 client threads, 32 tenants each, send the rest, one request a tenant in flight, retrying after each
+       ``BackpressureError``'s ``retry_after_s``. Every ack must end ``"acked"``; every tenant's ``compute(i)`` must
+       be bit for bit the numpy count of exactly its acked rows; B1's lane-batched launches must equal the
+       micro-batches dispatched plus ``warm``'s 7 runs, with no eager B1 launch during the traffic; every
+       dispatch of a warmed key must replay its graph (the 848-row last requests are keys ``warm`` did not see:
+       their first micro-batch of a bucket captures, on the worker thread). A client thread calls ``compute(i)``
+       while the worker captures the first of those; both must succeed, the capture with no failure and the value
+       bit for bit a prefix of the tenant's requests.
+    2. A burst of 64 requests into a second server with ``queue_capacity=8``: rejected with ``retry_after_s > 0``,
+       and the rejected rows absent from the states.
+    3. A shed episode on a third server with a tight SLO (5 ms at 0.95) forced through ``set_step_delay``: one
+       canary admitted into the empty queue while one slow micro-batch holds the worker, the rest of the burst
+       shed, the loop re-admitting on its own, and the shed rows absent from the states.
+    4. ``simulate_preemption()`` then ``recover()`` on a fourth server journaling to a ``StreamSnapshotManager``:
+       the restored states bit for bit with the rows acked before the kill, then streamed on to the end.
+
+    Reports requests, micro-batches and mean live rows a micro-batch, host ms a dispatch and device ms a
+    micro-batch (a CUDA event pair around ``pool.update`` on the worker), ack latency p50/p99, the first request
+    after ``warm`` against the steady p99, rows/s over the traffic, shed and rejected counts, graphs and graph
+    bytes.
+    """
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    serving = importlib.import_module("torchmetrics_tpu_torch._serving")
+    res = importlib.import_module("torchmetrics_tpu_torch._resilience")
+    compiled = importlib.import_module("torchmetrics_tpu_torch._compile")
+    obs = importlib.import_module("torchmetrics_tpu_torch._observability")
+    import threading
+
+    # the control loop's signal is the telemetry's `ingest` latencies: a server runs with telemetry on
+    obs.set_telemetry_enabled(True)
+    obs.set_telemetry_sampling(1)
+    sizes = dict(SERVER_SIZES, **(sizes or {}))
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    c, n_ten, rows = sizes["classes"], sizes["tenants"], sizes["rows"]
+    per_tenant = sizes["labels_per_tenant"]
+    chunks = -(-per_tenant // rows)
+    last_rows = per_tenant - (chunks - 1) * rows
+    preds, target = stream_pool_labels(torch, dev, gen, n_ten, chunks, rows, c, per_tenant)
+    host_p, host_t = preds.cpu().numpy(), target.cpu().numpy()
+    del preds, target
+
+    def request(sl: int, r: int):
+        n = last_rows if r == chunks - 1 else rows
+        return host_p[sl, r, :n], host_t[sl, r, :n]
+
+    def template():
+        return tp.classification.MulticlassConfusionMatrix(num_classes=c, ignore_index=-1, device=dev)
+
+    lanes_k, b1 = kernel.confusion_matrix_lanes.launches, kernel.confusion_matrix_cuda.launches
+    deadline = time.monotonic() + 600.0
+
+    # ------------------------------------------------------------ 1. the main server, then the same traffic again
+    # under the JAX suite's generous objective (2 s), where queue wait no longer reads as burn
+    buckets = [b for b in (1, 2, 4, 8, 16, 32, 64) if b <= sizes["max_batch"]]
+    n_clients = sizes["clients"]
+
+    def serve(cfg, race_on: bool, digests_of: dict = None):
+        """The 12,544 requests through a fresh server under ``cfg``; its line, and each tenant's matrix digest."""
+        obs.REGISTRY.reset()
+        server = serving.MetricServer(template(), capacity=sizes["capacity"], queue_capacity=sizes["queue_capacity"],
+                                      controller=cfg)
+        check(server.device == dev, f"the server's device {server.device}")
+        sids = [server.attach_stream() for _ in range(n_ten)]
+        check(sids == list(range(n_ten)), "attach order")
+        lanes_k.reset()
+        b1_0 = int(b1)
+        stats_0 = compiled.stats()
+        t0 = time.perf_counter()
+        warm = server.warm(*request(0, 0))
+        warm_s = time.perf_counter() - t0
+        pool = server.pool
+        warm_keys = set(pool._step_fns)
+        warm_lanes, warm_eager = int(lanes_k), int(b1) - b1_0
+        check({k: v for k, v in warm.items() if k.endswith("stream_step")}
+              == {f"{b}:stream_step": "compiled" for b in buckets}, f"warm outcomes {warm}")
+        check(warm_lanes == (len(buckets) if on_card else 0), f"warm's B1 lane launches {warm_lanes}")
+        check(pool.stream_update_count(0) == 0 and pool.total_row_updates == 0, "warm's masked runs changed a stream")
+        if on_card:
+            check(len(warm_keys) == len(buckets)
+                  and all(isinstance(e, compiled.CapturedStep) for e in pool._step_fns.values()),
+                  "warm did not capture a graph a bucket")
+        stats_warm = compiled.stats()
+
+        # the worker's micro-batches: host ms a dispatch, a CUDA event pair around each pool.update, live rows
+        dispatch_ms, update_events, live_rows, update_host_ms = [], [], [], []
+        inner_dispatch, inner_update = server._dispatch, pool.update
+
+        def timed_dispatch(batch, sig):
+            h0 = time.perf_counter()
+            inner_dispatch(batch, sig)
+            dispatch_ms.append((time.perf_counter() - h0) * 1e3)
+
+        def timed_update(ids, *args, **kwargs):
+            live_rows.append(int((np.asarray(ids) >= 0).sum()))
+            h0 = time.perf_counter()
+            if on_card:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                inner_update(ids, *args, **kwargs)
+                end.record()
+                update_events.append((start, end))
+            else:
+                inner_update(ids, *args, **kwargs)
+            update_host_ms.append((time.perf_counter() - h0) * 1e3)
+
+        server._dispatch, pool.update = timed_dispatch, timed_update
+        # the first capture after warm (an 848-row bucket) waits for a client thread's compute(i) to be under way
+        race = {"started": threading.Event(), "calling": threading.Event(), "captures": []}
+        inner_capture = pool._capture
+
+        def capture(key, step, dyn):
+            c0 = time.perf_counter()
+            if race_on and not race["started"].is_set():
+                race["started"].set()
+                race["calling"].wait(30.0)
+                time.sleep(0.01)  # the reader is blocked on the server's lock, not yet at the card
+            entry = inner_capture(key, step, dyn)
+            race["captures"].append({"t0": c0, "t1": time.perf_counter(), "shapes": [list(s[0]) for s in key[0][2]]})
+            return entry
+
+        pool._capture = capture
+        acked_rows = {sl: [] for sl in sids}
+        acks, retries = [], []
+        server.start()
+        # warm boot: the first request alone, then warm_boot_requests more, one at a time (each tenant's request 0)
+        n_boot = min(sizes["warm_boot_requests"] + 1, n_ten)
+        boot_ms = []
+        t_traffic = time.perf_counter()
+        for sl in range(n_boot):
+            p, t = request(sl, 0)
+            ack = _submit_until_admitted(serving, server, sl, p, t, retries, deadline)
+            check(ack is not None and ack.result(timeout=60.0) == "acked", f"warm-boot request {sl}")
+            boot_ms.append(ack.latency_s * 1e3)
+            acks.append(ack)
+            acked_rows[sl].append((p, t))
+        first_ms, steady_p99 = boot_ms[0], _percentile(boot_ms[1:], 0.99)
+
+        reader = {}
+        race_tenant = n_ten - 1
+        clients_done = threading.Event()
+
+        def read_during_capture():
+            while not race["started"].wait(0.01):
+                if clients_done.is_set() or time.monotonic() > deadline:
+                    return
+            race["calling"].set()
+            r0 = time.perf_counter()
+            reader["value"] = server.compute(race_tenant).cpu().numpy()
+            reader["t0"], reader["t1"] = r0, time.perf_counter()
+
+        def client(owned):
+            for r in range(chunks):
+                pending = []
+                for sl in owned:
+                    if r == 0 and sl < n_boot:
+                        continue
+                    p, t = request(sl, r)
+                    ack = _submit_until_admitted(serving, server, sl, p, t, retries, deadline)
+                    if ack is None:
+                        return
+                    pending.append((sl, p, t, ack))
+                for sl, p, t, ack in pending:  # one request a tenant in flight
+                    ack.wait(max(0.0, deadline - time.monotonic()))
+                    acks.append(ack)
+                    if ack.acked:
+                        acked_rows[sl].append((p, t))
+
+        threads = [threading.Thread(target=client, args=(sids[k::n_clients],), name=f"client-{k}") for k in range(n_clients)]
+        reading = threading.Thread(target=read_during_capture if race_on else (lambda: None), name="reader")
+        for th in threads + [reading]:
+            th.start()
+        for th in threads:
+            th.join(max(1.0, deadline - time.monotonic()))
+        clients_done.set()
+        reading.join(60.0)
+        check(not any(th.is_alive() for th in threads + [reading]), "a client thread did not finish")
+        server.stop(drain=True)
+        if on_card:
+            torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t_traffic
+        stats_1 = compiled.stats()
+        lanes_launches, eager_traffic = int(lanes_k), int(b1) - b1_0 - warm_eager
+        n_requests = n_ten * chunks
+        states = [a.state for a in acks]
+        check(len(acks) == n_requests and states.count("acked") == n_requests,
+              f"{len(acks)} acks for {n_requests} requests, states {collections.Counter(states)}")
+        check(server.batches == len(live_rows) and server.rows_applied == n_requests,
+              f"{server.batches} micro-batches, {server.rows_applied} rows applied for {n_requests} requests")
+        check(lanes_launches == (server.batches + len(buckets) if on_card else 0),
+              f"B1 lane-batched launches {lanes_launches} for {server.batches} micro-batches and {len(buckets)} warm runs")
+        check(eager_traffic == 0, f"{eager_traffic} eager B1 launches during the traffic")
+        check(pool.capture_failures == {}, f"captures failed: {pool.capture_failures}")
+        traffic_keys = set(pool._step_fns) - warm_keys
+        captured = stats_1["captured"] - stats_warm["captured"]
+        replayed = stats_1["replayed"] - stats_warm["replayed"]
+        if on_card:
+            check(stats_warm["captured"] - stats_0["captured"] == len(buckets), "warm's captures")
+            check(captured == len(traffic_keys) == len(race["captures"]) and replayed == server.batches - captured,
+                  f"{replayed} replays and {captured} captures for {server.batches} micro-batches")
+            check(all(cap["shapes"][0][1] == last_rows for cap in race["captures"]),
+                  f"a warmed signature captured again: {race['captures']}")
+            check(all(isinstance(e, compiled.CapturedStep) for e in pool._step_fns.values()), "a step is not a graph")
+        if on_card and race_on:
+            # the race: the reader's compute began during the first capture and returned after it, with a good value
+            first = race["captures"][0]
+            check("value" in reader and first["t0"] <= reader["t0"] <= first["t1"] <= reader["t1"],
+                  f"the compute did not race the capture: {reader.get('t0')} vs {first}")
+            got = reader["value"]
+            k = int(got.sum()) // rows
+            want = _bincount_cm(np, [request(race_tenant, r)[0] for r in range(k)],
+                                [request(race_tenant, r)[1] for r in range(k)], c)
+            check(int(got.sum()) == k * rows and np.array_equal(got, want),
+                  "the compute that raced the capture is not a prefix of its tenant's requests")
+        if digests_of is None:
+            mismatched, digests = _served_equal(np, server, acked_rows, c)
+            check(not mismatched, f"tenants whose matrix != the numpy count of their acked rows: {mismatched[:10]}")
+        else:  # the same acked rows: each tenant's matrix must be the first run's, byte for byte
+            digests = {sl: _digest(np, server.compute(sl)) for sl in sids}
+            check(digests == digests_of, "a tenant's matrix differs from the first run's")
+        latencies = [a.latency_s * 1e3 for a in acks]
+        device_ms = [s.elapsed_time(e) for s, e in update_events] if on_card else []
+        graph_bytes = compiled.pool_bytes(pool._graph_pool) if on_card else 0
+        line = {
+            "objective": {"target_ms": cfg.target_ms, "objective": cfg.objective}, "requests": n_requests, "micro_batches": server.batches, "mean_live_rows": statistics.mean(live_rows),
+            "rows_per_s": n_requests * rows / traffic_s if traffic_s else float("nan"),
+            "labels_per_s": n_ten * per_tenant / traffic_s if traffic_s else float("nan"), "traffic_seconds": traffic_s,
+            "host_ms_per_dispatch": {"median": statistics.median(dispatch_ms), "p99": _percentile(dispatch_ms, 0.99)},
+            "host_ms_per_update": statistics.median(update_host_ms),
+            "device_ms_per_micro_batch": ({"median": statistics.median(device_ms), "p99": _percentile(device_ms, 0.99)}
+                                          if device_ms else None),
+            "ack_ms": {"p50": _percentile(latencies, 0.5), "p99": _percentile(latencies, 0.99)},
+            "warm_boot": {"first_ms": first_ms, "steady_p99_ms": steady_p99, "ratio": first_ms / steady_p99,
+                          "requests": n_boot},
+            "warm_seconds": warm_s, "warm_outcomes": sorted(set(warm.values())),
+            "shed": retries.count("shed"), "rejected": retries.count("full"),
+            "controller": {"final_target": server.controller.target,
+                           "actions": dict(collections.Counter(d.action for d in server.controller.decisions()))},
+            "lanes_launches": lanes_launches, "warm_lane_launches": warm_lanes, "warm_eager_b1": warm_eager,
+            "graphs": {"warm": len(warm_keys), "traffic": len(traffic_keys), "replayed": replayed, "captured": captured,
+                       "bytes": graph_bytes},
+            "race": {"captures": len(race["captures"]), "compute_waited_ms": (reader["t1"] - reader["t0"]) * 1e3
+                     if "t1" in reader else None},
+        }
+        server.close()
+        del server, pool, acked_rows
+        release_graphs(torch)
+        return line, digests
+
+    main, digests = serve(serving.ControllerConfig(max_batch=sizes["max_batch"]), race_on=True)
+    lanes_launches = main["lanes_launches"]
+    generous, _ = serve(serving.ControllerConfig(max_batch=sizes["max_batch"], target_ms=2000.0, objective=0.95),
+                        race_on=False, digests_of=digests)
+
+    # ------------------------------------------------------------ 2. backpressure: a burst into a queue of 8
+    obs.REGISTRY.reset()  # each server's control loop reads only its own latencies
+    lanes_2 = int(lanes_k)
+    burst_srv = serving.MetricServer(template(), capacity=sizes["burst_tenants"], queue_capacity=sizes["burst_queue"],
+                                     controller=serving.ControllerConfig(max_batch=sizes["max_batch"]))
+    b_ids = [burst_srv.attach_stream() for _ in range(sizes["burst_tenants"])]
+    burst_srv.warm(*request(0, 0))
+    kept = {sl: [] for sl in b_ids}
+    b_acks, hints = [], []
+    with burst_srv:
+        burst_srv.set_step_delay(0.05)
+        for k in range(sizes["burst"]):
+            sl = b_ids[k % len(b_ids)]
+            p, t = request(k % n_ten, (1 + k // n_ten) % chunks)
+            try:
+                b_acks.append(burst_srv.submit(sl, p, t))
+                kept[sl].append((p, t))
+            except serving.BackpressureError as err:
+                hints.append((err.kind, err.retry_after_s))
+        burst_srv.set_step_delay(0.0)
+        check(all(a.result(timeout=60.0) == "acked" for a in b_acks), "a burst request that was admitted failed")
+        check(hints and all(kind == "full" and hint > 0.0 for kind, hint in hints),
+              f"the burst was not pushed back with retry hints: {hints[:4]}")
+        bad, _ = _served_equal(np, burst_srv, kept, c)
+        check(not bad, f"burst tenants whose matrix holds rows that were rejected: {bad}")
+    burst = {"sent": sizes["burst"], "admitted": len(b_acks), "rejected": len(hints),
+             "retry_after_s": {"min": min(h for _, h in hints), "max": max(h for _, h in hints)},
+             "queue_capacity": sizes["burst_queue"]}
+    del burst_srv
+    release_graphs(torch)
+
+    # ------------------------------------------------------------ 3. a shed episode under a tight SLO
+    obs.REGISTRY.reset()
+    cfg = serving.ControllerConfig(min_batch=1, max_batch=8, interval_s=0.01, target_ms=5.0, objective=0.95)
+    shed_srv = serving.MetricServer(template(), capacity=sizes["shed_tenants"], queue_capacity=32, controller=cfg)
+    s_ids = [shed_srv.attach_stream() for _ in range(sizes["shed_tenants"])]
+    shed_srv.warm(*request(0, 0))
+    s_kept = {sl: [] for sl in s_ids}
+    shed_retries, sent = [], 0
+
+    def send(sl):
+        nonlocal sent
+        p, t = request(sent % n_ten, (2 + sent // n_ten) % chunks)
+        sent += 1
+        ack = _submit_until_admitted(serving, shed_srv, sl, p, t, shed_retries, deadline)
+        check(ack is not None and ack.result(timeout=60.0) == "acked", "a shed-phase request failed")
+        s_kept[sl].append((p, t))
+
+    with shed_srv:
+        shed_srv.set_step_delay(0.03)
+        while not shed_srv.queue.shedding and time.monotonic() < deadline:  # the ingress edge applies the decision
+            send(s_ids[sent % len(s_ids)])
+        check(shed_srv.queue.shedding, "the burn never tripped the shed law")
+        # one slow micro-batch holds the worker: the queue is empty, the next arrival is the canary, the rest shed
+        shed_srv.set_step_delay(1.0)
+        p, t = request(0, 3 % chunks)
+        slow = _submit_until_admitted(serving, shed_srv, s_ids[0], p, t, shed_retries, deadline)
+        while shed_srv.queue.depth and time.monotonic() < deadline:
+            time.sleep(0.001)
+        time.sleep(0.05)  # the worker is past assembling its micro-batch, inside the slow dispatch
+        admitted, shed_kinds = [], []
+        for k in range(sizes["shed_burst"]):
+            sl = s_ids[k % len(s_ids)]
+            bp, bt = request(k % n_ten, 4 % chunks)
+            try:
+                admitted.append((sl, bp, bt, shed_srv.submit(sl, bp, bt)))
+            except serving.BackpressureError as err:
+                shed_kinds.append(err.kind)
+        shed_srv.set_step_delay(0.0)
+        check(len(admitted) == 1 and shed_kinds == ["shed"] * (sizes["shed_burst"] - 1),
+              f"a shed episode admitted {len(admitted)} of {sizes['shed_burst']} ({shed_kinds})")
+        check(slow.result(timeout=60.0) == "acked", "the slow request")
+        s_kept[s_ids[0]].append((p, t))
+        for sl, bp, bt, ack in admitted:
+            check(ack.result(timeout=60.0) == "acked", "the canary")
+            s_kept[sl].append((bp, bt))
+        while (shed_srv.controller.shedding or shed_srv.controller.burn_rate() >= 1.0) and time.monotonic() < deadline:
+            send(s_ids[sent % len(s_ids)])
+        check(not shed_srv.controller.shedding, "the loop never re-admitted")
+        bad, _ = _served_equal(np, shed_srv, s_kept, c)
+        check(not bad, f"shed-phase tenants whose matrix holds a shed row: {bad}")
+        shed = {"episodes": shed_srv.queue.shed_episodes, "canary_admitted": len(admitted),
+                "burst_shed": len(shed_kinds), "requests_acked": sum(len(v) for v in s_kept.values()),
+                "retries": dict(collections.Counter(shed_retries)),
+                "actions": dict(collections.Counter(d.action for d in shed_srv.controller.decisions()))}
+    del shed_srv
+    release_graphs(torch)
+
+    # ------------------------------------------------------------ 4. preemption and recovery from the journal
+    obs.REGISTRY.reset()
+    with tempfile.TemporaryDirectory() as folder:
+        rec_srv = serving.MetricServer(
+            template(), capacity=sizes["recovery_tenants"], queue_capacity=64,
+            controller=serving.ControllerConfig(max_batch=sizes["recovery_tenants"]), snapshot_dir=folder,
+            snapshot_policy=res.SnapshotPolicy(every_n_updates=sizes["snapshot_every"], journal_max_entries=1024,
+                                               async_write=False))
+        r_ids = [rec_srv.attach_stream() for _ in range(sizes["recovery_tenants"])]
+        rec_srv.warm(*request(0, 0))
+        r_kept = {sl: [] for sl in r_ids}
+        r_lat, after_lat = [], []
+        rec_srv.start()
+        half = sizes["recovery_rounds"] // 2
+        for r in range(sizes["recovery_rounds"]):
+            if r == half:
+                rec_srv.simulate_preemption()
+                report, recovery_ms = rec_srv.recover()
+                check(not report.truncated_journal, f"restore: {report}")
+                bad, _ = _served_equal(np, rec_srv, r_kept, c)
+                check(not bad, f"restored tenants != their rows acked before the kill: {bad}")
+            round_acks = []
+            for sl in r_ids:
+                p, t = request(sl, (5 + r) % chunks)
+                round_acks.append((sl, p, t, _submit_until_admitted(serving, rec_srv, sl, p, t, [], deadline)))
+            for sl, p, t, ack in round_acks:
+                check(ack is not None and ack.result(timeout=60.0) == "acked", "a recovery-phase request")
+                r_kept[sl].append((p, t))
+                (after_lat if r == half else r_lat).append(ack.latency_s * 1e3)
+        rec_srv.stop(drain=True)
+        bad, _ = _served_equal(np, rec_srv, r_kept, c)
+        check(not bad, f"tenants != their acked rows after the recovery: {bad}")
+        recovery = {"generation": report.generation, "replayed": report.replayed, "recovery_ms": recovery_ms,
+                    "first_round_after_ms": {"max": max(after_lat), "median": statistics.median(after_lat)},
+                    "steady_ms": {"median": statistics.median(r_lat), "p99": _percentile(r_lat, 0.99)},
+                    "tenants": len(r_ids), "rounds": sizes["recovery_rounds"], "killed_after_round": half}
+        rec_srv.close()
+        del rec_srv
+    release_graphs(torch)
+    other_lanes = int(lanes_k) - lanes_2
+
+    # B1's lane-batched kernel against its plain version at the server's bucket shapes
+    lane_err, lane_shapes = 0.0, []
+    for bucket, n in ((1, rows), (sizes["max_batch"], rows), (8, last_rows), (sizes["max_batch"], last_rows)):
+        lane_rows = [request(k % n_ten, 0 if n == rows else chunks - 1) for k in range(bucket)]
+        p = torch.as_tensor(np.stack([lp for lp, _ in lane_rows]), device=dev)
+        t = torch.as_tensor(np.stack([lt for _, lt in lane_rows]), device=dev)
+        valid = t != -1
+        got_lanes = kernel.confusion_matrix_lanes(p, t, c, valid)
+        want_lanes = kernel.confusion_matrix_lanes_plain(p, t, c, valid)
+        check(torch.equal(got_lanes, want_lanes), f"the lane-batched kernel != its plain version at ({bucket}, {n})")
+        lane_err = max(lane_err, float((got_lanes.double() - want_lanes.double()).abs().max()))
+        lane_shapes.append([bucket, n, c])
+    seconds = time.perf_counter() - t_phase
+    out = {
+        "phase": "metric_server", "classes": c, "tenants": n_ten, "capacity": sizes["capacity"],
+        "queue_capacity": sizes["queue_capacity"], "max_batch": sizes["max_batch"], "clients": n_clients,
+        "request_rows": [rows, last_rows], "main": main, "generous_objective": generous, "burst": burst, "shed": shed, "recovery": recovery,
+        "lanes_launches": lanes_launches, "other_server_lane_launches": other_lanes,
+        "lane_check": {"shapes": lane_shapes, "max_abs_err": lane_err},
+        "tolerance": {"counts": "exact"}, "seconds": seconds, "card": smi,
+    }
+    obs.set_telemetry_enabled(False)
+    obs.set_telemetry_sampling(obs.state.DEFAULT_SAMPLE_EVERY)
+    obs.REGISTRY.reset()
+    obs.BUS.clear()
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
-                                            "resilience", "stream_pool", "trunk_pools", "spmd_collection"),
+                                            "resilience", "stream_pool", "trunk_pools", "spmd_collection",
+                                            "metric_server"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
@@ -8287,7 +8775,7 @@ def main() -> int:
                              "stream_pool: build, run only the stream_pool phase, stop; "
                              "trunk_pools: build, run only the trunk_pools phase, stop; "
                              "spmd_collection: build, run only the spmd_collection phase on the imagenet_val data, "
-                             "stop")
+                             "stop; metric_server: build, run only the metric_server phase, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -8396,6 +8884,10 @@ def main() -> int:
         logits, target = imagenet_val_data(torch, dev, gen)
         phase_spmd_collection(torch, np, kernel, lh, dev, torch.Generator(device=dev).manual_seed(args.seed + 54),
                               logits, target, smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "metric_server":
+        phase_metric_server(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 55), smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -8718,6 +9210,9 @@ def main() -> int:
     # ------------- BASELINE config 2's collection through the SPMD engine, B1 and B3 folded over 8 rows, phase 54
     spmd_run = phase_spmd_collection(torch, np, kernel, lh, dev, torch.Generator(device=dev).manual_seed(args.seed + 54),
                                      logits, target, smi)
+    release_graphs(torch)
+    # ------------- the serving runtime over phase 52's pool, B1 once across each micro-batch's lanes, phase 55
+    served = phase_metric_server(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 55), smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -8768,8 +9263,9 @@ def main() -> int:
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
-        "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"],
-        "max_abs_err": max(pooled["max_abs_err"], spmd_run["timing"]["b1_lanes"]["max_abs_err"]),
+        "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"] + served["lanes_launches"],
+        "max_abs_err": max(pooled["max_abs_err"], spmd_run["timing"]["b1_lanes"]["max_abs_err"],
+                           served["lane_check"]["max_abs_err"]),
         "ms": pooled["timing"]["ms"],
         "plain_ms": pooled["timing"]["plain_ms"],
         "bound_ms": pooled["timing"]["bound_ms"],
@@ -8777,7 +9273,8 @@ def main() -> int:
         "library_ms": pooled["timing"]["library_ms"],
         "at": f"one stream_pool micro-batch: ({pooled['lanes']}, {pooled['rows']}) int64 labels + bool mask, "
               f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap; launches: "
-              "phase 52's micro-batches and phase 54's SPMD steps",
+              "phase 52's micro-batches, phase 54's SPMD steps and phase 55's server micro-batches (with its warm runs)",
+        "server_shapes": served["lane_check"]["shapes"],
         "spmd_rows": {k: spmd_run["timing"]["b1_lanes"][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }] + [{
         "name": name,

@@ -239,8 +239,8 @@ def test_binned_state_is_int32_and_moves_with_the_metric():
     metric.update(*[torch.from_numpy(a) for a in multiclass_data(11)])
     assert metric.confmat.dtype == torch.int32 and metric.confmat.shape == (11, C, 2, 2)
     assert int(metric.confmat[0].sum()) == N * C
-    moved = metric.to(torch.float64)  # Module._apply: the thresholds go with the states
-    assert moved.thresholds.dtype == torch.float64
+    moved = metric.to("cpu", torch.float64)  # Module._apply: the thresholds move with the states, uncast
+    assert moved is metric and moved.thresholds.dtype == torch.float32 and moved.thresholds.device.type == "cpu"
     task = TC.AUROC(task="multiclass", num_classes=C, device="cpu")
     assert isinstance(task, TC.MulticlassAUROC)
     assert isinstance(TC.ROC(task="binary", device="cpu"), TC.BinaryROC)

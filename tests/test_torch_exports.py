@@ -326,3 +326,74 @@ def test_stream_pool_families_are_declared_and_emitted(family):
     assert EXPORT_SCHEMA[family] == {"kind": jax_schema[family]["kind"], "labels": tuple(jax_schema[family]["labels"])}
     with open(os.path.join(ROOT, "torchmetrics_tpu_torch", "_streams", "pool.py")) as fh:
         assert f'"{family}' in fh.read()
+
+
+@pytest.mark.parametrize(
+    ("relpath", "count"),
+    [("_serving/__init__.py", 14), ("_serving/requests.py", 4), ("_serving/queue.py", 1),
+     ("_serving/controller.py", 4), ("_serving/runtime.py", 1), ("_serving/chaos.py", 5)],
+)
+def test_serving_all_equals_the_jax_package(relpath, count):
+    """``_serving``'s names: the JAX package's 14, and each module's own."""
+    import importlib
+
+    module = importlib.import_module("torchmetrics_tpu_torch." + relpath[:-3].replace("/__init__", "").replace("/", "."))
+    want = _jax_all(relpath)
+    assert len(want) == count
+    assert sorted(module.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(module, name)]
+
+
+_SERVING_FAMILIES = ["serving_requests", "serving_batches", "serving_batch_rows", "serving_controller_decisions",
+                     "serving_shed_episodes", "serving_recoveries", "serving_batch_target", "serving_ingest_burn",
+                     "serving_queue_depth"]
+
+
+@pytest.mark.parametrize("family", _SERVING_FAMILIES)
+def test_serving_families_are_declared_and_emitted(family):
+    """The nine families the serving runtime emits are declared as the JAX package declares them, and a module of
+    ``_serving`` emits each."""
+    from torchmetrics_tpu_torch._observability.export import EXPORT_SCHEMA
+
+    with open(os.path.join(ROOT, "torchmetrics_tpu", "_observability", "export.py")) as fh:
+        tree = ast.parse(fh.read())
+    jax_schema = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == "EXPORT_SCHEMA"
+    )
+    assert EXPORT_SCHEMA[family] == {"kind": jax_schema[family]["kind"], "labels": tuple(jax_schema[family]["labels"])}
+    import glob
+
+    sources = glob.glob(os.path.join(ROOT, "torchmetrics_tpu_torch", "_serving", "*.py"))
+    assert [path for path in sources if f'"{family}' in open(path).read()], family
+
+
+def test_a_serving_run_emits_every_serving_family(tmp_path):
+    """One short run that sheds (every ack is over a 1 us objective) and recovers exposes all nine families."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch._observability import BUS, REGISTRY, set_telemetry_enabled
+    from torchmetrics_tpu_torch._resilience import SnapshotPolicy
+    from torchmetrics_tpu_torch._serving import ControllerConfig, MetricServer
+    from torchmetrics_tpu_torch.regression import MeanSquaredError
+
+    set_telemetry_enabled(True)
+    try:
+        srv = MetricServer(MeanSquaredError(device="cpu"), capacity=2, snapshot_dir=str(tmp_path),
+                           snapshot_policy=SnapshotPolicy(async_write=False),
+                           controller=ControllerConfig(interval_s=0.0, target_ms=0.001, objective=0.95))
+        sid = srv.attach_stream()
+        with srv:
+            for _ in range(3):
+                ack = srv.submit(sid, np.ones(4, dtype=np.float32), np.zeros(4, dtype=np.float32))
+                assert ack.result(timeout=30.0) == "acked"
+            srv.compute(sid)
+            srv.simulate_preemption()
+            srv.recover()
+        text = REGISTRY.render_prometheus()
+        assert srv.queue.shed_episodes >= 1 and srv.recoveries == 1
+        assert [f for f in _SERVING_FAMILIES if f"tmtpu_{f}" not in text] == []
+    finally:
+        set_telemetry_enabled(False)
+        REGISTRY.reset()
+        BUS.clear()

@@ -105,6 +105,37 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_serving_and_plotting_run_with_jax_and_the_jax_package_blocked():
+    """``_serving`` and ``plot`` stand alone; importing the package imports no matplotlib."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['torchmetrics_tpu'] = None\n"
+        "import numpy as np, torch\n"
+        "import torchmetrics_tpu_torch as tt\n"
+        "from torchmetrics_tpu_torch._serving import ControllerConfig, MetricServer, run_serving_chaos\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'matplotlib']\n"
+        "srv = MetricServer(tt.MulticlassConfusionMatrix(num_classes=5, ignore_index=-1, device='cpu'), capacity=4,\n"
+        "                   controller=ControllerConfig(max_batch=4))\n"
+        "sids = [srv.attach_stream() for _ in range(3)]\n"
+        "assert srv.warm(np.zeros(8, np.int64), np.zeros(8, np.int64))['4:stream_step'] == 'compiled'\n"
+        "with srv:\n"
+        "    acks = [srv.submit(s, torch.arange(8) % 5, np.full(8, s, np.int64)) for s in sids]\n"
+        "    assert [a.result(30) for a in acks] == ['acked'] * 3\n"
+        "    assert all(int(srv.compute(s)[s].sum()) == 8 for s in sids)\n"
+        "assert run_serving_chaos(0, device='cpu').ok\n"
+        "import matplotlib\n"
+        "matplotlib.use('Agg')\n"
+        "fig, ax = tt.BinaryROC(thresholds=5, device='cpu').plot(curve=(torch.linspace(0, 1, 5), torch.linspace(0, 1, 5), None))\n"
+        "assert len(ax.lines) == 1\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_compile_path_runs_with_jax_and_the_jax_package_blocked():
     """``_compile.py`` and the eligibility copy stand alone: the JAX package's ``eligibility.json`` is never opened."""
     code = (

@@ -118,8 +118,8 @@ def test_to_device_and_module_apply():
     assert rb.to_device("cpu") is rb and rb.device == torch.device("cpu")
     metric = CatMetric(device="cpu", cat_state_capacity=3)
     metric.update(torch.arange(2.0))
-    moved = metric.to(torch.float64)
-    assert moved.value.data.dtype == torch.float64 and moved._defaults["value"].device == torch.device("cpu")
+    moved = metric.to("cpu", torch.float64)  # a device move: the dtype argument casts nothing, as in the JAX package
+    assert moved.value.data.dtype == torch.float32 and moved._defaults["value"].device == torch.device("cpu")
 
 
 class _TwoCatStates(Metric):

@@ -253,7 +253,7 @@ def port_runs(weights):
 
                     mp.setattr(module, attr, counted)
                 S = _side(False)
-                ce.conv_bias_act.layout_copies = 0
+                mp.setattr(ce.conv_bias_act, "layout_copies", 0)  # restored with the patches: the counter is process-wide
                 pool, fed = _run_pool(name, S, weights)
                 copies = ce.conv_bias_act.layout_copies
                 pooled_calls = dict(calls)

@@ -78,7 +78,7 @@ def test_conv_bias_act_folds_the_lanes_into_one_call(monkeypatch, kind, lane_dim
         x = torch.stack(xs, dim=1)
     mm = _Calls(monkeypatch, ce, "matmul_bias_relu")
     br = _Calls(monkeypatch, ce, "bias_relu_")
-    ce.conv_bias_act.layout_copies = 0
+    monkeypatch.setattr(ce.conv_bias_act, "layout_copies", 0)  # restored after the test: the counter is process-wide
     got = _vmap(lambda t: ce.conv_bias_act(t, w, b, stride, padding), lane_dim, x)
     copies = ce.conv_bias_act.layout_copies
     calls = (len(mm.rows), len(br.rows))

@@ -4,7 +4,8 @@ Parity target: reference ``torchmetrics/classification/precision_recall_curve.py
 With ``thresholds=None`` the states are ``preds``/``target`` cat lists (ring
 buffers under ``cat_state_capacity``) and ``compute`` gives the exact curve;
 otherwise one ``(T, 2, 2)`` / ``(T, C, 2, 2)`` int32 ``confmat`` state, summed
-in place and reduced by ``"sum"`` across processes. Plotting is not ported.
+in place and reduced by ``"sum"`` across processes. ``plot`` draws the
+curve on the host (``utilities/plot.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.functional.classification.auroc import _reduce_auroc
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     _adjust_threshold_arg,
     _binary_precision_recall_curve_arg_validation,
@@ -35,8 +37,31 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.checks import _no_value_flags, _target_set_value_flags
+from torchmetrics_tpu_torch.utilities.compute import _auc_compute_without_check
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
+from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+
+def _curve_score(curve_computed: Any, multi: bool) -> Any:
+    """The area under ``(x, y)``: one a class or label where ``multi``, else one."""
+    if multi:
+        return _reduce_auroc(curve_computed[0], curve_computed[1], average=None)
+    return _auc_compute_without_check(curve_computed[0], curve_computed[1], 1.0)
+
+
+def _plot_prc(metric: Any, curve: Any, score: Any, ax: Any, multi: bool) -> Any:
+    """Shared PRC ``plot`` body (JAX ``classification/precision_recall_curve.py:44``)."""
+    curve_computed = curve or metric.compute()
+    # x-axis is recall, y-axis is precision
+    curve_computed = (curve_computed[1], curve_computed[0], curve_computed[2])
+    if score is True and not curve:
+        score = _curve_score(curve_computed, multi)
+    elif score is True:
+        score = None
+    return plot_curve(
+        curve_computed, score=score, ax=ax, label_names=("Recall", "Precision"), name=type(metric).__name__
+    )
 
 
 class BinaryPrecisionRecallCurve(Metric):
@@ -100,6 +125,10 @@ class BinaryPrecisionRecallCurve(Metric):
     def compute(self):
         return _binary_precision_recall_curve_compute(self._final_state(), self.thresholds)
 
+    def plot(self, curve: Optional[Any] = None, score: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot the precision-recall curve, optionally annotated with the area under it."""
+        return _plot_prc(self, curve, score, ax, multi=False)
+
 
 class MulticlassPrecisionRecallCurve(Metric):
     """Multiclass (one-vs-rest) precision-recall curves."""
@@ -161,6 +190,10 @@ class MulticlassPrecisionRecallCurve(Metric):
         return _multiclass_precision_recall_curve_compute(
             self._final_state(), self.num_classes, self.thresholds, self.average
         )
+
+    def plot(self, curve: Optional[Any] = None, score: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot the precision-recall curves, optionally annotated with the area under each."""
+        return _plot_prc(self, curve, score, ax, multi=True)
 
 
 class MultilabelPrecisionRecallCurve(Metric):
@@ -224,6 +257,10 @@ class MultilabelPrecisionRecallCurve(Metric):
         return _multilabel_precision_recall_curve_compute(
             self._final_state(), self.num_labels, self.thresholds, self.ignore_index
         )
+
+    def plot(self, curve: Optional[Any] = None, score: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot the precision-recall curves, optionally annotated with the area under each."""
+        return _plot_prc(self, curve, score, ax, multi=True)
 
 
 class PrecisionRecallCurve(_ClassificationTaskWrapper):

@@ -1,7 +1,7 @@
 """Modular ROC metrics (port of ``torchmetrics_tpu/classification/roc.py``).
 
 Parity target: reference ``torchmetrics/classification/roc.py``. They keep the
-precision-recall curve's states; plotting is not ported.
+precision-recall curve's states; ``plot`` draws on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
     MultilabelPrecisionRecallCurve,
+    _curve_score,
 )
 from torchmetrics_tpu_torch.functional.classification.roc import (
     _binary_roc_compute,
@@ -22,6 +23,23 @@ from torchmetrics_tpu_torch.functional.classification.roc import (
     _multilabel_roc_compute,
 )
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
+from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+
+def _plot_roc(metric: Any, curve: Any, score: Any, ax: Any, multi: bool) -> Any:
+    """Shared ROC ``plot`` body (JAX ``classification/roc.py:28``)."""
+    curve_computed = curve or metric.compute()
+    if score is True and not curve:
+        score = _curve_score(curve_computed, multi)
+    elif score is True:
+        score = None
+    return plot_curve(
+        curve_computed,
+        score=score,
+        ax=ax,
+        label_names=("False positive rate", "True positive rate"),
+        name=type(metric).__name__,
+    )
 
 
 class BinaryROC(BinaryPrecisionRecallCurve):
@@ -40,6 +58,10 @@ class BinaryROC(BinaryPrecisionRecallCurve):
     def compute(self):
         return _binary_roc_compute(self._final_state(), self.thresholds)
 
+    def plot(self, curve: Optional[Any] = None, score: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot the ROC curve, optionally annotated with the area under it."""
+        return _plot_roc(self, curve, score, ax, multi=False)
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """One-vs-rest ROC curves for multiclass tasks."""
@@ -47,12 +69,20 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
     def compute(self):
         return _multiclass_roc_compute(self._final_state(), self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Optional[Any] = None, score: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot per-class ROC curves, optionally annotated with the area under each."""
+        return _plot_roc(self, curve, score, ax, multi=True)
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """Per-label ROC curves."""
 
     def compute(self):
         return _multilabel_roc_compute(self._final_state(), self.num_labels, self.thresholds, self.ignore_index)
+
+    def plot(self, curve: Optional[Any] = None, score: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot per-label ROC curves, optionally annotated with the area under each."""
+        return _plot_roc(self, curve, score, ax, multi=True)
 
 
 class ROC(_ClassificationTaskWrapper):

@@ -242,6 +242,37 @@ class MetricCollection(nn.Module):
             m.set_dtype(dst_type)
         return self
 
+    def plot(self, val: Optional[Any] = None, ax: Optional[Any] = None, together: bool = False) -> Any:
+        """Plot every member, or all of them on one axis with ``together`` (JAX ``collections.py:559``)."""
+        val = val if val is not None else self.compute()
+        if together:
+            from torchmetrics_tpu_torch.utilities.plot import plot_single_or_multi_val
+
+            return plot_single_or_multi_val(val, ax=ax)
+        return [m.plot(val[self._set_name(name)], ax=ax) for name, m in self._modules.items()]
+
+    def to_device(self, device: Union[str, torch.device]) -> "MetricCollection":
+        """``Metric.to_device`` on every member (JAX ``collections.py:498``)."""
+        for m in self._modules.values():
+            m.to_device(device)
+        return self
+
+    # nn.Module's casts are no-ops, as on each member: `set_dtype` is the only cast
+    def type(self, dst_type: Any) -> "MetricCollection":  # noqa: A003
+        return self
+
+    def float(self) -> "MetricCollection":  # noqa: A003
+        return self
+
+    def double(self) -> "MetricCollection":
+        return self
+
+    def half(self) -> "MetricCollection":
+        return self
+
+    def bfloat16(self) -> "MetricCollection":
+        return self
+
     def _merge_compute_groups(self) -> None:
         """Pairwise-merge metrics whose states are identical (reference ``collections.py:228-262``)."""
         if isinstance(self._enable_compute_groups, list):

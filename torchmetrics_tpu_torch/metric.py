@@ -104,6 +104,38 @@ def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+_MEMORY_FORMATS = {4: torch.channels_last, 5: torch.channels_last_3d}
+
+
+def _device_move(fn: Callable[[Tensor], Tensor], device: torch.device) -> Tuple[Callable[[Tensor], Tensor], torch.device]:
+    """The device-only part of a ``Module._apply`` function, and its destination device.
+
+    ``fn`` runs once on small probes from ``device``: its output's device is
+    the destination, and the layout it gives a contiguous and a channels-last
+    probe of 4 or 5 dimensions is the layout (kept, channels-last or
+    contiguous) the move gives every tensor of that rank. The move applies
+    those and no dtype, so no value goes through a cast.
+    """
+    dst = fn(torch.zeros(1, device=device)).device
+    formats = {}
+    for ndim, fmt in _MEMORY_FORMATS.items():
+        probe = torch.zeros((1, 2, 3, 4, 5)[:ndim], device=device)
+        try:
+            from_plain, from_fmt = fn(probe), fn(probe.contiguous(memory_format=fmt))
+        except RuntimeError:  # a layout of the other rank (channels_last asked of a 5-D tensor)
+            continue
+        if from_plain.is_contiguous(memory_format=fmt) and not from_plain.is_contiguous():
+            formats[ndim] = fmt
+        elif from_fmt.is_contiguous() and not from_fmt.is_contiguous(memory_format=fmt):
+            formats[ndim] = torch.contiguous_format
+
+    def move(t: Tensor) -> Tensor:
+        fmt = formats.get(t.dim())
+        return t.to(dst) if fmt is None else t.to(dst, memory_format=fmt)
+
+    return move, dst
+
+
 def _squeeze_if_scalar(data: Any) -> Any:
     """Squeeze 1-element tensors to 0-d (reference ``utilities/data.py`` helper)."""
     if isinstance(data, Tensor) and data.numel() == 1 and data.ndim > 0:
@@ -2453,12 +2485,18 @@ class Metric(nn.Module, ABC):
             raise RuntimeError(f"Can't change const `{name}`.")
         super().__setattr__(name, value)
 
-    # ---------------------------------------------------------------- device
+    # ---------------------------------------------------------- device/dtype
     def _apply(self, fn: Callable, recurse: bool = True) -> "Metric":
-        """Carry ``.to()``/``.cuda()``/``.cpu()`` over to the states, their defaults and the cached values."""
-        this = super()._apply(fn, recurse)
-        this._device = fn(torch.zeros(1, device=this._device)).device
-        # the graphs read and write buffers on the old device or in the old type
+        """Carry ``.to()``/``.cuda()``/``.cpu()`` over to the states, their defaults and the cached values.
+
+        Only the device (and a 4-D/5-D memory format) of ``fn`` is applied:
+        a floating dtype never changes here, neither a state's nor a child
+        network's, as in the JAX package, where ``set_dtype`` is the only cast.
+        """
+        move, device = _device_move(fn, self._device)
+        this = super()._apply(move, recurse)
+        this._device = device
+        # the graphs read and write buffers on the old device
         for name in self._COMPILED_CACHES + ("_auto_cnt", "_graph_pool"):
             this.__dict__.pop(name, None)
         if this._viol_flags is not None:
@@ -2466,18 +2504,48 @@ class Metric(nn.Module, ABC):
         for attr, default in self._defaults.items():
             cur = getattr(this, attr)
             if isinstance(cur, RingBuffer):
-                cur._apply(fn, this._device)
+                cur._apply(move, this._device)
             else:
-                setattr(this, attr, [fn(v) for v in cur] if isinstance(cur, list) else fn(cur))
+                setattr(this, attr, [move(v) for v in cur] if isinstance(cur, list) else move(cur))
             if isinstance(default, Tensor):
-                this._defaults[attr] = fn(default)
+                this._defaults[attr] = move(default)
             elif isinstance(default, RingBuffer):
                 default.device = this._device
         if isinstance(this._computed, Tensor):
-            this._computed = fn(this._computed)
+            this._computed = move(this._computed)
         if isinstance(this._forward_cache, Tensor):
-            this._forward_cache = fn(this._forward_cache)
+            this._forward_cache = move(this._forward_cache)
         return this
+
+    def to_device(self, device: Union[str, torch.device]) -> "Metric":
+        """Move every state, ring buffer and list state to ``device`` (JAX ``metric.py:2501``)."""
+        return self.to(torch.device(device))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Default floating dtype (JAX ``metric.py:2549``): the ``set_dtype`` policy, else the first floating state's, else float32."""
+        if self._dtype_policy is not None:
+            return self._dtype_policy
+        for attr in self._defaults:
+            current = getattr(self, attr, None)
+            if isinstance(current, Tensor) and current.is_floating_point():
+                return current.dtype
+        return torch.float32
+
+    def type(self, dst_type: Any) -> "Metric":  # noqa: A003 - a no-op, as in the JAX package (metric.py:2560)
+        return self
+
+    def float(self) -> "Metric":  # noqa: A003 - a no-op, as in the JAX package
+        return self
+
+    def double(self) -> "Metric":
+        return self
+
+    def half(self) -> "Metric":
+        return self
+
+    def bfloat16(self) -> "Metric":
+        return self
 
     # ---------------------------------------------------------------- dunder
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
@@ -2606,6 +2674,26 @@ class Metric(nn.Module, ABC):
 
     def __getitem__(self, idx: int) -> "CompositionalMetric":
         return CompositionalMetric(lambda x: x[idx], self, None)
+
+    # ------------------------------------------------------------------ plot
+    def _plot(self, val: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot ``val`` (default: ``compute()``) on the host (JAX ``metric.py:2700``)."""
+        from torchmetrics_tpu_torch.utilities.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=self.__class__.__name__,
+        )
+
+    def plot(self, *args: Any, **kwargs: Any) -> Any:
+        """Plot the (current or provided) metric value."""
+        return self._plot(*args, **kwargs)
 
 
 def _neg(x: Tensor) -> Tensor:

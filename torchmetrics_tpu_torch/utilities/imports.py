@@ -2,7 +2,8 @@
 
 A flag is true when its package can be imported; it is probed with
 ``importlib.util.find_spec`` the first time it is read, never at import.
-Only the flags the port reads are kept: the host backends of PESQ and STOI.
+Only the flags the port reads are kept: the host backends of PESQ and STOI,
+and matplotlib for ``plot``.
 """
 
 from __future__ import annotations
@@ -33,5 +34,6 @@ class RequirementCache:
         return f"RequirementCache({self.module}={bool(self)})"
 
 
+_MATPLOTLIB_AVAILABLE = RequirementCache("matplotlib")
 _PESQ_AVAILABLE = RequirementCache("pesq")
 _PYSTOI_AVAILABLE = RequirementCache("pystoi")

@@ -9,7 +9,7 @@ which are not ported yet.
 from __future__ import annotations
 
 from copy import deepcopy
-from typing import Any, List, Tuple, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -98,6 +98,15 @@ class MetricTracker(WrapperMetric):
         if isinstance(self._base_metric, MetricCollection):
             return {k: torch.stack([r[k] for r in res], dim=0) for k in res[0]}
         return torch.stack(res, dim=0)
+
+    def plot(self, val: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot all tracked steps as a series (JAX ``wrappers/tracker.py:138``)."""
+        from torchmetrics_tpu_torch.utilities.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute_all()
+        if hasattr(val, "ndim") and val.ndim == 1:
+            val = list(val)  # stacked per-step scalars -> step series
+        return plot_single_or_multi_val(val, ax=ax, name=type(self).__name__)
 
     def best_metric(self, return_step: bool = False) -> Any:
         """Best value over the tracked steps (and with ``return_step`` its index); ``None`` where not defined."""
