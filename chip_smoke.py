@@ -417,6 +417,22 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     request after ``warm`` against the steady p99, rows/s, graphs and their
     bytes (``--phase metric_server`` runs the build and this phase alone);
 
+56. ``fleet_rollup``: fleet aggregation (``_fleet``): a ``FleetTree`` of
+    ``MulticlassConfusionMatrix(num_classes=1000)`` on the card,
+    ``branching=(8, 8)`` (1 global node, 8 regions, 64 edges) over
+    ``InProcessKV``, 4 epochs of 2 updates of 1,024 labels an edge, then
+    ``run_epoch`` and ``join_pending``; the root and every region bit for bit
+    against numpy, every rollup full, 256 sources at the root, every node's
+    states on the card and every contribution host values only, B1 exactly
+    512 (one an edge update, none in a rollup) with one capture an edge, no
+    publisher thread left; a clone of a captured template; ``run_fleet_chaos``
+    at ``branching=(4, 4)`` on the card; an exhausted asynchronous publish
+    while another edge captures; a ``(2, 2)`` tree over a ``TCPStore`` bit
+    for bit with ``InProcessKV``; host ms to encode and to decode and fold a
+    contribution, wire bytes an epoch, ms an epoch a level, the root's
+    staleness and the peak card memory (``--phase fleet_rollup`` runs the
+    build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1, B1 across lanes, B2a-B5 and S1, and B2a-B5 and S1
 across lanes; the lane rows count phase 54's steps and phase 55's
@@ -8759,13 +8775,377 @@ def phase_metric_server(torch, np, kernel, dev, gen, smi: str, sizes=None) -> di
     return out
 
 
+# ------------------------------------------------------------------ fleet_rollup
+FLEET_SIZES = {"classes": 1000, "branching": (8, 8), "epochs": 4, "updates": 2, "rows": 1024,
+               "chaos_branching": (4, 4), "race_rows": 512, "store_branching": (2, 2), "store_epochs": 2,
+               "timing_reps": 5}
+
+
+def _host_only_states(states) -> bool:
+    """True when a decoded contribution's states hold no tensor, at any depth."""
+    tensor = importlib.import_module("torch").Tensor
+    if isinstance(states, tensor):
+        return False
+    if isinstance(states, dict):
+        return all(_host_only_states(v) for v in states.values())
+    if isinstance(states, (list, tuple)):
+        return all(_host_only_states(v) for v in states)
+    return True
+
+
+def _fleet_counts(np, labels, c: int):
+    """The numpy confusion matrix of ``[(preds, target), ...]`` host arrays."""
+    flat = np.concatenate([t.astype(np.int64) * c + p for p, t in labels])
+    return np.bincount(flat, minlength=c * c).reshape(c, c)
+
+
+def phase_fleet_rollup(torch, np, kernel, dev, gen, smi: str, sizes=None) -> dict:
+    """Fleet aggregation (``_fleet``) with its edge metrics on the card.
+
+    1. ``FleetTree.build(MulticlassConfusionMatrix(num_classes=1000), branching=(8, 8))`` on the card over
+       ``InProcessKV`` with the default 2.0 s deadline: 1 global node, 8 regions, 64 edges. 4 epochs; each
+       edge takes 2 updates of 1,024 labels drawn on the card, then ``run_epoch(e)``; ``join_pending`` after
+       the last. The root's matrix must be bit for bit a numpy ``bincount`` of every label fed, each region's
+       of its 8 edges' labels; every rollup full, 256 ``(edge, epoch)`` sources at the root, no duplicate or
+       quarantine; every node's states CUDA tensors on the card; every contribution decoded by a fold holds
+       no tensor; B1 rises by exactly 512 (the edge updates; the rollups launch none), each edge captures one
+       graph; no publisher thread alive after ``join_pending``. A template that has captured its update
+       clones into metrics with no graph and their own storage. Reports host ms to encode and to decode and
+       fold one contribution, wire bytes an epoch, ms an epoch at each level, the root's staleness and the
+       peak card memory.
+    2. ``run_fleet_chaos`` with the same 1,000-class template on the card, the JAX spec's schedule and
+       ``branching=(4, 4)``, each chaos update one batch of 1,024 labels; ``deadline_s`` raised from the
+       JAX spec's 0.25 s only where the measured encode needs it (the straggler's stall, 4 deadlines, must
+       outlast the other 15 edges' encodes and its region's deadline). ``result.ok`` must hold, with a
+       duplicate dropped, the corrupt payload quarantined, a late fold and a dump a degradation event.
+    3. An asynchronous publish whose retries are exhausted while another edge captures a new signature:
+       the capture must succeed inside the send's retry window, and the failed delta must fold at the next
+       epoch (bit for bit against numpy).
+    4. ``CoordinationServiceKV`` over a world-1 ``TCPStore`` on 127.0.0.1: a ``(2, 2)`` tree for 2 epochs,
+       bit for bit with the same rows through ``InProcessKV``; ``CoordinationServiceKV()`` with no store and
+       no process group raises.
+    """
+    import threading
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    fleet = importlib.import_module("torchmetrics_tpu_torch._fleet")
+    fnode = importlib.import_module("torchmetrics_tpu_torch._fleet.node")
+    compiled = importlib.import_module("torchmetrics_tpu_torch._compile")
+    policy = importlib.import_module("torchmetrics_tpu_torch._resilience.policy")
+    import torch.distributed as dist
+
+    sizes = dict(FLEET_SIZES, **(sizes or {}))
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    c, rows, epochs, updates = sizes["classes"], sizes["rows"], sizes["epochs"], sizes["updates"]
+    b1 = kernel.confusion_matrix_cuda.launches
+
+    def template():
+        return tp.classification.MulticlassConfusionMatrix(num_classes=c, device=dev)
+
+    def on_dev(m) -> bool:
+        return all(isinstance(getattr(m, n), torch.Tensor) and getattr(m, n).device == dev for n in m._defaults)
+
+    # every contribution a fold decodes: host values only
+    decoded = {"n": 0, "host_only": True}
+    inner_decode = fnode.decode_contribution
+
+    def checked_decode(blob):
+        contrib = inner_decode(blob)
+        decoded["n"] += 1
+        decoded["host_only"] &= _host_only_states(contrib.states)
+        return contrib
+
+    fnode.decode_contribution = checked_decode
+    try:
+        # ------------------------------------------------ 0. a template that has captured clones safely
+        b1.reset()
+        captured = template()
+        p0 = torch.randint(0, c, (rows,), generator=gen, device=dev)
+        for _ in range(3):  # eager, the capture, a replay
+            captured.update(p0, p0)
+        twin = captured.clone()
+        graph_ptrs = set()
+        for entry in captured.__dict__.get("_auto_update_fn", {}).values():
+            graph_ptrs |= {b.data_ptr() for b in getattr(entry, "bufs", {}).values() if isinstance(b, torch.Tensor)}
+        check(not twin.__dict__.get("_auto_update_fn") and twin.confmat.data_ptr() not in graph_ptrs
+              and torch.equal(twin.confmat, captured.confmat), "a clone of a captured metric kept its graph or storage")
+        if on_card:
+            check(bool(graph_ptrs) and captured.confmat.data_ptr() in graph_ptrs, "the template did not capture")
+        clone_b1 = int(b1)
+        check(clone_b1 == (3 if on_card else 0), f"B1 launches of the captured template {clone_b1}")
+        del captured, twin
+
+        # ------------------------------------------------ 1. the main traffic: (8, 8) tree, 4 epochs
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        mem_0 = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        tree = fleet.FleetTree.build(template(), branching=sizes["branching"])
+        build_s = time.perf_counter() - t0
+        leaves = tree.leaves
+        n_leaves = len(leaves)
+        check(n_leaves == int(np.prod(sizes["branching"])) and len(tree.nodes) == 1 + sizes["branching"][0] + n_leaves,
+              f"tree shape {[len(level) for level in tree.levels]}")
+        check(all(on_dev(m) for node in tree.nodes.values() for m in (node.metric, node._template, node._pending_delta)),
+              "a node's states are not on the template's card")
+        mem_tree = (torch.cuda.memory_allocated() - mem_0) if on_card else 0
+        preds = torch.randint(0, c, (epochs, n_leaves, updates, rows), generator=gen, device=dev)
+        target = torch.randint(0, c, (epochs, n_leaves, updates, rows), generator=gen, device=dev)
+        host_p, host_t = preds.cpu().numpy(), target.cpu().numpy()
+
+        # wire bytes, and host ms a level, through the tree's own calls
+        wire = {"bytes": 0, "sets": 0}
+        inner_set = tree.kv.set
+
+        def counted_set(key, blob):
+            wire["bytes"] += len(blob)
+            wire["sets"] += 1
+            inner_set(key, blob)
+
+        tree.kv.set = counted_set
+        level_ms = {"edge": 0.0, "region": 0.0, "global": 0.0}
+        level_of = {n.node_id: ("edge" if not n.children else "global" if n is tree.root else "region")
+                    for n in tree.nodes.values()}
+        inner_rollup, inner_publish = fleet.AggregationNode.rollup, fleet.AggregationNode.publish_async
+
+        def timed(inner):
+            def call(self, epoch):
+                h0 = time.perf_counter()
+                try:
+                    return inner(self, epoch)
+                finally:
+                    level_ms[level_of.get(self.node_id, "edge")] += (time.perf_counter() - h0) * 1e3
+            return call
+
+        receipts = []
+        fleet.AggregationNode.rollup = timed(inner_rollup)
+        fleet.AggregationNode.publish_async = timed(inner_publish)
+        b1.reset()
+        stats_0 = compiled.stats()
+        per_epoch = []
+        try:
+            for e in range(epochs):
+                for k in level_ms:
+                    level_ms[k] = 0.0
+                wire_0 = wire["bytes"]
+                h0 = time.perf_counter()
+                for i, leaf in enumerate(leaves):
+                    for u in range(updates):
+                        leaf.update(preds[e, i, u], target[e, i, u])
+                if on_card:
+                    torch.cuda.synchronize()
+                update_ms = (time.perf_counter() - h0) * 1e3
+                b1_updates = int(b1)
+                h1 = time.perf_counter()
+                root_r = tree.run_epoch(e)
+                if on_card:
+                    torch.cuda.synchronize()
+                epoch_ms = (time.perf_counter() - h1) * 1e3
+                check(int(b1) == b1_updates == ((e + 1) * n_leaves * updates if on_card else 0),
+                      f"B1 at epoch {e}: {b1_updates} after the updates, {int(b1)} after the rollups")
+                receipts += [n.last_rollup for n in tree.nodes.values() if n.children]
+                per_epoch.append({
+                    "epoch": e, "updates_ms": update_ms, "run_epoch_ms": epoch_ms,
+                    "edge_publish_ms": level_ms["edge"], "region_rollup_publish_ms": level_ms["region"],
+                    "root_rollup_ms": level_ms["global"], "wire_bytes": wire["bytes"] - wire_0,
+                    "root_staleness_ms": root_r.staleness_ms, "root_latency_ms": root_r.latency_ms,
+                })
+            tree.join_pending(timeout=30.0)
+        finally:
+            fleet.AggregationNode.rollup, fleet.AggregationNode.publish_async = inner_rollup, inner_publish
+        stats_1 = compiled.stats()
+        peak_bytes = torch.cuda.max_memory_allocated() if on_card else 0
+        check(not [t for t in threading.enumerate() if t.name.startswith("fleet-publish-") and t.is_alive()],
+              "a publisher thread outlived join_pending")
+        b1_main = int(b1)
+        check(b1_main == (epochs * n_leaves * updates if on_card else 0), f"B1 launches {b1_main} (512 on the card)")
+        captures = stats_1["captured"] - stats_0["captured"]
+        if on_card:
+            check(captures == n_leaves, f"{captures} captures for {n_leaves} edges")
+            check(all(len(leaf.metric.__dict__.get("_auto_update_fn", {})) == 1 and _engaged(leaf.metric)
+                      and all(isinstance(x, compiled.CapturedStep) for x in leaf.metric._auto_update_fn.values())
+                      for leaf in leaves), "an edge did not capture exactly one graph")
+        check(all(not r.partial for r in receipts), f"partial rollups: {[r.describe() for r in receipts if r.partial]}")
+        check(sum(r.duplicates_dropped + r.corrupt_quarantined for r in receipts) == 0, "a duplicate or quarantine")
+        want_sources = {(leaf.node_id, e) for leaf in leaves for e in range(epochs)}
+        check(tree.root.folded_sources == want_sources, f"root sources {len(tree.root.folded_sources)}")
+        check(all(on_dev(m) for node in tree.nodes.values() for m in (node.metric, node._template, node._pending_delta)),
+              "a node's states left the card")
+        check(decoded["host_only"] and decoded["n"] == epochs * (n_leaves + sizes["branching"][0]),
+              f"contributions decoded {decoded['n']}, host only {decoded['host_only']}")
+        labels_of = {leaf.node_id: [(host_p[e, i, u], host_t[e, i, u]) for e in range(epochs) for u in range(updates)]
+                     for i, leaf in enumerate(leaves)}
+        check(np.array_equal(tree.root.metric.confmat.cpu().numpy(),
+                             _fleet_counts(np, [x for v in labels_of.values() for x in v], c)), "root != numpy")
+        for region in tree.levels[1]:
+            check(np.array_equal(region.metric.confmat.cpu().numpy(),
+                                 _fleet_counts(np, [x for cid in region.children for x in labels_of[cid]], c)),
+                  f"{region.node_id} != numpy")
+
+        # one contribution's host costs at this width, on a full region's accumulator
+        region = tree.levels[1][0]
+        reps = sizes["timing_reps"]
+        enc_ms, fold_ms = [], []
+        scratch_acc = template()
+        for r in range(reps):
+            h0 = time.perf_counter()
+            blob, _ = fleet.encode_contribution(region.metric, region.node_id, 100 + r, ())
+            enc_ms.append((time.perf_counter() - h0) * 1e3)
+            h0 = time.perf_counter()
+            scratch_acc.merge_state(region._verified_scratch(inner_decode(blob)))
+            if on_card:
+                torch.cuda.synchronize()
+            fold_ms.append((time.perf_counter() - h0) * 1e3)
+        check(torch.equal(scratch_acc.confmat, region.metric.confmat * reps), "the timed folds disagree")
+        encode_ms, decode_fold_ms = statistics.median(enc_ms), statistics.median(fold_ms)
+        main = {
+            "tree": [len(level) for level in tree.levels], "build_s": build_s, "tree_state_bytes": mem_tree,
+            "b1_launches": b1_main, "captures": captures, "contributions_decoded": decoded["n"],
+            "per_epoch": per_epoch, "wire_bytes_per_epoch": statistics.median(p["wire_bytes"] for p in per_epoch),
+            "encode_ms": encode_ms, "decode_fold_ms": decode_fold_ms, "contribution_bytes": len(blob),
+            "root_staleness_ms_max": max(p["root_staleness_ms"] for p in per_epoch),
+            "peak_bytes": peak_bytes,
+        }
+        del tree, scratch_acc, region, preds, target
+        release_graphs(torch)
+
+        # ------------------------------------------------ 2. chaos on the card
+        b1.reset()
+        chaos_deadline = max(0.25, 10.0 * encode_ms / 1e3)
+
+        def make_update(rng):
+            return (torch.as_tensor(rng.integers(0, c, rows), device=dev),
+                    torch.as_tensor(rng.integers(0, c, rows), device=dev))
+
+        spec = fleet.FleetChaosSpec(branching=sizes["chaos_branching"], deadline_s=chaos_deadline)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = fleet.run_fleet_chaos(template(), make_update, spec)
+        check(result.ok, f"fleet chaos: {result.describe()}")
+        check(result.duplicates_dropped >= 1 and result.corrupt_quarantined == 1 and result.late_folds >= 1
+              and result.partial_rollups >= 3 and result.dumps_match_events
+              and all(result.events_by_kind.get(k, 0) >= 1
+                      for k in ("fleet_partial", "fleet_corrupt", "fleet_publish_degraded")),
+              f"fleet chaos ledger: {result.describe()}")
+        chaos = {"describe": result.describe(), "deadline_s": chaos_deadline,
+                 "deadline_rule": "max(0.25, 10 x encode_ms): the stall (4 deadlines) outlasts 15 encodes and a deadline",
+                 "elapsed_s": result.elapsed_s, "b1_launches": int(b1), "max_staleness_ms": result.max_staleness_ms}
+        release_graphs(torch)
+
+        # ------------------------------------------------ 3. an exhausted async publish during a capture
+        b1.reset()
+        stats_0 = compiled.stats()
+        kv = fleet.InProcessKV()
+        slow = policy.RetryPolicy(max_retries=2, backoff_base=0.2, backoff_factor=1.0, backoff_max=0.2)
+        tpl = template()
+        a = fleet.AggregationNode("edge-a", tpl, kv, namespace="race", retry=slow)
+        bn = fleet.AggregationNode("edge-b", tpl, kv, namespace="race", retry=slow)
+        parent = fleet.AggregationNode("region-r", tpl, kv, children=("edge-a", "edge-b"), namespace="race",
+                                       deadline_s=0.2, retry=slow)
+        fed = {"edge-a": [], "edge-b": []}
+
+        def feed(node, n):
+            p = torch.randint(0, c, (n,), generator=gen, device=dev)
+            t = torch.randint(0, c, (n,), generator=gen, device=dev)
+            node.update(p, t)
+            fed[node.node_id].append((p.cpu().numpy(), t.cpu().numpy()))
+
+        for _ in range(3):
+            feed(a, rows)  # eager, capture, replay
+        feed(bn, sizes["race_rows"])  # b's new signature: eager
+        kv.fail_publishes(slow.attempts)
+        sender = a.publish_async(0)
+        alive_before = sender.is_alive()
+        c0 = time.perf_counter()
+        feed(bn, sizes["race_rows"])  # b's capture, while a's send retries on its thread
+        if on_card:
+            torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - c0) * 1e3
+        alive_after = sender.is_alive()
+        check(alive_before and alive_after, "the capture did not run inside the send's retry window")
+        sender.join(10.0)
+        check(bn.publish(0), "edge-b's publish after the failed send")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            r0 = parent.rollup(0)
+        check(a.publish_failures == 1 and r0.partial and r0.missing == ("edge-a",), f"epoch 0: {r0.describe()}")
+        if on_card:
+            check(_engaged(bn.metric) and len(bn.metric._auto_update_fn) == 1
+                  and all(isinstance(x, compiled.CapturedStep) for x in bn.metric._auto_update_fn.values()),
+                  f"the capture did not survive: {bn.metric._auto_disabled_reason}")
+            check(compiled.stats()["captured"] - stats_0["captured"] == 2, "captures in the race")
+        feed(a, rows)
+        feed(bn, sizes["race_rows"])  # b's replay
+        check(a.publish(1) and bn.publish(1), "epoch 1 publishes")
+        r1 = parent.rollup(1)
+        check(not r1.partial and set(r1.sources) == {("edge-a", 0), ("edge-a", 1), ("edge-b", 1)},
+              f"epoch 1: {r1.describe()}")
+        check(np.array_equal(parent.metric.confmat.cpu().numpy(),
+                             _fleet_counts(np, fed["edge-a"] + fed["edge-b"], c)), "race parent != numpy")
+        race = {"capture_ms": capture_ms, "b1_launches": int(b1), "rollups": [r0.describe(), r1.describe()]}
+        check(race["b1_launches"] == (7 if on_card else 0), f"race B1 launches {race['b1_launches']}")
+        del kv, a, bn, parent, tpl
+        release_graphs(torch)
+
+        # ------------------------------------------------ 4. CoordinationServiceKV over a TCPStore
+        b1.reset()
+        store = dist.TCPStore("127.0.0.1", 0, 1, True, wait_for_workers=False)
+        api = {name: hasattr(store, name) for name in ("set", "check", "get", "list_keys", "delete_key", "multi_get")}
+        sb, se = sizes["store_branching"], sizes["store_epochs"]
+        n_store = int(np.prod(sb))
+        sp = torch.randint(0, c, (se, n_store, updates, rows), generator=gen, device=dev)
+        st = torch.randint(0, c, (se, n_store, updates, rows), generator=gen, device=dev)
+
+        def drive(kv):
+            t = fleet.FleetTree.build(template(), sb, kv=kv, namespace="store")
+            out = []
+            for e in range(se):
+                for i, leaf in enumerate(t.leaves):
+                    for u in range(updates):
+                        leaf.update(sp[e, i, u], st[e, i, u])
+                out.append(t.run_epoch(e))
+                out += [t.nodes[n.node_id].last_rollup for n in t.levels[1]]
+            t.join_pending(timeout=30.0)
+            return t, [(r.node_id, r.contributing, r.missing, r.sources, r.partial, r.rows_folded) for r in out]
+
+        h0 = time.perf_counter()
+        got, got_r = drive(fleet.CoordinationServiceKV(store=store, poll_s=0.005))
+        store_s = time.perf_counter() - h0
+        want, want_r = drive(fleet.InProcessKV())
+        check(got_r == want_r and all(not r[4] for r in got_r), "the store tree's receipts differ")
+        check(all(torch.equal(got.nodes[n].metric.confmat, want.nodes[n].metric.confmat) for n in want.nodes
+                  if want.nodes[n].children), "the store tree is not bit for bit the in-process tree")
+        check(not [k for k in store.list_keys() if k.startswith("tm_tpu/")], "folded keys left in the store")
+        check(not dist.is_initialized(), "a process group exists")
+        try:
+            fleet.CoordinationServiceKV()
+            raised = False
+        except RuntimeError:
+            raised = True
+        check(raised, "CoordinationServiceKV() without a store or a process group did not raise")
+        store_line = {"api": api, "seconds": store_s, "b1_launches": int(b1), "tree": [len(level) for level in got.levels]}
+        del got, want, store, sp, st
+        release_graphs(torch)
+    finally:
+        fnode.decode_contribution = inner_decode
+
+    out = {"phase": "fleet_rollup", "classes": c, "main": main, "chaos": chaos, "race": race, "store": store_line,
+           "b1_launches": clone_b1 + main["b1_launches"] + chaos["b1_launches"] + race["b1_launches"]
+           + store_line["b1_launches"],
+           "seconds": time.perf_counter() - t_phase, "torch": torch.__version__, "device_power": smi}
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
                                             "resilience", "stream_pool", "trunk_pools", "spmd_collection",
-                                            "metric_server"),
+                                            "metric_server", "fleet_rollup"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
@@ -8775,7 +9155,8 @@ def main() -> int:
                              "stream_pool: build, run only the stream_pool phase, stop; "
                              "trunk_pools: build, run only the trunk_pools phase, stop; "
                              "spmd_collection: build, run only the spmd_collection phase on the imagenet_val data, "
-                             "stop; metric_server: build, run only the metric_server phase, stop")
+                             "stop; metric_server: build, run only the metric_server phase, stop; "
+                             "fleet_rollup: build, run only the fleet_rollup phase, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -8888,6 +9269,10 @@ def main() -> int:
         return 0
     if args.phase == "metric_server":
         phase_metric_server(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 55), smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "fleet_rollup":
+        phase_fleet_rollup(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 56), smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -9213,6 +9598,10 @@ def main() -> int:
     release_graphs(torch)
     # ------------- the serving runtime over phase 52's pool, B1 once across each micro-batch's lanes, phase 55
     served = phase_metric_server(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 55), smi)
+    release_graphs(torch)
+    # ------------- fleet aggregation, 64 edge confusion matrices on the card (B1 an edge update), phase 56
+    fleet = phase_fleet_rollup(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 56), smi)
+    release_graphs(torch)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -9249,7 +9638,7 @@ def main() -> int:
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
         + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"]
-        + resilient["b1_launches"] + pooled["b1_unbatched_launches"],
+        + resilient["b1_launches"] + pooled["b1_unbatched_launches"] + fleet["b1_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -9257,7 +9646,9 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": big["library_ms"],
         "bound_ms_fresh": big["bound_ms_fresh"],
-        "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask, into the state, queued_ms",
+        "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask, into the state, "
+              "queued_ms; launches include phase 56's fleet edges (512 edge updates, then its chaos, race and store "
+              "trees)",
     }, {
         "name": "confmat_lanes",
         "route": "cuda",

@@ -397,3 +397,44 @@ def test_a_serving_run_emits_every_serving_family(tmp_path):
         set_telemetry_enabled(False)
         REGISTRY.reset()
         BUS.clear()
+
+
+@pytest.mark.parametrize(
+    ("relpath", "count"),
+    [("_fleet/__init__.py", 17), ("_fleet/wire.py", 6), ("_fleet/transport.py", 6), ("_fleet/observe.py", 2),
+     ("_fleet/node.py", 2), ("_fleet/tree.py", 1), ("_fleet/chaos.py", 3)],
+)
+def test_fleet_all_equals_the_jax_package(relpath, count):
+    """``_fleet``'s names: the JAX package's 17, and each module's own."""
+    import importlib
+
+    module = importlib.import_module("torchmetrics_tpu_torch." + relpath[:-3].replace("/__init__", "").replace("/", "."))
+    want = _jax_all(relpath)
+    assert len(want) == count
+    assert sorted(module.__all__) == sorted(want)
+    assert not [name for name in want if not hasattr(module, name)]
+
+
+def test_distributed_kv_names_equal_the_jax_package():
+    """``utilities.distributed``'s KV namespace, ``kv_key`` and ``KvTtlJanitor``: the JAX package's, read with ``ast``."""
+    import types
+
+    from torchmetrics_tpu_torch.utilities import distributed as TD
+
+    with open(os.path.join(ROOT, "torchmetrics_tpu", "utilities", "distributed.py")) as fh:
+        tree = ast.parse(fh.read())
+    top = {node.name: node for node in tree.body if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+    namespace = next(ast.literal_eval(node.value) for node in tree.body if isinstance(node, ast.Assign)
+                     and any(getattr(t, "id", None) == "KV_NAMESPACE" for t in node.targets))
+    assert TD.KV_NAMESPACE == namespace == "tm_tpu"
+    kv_key = top["kv_key"]
+    assert [a.arg for a in kv_key.args.kwonlyargs] == ["namespace"] and kv_key.args.vararg.arg == "parts"
+    assert TD.kv_key("fleet", "ns", 3) == "tm_tpu/fleet/ns/3"
+    for bad in (("a/b",), ("",), ()):
+        with pytest.raises(ValueError):
+            TD.kv_key(*bad)
+    janitor = top["KvTtlJanitor"]
+    jax_methods = sorted(n.name for n in janitor.body if isinstance(n, ast.FunctionDef))
+    assert jax_methods == sorted(name for name, v in vars(TD.KvTtlJanitor).items() if isinstance(v, types.FunctionType))
+    with pytest.raises(ValueError):
+        TD.KvTtlJanitor(ttl_s=0)

@@ -136,6 +136,37 @@ def test_serving_and_plotting_run_with_jax_and_the_jax_package_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_fleet_runs_with_jax_and_the_jax_package_blocked():
+    """``_fleet`` stands alone: a chaos run, a tree over a ``TCPStore`` and the wire, without JAX."""
+    code = (
+        "import sys, warnings\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['torchmetrics_tpu'] = None\n"
+        "warnings.simplefilter('ignore')\n"
+        "import numpy as np, torch, torch.distributed as dist\n"
+        "import torchmetrics_tpu_torch as tt\n"
+        "from torchmetrics_tpu_torch._fleet import (CoordinationServiceKV, FleetChaosSpec, FleetTree,\n"
+        "    decode_contribution, encode_contribution, run_fleet_chaos)\n"
+        "spec = FleetChaosSpec(branching=(2, 2), rows_per_epoch=1, deadline_s=0.25)\n"
+        "assert run_fleet_chaos(tt.MeanMetric(device='cpu'), lambda rng: (float(rng.uniform()),), spec).ok\n"
+        "store = dist.TCPStore('127.0.0.1', 0, 1, True, wait_for_workers=False)\n"
+        "tree = FleetTree.build(tt.MulticlassConfusionMatrix(num_classes=5, device='cpu'), (2, 2),\n"
+        "                       kv=CoordinationServiceKV(store=store, poll_s=0.005))\n"
+        "for leaf in tree.leaves:\n"
+        "    leaf.update(torch.arange(8) % 5, torch.arange(8) % 5)\n"
+        "assert not tree.run_epoch(0).partial\n"
+        "tree.join_pending(5.0)\n"
+        "assert int(tree.root.metric.confmat.trace()) == 32\n"
+        "blob, _ = encode_contribution(tree.root.metric, 'global', 0, ())\n"
+        "assert int(decode_contribution(blob).states['confmat'].sum()) == 32\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_compile_path_runs_with_jax_and_the_jax_package_blocked():
     """``_compile.py`` and the eligibility copy stand alone: the JAX package's ``eligibility.json`` is never opened."""
     code = (

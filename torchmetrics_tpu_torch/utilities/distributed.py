@@ -13,10 +13,15 @@ keeps its padded ``dist.all_gather``.
 
 :func:`sync_in_jit` is the SPMD engine's sync: each state's reduction over
 the rows of a row-stacked state, inside the engine's step.
+
+:func:`kv_key` and :class:`KvTtlJanitor` name and expire the keys the fleet
+tier (``_fleet/``) writes into a shared key-value store.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -174,6 +179,90 @@ def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: s
     if class_reduction in ("none", None):
         return fraction
     raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
+
+
+# ---------------------------------------------------------------------------
+# KV namespace + TTL hygiene (JAX ``distributed.py:82-175``)
+# ---------------------------------------------------------------------------
+
+# every key this library writes into a shared key-value store lives under one
+# namespace, so a shared store (the default process group's, the fleet
+# aggregation tier's) can attribute and bulk-expire our keys without touching
+# another tenant's
+KV_NAMESPACE = "tm_tpu"
+
+
+def kv_key(*parts: Any, namespace: str = KV_NAMESPACE) -> str:
+    """Build one namespaced KV key (JAX ``distributed.py:93``).
+
+    Parts are joined with ``/`` under the library namespace; a part that
+    itself contains ``/`` (or is empty) is rejected: it would silently change
+    the key's depth and break prefix scans (the fleet tier's contribution
+    sweep and the TTL janitor both walk keys by prefix).
+    """
+    if not parts:
+        raise ValueError("kv_key needs at least one part")
+    rendered = []
+    for part in parts:
+        text = str(part)
+        if not text or "/" in text:
+            raise ValueError(f"kv_key part {part!r} must be non-empty and free of '/'")
+        rendered.append(text)
+    return "/".join([namespace, *rendered])
+
+
+class KvTtlJanitor:  # concurrency: shared fleet publishers note() while epoch sweeps expire
+    """Bounded TTL ledger for KV keys this process published (JAX ``distributed.py:112``).
+
+    A store keeps a key until someone deletes it, so a long-running stream
+    that publishes per-epoch keys (the fleet aggregation tier) must
+    garbage-collect its own writes or grow the store without bound. Writers
+    :meth:`note` every key they publish; a periodic :meth:`sweep` deletes the
+    ones older than ``ttl_s`` through the caller's delete function. Consumed
+    keys are :meth:`forget`-ed at fold time, so the janitor only ever touches
+    keys nobody claimed (dead publishers, orphaned epochs).
+    """
+
+    def __init__(self, ttl_s: float = 300.0) -> None:
+        if ttl_s <= 0:
+            raise ValueError(f"`ttl_s` must be positive, got {ttl_s}")
+        self.ttl_s = float(ttl_s)
+        self._lock = threading.Lock()
+        self._born: Dict[str, float] = {}
+
+    def note(self, key: str, now: Optional[float] = None) -> None:
+        """Record (or refresh) one published key's birth time."""
+        ts = time.monotonic() if now is None else float(now)
+        with self._lock:
+            self._born[key] = ts
+
+    def forget(self, key: str) -> None:
+        """Drop a key from the ledger (it was consumed and deleted by a reader)."""
+        with self._lock:
+            self._born.pop(key, None)
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._born)
+
+    def sweep(self, delete: Callable[[str], Any], now: Optional[float] = None) -> List[str]:
+        """Delete every tracked key older than the TTL; return the reaped keys.
+
+        Delete failures (a key already consumed by a reader, a store restart)
+        drop the key from the ledger anyway: the janitor bounds the store's
+        memory, it does not guarantee deletion receipts.
+        """
+        ts = time.monotonic() if now is None else float(now)
+        with self._lock:
+            expired = [k for k, born in self._born.items() if ts - born >= self.ttl_s]
+            for key in expired:
+                del self._born[key]
+        for key in expired:
+            try:
+                delete(key)
+            except Exception:  # noqa: BLE001 - best-effort hygiene, never a fault
+                pass
+        return expired
 
 
 # ---------------------------------------------------------------------------
