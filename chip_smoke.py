@@ -433,6 +433,23 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     staleness and the peak card memory (``--phase fleet_rollup`` runs the
     build and this phase alone);
 
+57. ``aot_cold_start``: the AOT cache (``_aot``): three child processes, each
+    with a fresh kernel build directory and one cache directory, resolve the
+    six CUDA libraries, run ``MulticlassConfusionMatrix(num_classes=1000)``
+    (``precompile``, then 3 updates of 1,024 labels), a 64-lane stream pool
+    of it (``warm_start``, 2 steps) and an 8-row SPMD engine of it
+    (``warm_start``, 2 steps), and launch B2a, B2b, B3, B4, B5 and S1 once
+    each at a small shape against their plain versions: ``cold`` (an empty
+    cache: six ``nvcc`` builds stored), ``warm`` (no ``nvcc`` on ``PATH``,
+    ``CUDA_HOME`` empty: every library from the cache, a hit for the metric,
+    the pool and the engine), ``damaged`` (a byte of the ``confmat``
+    library's artifact flipped and the metric's record truncated: both fall
+    back, are rebuilt and rewritten); states and values bit for bit against
+    numpy and across the children, B1 launches as the updates imply; each
+    child's seconds to its first replay, split into library resolution,
+    CUDA init, warm-up and capture, and each artifact's bytes (``--phase
+    aot_cold_start`` runs the build and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1, B1 across lanes, B2a-B5 and S1, and B2a-B5 and S1
 across lanes; the lane rows count phase 54's steps and phase 55's
@@ -9139,13 +9156,331 @@ def phase_fleet_rollup(torch, np, kernel, dev, gen, smi: str, sizes=None) -> dic
     return out
 
 
+# ------------------------------------------------------------------ aot_cold_start
+AOT_SIZES = {"classes": 1000, "batch": 1024, "updates": 3, "lanes": 64, "pool_steps": 2, "rows": 8,
+             "engine_steps": 2}
+AOT_LIBRARIES = ("confmat", "conv_epilogue", "lpips_head", "attention", "layernorm_residual", "biquad")
+
+# one child process of phase 57: its cache is TM_TPU_AOT_CACHE, its build directory argv[2]
+_AOT_CHILD = r"""
+import time
+t_start = time.perf_counter()
+import json, sys
+t_epoch = time.time()
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = chip_smoke.aot_child(sys.argv[2], sys.argv[3], int(sys.argv[4]), json.loads(sys.argv[5]), t_start)
+out["t_start_epoch"] = t_epoch
+print(json.dumps(out))
+"""
+
+
+def _aot_small_launches(torch, np, ce, lh, ka, kb, dev, gen) -> dict:
+    """B2a, B2b, B3, B4, B5 and S1 once each at a small shape, each against its plain version at the tolerance
+    of its own phase (7, 8, 12, 13, 44); the worst absolute error of each."""
+    srmr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    errs = {}
+    # B2a: Mixed_5b's 1x1 branch (192 -> 64) on a 35x35 map of 4 images, bf16
+    x = rand(4 * 35 * 35, 192).relu_().bfloat16()
+    w = (rand(64, 192) / 192**0.5).bfloat16()
+    bias = (0.1 * rand(64)).bfloat16()
+    got, ref = ce.matmul_bias_relu(x, w, bias), ce.matmul_bias_relu_plain(x, w, bias)
+    err = (got.float() - ref.float()).abs()
+    check(bool((err <= GEMM_BF16_ULP * ref.float().abs() + GEMM_F32_RTOL * float(ref.float().abs().max())).all()),
+          f"B2a: max abs err {float(err.max())} against its plain version")
+    errs["B2a"] = float(err.max())
+    # B2b: bias + ReLU in place on the same map's conv output, bf16
+    y = rand(4 * 35 * 35, 64).bfloat16()
+    got, ref = ce.bias_relu_(y.clone(), bias), ce.bias_relu_plain(y, bias)
+    check(torch.equal(got, ref), "B2b differs from its plain version")
+    errs["B2b"] = float((got.float() - ref.float()).abs().max())
+    # B3: alex's third tap (13x13, 384 channels), 4 pairs of bf16 maps
+    f0 = rand(4, 13, 13, 384).relu_().bfloat16()
+    f1 = (f0.float() + 0.3 * rand(4, 13, 13, 384)).relu_().bfloat16()
+    wt = torch.rand(384, generator=gen, device=dev)
+    got, ref = lh.lpips_head(f0, f1, wt), lh.lpips_head_plain(f0, f1, wt)
+    err = (got - ref).abs()
+    check(bool((err <= HEAD_RTOL * ref.abs() + 1e-7).all()), f"B3: max abs err {float(err.max())}")
+    errs["B3"] = float(err.max())
+    # B4: BERT-base's heads (768 = 12 x 64) on 2 sequences of 37 tokens, the second half masked, float32
+    q, k, v = rand(2, 37, 768), rand(2, 37, 768), rand(2, 37, 768)
+    mask = torch.ones((2, 37), device=dev)
+    mask[1, 19:] = 0
+    got, ref = ka.attention(q, k, v, mask, num_heads=12), ka.attention_plain(q, k, v, mask, num_heads=12)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(err <= ATT_F32_RTOL * scale, f"B4: max abs err {err} at scale {scale}")
+    errs["B4"] = err
+    # B5: LayerNorm(x + h) at BERT-base's width, 74 rows, float32
+    scale_w, shift = torch.rand(768, generator=gen, device=dev) + 0.5, 0.1 * rand(768)
+    got = ka.layernorm_residual(q.view(-1, 768), k.view(-1, 768), scale_w, shift, eps=1e-12)
+    ref = ka.layernorm_residual_plain(q.view(-1, 768), k.view(-1, 768), scale_w, shift, eps=1e-12)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(err <= LN_RTOL * scale, f"B5: max abs err {err} at scale {scale}")
+    errs["B5"] = err
+    # S1: SRMR's 23 gammatone channels on 2 rows of 4,000 samples, bit for bit with the plain loop
+    num, den, gain = (torch.from_numpy(a.astype(np.float32)) for a in srmr._gammatone_coefs(16_000, 23, 125.0))
+    rows = rand(2, 4000)
+    got, ref = kb.biquad_bank(rows, num, den, gain), kb.biquad_bank_plain(rows, num, den, gain)
+    check(torch.equal(got, ref), f"S1: max abs err {float((got - ref).abs().max())} against its plain loop")
+    errs["S1"] = float((got - ref).abs().max())
+    return errs
+
+
+def aot_child(device: str, build_dir: str, seed: int, sizes: dict, t_start: float) -> dict:
+    """One process of phase 57 (run by ``_AOT_CHILD``): libraries, the metric, the pool, the engine, the small
+    launches; every state checked bit for bit against numpy here. Returns its JSON line."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.utilities import nvcc
+
+    nvcc.BUILD_DIR = Path(build_dir)
+    from torchmetrics_tpu_torch import _compile
+    from torchmetrics_tpu_torch._aot import aot_stats
+    from torchmetrics_tpu_torch._spmd import build_mesh
+    from torchmetrics_tpu_torch.classification import MulticlassConfusionMatrix
+
+    kernel = importlib.import_module("torchmetrics_tpu_torch.functional.classification._confmat_kernel")
+    ce = importlib.import_module("torchmetrics_tpu_torch._kernels.conv_epilogue")
+    lh = importlib.import_module("torchmetrics_tpu_torch._kernels.lpips_head")
+    ka = importlib.import_module("torchmetrics_tpu_torch._kernels.attention")
+    kb = importlib.import_module("torchmetrics_tpu_torch._kernels.biquad")
+    t_import = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    t_cuda = time.perf_counter()
+
+    # the six CUDA libraries: one nvcc each at once where the cache cannot supply them
+    loaders = dict(zip(AOT_LIBRARIES, (
+        (kernel.SOURCE, kernel._library), (ce.SOURCE, ce._library), (lh.SOURCE, lh._library),
+        (ka.ATTENTION_SOURCE, ka._attention_library), (ka.LAYERNORM_SOURCE, ka._layernorm_library),
+        (kb.SOURCE, kb._library),
+    ))) if on_card else {}
+    infos = dict(zip(loaders, nvcc.build_all([source for source, _ in loaders.values()])))
+    for _, load in loaders.values():
+        load()
+    t_libs = time.perf_counter()
+    lib_stats = aot_stats()
+
+    c, batch = sizes["classes"], sizes["batch"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda *shape: torch.randint(0, c, shape, generator=gen, device=dev)  # noqa: E731
+    b1, lanes_k = kernel.confusion_matrix_cuda.launches, kernel.confusion_matrix_lanes.launches
+    b1.reset()
+    lanes_k.reset()
+
+    def counts(preds, target):
+        flat = target.cpu().numpy().astype(np.int64).reshape(-1) * c + preds.cpu().numpy().reshape(-1)
+        return np.bincount(flat, minlength=c * c).reshape(c, c)
+
+    digests = {}
+
+    def same(name, got, want):
+        got = got.cpu().numpy()
+        check(got.dtype.kind == "i" and np.array_equal(got, want), f"{name} differs from numpy's bincount")
+        digests[name] = hashlib.sha256(got.tobytes()).hexdigest()
+
+    # 1. the metric: precompile, then its updates (the first of them the first replay)
+    mp, mt = draw(sizes["updates"], batch), draw(sizes["updates"], batch)
+    metric = MulticlassConfusionMatrix(num_classes=c, device=dev)
+    s0, cap0 = aot_stats(), _compile.stats()["capture_seconds"]
+    t0 = time.perf_counter()
+    report = metric.precompile(mp[0], mt[0])
+    t_pre = time.perf_counter()
+    s1, cap1 = aot_stats(), _compile.stats()["capture_seconds"]
+    metric.update(mp[0], mt[0])
+    if on_card:
+        torch.cuda.synchronize()
+    t_replay = time.perf_counter()
+    check(report["engaged"], f"precompile did not engage: {report}")
+    for i in range(1, sizes["updates"]):
+        metric.update(mp[i], mt[i])
+    want = counts(mp, mt)
+    same("metric_state", metric.confmat, want)
+    same("metric_compute", metric.compute(), want)
+    metric_b1 = int(b1)
+    check(metric_b1 == (1 + sizes["updates"] if on_card else 0),
+          f"B1 {metric_b1} launches for a precompile and {sizes['updates']} updates")
+
+    # 2. a pool of 64 lanes of the metric
+    lanes, per_lane = sizes["lanes"], batch // sizes["lanes"]
+    pool = MulticlassConfusionMatrix(num_classes=c, device=dev).to_stream_pool(capacity=lanes)
+    ids = [pool.attach() for _ in range(lanes)]
+    steps = [(draw(lanes, per_lane), draw(lanes, per_lane)) for _ in range(sizes["pool_steps"])]
+    pool_out = pool.warm_start(ids, *steps[0])
+    for p, t in steps:
+        pool.update(ids, p, t)
+    values = pool.compute_all()
+    for lane, sid in enumerate(ids):
+        lane_want = counts(torch.stack([p[lane] for p, _ in steps]), torch.stack([t[lane] for _, t in steps]))
+        check(np.array_equal(values[sid].cpu().numpy(), lane_want), f"pool lane {lane} differs from numpy")
+    same("pool_lane0", values[ids[0]], counts(torch.stack([p[0] for p, _ in steps]), torch.stack([t[0] for _, t in steps])))
+    digests["pool_all"] = hashlib.sha256(b"".join(values[sid].cpu().numpy().tobytes() for sid in ids)).hexdigest()
+    pool_lanes = int(lanes_k)
+    check(pool_lanes == (1 + sizes["pool_steps"] if on_card else 0),
+          f"B1 across lanes {pool_lanes} launches for a warm_start and {sizes['pool_steps']} pool steps")
+    del pool, values
+
+    # 3. an SPMD engine of 8 rows of the metric
+    engine = MulticlassConfusionMatrix(num_classes=c, device=dev).to_spmd(mesh=build_mesh(devices=[dev] * sizes["rows"]))
+    batches = [(draw(batch), draw(batch)) for _ in range(sizes["engine_steps"])]
+    engine_out = engine.warm_start(*batches[0])
+    for p, t in batches:
+        value = engine.step(p, t)
+    same("engine_value", value, counts(torch.stack([p for p, _ in batches]), torch.stack([t for _, t in batches])))
+    engine_lanes = int(lanes_k) - pool_lanes
+    check(engine_lanes == (1 + sizes["engine_steps"] if on_card else 0),
+          f"B1 across rows {engine_lanes} launches for a warm_start and {sizes['engine_steps']} engine steps")
+    check(not engine.degraded, "the engine degraded")
+    del engine
+    stats = aot_stats()
+
+    small = _aot_small_launches(torch, np, ce, lh, ka, kb, dev, gen) if on_card else {}
+    return {
+        "seconds": {
+            "import": t_import - t_start, "cuda_init": t_cuda - t_import, "libraries": t_libs - t_cuda,
+            "warm_up": (t_pre - t0) - (cap1 - cap0), "capture": cap1 - cap0, "first_replay": t_replay - t_pre,
+            "to_first_replay": t_replay - t_start,
+        },
+        "libraries": {name: {"route": info["route"], "seconds": info["seconds"]} for name, info in infos.items()},
+        "library_stats": {k: lib_stats.get(k, 0) for k in ("library_hits", "library_misses", "library_fallbacks",
+                                                             "library_builds", "library_writes")},
+        "precompile": {k: s1.get(k, 0) - s0.get(k, 0) for k in ("hits", "misses", "fallbacks", "writes")},
+        "stats": stats,
+        "outcomes": {"pool": pool_out, "engine": engine_out},
+        "b1_launches": metric_b1, "lanes_launches": pool_lanes + engine_lanes,
+        "digests": digests,
+        "small_launches_max_abs_err": small,
+        "nvcc_on_path": shutil.which("nvcc") is not None,
+    }
+
+
+def phase_aot_cold_start(torch, np, dev, seed: int, smi: str, sizes=None) -> dict:
+    """Phase 57: a fresh replica's cold start with and without the AOT cache, and a damaged cache.
+
+    Three child processes (``aot_child``) share one cache directory, each
+    with its own build directory: ``cold`` builds and stores, ``warm`` runs
+    with no ``nvcc`` reachable, ``damaged`` meets a flipped byte in the
+    ``confmat`` library's artifact and a truncated metric record. Every
+    directory made here is removed at the end.
+    """
+    from torchmetrics_tpu_torch._aot.cache import AotCache
+
+    sizes = {**AOT_SIZES, **(sizes or {})}
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tm_aot_cold_start_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(root, "cache")
+    children = {}
+
+    def run(mode: str, **env_extra) -> dict:
+        env = dict(os.environ, TM_TPU_AOT_CACHE=cache, **env_extra)
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-c", _AOT_CHILD, here, str(dev), os.path.join(root, f"build_{mode}"),
+                               str(seed), json.dumps(sizes)], env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        check(proc.returncode == 0, f"the {mode} child failed: {proc.stderr[-3000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["seconds"]["startup"] = out.pop("t_start_epoch") - t0
+        out["seconds"]["process"] = wall
+        children[mode] = out
+        return out
+
+    try:
+        n_libs = len(AOT_LIBRARIES) if on_card else 0
+        cold = run("cold")
+        ls = cold["library_stats"]
+        check(all(v["route"] == "nvcc" for v in cold["libraries"].values()) and ls["library_builds"] == n_libs
+              and ls["library_writes"] == n_libs, f"cold: libraries {cold['libraries']}, {ls}")
+        check(cold["precompile"] == {"hits": 0, "misses": 1, "fallbacks": 0, "writes": 1}, f"cold: {cold['precompile']}")
+        check(cold["outcomes"] == {"pool": {"stream_step": "compiled", "stream_compute_one": "ready",
+                                            "stream_compute_all": "ready"},
+                                   "engine": {"spmd_step": "compiled", "spmd_compute": "ready"}}, f"cold: {cold['outcomes']}")
+        check(cold["stats"]["writes"] == 3 and cold["stats"]["hits"] == 0, f"cold: {cold['stats']}")
+
+        # a fresh replica with no nvcc anywhere it could look: every library from the cache, every step a hit
+        no_cuda_home = os.path.join(root, "empty_cuda_home")
+        os.mkdir(no_cuda_home)
+        path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                               if d and not os.path.exists(os.path.join(d, "nvcc")))
+        warm = run("warm", PATH=path, CUDA_HOME=no_cuda_home)
+        ls = warm["library_stats"]
+        check(not warm["nvcc_on_path"], "the warm child could reach nvcc")
+        check(all(v["route"] == "cache" for v in warm["libraries"].values()) and ls["library_hits"] == n_libs
+              and ls["library_builds"] == 0, f"warm: libraries {warm['libraries']}, {ls}")
+        check(warm["precompile"] == {"hits": 1, "misses": 0, "fallbacks": 0, "writes": 0}, f"warm: {warm['precompile']}")
+        check(warm["outcomes"] == {"pool": {"stream_step": "hit", "stream_compute_one": "ready",
+                                            "stream_compute_all": "ready"},
+                                   "engine": {"spmd_step": "hit", "spmd_compute": "ready"}}, f"warm: {warm['outcomes']}")
+        check(warm["stats"]["hits"] == 3 and warm["stats"]["writes"] == 0 and warm["stats"]["library_builds"] == 0,
+              f"warm: {warm['stats']}")
+
+        # damage: one byte of the confmat library's artifact, and the metric's record cut in half
+        entries = AotCache(cache).entries()
+        records = [e for e in entries if e.get("kind") == "auto_update"]
+        check(len(records) == 1, f"{len(records)} auto_update records")
+        with open(records[0]["path"], "r+b") as fh:
+            fh.truncate(records[0]["file_bytes"] // 2)
+        libs = [e for e in entries if e.get("kind") == "kernel_library" and e.get("owner") == "confmat.cu"]
+        check(len(libs) == (1 if on_card else 0), f"{len(libs)} confmat library artifacts")
+        for e in libs:
+            with open(e["path"], "r+b") as fh:
+                fh.seek(e["file_bytes"] - 4096)
+                byte = fh.read(1)
+                fh.seek(e["file_bytes"] - 4096)
+                fh.write(bytes([byte[0] ^ 0xFF]))
+        damaged = run("damaged")
+        ls = damaged["library_stats"]
+        routes = {name: v["route"] for name, v in damaged["libraries"].items()}
+        want_routes = {name: ("nvcc" if name == "confmat" else "cache") for name in AOT_LIBRARIES} if on_card else {}
+        check(routes == want_routes and ls["library_fallbacks"] == (1 if on_card else 0)
+              and ls["library_builds"] == (1 if on_card else 0) and ls["library_writes"] == (1 if on_card else 0),
+              f"damaged: libraries {routes}, {ls}")
+        check(damaged["precompile"] == {"hits": 0, "misses": 0, "fallbacks": 1, "writes": 1},
+              f"damaged: {damaged['precompile']}")
+        check(damaged["outcomes"] == warm["outcomes"], f"damaged: {damaged['outcomes']}")
+        entries = AotCache(cache).entries()
+        check(all(e["status"] == "ok" and not e["stale"] for e in entries), "damaged: the cache was not healed")
+
+        check(cold["digests"] == warm["digests"] == damaged["digests"], "the children's states differ")
+        artifacts = [{"kind": e["kind"], "owner": e["owner"] if e["kind"] == "kernel_library" else e["owner"].rsplit(".", 1)[-1],
+                      "bytes": e["file_bytes"]} for e in entries]
+        saved = cold["seconds"]["to_first_replay"] - warm["seconds"]["to_first_replay"]
+        nvcc_s = max((v["seconds"] for v in cold["libraries"].values()), default=0.0)
+        for mode, out in children.items():
+            emit({"phase": "aot_cold_start", "child": mode, "seconds": out["seconds"],
+                  "libraries": out["libraries"], "stats": out["stats"], "outcomes": out["outcomes"],
+                  "precompile": out["precompile"], "b1_launches": out["b1_launches"],
+                  "lanes_launches": out["lanes_launches"],
+                  "small_launches_max_abs_err": out["small_launches_max_abs_err"]})
+        out = {"phase": "aot_cold_start", "classes": sizes["classes"], "artifacts": artifacts,
+               "cache_bytes": sum(a["bytes"] for a in artifacts),
+               "to_first_replay_s": {m: o["seconds"]["to_first_replay"] for m, o in children.items()},
+               "cold_minus_warm_s": saved, "cold_nvcc_s": nvcc_s,
+               "b1_launches": sum(o["b1_launches"] for o in children.values()),
+               "lanes_launches": sum(o["lanes_launches"] for o in children.values()),
+               "seconds": time.perf_counter() - t_phase, "card": smi}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
                                             "resilience", "stream_pool", "trunk_pools", "spmd_collection",
-                                            "metric_server", "fleet_rollup"),
+                                            "metric_server", "fleet_rollup", "aot_cold_start"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
@@ -9156,7 +9491,8 @@ def main() -> int:
                              "trunk_pools: build, run only the trunk_pools phase, stop; "
                              "spmd_collection: build, run only the spmd_collection phase on the imagenet_val data, "
                              "stop; metric_server: build, run only the metric_server phase, stop; "
-                             "fleet_rollup: build, run only the fleet_rollup phase, stop")
+                             "fleet_rollup: build, run only the fleet_rollup phase, stop; "
+                             "aot_cold_start: build, run only the aot_cold_start phase, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -9273,6 +9609,10 @@ def main() -> int:
         return 0
     if args.phase == "fleet_rollup":
         phase_fleet_rollup(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 56), smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "aot_cold_start":
+        phase_aot_cold_start(torch, np, dev, args.seed + 57, smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -9602,6 +9942,8 @@ def main() -> int:
     # ------------- fleet aggregation, 64 edge confusion matrices on the card (B1 an edge update), phase 56
     fleet = phase_fleet_rollup(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 56), smi)
     release_graphs(torch)
+    # ------------- the AOT cache: a cold, a warm (no nvcc) and a damaged replica in child processes, phase 57
+    aot = phase_aot_cold_start(torch, np, dev, args.seed + 57, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -9638,7 +9980,7 @@ def main() -> int:
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
         + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"]
-        + resilient["b1_launches"] + pooled["b1_unbatched_launches"] + fleet["b1_launches"],
+        + resilient["b1_launches"] + pooled["b1_unbatched_launches"] + fleet["b1_launches"] + aot["b1_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -9648,13 +9990,14 @@ def main() -> int:
         "bound_ms_fresh": big["bound_ms_fresh"],
         "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask, into the state, "
               "queued_ms; launches include phase 56's fleet edges (512 edge updates, then its chaos, race and store "
-              "trees)",
+              "trees) and phase 57's three child processes (a precompile and 3 updates each)",
     }, {
         "name": "confmat_lanes",
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
-        "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"] + served["lanes_launches"],
+        "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"] + served["lanes_launches"]
+        + aot["lanes_launches"],
         "max_abs_err": max(pooled["max_abs_err"], spmd_run["timing"]["b1_lanes"]["max_abs_err"],
                            served["lane_check"]["max_abs_err"]),
         "ms": pooled["timing"]["ms"],
@@ -9664,7 +10007,8 @@ def main() -> int:
         "library_ms": pooled["timing"]["library_ms"],
         "at": f"one stream_pool micro-batch: ({pooled['lanes']}, {pooled['rows']}) int64 labels + bool mask, "
               f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap; launches: "
-              "phase 52's micro-batches, phase 54's SPMD steps and phase 55's server micro-batches (with its warm runs)",
+              "phase 52's micro-batches, phase 54's SPMD steps, phase 55's server micro-batches (with its warm runs) "
+              "and phase 57's children's pool and engine steps (with their warm_starts)",
         "server_shapes": served["lane_check"]["shapes"],
         "spmd_rows": {k: spmd_run["timing"]["b1_lanes"][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }] + [{

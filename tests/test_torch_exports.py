@@ -226,15 +226,13 @@ def _jax_names(relpath, seen=None):
 
 @pytest.mark.parametrize(
     ("relpath", "module", "count", "ported"),
-    [("__init__.py", torchmetrics_tpu_torch, 235, 233), ("functional/__init__.py", TF_ALL, 220, 220)],
+    [("__init__.py", torchmetrics_tpu_torch, 235, 235), ("functional/__init__.py", TF_ALL, 220, 220)],
 )
 def test_the_top_level_gap_is_only_what_is_not_ported_yet(relpath, module, count, ported):
-    """The functional list is complete; the top level lacks only the AOT helpers (queue item 7)."""
+    """No gap is left: the top level and the functional list both equal the JAX package's."""
     want = _jax_names(relpath)
     assert len(want) == count and len(module.__all__) == ported
-    aot = {"get_aot_cache", "set_aot_cache"} if module is torchmetrics_tpu_torch else set()
-    assert set(want) - set(module.__all__) == aot
-    assert not set(module.__all__) - set(want)
+    assert set(want) == set(module.__all__)
 
 
 @pytest.mark.parametrize(

@@ -167,6 +167,31 @@ def test_fleet_runs_with_jax_and_the_jax_package_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_aot_cache_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """``_aot`` stands alone: a record written then hit, the CLI's ``verify`` and the golden gate, without JAX."""
+    code = (
+        "import sys, warnings\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['torchmetrics_tpu'] = None\n"
+        "warnings.simplefilter('ignore')\n"
+        "import torch\n"
+        "import torchmetrics_tpu_torch as tt\n"
+        "from torchmetrics_tpu_torch._aot import __main__ as cli, aot_stats\n"
+        f"tt.set_aot_cache({str(tmp_path)!r})\n"
+        "x = torch.linspace(0, 1, 32)\n"
+        "for _ in range(2):\n"
+        "    assert tt.MeanSquaredError(device='cpu').precompile(x, x.flip(0))['engaged']\n"
+        "assert aot_stats()['hits'] == 1 and aot_stats()['writes'] == 1\n"
+        f"assert cli.main(['verify', '--dir', {str(tmp_path)!r}]) == 0\n"
+        "assert cli.main(['golden']) == 0\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'torchmetrics_tpu.')) for k in sys.modules if sys.modules[k])\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_compile_path_runs_with_jax_and_the_jax_package_blocked():
     """``_compile.py`` and the eligibility copy stand alone: the JAX package's ``eligibility.json`` is never opened."""
     code = (

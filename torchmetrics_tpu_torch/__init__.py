@@ -26,6 +26,7 @@ from torchmetrics_tpu_torch import (
     wrappers,
 )
 from torchmetrics_tpu_torch.__about__ import __version__
+from torchmetrics_tpu_torch._aot import get_aot_cache, set_aot_cache
 from torchmetrics_tpu_torch.aggregation import (
     BaseAggregator,
     CatMetric,
@@ -83,6 +84,8 @@ __all__ = [
     "utilities",
     "wrappers",
     "__version__",
+    "get_aot_cache",
+    "set_aot_cache",
     "Metric",
     "CompositionalMetric",
     "MetricCollection",

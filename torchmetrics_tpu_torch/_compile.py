@@ -71,6 +71,7 @@ from torchmetrics_tpu_torch.utilities.checks import _vmapped
 __all__ = [
     "CapturedForward",
     "CapturedStep",
+    "capture_outcome",
     "device_constant",
     "eligibility_verdict",
     "layout_key",
@@ -323,6 +324,13 @@ class CapturedStep:
         for static, x in zip(self.inputs, dyn):
             static.copy_(x, non_blocking=True)
         self.graph.replay()
+
+
+def capture_outcome(entry: Any, on_card: bool, failure: Optional[str] = None) -> str:
+    """How a key's build ended, as its AOT record keeps it: ``eager`` (CPU), ``captured``, or ``failed: <why>``."""
+    if not on_card:
+        return "eager"
+    return "captured" if isinstance(entry, CapturedStep) else f"failed: {failure}"
 
 
 def _pool_bound(device: torch.device) -> int:

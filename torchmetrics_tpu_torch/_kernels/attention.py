@@ -131,7 +131,7 @@ def attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, *, num_heads: int) 
     return out
 
 
-attention.launches = LaunchCounter()  # type: ignore[attr-defined]
+attention.launches = LaunchCounter(ATTENTION_SOURCE)  # type: ignore[attr-defined]
 
 
 def _attention_rule(info: Any, in_dims: tuple, q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int) -> tuple:
@@ -228,7 +228,7 @@ def layernorm_residual(x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, *, eps
     return out
 
 
-layernorm_residual.launches = LaunchCounter()  # type: ignore[attr-defined]
+layernorm_residual.launches = LaunchCounter(LAYERNORM_SOURCE)  # type: ignore[attr-defined]
 
 
 def _layernorm_rule(info: Any, in_dims: tuple, x: Tensor, h: Tensor, scale: Tensor, bias: Tensor, eps: float) -> tuple:

@@ -126,7 +126,7 @@ def biquad_bank(x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor] = None) 
     return out
 
 
-biquad_bank.launches = LaunchCounter()  # type: ignore[attr-defined]
+biquad_bank.launches = LaunchCounter(SOURCE)  # type: ignore[attr-defined]
 
 
 def _biquad_rule(info: Any, in_dims: tuple, x: Tensor, b: Tensor, a: Tensor, gain: Optional[Tensor]) -> tuple:

@@ -183,7 +183,7 @@ def matmul_bias_relu(x2d: Tensor, w2d: Tensor, bias: Tensor, out: Optional[Tenso
     return out
 
 
-matmul_bias_relu.launches = LaunchCounter()  # type: ignore[attr-defined]
+matmul_bias_relu.launches = LaunchCounter(SOURCE)  # type: ignore[attr-defined]
 
 
 # --------------------------------------------------------------------- B2b
@@ -225,7 +225,7 @@ def bias_relu_(y2d: Tensor, bias: Tensor) -> Tensor:
     return y2d
 
 
-bias_relu_.launches = LaunchCounter()  # type: ignore[attr-defined]
+bias_relu_.launches = LaunchCounter(SOURCE)  # type: ignore[attr-defined]
 
 
 # ------------------------------------------------------------------ public

@@ -10,24 +10,35 @@ kernel runs at each replay of the graph, with no Python running. So there
 counter, recorded into the graph beside the kernel, which adds one at every
 replay. A count is the host's eager launches plus the device counters, so
 reading it waits for the card once a kernel has run there.
+
+Each counter names the source of its kernel's library. :func:`eager_launches`
+sums the eager launches by source without touching the card: the AOT cache
+reads it around a step's warm-up, whose launches are all eager, to record
+which libraries the step needs.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from pathlib import Path
+from typing import Dict, List, Optional
 
 import torch
 from torch import Tensor
 
-__all__ = ["LaunchCounter"]
+__all__ = ["LaunchCounter", "eager_launches"]
+
+_COUNTERS: List["LaunchCounter"] = []
 
 
 class LaunchCounter:
     """How many times one kernel was launched: ``int(counter)``; ``reset()`` sets it to 0."""
 
-    def __init__(self) -> None:
+    def __init__(self, source: Optional[Path] = None) -> None:
+        self.source = None if source is None else Path(source).name  # the kernel library's source under csrc/
         self._host = 0
+        self._eager = 0  # every eager launch of the process: reset() leaves it
         self._device: Dict[int, Tensor] = {}  # by device index; made at the first eager launch there
+        _COUNTERS.append(self)
 
     def hit(self, device: torch.device) -> None:
         """Count one launch of the kernel on ``device``; called by the wrapper where it launches."""
@@ -38,6 +49,7 @@ class LaunchCounter:
             counter.add_(1)  # recorded into the graph: runs with each replay
             return
         self._host += 1
+        self._eager += 1
         if device.index not in self._device:
             self._device[device.index] = torch.zeros((), dtype=torch.int64, device=device)
 
@@ -55,3 +67,12 @@ class LaunchCounter:
 
     def __repr__(self) -> str:
         return f"LaunchCounter({int(self)})"
+
+
+def eager_launches() -> Dict[str, int]:
+    """Eager launches so far in this process, summed by library source; reads no device counter."""
+    out: Dict[str, int] = {}
+    for counter in _COUNTERS:
+        if counter.source is not None:
+            out[counter.source] = out.get(counter.source, 0) + counter._eager
+    return out

@@ -157,7 +157,7 @@ def lpips_head(f0: Tensor, f1: Tensor, weight: Tensor) -> Tensor:
     return out
 
 
-lpips_head.launches = LaunchCounter()  # type: ignore[attr-defined]
+lpips_head.launches = LaunchCounter(SOURCE)  # type: ignore[attr-defined]
 
 
 def _head_rule(info: Any, in_dims: tuple, f0: Tensor, f1: Tensor, weight: Tensor) -> tuple:

@@ -260,9 +260,10 @@ class MetricServer:
         first real micro-batch replays. (The JAX package follows its
         ``warm_start``, which compiles without running, with an all-masked
         ``update``: that run is already this one.) Returns
-        ``{"<bucket>:<kind>": outcome}``, where an outcome is ``"compiled"``
-        (built now) or ``"ready"``; the JAX package's ``"hit"``, a step
-        loaded from its disk cache, has no counterpart here.
+        ``{"<bucket>:<kind>": outcome}``, where an outcome is the pool's:
+        ``"compiled"`` (built now), ``"hit"`` (built now on a verified AOT
+        cache record, with every kernel library it names loaded without
+        ``nvcc``) or ``"ready"``.
         """
         cfg = self._controller.config
         buckets: List[int] = []

@@ -69,6 +69,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch import _compile
+from torchmetrics_tpu_torch._aot.state import AOT as _AOT
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability import tracing as _obs_trace
 from torchmetrics_tpu_torch._observability.events import BUS as _BUS
@@ -256,6 +257,7 @@ class SpmdEngine:
         self._graph_pool: Any = None
         self._graph_constants: Dict[tuple, Tensor] = {}
         self.capture_failures: Dict[Any, str] = {}
+        self._built_as = "compiled"  # how the last key built was resolved: compiled, hit (AOT cache) or ready
         # the running step has written rows in place: a fault now cannot fold
         self._writing = False
         # SnapshotManager target surface (filled at the first step)
@@ -376,21 +378,43 @@ class SpmdEngine:
         as they were, so the fault folds. With profiling on, the first call
         counts the step's cost and later calls are timed into the ledger's
         ``spmd_step`` seam (a CUDA event pair on the card, the host clock on
-        the CPU).
+        the CPU). With the AOT cache set, the build runs under its resolution
+        lock and asks for the key's record first; ``_built_as`` then says how
+        the key was resolved.
         """
         dyn = list(dynamic)
         cls_name = type(self.target).__name__
-        if not built:
-            entry = self._step_fns[key]
-            if isinstance(entry, _compile.CapturedStep):
-                self._writing = True  # a replay writes the rows from its first kernel on
-                # the replay's outputs are the graph's own buffers, which the next replay overwrites
-                return _tree_map(torch.clone, entry.replay(dyn))
-            t0 = time.perf_counter() if _OBS.profiling else 0.0
-            out = entry(self._states, dyn)
-            if _OBS.profiling:
-                _PROF_LEDGER.record_step("spmd_step", cls_name, time.perf_counter() - t0)
-            return self._own(out)
+        if built and _AOT.active:
+            from torchmetrics_tpu_torch._aot import cache as _aot_cache
+
+            with _aot_cache.RESOLVE_LOCK:
+                if key in self._step_fns:  # built by another thread while this one waited for the lock
+                    self._built_as = "ready"
+                    return self._run_step(key, treedef, statics, dyn, False)
+                res = _aot_cache.wrap_executable(
+                    owner=f"SpmdEngine[{cls_name}]", kind="spmd_step",
+                    components=self._units[0].metric._compile_components(treedef, statics, key[0][2]),
+                    extra=repr((key[1:], self.world, self.axis_name,
+                                [(tuple(t.shape), str(t.dtype)) for t in _leaves(self._states)])),
+                    telem_obj=self.target,
+                )
+                return self._build(key, treedef, statics, dyn, res)
+        if built:
+            return self._build(key, treedef, statics, dyn, None)
+        entry = self._step_fns[key]
+        if isinstance(entry, _compile.CapturedStep):
+            self._writing = True  # a replay writes the rows from its first kernel on
+            # the replay's outputs are the graph's own buffers, which the next replay overwrites
+            return _tree_map(torch.clone, entry.replay(dyn))
+        t0 = time.perf_counter() if _OBS.profiling else 0.0
+        out = entry(self._states, dyn)
+        if _OBS.profiling:
+            _PROF_LEDGER.record_step("spmd_step", cls_name, time.perf_counter() - t0)
+        return self._own(out)
+
+    def _build(self, key: Any, treedef: Any, statics: Any, dyn: List[Tensor], res: Any) -> Any:
+        """Build the key's step, run it once (on the card, the warm-up before its capture); ``res``: the AOT cache's word."""
+        cls_name = type(self.target).__name__
         step = self._build_step(treedef, statics)
         on_card = self.device.type == "cuda"
         saved = _tree_map(torch.clone, self._states)
@@ -401,7 +425,7 @@ class SpmdEngine:
             first = functools.partial(step, self._states, dyn)
         tally = None
         try:
-            if _OBS.profiling:
+            if _OBS.profiling and (res is None or res.counting):
                 with _obs_costs.count_costs(dyn, self._states) as tally:
                     out = first()
                     _obs_costs.add_output_bytes(tally, out)
@@ -417,7 +441,7 @@ class SpmdEngine:
             raise
         del saved
         out = self._own(out)
-        self._step_fns[key] = self._capture(key, step, dyn) if on_card else step
+        self._step_fns[key] = entry = self._capture(key, step, dyn) if on_card else step
         self._writing = False  # the capture ran the step's Python, and wrote nothing
         seconds = time.perf_counter() - t0
         if _OBS.enabled:
@@ -429,10 +453,13 @@ class SpmdEngine:
                 owner=f"SpmdEngine[{cls_name}]",
                 kind="spmd_step",
                 digest=hashlib.sha256(repr((key, self.world, self.axis_name)).encode()).hexdigest(),
-                cost=None if tally is None else tally.cost(),
+                cost=tally.cost() if tally is not None else None if res is None else res.cost,
                 compile_seconds=seconds,
                 source="captured" if on_card else "compiled",
             )
+        if res is not None:
+            res.done(_compile.capture_outcome(entry, on_card, self.capture_failures.get(key)), tally)
+        self._built_as = "compiled" if res is None else res.outcome
         return out
 
     def _capture(self, key: Any, step: Callable, dyn: List[Tensor]) -> Any:
@@ -510,11 +537,14 @@ class SpmdEngine:
         are put back as they were (on the card that run is the warm-up before
         the key's CUDA graph is captured, and the first real :meth:`step` of
         the signature replays); the step count does not advance. Returns
-        ``{"spmd_step": "compiled"}`` when the step was built now, ``"ready"``
-        when it already was; ``spmd_compute`` reads ``"ready"`` (it runs
-        eagerly), and both read ``"degraded"`` on a degraded engine. The JAX
-        package also answers ``"hit"``, an executable loaded from its disk
-        cache: that route waits for the port's ``_aot/``.
+        ``{"spmd_step": "compiled"}`` when the step was built now, ``"hit"``
+        when it was built now on a verified AOT cache record (the record was
+        found, and every kernel library it names was loaded from ``_build/``
+        or the cache with no ``nvcc``; the warm-up and the capture still run
+        here, see ``_aot/cache.py``), ``"ready"`` when this engine had built
+        it already (where the JAX package answers ``"hit"``). ``spmd_compute``
+        reads ``"ready"``: it runs eagerly, where the JAX package's is an
+        executable. Both read ``"degraded"`` on a degraded engine.
         """
         degraded = {"spmd_step": "degraded", "spmd_compute": "degraded"}
         if self._degraded:
@@ -542,7 +572,7 @@ class SpmdEngine:
         finally:
             for live, old in zip(_leaves(self._states or {}), _leaves(saved)):
                 live.copy_(old)  # the example batch is not part of the stream
-        outcomes["spmd_step"] = "compiled"
+        outcomes["spmd_step"] = self._built_as
         return outcomes
 
     def _shape_value(self, value: Dict[str, Any]) -> Any:

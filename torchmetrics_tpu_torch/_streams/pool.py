@@ -70,6 +70,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch import _compile
+from torchmetrics_tpu_torch._aot.state import AOT as _AOT
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability import tracing as _obs_trace
 from torchmetrics_tpu_torch._observability.events import BUS as _BUS
@@ -302,6 +303,7 @@ class StreamPool:
         self._graph_pool: Any = None
         self._graph_constants: Dict[tuple, Tensor] = {}
         self.capture_failures: Dict[Any, str] = {}
+        self._built_as = "compiled"  # how the last key built was resolved: compiled, hit (AOT cache) or ready
         self.growths = 0
         self.total_row_updates = 0
         self._row_guards = False
@@ -569,17 +571,18 @@ class StreamPool:
         return key, treedef, dynamic, statics
 
     def _compile_event(self, key: Any, treedef: Any, statics: Any) -> None:
+        _telemetry_for(self).compile_event("stream_step", self._components(key, treedef, statics))
+
+    def _components(self, key: Any, treedef: Any, statics: Any) -> Dict[str, str]:
+        """The step key's printable components: the churn detector's, which also key its AOT record."""
         sig = key[0]
-        _telemetry_for(self).compile_event(
-            "stream_step",
-            {
-                "arg_structure": str(treedef),
-                "static_args": repr(statics),
-                "shapes": repr(tuple(s[0] for s in sig[2])),
-                "dtypes": repr(tuple(str(s[1]).replace("torch.", "") for s in sig[2])),
-                "capacity": str(self.physical),
-            },
-        )
+        return {
+            "arg_structure": str(treedef),
+            "static_args": repr(statics),
+            "shapes": repr(tuple(s[0] for s in sig[2])),
+            "dtypes": repr(tuple(str(s[1]).replace("torch.", "") for s in sig[2])),
+            "capacity": str(self.physical),
+        }
 
     def _update_impl(self, _sp: Any, stream_ids: Any, args: tuple, kwargs: Dict[str, Any]) -> None:
         """The micro-batch body (``_sp``: the seam's open span, or None)."""
@@ -690,20 +693,40 @@ class StreamPool:
         (this batch's update) and captures it on the same states. With
         profiling on, the first call counts the step's cost and a later call
         is timed (a CUDA event pair on the card, the host clock on the CPU)
-        into the ledger's ``stream_step`` seam and ``meter``.
+        into the ledger's ``stream_step`` seam and ``meter``. With the AOT
+        cache set, the build runs under its resolution lock and asks for the
+        key's record first; ``_built_as`` then says how the key was resolved.
         """
         cls_name = type(self.target).__name__
-        if not built:
-            entry = self._step_fns[key]
-            if isinstance(entry, _compile.CapturedStep):
-                return entry.replay(dyn, then=None if meter is None else meter.timed)
-            t0 = time.perf_counter() if meter is not None else 0.0
-            out = entry(self._states, dyn)
-            if meter is not None:
-                seconds = time.perf_counter() - t0
-                _PROF_LEDGER.record_step("stream_step", cls_name, seconds)
-                meter.timed(seconds)
-            return out
+        if built and _AOT.active:
+            from torchmetrics_tpu_torch._aot import cache as _aot_cache
+
+            with _aot_cache.RESOLVE_LOCK:
+                if key in self._step_fns:  # built by another thread while this one waited for the lock
+                    self._built_as = "ready"
+                    return self._run_step(key, treedef, statics, dyn, False, meter)
+                res = _aot_cache.wrap_executable(
+                    owner=f"StreamPool[{cls_name}]", kind="stream_step", components=self._components(key, treedef, statics),
+                    extra=repr((key[0][2], key[1:], [(tuple(t.shape), str(t.dtype)) for t in _leaves(self._states)])),
+                    telem_obj=self,
+                )
+                return self._build(key, treedef, statics, dyn, res)
+        if built:
+            return self._build(key, treedef, statics, dyn, None)
+        entry = self._step_fns[key]
+        if isinstance(entry, _compile.CapturedStep):
+            return entry.replay(dyn, then=None if meter is None else meter.timed)
+        t0 = time.perf_counter() if meter is not None else 0.0
+        out = entry(self._states, dyn)
+        if meter is not None:
+            seconds = time.perf_counter() - t0
+            _PROF_LEDGER.record_step("stream_step", cls_name, seconds)
+            meter.timed(seconds)
+        return out
+
+    def _build(self, key: Any, treedef: Any, statics: Any, dyn: List[Tensor], res: Any) -> Tuple[Tensor, Tensor]:
+        """Build the key's step, run it once (on the card, the warm-up before its capture); ``res``: the AOT cache's word."""
+        cls_name = type(self.target).__name__
         step = self._build_step(treedef, statics)
         t0 = time.perf_counter()
         on_card = self.device.type == "cuda"
@@ -712,13 +735,13 @@ class StreamPool:
         else:
             first = functools.partial(step, self._states, dyn)
         tally = None
-        if _OBS.profiling:
+        if _OBS.profiling and (res is None or res.counting):
             with _obs_costs.count_costs(dyn, self._states) as tally:
                 out = first()
                 _obs_costs.add_output_bytes(tally, out)
         else:
             out = first()
-        self._step_fns[key] = self._capture(key, step, dyn) if on_card else step
+        self._step_fns[key] = entry = self._capture(key, step, dyn) if on_card else step
         seconds = time.perf_counter() - t0
         if _OBS.enabled:
             telem = _telemetry_for(self)
@@ -729,10 +752,13 @@ class StreamPool:
                 owner=f"StreamPool[{cls_name}]",
                 kind="stream_step",
                 digest=hashlib.sha256(repr(key).encode()).hexdigest(),
-                cost=None if tally is None else tally.cost(),
+                cost=tally.cost() if tally is not None else None if res is None else res.cost,
                 compile_seconds=seconds,
                 source="captured" if on_card else "compiled",
             )
+        if res is not None:
+            res.done(_compile.capture_outcome(entry, on_card, self.capture_failures.get(key)), tally)
+        self._built_as = "compiled" if res is None else res.outcome
         return out
 
     def _capture(self, key: Any, step: Callable, dyn: List[Tensor]) -> Any:
@@ -1097,10 +1123,13 @@ class StreamPool:
         attached slots).
 
         Returns ``{"stream_step": "compiled"}`` when the step was built now,
-        ``"ready"`` when it already was; ``stream_compute_one`` and
-        ``stream_compute_all`` read ``"ready"`` (they run eagerly). The JAX
-        package also answers ``"hit"``, a step loaded from its disk cache:
-        that route waits for the port's ``_aot/``.
+        ``"hit"`` when it was built now on a verified AOT cache record (the
+        record was found, and every kernel library it names was loaded from
+        ``_build/`` or the cache with no ``nvcc``; the warm-up and the capture
+        still run here, see ``_aot/cache.py``), ``"ready"`` when this pool
+        had built it already (where the JAX package answers ``"hit"``).
+        ``stream_compute_one`` and ``stream_compute_all`` read ``"ready"``:
+        they run eagerly, where the JAX package's are executables.
         """
         ids = _host_ids(stream_ids)
         args, kwargs = _as_tensors(args, self.device), _as_tensors(kwargs, self.device)
@@ -1112,7 +1141,7 @@ class StreamPool:
             self._compile_event(key, treedef, statics)
         padding = torch.full((ids.size,), -1, dtype=torch.int64, device=self.device)
         self._run_step(key, treedef, statics, [padding, *dynamic], True, None)
-        outcomes["stream_step"] = "compiled"
+        outcomes["stream_step"] = self._built_as
         return outcomes
 
     # -------------------------------------------------- snapshot/restore surface

@@ -245,7 +245,7 @@ def confusion_matrix_lanes(
     return out
 
 
-confusion_matrix_lanes.launches = LaunchCounter()  # type: ignore[attr-defined]
+confusion_matrix_lanes.launches = LaunchCounter(SOURCE)  # type: ignore[attr-defined]
 
 
 def _lanes_rule(info: Any, in_dims: tuple, preds: Tensor, target: Tensor, weights: Optional[Tensor], num_classes: int,
@@ -348,7 +348,7 @@ def confusion_matrix_cuda(
     return out
 
 
-confusion_matrix_cuda.launches = LaunchCounter()  # type: ignore[attr-defined]
+confusion_matrix_cuda.launches = LaunchCounter(SOURCE)  # type: ignore[attr-defined]
 
 
 @functools.cache

@@ -48,6 +48,7 @@ import torch
 from torch import Tensor, nn
 
 from torchmetrics_tpu_torch import _compile
+from torchmetrics_tpu_torch._aot.state import AOT as _AOT
 
 # telemetry hot switches (``_observability/state.py``): `_OBS.enabled`,
 # `_OBS.tracing` and `_OBS.profiling` are the one check each seam pays while
@@ -729,22 +730,24 @@ class Metric(nn.Module, ABC):
         hashable signature before any string is built.
         """
         seen = self.__dict__.setdefault("_obs_seen_sigs", set())
-        policy = "none" if self._dtype_policy is None else str(self._dtype_policy).replace("torch.", "")
-        sig_key = (kind, treedef, statics, sig_inputs, policy)
+        sig_key = (kind, treedef, statics, sig_inputs, self._dtype_policy)
         if sig_key in seen:
             return
         if len(seen) < 512:  # churn streams must not grow host memory without bound
             seen.add(sig_key)
-        components = {
+        _telemetry_for(self).compile_event(kind, self._compile_components(treedef, statics, sig_inputs), built=built)
+
+    def _compile_components(self, treedef: Any, statics: Tuple, sig_inputs: Tuple) -> Dict[str, str]:
+        """A compiled key's printable components: what the churn detector diffs and the AOT cache keys records by."""
+        return {
             "arg_structure": str(treedef),
             "static_args": repr(statics),
             "shapes": repr(tuple(s[0] for s in sig_inputs)),
             "dtypes": repr(tuple(str(s[1]).replace("torch.", "") for s in sig_inputs)),
             "devices": repr(tuple(str(s[2]) for s in sig_inputs)),
             "layouts": repr(tuple(s[3:] for s in sig_inputs)),
-            "dtype_policy": policy,
+            "dtype_policy": "none" if self._dtype_policy is None else str(self._dtype_policy).replace("torch.", ""),
         }
-        _telemetry_for(self).compile_event(kind, components, built=built)
 
     def telemetry_report(self) -> Any:
         """Runtime telemetry snapshot for this metric (JAX ``metric.py:689``).
@@ -1415,12 +1418,13 @@ class Metric(nn.Module, ABC):
         "_scan_update_fn": ("scan_update", "update_scan"),
     }
 
-    def _obs_built(self, cache_name: str, key: Any, seconds: float, tally: Any) -> None:
+    def _obs_built(self, cache_name: str, key: Any, seconds: float, tally: Any, recorded: Any = None) -> None:
         """Report a step just built (captured on the card, first run on the CPU): its seconds and counted cost.
 
         The first call of a JAX executable pays its trace and compile
         (``trace_seconds``, JAX ``metric.py:1481``); the port's pays its
-        warm-up and capture, or on the CPU its first eager run.
+        warm-up and capture, or on the CPU its first eager run. ``recorded``
+        is the cost an AOT cache hit carried, which stands in for the count.
         """
         if _OBS.enabled:
             telem = _telemetry_for(self)
@@ -1432,10 +1436,33 @@ class Metric(nn.Module, ABC):
                 owner=f"{type(self).__module__}.{type(self).__qualname__}",
                 kind=kind,
                 digest=hashlib.sha256(repr((kind, key)).encode()).hexdigest(),
-                cost=None if tally is None else tally.cost(),
+                cost=recorded if tally is None else tally.cost(),
                 compile_seconds=seconds,
                 source="captured" if self._device.type == "cuda" else "compiled",
             )
+
+    def _aot_resolve(self, cache_name: str, key: Any, names: List[str]) -> Any:
+        """The AOT cache's word on a key about to be built (``_aot.cache.wrap_executable``); the cache is set.
+
+        The record is keyed by the class, the kind, the churn components of
+        ``key`` and the rest of it (the fused flags' switch), and the shapes
+        of the states the step updates.
+        """
+        from torchmetrics_tpu_torch._aot import cache as _aot_cache
+
+        (treedef, statics, sig_inputs, *rest), _policy = key
+        states = []
+        for n in names:
+            v = getattr(self, n)
+            v = v.data if isinstance(v, RingBuffer) else v
+            states.append((n, tuple(v.shape), str(v.dtype)) if isinstance(v, Tensor) else (n, type(v).__name__))
+        return _aot_cache.wrap_executable(
+            owner=f"{type(self).__module__}.{type(self).__qualname__}",
+            kind=self._COMPILE_KINDS[cache_name][0],
+            components=self._compile_components(treedef, statics, sig_inputs),
+            extra=repr((tuple(rest), states)),
+            telem_obj=self,
+        )
 
     @staticmethod
     def _counted_run(fn: Callable, dynamic: List[Tensor], bufs: Dict[str, Any]) -> Tuple[Any, Any]:
@@ -1457,11 +1484,14 @@ class Metric(nn.Module, ABC):
         anywhere leaves the metric's states as they were. With profiling on,
         a replay is timed by a CUDA event pair (``CapturedStep.replay``) and
         a CPU step by the host clock; the first call is the step's build.
+        With the AOT cache set, a build first asks the cache for the key's
+        record (which loads the libraries it names) and writes one after.
         """
         key = (key, None if self._dtype_policy is None else str(self._dtype_policy))
         cache = self.__dict__.setdefault(cache_name, {})
         if self._device.type != "cuda":
             first = key not in cache
+            res = self._aot_resolve(cache_name, key, names) if first and _AOT.active else None
             if first:
                 cache[key] = build()
             bufs = self._step_bufs(names, validate, count, private=first)
@@ -1472,7 +1502,7 @@ class Metric(nn.Module, ABC):
             t0 = time.perf_counter() if (first and _OBS.enabled) or _OBS.profiling else None
             tally = None
             try:
-                if first and _OBS.profiling:
+                if first and _OBS.profiling and (res is None or res.counting):
                     out, tally = self._counted_run(lambda: cache[key](bufs, dynamic), dynamic, bufs)
                 else:
                     out = cache[key](bufs, dynamic)
@@ -1483,18 +1513,22 @@ class Metric(nn.Module, ABC):
             if t0 is not None:
                 elapsed = time.perf_counter() - t0
                 if first:
-                    self._obs_built(cache_name, key, elapsed, tally)
+                    self._obs_built(cache_name, key, elapsed, tally, None if res is None else res.cost)
                 elif _OBS.profiling:
                     _PROF_LEDGER.record_step(self._COMPILE_KINDS[cache_name][1], type(self).__name__, elapsed)
+            if res is not None:
+                res.done("eager", tally)
             self._commit_compiled_states(names, bufs, validate, count)
             return out
         entry = cache.get(key)
         if entry is None:
+            res = self._aot_resolve(cache_name, key, names) if _AOT.active else None
             t0 = time.perf_counter()
             step, constants = build(), {}
             bufs = self._step_bufs(names, validate, count, private=True)
             warm = functools.partial(_compile.warm_up, step, bufs, dynamic, self._device, constants)
-            out, tally = self._counted_run(warm, dynamic, bufs) if _OBS.profiling else (warm(), None)
+            counting = _OBS.profiling and (res is None or res.counting)
+            out, tally = self._counted_run(warm, dynamic, bufs) if counting else (warm(), None)
             rings = {n: (b.count, b._warned_overflow) for n, b in bufs.items() if isinstance(b, RingBuffer)}
             # one memory pool for the metric's graphs; a pool whose graphs are all
             # gone is not reused (the allocator frees it lazily), so it gets a new one
@@ -1504,7 +1538,7 @@ class Metric(nn.Module, ABC):
             # replays are timed on the card under this seam and class while profiling is on
             entry.seam, entry.owner = self._COMPILE_KINDS[cache_name][1], type(self).__name__
             if _OBS.enabled or _OBS.profiling:
-                self._obs_built(cache_name, key, time.perf_counter() - t0, tally)
+                self._obs_built(cache_name, key, time.perf_counter() - t0, tally, None if res is None else res.cost)
             # the capture ran the step's Python but no kernel: put back the host side of each ring
             entry.ring_deltas = {n: bufs[n].count - c for n, (c, _) in rings.items()}
             for n, (c, warned) in rings.items():
@@ -1512,6 +1546,8 @@ class Metric(nn.Module, ABC):
             entry.cursor_at = {n: c for n, (c, _) in rings.items()}
             entry.count_at = self._update_count + 1
             cache[key] = entry
+            if res is not None:
+                res.done("captured", tally)
             self._commit_compiled_states(names, bufs, validate, count)
             return out
         bufs = entry.bufs
