@@ -450,10 +450,25 @@ then an ``audio_multimodal_segmentation`` line with the seconds of phases
     CUDA init, warm-up and capture, and each artifact's bytes (``--phase
     aot_cold_start`` runs the build and this phase alone);
 
+58. ``spmd_process_group``: the SPMD engine over a mesh that spans a
+    process group (one process a card), on a world-1 NCCL group made at the
+    phase's start and destroyed at its end: phase 54's main path on 8 rows
+    under the group, every step bit for bit with the plain 8-row mesh, B1
+    across the rows once a step, one graph a key and every later step a
+    replay, the collectives each key's graph captured (one all-reduce a key
+    for config 2's integer sums); all-gathers captured for floating sums and
+    Pearson's moments, and a ``CatMetric`` ring, bit for bit; one replay
+    under the profiler beside the plain mesh's; replica groups, an injected
+    failure and a snapshot restore, bit for bit; LPIPS alex through the
+    engine (B3 once a tap a step); ``build_mesh()`` under the group; a mesh
+    on the card over a gloo group refused; host and device ms a step
+    against the plain mesh (``--phase spmd_process_group`` runs the build
+    and this phase alone);
+
 the card's name and power limit, the
 ``kernels`` line (B1, B1 across lanes, B2a-B5 and S1, and B2a-B5 and S1
-across lanes; the lane rows count phase 54's steps and phase 55's
-micro-batches too) and, last,
+across lanes; the lane rows count phase 54's and phase 58's steps and
+phase 55's micro-batches too) and, last,
 ``{"ok": true, "device": {...}}``. Trunk weights are seeded random ones: no
 checkpoint can be downloaded. Floats are printed to 7 significant digits.
 """
@@ -9474,13 +9489,326 @@ def phase_aot_cold_start(torch, np, dev, seed: int, smi: str, sizes=None) -> dic
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ spmd_process_group
+# phase 58: the SPMD engine over a mesh that spans a process group (one process a card), on one card: a world-1 NCCL
+# group whose collectives the engine captures into each key's CUDA graph, phase 54's main path on 8 rows under it,
+# each step bit for bit with the plain 8-row mesh
+PG_SIZES = {"rows": 8, "batch": 1024, "gather_steps": 6, "cat_capacity": 8192, "fault_at": 4, "short_steps": 8,
+            "snapshot_every": 2, "group_steps": 4, "lpips_pairs": 8, "lpips_side": 256, "lpips_steps": 3,
+            "timed_steps": 24}
+
+
+def _bits(torch, value) -> list:
+    """A value's tensors (dict keys sorted) as flat bytes on the host: equal lists are equal bits."""
+    if isinstance(value, dict):
+        return [x for k in sorted(value) for x in _bits(torch, value[k])]
+    if isinstance(value, (tuple, list)):
+        return [x for v in value for x in _bits(torch, v)]
+    t = value.detach().contiguous().reshape(-1)
+    return [(str(t.dtype), tuple(value.shape), t.view(torch.uint8).cpu().numpy().tobytes())]
+
+
+def _replay_listing(torch, fn) -> dict:
+    """One call of ``fn`` under the profiler: each device row's name and calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.key: evt.count for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0}
+
+
+def phase_spmd_process_group(torch, np, kernel, lh, dev, gen, logits, target, smi: str, sizes=None) -> dict:
+    """Phase 58: the SPMD engine over a mesh that spans a process group, its collectives captured in the step's graph.
+
+    A world-1 process group (NCCL on the card, gloo on the CPU) over a ``HashStore``, made at the start and destroyed
+    at the end; a mesh of 8 rows on the card over it (``build_mesh(devices=[dev] * 8, process_group=...)``), held bit
+    for bit against the plain 8-row mesh fed the same batches:
+
+    1. Phase 54's main path, BASELINE config 2's in-graph members on the imagenet_val data in global batches of
+       1,024, the last of 848: every step bit for bit; B1's lane-batched launches one a step (counted over the
+       process-group engine's steps alone); one graph a key, every later step a replay; the collectives each key's
+       capture issued (config 2's states are integer sums: one all-reduce a key, no gather).
+    2. A leg that captures all-gathers (floating sums, Pearson's gathered moments) and a ``CatMetric`` ring (whose
+       compute has a data-dependent length: both meshes degrade and continue eagerly, the eager sync over the group).
+    3. One replay of each kind of key under the profiler, beside the plain mesh's, reported: the device work the
+       group's collectives left in the graph (at one rank an in-place all-reduce may leave none, and an all-gather a
+       copy).
+    4. Replica groups, an injected step failure and a snapshot restore, each bit for bit with the plain mesh.
+    5. LPIPS alex through the engine, B3 once a tap a step.
+    6. ``build_mesh()`` under the group: one row on the current card, world 1.
+    7. A mesh on the card over a gloo group: refused at construction.
+    8. Host and device ms a step (medians) against the plain mesh, kernels a step and graph memory.
+    """
+    import torch.distributed as dist
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    spmd = importlib.import_module("torchmetrics_tpu_torch._spmd")
+    spmd_fi = importlib.import_module("torchmetrics_tpu_torch._spmd.faultinject")
+    res = importlib.import_module("torchmetrics_tpu_torch._resilience")
+    compile_mod = importlib.import_module("torchmetrics_tpu_torch._compile")
+    sizes = dict(PG_SIZES, **(sizes or {}))
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    n_val, c = logits.shape
+    rows, batch = sizes["rows"], sizes["batch"]
+    batches = [(logits[s:s + batch], target[s:s + batch]) for s in range(0, n_val, batch)]
+    check(not dist.is_initialized(), "a process group is already initialized before phase 58")
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
+                            **({"device_id": dev} if on_card else {}))
+    try:
+        group = dist.group.WORLD
+        mesh = spmd.build_mesh(devices=[dev] * rows, process_group=group)
+        plain = spmd.build_mesh(devices=[dev] * rows)
+        check((mesh.shape["dp"], mesh.local_rows, mesh.processes, mesh.rank) == (rows, rows, 1, 0),
+              f"the process-group mesh: {mesh.shape}, {mesh.local_rows} rows, {mesh.processes} processes")
+        lanes_k = kernel.confusion_matrix_lanes.launches
+
+        def collection():
+            return tp.MetricCollection(spmd_members(tp, c, dev))
+
+        def stream(eng, pairs):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return [_bits(torch, eng.step(*b)) for b in pairs]
+
+        # ------------------------------------------------------------ 1. the main path
+        eng = collection().to_spmd(mesh=mesh)
+        per_step, host_ms, values = [], [], []
+        stats0 = compile_mod.stats()
+        lanes_k.reset()  # the main path: counted from here
+        for p, t in batches:
+            before = int(lanes_k)
+            h0 = time.perf_counter()
+            values.append(_bits(torch, eng.step(p, t)))
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            per_step.append(int(lanes_k) - before)
+        if on_card:
+            torch.cuda.synchronize()
+        lanes_launches = int(lanes_k)  # the main path: read here
+        stats1 = compile_mod.stats()
+        steps = len(batches)
+        ref = collection().to_spmd(mesh=plain)
+        want = stream(ref, batches)
+        differ = [i for i, (a, b) in enumerate(zip(values, want)) if a != b]
+        check(not differ, f"steps {differ[:5]} of the process-group mesh differ from the plain mesh")
+        check(lanes_launches == (steps if on_card else 0) and set(per_step) == {1 if on_card else 0},
+              f"B1 lane-batched launches {lanes_launches} for {steps} steps ({sorted(set(per_step))} a step)")
+        check(not eng.degraded and eng.capture_failures == {}, f"degraded {eng.degraded}, captures {eng.capture_failures}")
+        graphs = {"captured": stats1["captured"] - stats0["captured"], "replayed": stats1["replayed"] - stats0["replayed"]}
+        if on_card:
+            check(all(isinstance(e, compile_mod.CapturedStep) for e in eng._step_fns.values()), "a key is not a CUDA graph")
+            check(graphs == {"captured": 2, "replayed": steps - 2}, f"graphs {graphs} for {steps} steps")
+        collectives = list(eng.collectives.values())
+        check(len(collectives) == 2 and all(k == {"all_reduce": 1} for k in collectives),
+              f"config 2's collectives a key: {collectives}")
+        preds_all = logits.argmax(-1).cpu().numpy()
+        cm_ref = np.bincount(target.cpu().numpy() * c + preds_all, minlength=c * c).reshape(c, c)
+        check(np.array_equal(eng.compute()["cm"].cpu().numpy(), cm_ref), "the final confusion matrix != numpy")
+        main = {"steps": steps, "batch": batch, "last_batch": int(batches[-1][0].shape[0]), "rows": rows,
+                "backend": backend, "lanes_launches": lanes_launches, "graphs": graphs,
+                "collectives_per_key": collectives, "bit_for_bit_steps": steps - len(differ),
+                "host_ms_median": statistics.median(host_ms),
+                "graph_pool_bytes": compile_mod.pool_bytes(eng._graph_pool) if on_card else 0}
+
+        # ------------------------------------------------------------ 2. all-gathers and a ring
+        gsteps = batches[:sizes["gather_steps"]]
+        pairs = [(p[:, 0].contiguous(), p[:, 1].contiguous()) for p, _ in gsteps]
+        gather = {}
+        gathered_engines = {}
+        for name, make, args in (
+            ("MeanSquaredError", lambda: tp.MeanSquaredError(device=dev), pairs),
+            ("PearsonCorrCoef", lambda: tp.PearsonCorrCoef(device=dev), pairs),
+            ("CatMetric", lambda: tp.CatMetric(device=dev, cat_state_capacity=sizes["cat_capacity"],
+                                               nan_strategy="disable"), [(p[:, :4],) for p, _ in gsteps]),
+        ):
+            g_eng, p_eng = make().to_spmd(mesh=mesh), make().to_spmd(mesh=plain)
+            got, ref_vals = stream(g_eng, args), stream(p_eng, args)
+            check(got == ref_vals, f"{name}: the process-group mesh != the plain mesh")
+            check(g_eng.degraded == (name == "CatMetric") and g_eng.degraded == p_eng.degraded,
+                  f"{name}: degraded {g_eng.degraded} (plain {p_eng.degraded})")
+            check(g_eng.capture_failures == {}, f"{name}: captures {g_eng.capture_failures}")
+            gather[name] = {"steps": len(args), "degraded": g_eng.degraded,
+                            "collectives_per_key": list(g_eng.collectives.values()),
+                            "captured": sum(isinstance(e, compile_mod.CapturedStep) for e in g_eng._step_fns.values())}
+            if not g_eng.degraded:
+                check(all(k.get("all_gather", 0) >= 1 for k in gather[name]["collectives_per_key"]),
+                      f"{name}: no all-gather in {gather[name]['collectives_per_key']}")
+            gathered_engines[name] = (g_eng, p_eng, args[0])
+
+        # ------------------------------------------------------------ 3. what one replay leaves on the card
+        # A report, not a check: late in a long process the profiler has returned a replay with only part of its
+        # device rows, or none (phase 54's 158-launch step listed 112), so up to three sessions a pair are taken
+        # until the group's replay lists more device work than the plain one's. That the captured all-gathers run
+        # at every replay is checked above: the gathered states are written only by them, and every step of the
+        # gather leg is bit for bit with the plain mesh.
+        listing = {}
+        if on_card:
+            for name, (g_eng, p_eng, args) in (("config2", (eng, ref, batches[0])),
+                                              ("MeanSquaredError", gathered_engines["MeanSquaredError"])):
+                for attempt in range(1, 4):
+                    g_rows = _replay_listing(torch, lambda: g_eng.step(*args))
+                    p_rows = _replay_listing(torch, lambda: p_eng.step(*args))
+                    if sum(g_rows.values()) > sum(p_rows.values()):
+                        break
+                extra = {k: v - p_rows.get(k, 0) for k, v in g_rows.items() if v > p_rows.get(k, 0)}
+                listing[name] = {"device_ops": sum(g_rows.values()), "plain_device_ops": sum(p_rows.values()),
+                                 "sessions": attempt, "extra": {k[:64]: v for k, v in extra.items()}}
+        del gathered_engines
+
+        # ------------------------------------------------------------ 4. groups, a failure, a snapshot
+        short = batches[:sizes["short_steps"]]
+        groups = {"halves": [list(range(rows // 2)), list(range(rows // 2, rows))],
+                  "interleaved": [list(range(0, rows, 2)), list(range(1, rows, 2))]}
+        group_line = {}
+        for layout, gs in groups.items():
+            g_vals = stream(collection().to_spmd(mesh=mesh, groups=gs), batches[:sizes["group_steps"]])
+            p_vals = stream(collection().to_spmd(mesh=plain, groups=gs), batches[:sizes["group_steps"]])
+            check(g_vals == p_vals, f"replica groups {layout}: the process-group mesh != the plain mesh")
+            group_line[layout] = {"groups": gs, "steps": sizes["group_steps"], "bit_for_bit": True}
+
+        def faulted(m):
+            out = []
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for i, (p, t) in enumerate(short):
+                    if i == sizes["fault_at"]:
+                        with spmd_fi.inject_step_failure(times=1):
+                            out.append(_bits(torch, m.step(p, t)))
+                    else:
+                        out.append(_bits(torch, m.step(p, t)))
+            return out
+
+        f_eng = collection().to_spmd(mesh=mesh)
+        f_vals, f_ref = faulted(f_eng), faulted(collection().to_spmd(mesh=plain))
+        check(f_eng.degraded and f_vals == f_ref, "the injected failure: fold and eager continuation != the plain mesh's")
+        events = [e.detail for m in f_eng.target.values() for e in m.resilience_report().events
+                  if e.kind == "spmd_degraded"]
+        check(len(events) == 1 and "folded its own rows" in events[0], f"degradation events {events}")
+        fault_line = {"at_step": sizes["fault_at"], "steps": len(short), "bit_for_bit": True, "event": events[0][:200]}
+
+        with tempfile.TemporaryDirectory() as folder:
+            live = collection().to_spmd(mesh=mesh)
+            mgr = res.SnapshotManager(live, folder, res.SnapshotPolicy(every_n_updates=sizes["snapshot_every"],
+                                                                      async_write=False))
+            cut = len(short) // 2 + 1
+            stream(live, short[:cut])
+            mgr.close()  # the process is preempted here
+            restored = collection().to_spmd(mesh=mesh)
+            mgr2 = res.SnapshotManager(restored, folder, res.SnapshotPolicy(async_write=False))
+            report = mgr2.restore_latest()
+            mgr2.close()
+            resume = restored.steps
+            after = stream(restored, short[resume:])
+            check(0 < resume <= cut and after == want[resume:len(short)] and not restored.degraded,
+                  f"restore at {resume} and stream to {len(short)} != the plain mesh")
+            flat = collection().to_spmd(mesh=spmd.build_mesh(devices=[dev] * (rows // 2)))
+            try:
+                flat.load_state_dict(live.state_dict())
+                refusal = None
+            except Exception as err:  # noqa: BLE001 - the refusal is the check
+                refusal = str(err)
+            check(refusal is not None and "identical mesh layout" in refusal, f"a 1 x 4 engine took a 1 x 8 snapshot")
+            snapshot_line = {"preempted_at": cut, "restored_at": resume, "generation": report.generation,
+                             "bit_for_bit": True, "other_layout_refused": refusal[:160]}
+            del live, restored, flat
+
+        # ------------------------------------------------------------ 5. LPIPS alex
+        lp, ls = sizes["lpips_pairs"], sizes["lpips_side"]
+        img0 = torch.rand((sizes["lpips_steps"], rows * lp, 3, ls, ls), generator=gen, device=dev) * 2 - 1
+        img1 = (img0 + 0.3 * torch.randn(img0.shape, generator=gen, device=dev)).clamp_(-1, 1)
+        lp_eng = tp.LearnedPerceptualImagePatchSimilarity(net_type="alex", device=dev).to_spmd(mesh=mesh)
+        b3 = lh.lpips_head.launches
+        b3.reset()  # this part's main path: counted from here
+        lp_vals = stream(lp_eng, [(img0[k], img1[k]) for k in range(sizes["lpips_steps"])])
+        if on_card:
+            torch.cuda.synchronize()
+        b3_launches = int(b3)  # read here
+        lp_plain = tp.LearnedPerceptualImagePatchSimilarity(net_type="alex", device=dev).to_spmd(mesh=plain)
+        lp_want = stream(lp_plain, [(img0[k], img1[k]) for k in range(sizes["lpips_steps"])])
+        check(b3_launches == (5 * sizes["lpips_steps"] if on_card else 0), f"B3 launches {b3_launches}")
+        check(lp_vals == lp_want and not lp_eng.degraded and lp_eng.capture_failures == {},
+              f"LPIPS: process-group mesh vs plain mesh equal {lp_vals == lp_want}, degraded {lp_eng.degraded}")
+        lpips_line = {"rows": rows, "pairs_per_row": lp, "side": ls, "steps": sizes["lpips_steps"],
+                      "b3_launches": b3_launches, "bit_for_bit": True,
+                      "collectives_per_key": list(lp_eng.collectives.values()),
+                      "graph_pool_bytes": compile_mod.pool_bytes(lp_eng._graph_pool) if on_card else 0}
+
+        # ------------------------------------------------------------ 6. the default mesh under the group
+        default = spmd.build_mesh()
+        default_line = {"world": default.shape["dp"], "rows": default.local_rows, "device": str(default.devices[0])}
+        check(default_line == {"world": 1, "rows": 1, "device": str(dev)}, f"build_mesh() under the group: {default_line}")
+        d_eng = collection().to_spmd()
+        d_vals, d_ref = stream(d_eng, batches[:2]), stream(collection().to_spmd(mesh=spmd.build_mesh(devices=[dev])),
+                                                           batches[:2])
+        check(d_vals == d_ref and d_eng.process_group is group, "to_spmd() under the group != a plain mesh of one row")
+        del d_eng
+
+        # ------------------------------------------------------------ 7. a card's mesh over a gloo group
+        gloo = dist.new_group(backend="gloo")
+        try:
+            tp.MetricCollection(spmd_members(tp, c, dev)).to_spmd(
+                mesh=spmd.build_mesh(devices=["cuda:0"] * rows, process_group=gloo))
+            gloo_refused = None
+        except spmd.InGraphSyncUnsupported as err:
+            gloo_refused = str(err)[:160]
+        check(gloo_refused is not None and "NCCL group" in gloo_refused, "a mesh on the card over gloo was let through")
+
+        # ------------------------------------------------------------ 8. timings
+        timing = {}
+        if on_card:
+            p, t = batches[0]
+
+            def host_device(fn, reps):
+                hosts, events = [], []
+                for _ in range(reps):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    h0 = time.perf_counter()
+                    start.record()
+                    fn()
+                    end.record()
+                    hosts.append((time.perf_counter() - h0) * 1e3)
+                    events.append((start, end))
+                torch.cuda.synchronize()
+                return {"host_ms": statistics.median(hosts),
+                        "device_ms": statistics.median(s.elapsed_time(e) for s, e in events)}
+
+            # alternated, so that both see the same clocks
+            for label, e in (("plain_step", ref), ("group_step", eng), ("plain_step_again", ref),
+                             ("group_step_again", eng)):
+                timing[label] = host_device(lambda: e.step(p, t), sizes["timed_steps"])
+            timing["group_kernels"] = device_time_by_kernel(torch, lambda: eng.step(p, t), top=8)
+            timing["plain_kernels"] = device_time_by_kernel(torch, lambda: ref.step(p, t), top=8)
+            timing["lpips_group_step"] = host_device(lambda: lp_eng.step(img0[0], img1[0]), 8)
+            timing["lpips_plain_step"] = host_device(lambda: lp_plain.step(img0[0], img1[0]), 8)
+        del eng, ref, lp_eng, lp_plain
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the phase left a process group behind")
+    release_graphs(torch)
+    out = {
+        "phase": "spmd_process_group", "samples": n_val, "classes": c, "processes": 1, "backend": backend,
+        "main": main, "gather": gather, "replay_listing": listing, "replica_groups": group_line,
+        "injected_failure": fault_line, "snapshot_restore": snapshot_line, "lpips_alex": lpips_line,
+        "default_mesh": default_line, "gloo_on_card_refused": gloo_refused, "timing": timing,
+        "tolerance": "bit for bit with the plain 8-row mesh", "seconds": time.perf_counter() - t_phase, "card": smi,
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
                                             "resilience", "stream_pool", "trunk_pools", "spmd_collection",
-                                            "metric_server", "fleet_rollup", "aot_cold_start"),
+                                            "metric_server", "fleet_rollup", "aot_cold_start", "spmd_process_group"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
@@ -9492,7 +9820,9 @@ def main() -> int:
                              "spmd_collection: build, run only the spmd_collection phase on the imagenet_val data, "
                              "stop; metric_server: build, run only the metric_server phase, stop; "
                              "fleet_rollup: build, run only the fleet_rollup phase, stop; "
-                             "aot_cold_start: build, run only the aot_cold_start phase, stop")
+                             "aot_cold_start: build, run only the aot_cold_start phase, stop; "
+                             "spmd_process_group: build, run only the spmd_process_group phase on the imagenet_val "
+                             "data, stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -9613,6 +9943,12 @@ def main() -> int:
         return 0
     if args.phase == "aot_cold_start":
         phase_aot_cold_start(torch, np, dev, args.seed + 57, smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "spmd_process_group":
+        logits, target = imagenet_val_data(torch, dev, gen)
+        phase_spmd_process_group(torch, np, kernel, lh, dev, torch.Generator(device=dev).manual_seed(args.seed + 58),
+                                 logits, target, smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -9944,6 +10280,10 @@ def main() -> int:
     release_graphs(torch)
     # ------------- the AOT cache: a cold, a warm (no nvcc) and a damaged replica in child processes, phase 57
     aot = phase_aot_cold_start(torch, np, dev, args.seed + 57, smi)
+    release_graphs(torch)
+    # ------------- the SPMD engine over a world-1 NCCL group, its collectives in each key's graph, phase 58
+    spmd_pg = phase_spmd_process_group(torch, np, kernel, lh, dev,
+                                       torch.Generator(device=dev).manual_seed(args.seed + 58), logits, target, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -9997,7 +10337,7 @@ def main() -> int:
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"] + served["lanes_launches"]
-        + aot["lanes_launches"],
+        + aot["lanes_launches"] + spmd_pg["main"]["lanes_launches"],
         "max_abs_err": max(pooled["max_abs_err"], spmd_run["timing"]["b1_lanes"]["max_abs_err"],
                            served["lane_check"]["max_abs_err"]),
         "ms": pooled["timing"]["ms"],
@@ -10007,8 +10347,9 @@ def main() -> int:
         "library_ms": pooled["timing"]["library_ms"],
         "at": f"one stream_pool micro-batch: ({pooled['lanes']}, {pooled['rows']}) int64 labels + bool mask, "
               f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap; launches: "
-              "phase 52's micro-batches, phase 54's SPMD steps, phase 55's server micro-batches (with its warm runs) "
-              "and phase 57's children's pool and engine steps (with their warm_starts)",
+              "phase 52's micro-batches, phase 54's SPMD steps, phase 55's server micro-batches (with its warm runs), "
+              "phase 57's children's pool and engine steps (with their warm_starts) and phase 58's steps of the "
+              "engine over a process group",
         "server_shapes": served["lane_check"]["shapes"],
         "spmd_rows": {k: spmd_run["timing"]["b1_lanes"][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }] + [{
@@ -10047,7 +10388,8 @@ def main() -> int:
         "route": "cuda",
         "source": f"torchmetrics_tpu_torch/csrc/{source}",
         "replaces": replaces,
-        "launches": trunk_pools["launches"][key] + (spmd_run["lpips_alex"]["b3_launches"] if key == "B3" else 0),
+        "launches": trunk_pools["launches"][key]
+        + (spmd_run["lpips_alex"]["b3_launches"] + spmd_pg["lpips_alex"]["b3_launches"] if key == "B3" else 0),
         "max_abs_err": trunk_pools["kernels"][key]["max_abs_err"],
         "ms": trunk_pools["kernels"][key]["ms"],
         "plain_ms": trunk_pools["kernels"][key]["plain_ms"],
@@ -10059,7 +10401,8 @@ def main() -> int:
            if key == "B3" else {}),
         "at": f"across lanes, one pooled forward: {at}; ms and loop_ms: queued_ms of the folded launches and of one "
               "launch a lane; the vmap rule of the wrapper's custom op (torchmetrics_tpu_torch/_kernels/lanes.py)"
-              + ("; launches: phase 53's pool and phase 54's SPMD steps (8 rows x 8 pairs)" if key == "B3" else ""),
+              + ("; launches: phase 53's pool and phase 54's and phase 58's SPMD steps (8 rows x 8 pairs)"
+                 if key == "B3" else ""),
     } for name, key, source, replaces, at in (
         ("conv_mm_bias_relu", "B2a", "conv_epilogue.cu", "torchmetrics_tpu/_kernels/conv_epilogue.py:67",
          "FID 8 lanes x 25 images, 40 launches, bf16"),

@@ -32,6 +32,7 @@ import json
 import os
 import shutil
 import struct
+import socket
 import subprocess
 import sys
 import tarfile
@@ -42,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import torchmetrics_tpu as jtm
 import torchmetrics_tpu_torch as tm
@@ -344,6 +346,55 @@ class TestWarmStart:
         v2 = float(eng2.step(preds, target))
         np.testing.assert_allclose(v2, v1, rtol=RTOL)
         np.testing.assert_allclose(v2, _jax_value("MeanSquaredError", p, t), rtol=RTOL)
+
+    def test_engine_record_names_the_mesh_layout(self, cache_dir):
+        """An engine's step record names its mesh's layout: the process count, the rows a process and the group.
+
+        A 1 x 8 record is no hit for a 1 x 8 mesh over a group of one, nor
+        for a 2 x 4 engine whose ranks (two gloo processes) each take the
+        1 x 8 engine's whole batch; each layout then hits its own record.
+        """
+        rng = np.random.default_rng(11)
+        preds, target = _t(rng.standard_normal(N).astype(np.float32), rng.standard_normal(N).astype(np.float32))
+
+        def outcomes(mesh):
+            return [tm.MeanSquaredError(device=CPU).to_spmd(mesh=mesh).warm_start(preds, target)["spmd_step"]
+                    for _ in range(2)]
+
+        assert outcomes(_mesh()) == ["compiled", "hit"]
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            assert outcomes(build_mesh(devices=[CPU] * 8, process_group=dist.group.WORLD)) == ["compiled", "hit"]
+        finally:
+            dist.destroy_process_group()
+        child = (
+            "import sys, datetime, numpy as np, torch, torch.distributed as dist\n"
+            "import torchmetrics_tpu_torch as tm\n"
+            "from torchmetrics_tpu_torch._spmd import build_mesh\n"
+            "rank, port = int(sys.argv[1]), int(sys.argv[2])\n"
+            "dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}', rank=rank, world_size=2,\n"
+            "                        timeout=datetime.timedelta(seconds=60))\n"
+            "rng = np.random.default_rng(11)\n"
+            f"p, t = (torch.from_numpy(rng.standard_normal({N}).astype(np.float32)) for _ in range(2))\n"
+            "mesh = build_mesh(devices=['cpu'] * 4, process_group=dist.group.WORLD)\n"
+            "got = [tm.MeanSquaredError(device='cpu').to_spmd(mesh=mesh).warm_start(p, t)['spmd_step'] for _ in range(2)]\n"
+            "dist.destroy_process_group()\n"
+            "print(','.join(got))\n"
+        )
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, TM_TPU_AOT_CACHE=str(cache_dir), PYTHONPATH=str(REPO_ROOT))
+        procs = [subprocess.Popen([sys.executable, "-c", child, str(rank), str(port)], env=env, cwd=str(REPO_ROOT),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in range(2)]
+        try:
+            results = [proc.communicate(timeout=120) for proc in procs]
+        finally:
+            for proc in procs:
+                proc.kill()
+        for (out, err), proc in zip(results, procs):
+            assert proc.returncode == 0, err[-2000:]
+            assert out.strip().splitlines()[-1] == "compiled,hit"
 
     def test_warm_start_without_cache_dir_precompiles_in_memory(self):
         set_aot_cache(None)

@@ -45,13 +45,18 @@ SWEEP = _jax_sweep()
 JAX_SUBSET = ["MaxMetric", "MinMetric", "MulticlassConfusionMatrix", "PearsonCorrCoef"]
 
 
+def _port_kwargs(name):
+    """The JAX case's class-count arguments, as the port's class of it takes them."""
+    if name == "MinkowskiDistance":
+        return {"p": 3.0}
+    jm = CASES[name][0]()
+    return {k: getattr(jm, k) for k in ("num_classes", "num_labels", "num_groups") if getattr(jm, k, None) is not None}
+
+
 def _port_ctor(name):
     """The port's class of the JAX case, with the JAX instance's class-count arguments."""
-    jm = CASES[name][0]()
     cls = getattr(TM, name, None) or getattr(TA, name)
-    kwargs = {k: getattr(jm, k) for k in ("num_classes", "num_labels", "num_groups") if getattr(jm, k, None) is not None}
-    if name == "MinkowskiDistance":
-        kwargs = {"p": 3.0}
+    kwargs = _port_kwargs(name)
     return lambda **kw: cls(device="cpu", **kwargs, **kw)
 
 

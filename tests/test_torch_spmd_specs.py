@@ -135,7 +135,7 @@ def test_build_mesh_default_axis():
 
 
 def test_mesh_over_two_cards_or_off_the_metrics_device_refused():
-    with pytest.raises(InGraphSyncUnsupported, match="ROADMAP.md queue A, item 7"):
+    with pytest.raises(InGraphSyncUnsupported, match="one process a card"):
         TM.MeanSquaredError(device="cpu").to_spmd(mesh=build_mesh(devices=["cuda:0", "cuda:1"]))
     with pytest.raises(InGraphSyncUnsupported, match="lives on cpu"):
         TM.MeanSquaredError(device="cpu").to_spmd(mesh=build_mesh(devices=["cuda:0"] * 2))

@@ -7,7 +7,9 @@ by each state's declared ``dist_reduce_fx`` (``utilities.distributed.sync_in_jit
 and computes, one CUDA graph a key on the card. Gated by the eligibility
 copy's ``in_graph_sync`` facet; wrapped by the resilience handshake and
 degradation; observable through the telemetry registry; durable through the
-SnapshotManager's boundary host copies.
+SnapshotManager's boundary host copies. Across cards, one process a card:
+``build_mesh(devices, process_group=...)`` and the sync's collectives over
+the group, captured into the step's graph on NCCL.
 
 Entry points: :class:`SpmdEngine`, or ``Metric.to_spmd()`` /
 ``MetricCollection.to_spmd()``.

@@ -53,9 +53,23 @@ data-parallel stream over a named 1-D mesh as one step a batch:
 A ``MetricCollection``'s compute groups share the step: each group's head
 updates and syncs once, its members compute from the head's synced states.
 
+**Across processes** (a mesh built with ``process_group=``: one process a
+card, as DDP runs): each process holds its own rows, steps on its own share
+of the global batch, and the sync adds collectives over the group
+(``utilities.distributed.sync_in_process_group``): an integer sum, max or
+min reduces the local rows and then takes one all-reduce a (dtype,
+reduction); every other state gathers the global rows, over which
+``sync_in_jit`` runs as on one process, so every value is bit for bit with a
+one-process mesh of the same global rows. On the card the collectives are
+NCCL's, issued by the warm-up and captured into the key's graph (a CUDA mesh
+needs an NCCL group, a CPU mesh runs eagerly over gloo). Before a key's
+first build the processes agree on it: one all-gather of a digest of the
+key and of the units, and a mismatch raises
+``StateStructureMismatchError`` on every process in place of a hang.
+
 The JAX package's ``donate=`` has no counterpart: the rows are the graph's
-own buffers, always updated in place. A mesh whose rows span more than one
-card is refused (queued: ``specs.MULTI_CARD_ITEM``).
+own buffers, always updated in place. One process whose rows span more than
+one card is refused: one CUDA graph holds one card's work.
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 from torchmetrics_tpu_torch import _compile
@@ -79,7 +94,6 @@ from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as _te
 from torchmetrics_tpu_torch._resilience import integrity as _integrity
 from torchmetrics_tpu_torch._spmd import faultinject as _faultinject
 from torchmetrics_tpu_torch._spmd.specs import (
-    MULTI_CARD_ITEM,
     InGraphSyncUnsupported,
     _normal,
     build_mesh,
@@ -98,7 +112,12 @@ from torchmetrics_tpu_torch._streams.pool import (
 )
 from torchmetrics_tpu_torch.metric import _squeeze_if_scalar, _tree_map
 from torchmetrics_tpu_torch.utilities.checks import _compiled_step, _no_vmap_fallback
-from torchmetrics_tpu_torch.utilities.distributed import sync_in_jit, validate_axis_groups
+from torchmetrics_tpu_torch.utilities.distributed import (
+    _all_gather_into,
+    sync_in_jit,
+    sync_in_process_group,
+    validate_axis_groups,
+)
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 from torchmetrics_tpu_torch.utilities.ringbuffer import RingBuffer
@@ -150,11 +169,15 @@ class SpmdEngine:
     """Drive a Metric or MetricCollection as row-stacked states and one fused step.
 
     The target must be fresh (``update_count == 0``): the engine owns the
-    stream from the first batch. ``step(*batch)`` takes a *global* batch
-    whose tensor arguments carry a leading axis divisible by the mesh size,
-    and returns the globally synced value of the stream so far. The mesh
-    (``specs.build_mesh``; default: every visible card) must put every row
-    on the target's device.
+    stream from the first batch. ``step(*batch)`` takes this process's share
+    of the global batch (the whole batch on a one-process mesh), whose
+    tensor arguments carry a leading axis divisible by the process's rows,
+    and returns the globally synced value of the stream so far, the same on
+    every process of the mesh. The mesh (``specs.build_mesh``; default: one
+    row over the default process group where ``torch.distributed`` is
+    initialized, else every visible card) must put this process's rows on
+    the target's device. ``world`` is the mesh's global row count, ``rows``
+    this process's, ``rank`` its rank in the mesh's group.
 
     Example:
         >>> import torch
@@ -195,12 +218,22 @@ class SpmdEngine:
         distinct = sorted({str(d) for d in self.mesh.devices})
         if len(distinct) != 1:
             raise InGraphSyncUnsupported(
-                f"the mesh's rows span {len(distinct)} devices ({', '.join(distinct)}); the engine runs every row"
-                f" of its mesh on one device. A mesh over several cards (one process a card, NCCL collectives"
-                f" captured in the step's graph) is {MULTI_CARD_ITEM}."
+                f"this process's rows of the mesh span {len(distinct)} devices ({', '.join(distinct)}); one CUDA"
+                f" graph holds one card's work. Run one process a card and give each process its card's rows:"
+                f" build_mesh(devices=[...], process_group=...), the collectives then run over the group."
             )
         self.device: torch.device = self.mesh.devices[0]
+        self.process_group = self.mesh.process_group
+        self._backend = None if self.process_group is None else dist.get_backend(self.process_group)
+        if self._backend is not None and (self.device.type == "cuda") != (self._backend == "nccl"):
+            raise InGraphSyncUnsupported(
+                f"a mesh on {self.device} over a {self._backend!r} process group: a mesh on the card syncs over an"
+                " NCCL group (its collectives are captured in the step's CUDA graph), a mesh on the CPU over"
+                " a gloo group"
+            )
+        # the global row count, this process's rows and its rank: global row g is row g % rows of rank g // rows
         self.world = int(self.mesh.shape[self.axis_name])
+        self.rows, self.rank, self.processes = self.mesh.local_rows, self.mesh.rank, self.mesh.processes
         # axis_index_groups: the in-graph process_group, disjoint equal-sized
         # groups of rows syncing independently, two data-parallel replicas in
         # ONE step; step() then returns a {group_index: value} dict
@@ -257,6 +290,11 @@ class SpmdEngine:
         self._graph_pool: Any = None
         self._graph_constants: Dict[tuple, Tensor] = {}
         self.capture_failures: Dict[Any, str] = {}
+        # key -> the collectives its step issues over the mesh's group ({"all_reduce": n, "all_gather": n}): on the
+        # card those its graph captured, on the CPU those its first run issued; and the keys the processes agreed on
+        self.collectives: Dict[Any, Dict[str, int]] = {}
+        self._tally: Optional[Dict[str, int]] = None
+        self._agreed: set = set()
         self._built_as = "compiled"  # how the last key built was resolved: compiled, hit (AOT cache) or ready
         # the running step has written rows in place: a fault now cannot fold
         self._writing = False
@@ -314,10 +352,11 @@ class SpmdEngine:
         if not dynamic:
             raise TorchMetricsUserError(f"`{what}` needs at least one array argument to shard")
         for leaf in dynamic:
-            if leaf.ndim < 1 or leaf.shape[0] % self.world:
+            if leaf.ndim < 1 or leaf.shape[0] % self.rows:
+                where = "mesh size" if self.processes == 1 else "number of this process's rows of the mesh"
                 raise TorchMetricsUserError(
                     f"every array argument must carry a leading batch axis divisible by the"
-                    f" mesh size ({self.world}); got shape {tuple(leaf.shape)}"
+                    f" {where} ({self.rows}); got shape {tuple(leaf.shape)}"
                 )
         on_card = self.device.type == "cuda"
         sig_inputs = tuple(
@@ -384,6 +423,8 @@ class SpmdEngine:
         """
         dyn = list(dynamic)
         cls_name = type(self.target).__name__
+        if built and self.process_group is not None and key not in self._agreed:
+            self._agree(key)
         if built and _AOT.active:
             from torchmetrics_tpu_torch._aot import cache as _aot_cache
 
@@ -394,7 +435,7 @@ class SpmdEngine:
                 res = _aot_cache.wrap_executable(
                     owner=f"SpmdEngine[{cls_name}]", kind="spmd_step",
                     components=self._units[0].metric._compile_components(treedef, statics, key[0][2]),
-                    extra=repr((key[1:], self.world, self.axis_name,
+                    extra=repr((key[1:], self.world, self.processes, self.rows, self._backend, self.axis_name,
                                 [(tuple(t.shape), str(t.dtype)) for t in _leaves(self._states)])),
                     telem_obj=self.target,
                 )
@@ -419,6 +460,7 @@ class SpmdEngine:
         on_card = self.device.type == "cuda"
         saved = _tree_map(torch.clone, self._states)
         t0 = time.perf_counter()
+        self._tally = {}
         if on_card:  # the warm-up before the capture: this batch's update
             first = functools.partial(_compile.warm_up, step, self._states, dyn, self.device, self._graph_constants)
         else:
@@ -438,10 +480,14 @@ class SpmdEngine:
             for live, old in zip(_leaves(self._states), _leaves(saved)):
                 live.copy_(old)
             self._writing = False
+            self._tally = None
             raise
         del saved
         out = self._own(out)
+        warm, self._tally = self._tally, {}
         self._step_fns[key] = entry = self._capture(key, step, dyn) if on_card else step
+        self.collectives[key] = self._tally if isinstance(entry, _compile.CapturedStep) else warm
+        self._tally = None
         self._writing = False  # the capture ran the step's Python, and wrote nothing
         seconds = time.perf_counter() - t0
         if _OBS.enabled:
@@ -452,7 +498,9 @@ class SpmdEngine:
             _PROF_LEDGER.note_executable(
                 owner=f"SpmdEngine[{cls_name}]",
                 kind="spmd_step",
-                digest=hashlib.sha256(repr((key, self.world, self.axis_name)).encode()).hexdigest(),
+                digest=hashlib.sha256(
+                    repr((key, self.world, self.processes, self.rows, self.axis_name)).encode()
+                ).hexdigest(),
                 cost=tally.cost() if tally is not None else None if res is None else res.cost,
                 compile_seconds=seconds,
                 source="captured" if on_card else "compiled",
@@ -514,7 +562,7 @@ class SpmdEngine:
         return _tree_map(lambda v: v.clone() if v.untyped_storage().data_ptr() in held else v, value)
 
     def compute(self) -> Any:
-        """Sync and compute on the current rows (no update), eagerly."""
+        """Sync and compute on the current rows (no update), eagerly; across processes, on every process together."""
         if self._degraded or self._units is None:
             return self.target.compute()
         try:
@@ -533,7 +581,8 @@ class SpmdEngine:
         """Build the step for this example-batch signature without consuming a batch.
 
         The example batch must be shaped like real traffic (leading axis
-        divisible by the mesh size). The step runs once on it and the rows
+        divisible by this process's rows; across processes, every process
+        warms the same signature together). The step runs once on it and the rows
         are put back as they were (on the card that run is the warm-up before
         the key's CUDA graph is captured, and the first real :meth:`step` of
         the signature replays); the step count does not advance. Returns
@@ -637,6 +686,11 @@ class SpmdEngine:
                             f" (devices {list(self._home_group)}) and the other groups'"
                             " accumulation stays on their processes"
                         )
+                    if self.process_group is not None:
+                        detail += (
+                            f"; the mesh spans a group of {self.processes} process(es): this one folded its own"
+                            " rows, and the eager continuation's compute() syncs over the mesh's process group"
+                        )
                 except Exception as fold_err:  # noqa: BLE001 - degrade must never crash
                     detail += (
                         f"; folding device states back failed too"
@@ -668,6 +722,9 @@ class SpmdEngine:
                 " to snapshot) — attach a manager to the target metric for eager-path"
                 " durability"
             )
+        if self.process_group is not None:
+            for m in list(self.target._modules.values()) if self._collection is not None else [self.target]:
+                m.process_group = self.process_group
         self._degraded = True
         self._writing = False
         self._states = None
@@ -685,10 +742,18 @@ class SpmdEngine:
     def _fold_unit_to_host(self, unit: _Unit) -> None:
         m = unit.metric
         states = self._states[unit.key]
-        # under axis_index_groups each group is an independent replica; the
-        # host target can carry only one stream, so the fold merges the HOME
-        # group (the one holding row 0) and says so in the event detail
-        devs = list(self._home_group) if self.groups is not None else list(range(self.world))
+        # this process's rows; under axis_index_groups each group is an
+        # independent replica, and the host target can carry only one stream,
+        # so the fold merges this process's rows of the HOME group (the one
+        # holding global row 0) and says so in the event detail
+        lo = self.rank * self.rows
+        if self.groups is None:
+            devs = list(range(self.rows))
+        else:
+            devs = [g - lo for g in self._home_group if lo <= g < lo + self.rows]
+        if not devs:  # none of the home group's rows lie on this process
+            m.reset()
+            return
         gathered: Dict[str, Tensor] = {}  # dist_reduce_fx=None states fold together
         for n in unit.names:
             red = m._reductions[n]
@@ -730,10 +795,11 @@ class SpmdEngine:
         m._computed = None
 
     def sync_to_target(self) -> Any:
-        """Fill the host target from the rows (reduction-merged), a read: the engine keeps streaming on its rows.
+        """Fill the host target from this process's rows (reduction-merged), a read: the engine keeps streaming.
 
-        After it, ``target.compute()``/``state_dict()`` observe the stream
-        so far.
+        After it, ``target.compute()``/``state_dict()`` observe this
+        process's share of the stream so far (on a one-process mesh: all of
+        it).
         """
         if self._units is not None and self._states is not None:
             for unit in self._units:
@@ -759,7 +825,7 @@ class SpmdEngine:
             # 0-d leaves pass through unsliced: the signature check right
             # after this probe rejects them with the leading-axis message
             shard_args, shard_kwargs = _tree_map(
-                lambda x: x[: max(1, x.shape[0] // self.world)] if x.ndim >= 1 else x, (args, kwargs)
+                lambda x: x[: max(1, x.shape[0] // self.rows)] if x.ndim >= 1 else x, (args, kwargs)
             )
             probe.update(*shard_args, **shard_kwargs)
 
@@ -788,17 +854,17 @@ class SpmdEngine:
         if _OBS.enabled:
             per_device = self.predicted_device_bytes()
             if per_device is not None:
-                # each row holds ONE replica of every registered state, so the
-                # predicted bytes a row are the class's closed-form F, whatever
-                # the mesh size
                 _telemetry_for(self.target).set_gauge("predicted_state_bytes|scope=spmd_device", per_device)
 
     def predicted_device_bytes(self) -> Optional[float]:
-        """Closed-form predicted state bytes of ONE row, or ``None``.
+        """Closed-form predicted state bytes this process's device holds (its rows), or ``None``.
 
-        Read from the memory model (``_memory.json``, in the port's dtypes) on
-        the template instances. ``None`` when the model makes no exact finite
-        claim (absent entry, opaque verdict, or an unbounded cat list without
+        Each row holds ONE replica of every registered state, the class's
+        closed-form F (read from the memory model, ``_memory.json``, in the
+        port's dtypes, on the template instances), and the device holds this
+        process's rows of the mesh: ``rows * F``, whatever the number of
+        processes. ``None`` when the model makes no exact finite claim
+        (absent entry, opaque verdict, or an unbounded cat list without
         ``cat_state_capacity``): the telemetry gauge stands down rather than
         publish a guess.
         """
@@ -809,7 +875,7 @@ class SpmdEngine:
             if pred is None or not pred.exact or pred.bytes == float("inf"):
                 return None
             total += pred.bytes
-        return total
+        return total * self.rows
 
     def _install_stacked_defaults(self, units: List[_Unit]) -> None:
         """Build ``_stacked_defaults`` and the flat ``_defaults`` mirror (ring row shapes from ``unit.ring_rows``).
@@ -820,7 +886,7 @@ class SpmdEngine:
         from the fresh stream).
         """
         self._stacked_defaults, self._defaults = {}, {}
-        dev, world = self.device, self.world
+        dev, rows = self.device, self.rows
         for unit in units:
             defaults: Dict[str, Any] = {}
             for n in unit.names:
@@ -828,12 +894,12 @@ class SpmdEngine:
                     row_shape, row_dtype = unit.ring_rows[n]
                     cap = unit.rings[n]
                     defaults[n] = {
-                        "data": torch.zeros((world, cap, *row_shape), dtype=row_dtype, device=dev),
-                        "valid": torch.zeros((world, cap), dtype=torch.bool, device=dev),
-                        "count": torch.zeros((world,), dtype=torch.int64, device=dev),
+                        "data": torch.zeros((rows, cap, *row_shape), dtype=row_dtype, device=dev),
+                        "valid": torch.zeros((rows, cap), dtype=torch.bool, device=dev),
+                        "count": torch.zeros((rows,), dtype=torch.int64, device=dev),
                     }
                 else:
-                    defaults[n] = stack_default(unit.metric._defaults[n].to(dev), world)
+                    defaults[n] = stack_default(unit.metric._defaults[n].to(dev), rows)
             self._stacked_defaults[unit.key] = defaults
             pre = f"{unit.key}." if unit.key else ""
             for n in unit.names:
@@ -867,6 +933,53 @@ class SpmdEngine:
                 self._degrade("trace-time structure handshake degraded")
                 return
 
+    def _agree(self, key: Any) -> None:
+        """Before a key's first build, the processes of the mesh's group agree on it, or every one of them raises.
+
+        A collective that one process enters and another does not is a hang,
+        and two different steps issue different collectives. So one small
+        all-gather over the group, outside any graph, carries a digest of what
+        fixes the step's collectives: the key's batch (argument structure,
+        statics, shapes and dtypes), the units' dtype policies, and the units
+        (heads, members, state names, dtypes, shapes and ring capacities; each
+        process forms its compute groups from its own probe batch). Where the
+        digests differ, every process gathers the descriptions and raises
+        :class:`StateStructureMismatchError` naming what differs, before
+        anything is built. Once a key: a key rebuilt after its graph was
+        dropped issues the same collectives as the other processes' replays.
+        """
+        from torchmetrics_tpu_torch._resilience.errors import StateStructureMismatchError
+
+        (treedef, statics, sig_inputs), policies = key
+        parts = {
+            "batch": repr((treedef, statics, [(shape, str(dtype)) for shape, dtype, *_ in sig_inputs])),
+            "dtype policies": repr(policies),
+            "units": repr([
+                (u.key, [name for name, _ in u.members], dict(u.rings),
+                 [(n, [(tuple(t.shape[1:]), str(t.dtype)) for t in _leaves(self._stacked_defaults[u.key][n])])
+                  for n in u.names])
+                for u in self._units
+            ]),
+        }
+        mine = torch.frombuffer(bytearray(hashlib.sha256(repr(parts).encode()).digest()), dtype=torch.uint8)
+        mine = mine.to(self.device)
+        everyone = mine.new_empty((self.processes * mine.numel(),))
+        _all_gather_into(everyone, mine, self.process_group)
+        if bool((everyone.view(self.processes, -1) == mine).all()):
+            self._agreed.add(key)
+            return
+        described: List[Any] = [None] * self.processes
+        dist.all_gather_object(described, parts, group=self.process_group)
+        differ = [k for k in parts if len({d[k] for d in described}) > 1]
+        raise StateStructureMismatchError(
+            f"SpmdEngine[{type(self.target).__name__}]: the {self.processes} processes of the mesh would build"
+            f" different steps for this batch, whose collectives would not match; "
+            + "; ".join(
+                f"the {k} differ: " + ", ".join(f"rank {r} {d[k][:200]}" for r, d in enumerate(described))
+                for k in differ
+            )
+        )
+
     # ------------------------------------------------------------------ steps
     def _row_states(self, unit: _Unit, row: Dict[str, Any]) -> Dict[str, Any]:
         """One row's states as the metric holds them: each ring state rebuilt into a :class:`RingBuffer`.
@@ -890,14 +1003,14 @@ class SpmdEngine:
     def _build_step(self, treedef: Any, statics: Any) -> Callable:
         """The step of one key: ``step(states, batch) -> values``.
 
-        Views each batch tensor's leading axis as ``(D, B/D)``, vmaps each
-        row's real update over the stacked states with the per-lane fallback
-        off, writes the rows in place, then syncs and computes
-        (:meth:`_sync_compute`).
+        Views each batch tensor's leading axis as ``(R, B/R)`` for this
+        process's ``R`` rows, vmaps each row's real update over the stacked
+        states with the per-lane fallback off, writes the rows in place, then
+        syncs and computes (:meth:`_sync_compute`).
         """
         from torchmetrics_tpu_torch.metric import Metric
 
-        units, world = self._units, self.world
+        units, rows_n = self._units, self.rows
 
         def row_update(row_states: Dict[str, Dict[str, Any]], dyn: Tuple[Tensor, ...]) -> Dict[str, Dict[str, Any]]:
             a, kw = Metric._merge_batch_args(treedef, list(dyn), statics)
@@ -911,7 +1024,7 @@ class SpmdEngine:
 
         def step(states: Dict[str, Dict[str, Any]], dyn: List[Tensor]) -> Dict[str, Any]:
             with torch.no_grad(), _compiled_step():
-                rows = tuple(d.reshape(world, d.shape[0] // world, *d.shape[1:]) for d in dyn)
+                rows = tuple(d.reshape(rows_n, d.shape[0] // rows_n, *d.shape[1:]) for d in dyn)
                 with _no_vmap_fallback():
                     new = torch.func.vmap(row_update)(states, rows)
                 self._writing = True
@@ -923,14 +1036,24 @@ class SpmdEngine:
         return step
 
     def _sync_compute(self, states: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
-        """Each member's value from the synced rows: ``{name: value}`` with one leading entry a head row."""
-        values: Dict[str, Any] = {}
-        for unit in self._units:
-            m = unit.metric
-            synced = sync_in_jit(
-                states[unit.key], {n: m._reductions[n] for n in unit.names}, self.axis_name,
-                axis_index_groups=self.groups,
+        """Each member's value from the synced rows: ``{name: value}`` with one leading entry a head row.
+
+        Across processes the sync's collectives cover every unit at once
+        (``sync_in_process_group``), and the synced rows are the global ones.
+        """
+        reductions = [{n: u.metric._reductions[n] for n in u.names} for u in self._units]
+        if self.process_group is None:
+            synced_units = [
+                sync_in_jit(states[u.key], r, self.axis_name, axis_index_groups=self.groups)
+                for u, r in zip(self._units, reductions)
+            ]
+        else:
+            synced_units = sync_in_process_group(
+                [states[u.key] for u in self._units], reductions, self.process_group, self.axis_name,
+                axis_index_groups=self.groups, tally=self._tally,
             )
+        values: Dict[str, Any] = {}
+        for unit, synced in zip(self._units, synced_units):
             # the head rows by integer index (a view, or a stack): no index tensor comes from the host
             if self.groups is None:
                 heads = _tree_map(lambda s: s[:1], synced)
@@ -958,12 +1081,14 @@ class SpmdEngine:
         all_states: bool = False,
         _host: bool = True,
     ) -> Dict:
-        """Host numpy copies of the rows, plus the ``#spmd`` skeleton.
+        """Host numpy copies of this process's rows, plus the ``#spmd`` skeleton.
 
         The SnapshotManager calls this at snapshot boundaries; between
         boundaries the rows never leave the device. The reserved
-        ``{prefix}#spmd`` block records the mesh and unit skeleton so a fresh
-        engine (same mesh size) can restore without having seen a batch.
+        ``{prefix}#spmd`` block records the mesh's layout (global rows, this
+        process's rows, the number of processes and this one's rank) and the
+        unit skeleton, so a fresh engine of the same layout can restore
+        without having seen a batch.
         """
         if self._units is None or self._states is None:
             raise TorchMetricsUserError("SpmdEngine has no device states yet (no step() has run)")
@@ -984,6 +1109,9 @@ class SpmdEngine:
                     keys.append(k)
         destination[prefix + "#spmd"] = {
             "world": self.world,
+            "rows": self.rows,
+            "processes": self.processes,
+            "rank": self.rank,
             "axis": self.axis_name,
             "groups": None if self.groups is None else [list(g) for g in self.groups],
             "units": [
@@ -996,7 +1124,7 @@ class SpmdEngine:
         return destination
 
     def load_state_dict(self, state_dict: Dict, strict: Any = True, prefix: str = "") -> None:
-        """Put checkpointed rows back on the mesh's device (same world size)."""
+        """Put checkpointed rows back on the mesh's device (same layout: rows, processes, rank and axis)."""
         meta = state_dict.get(_integrity.integrity_key(prefix))
         if meta is not None:
             corrupted = _integrity.verify_states(
@@ -1007,10 +1135,14 @@ class SpmdEngine:
         blk = state_dict.get(prefix + "#spmd")
         if blk is None:
             raise TorchMetricsUserError("checkpoint lacks the `#spmd` block (not an SpmdEngine snapshot)")
-        if int(blk["world"]) != self.world or blk["axis"] != self.axis_name:
+        taken = self._layout(
+            int(blk["world"]), int(blk.get("rows", blk["world"])), int(blk.get("processes", 1)),
+            int(blk.get("rank", 0)), blk["axis"],
+        )
+        live = self._layout(self.world, self.rows, self.processes, self.rank, self.axis_name)
+        if taken != live:
             raise TorchMetricsUserError(
-                f"snapshot was taken on a {blk['world']}-device `{blk['axis']}` mesh; this engine"
-                f" runs {self.world}-device `{self.axis_name}` — donated states restore only onto"
+                f"snapshot was taken on {taken}; this engine runs {live} — donated states restore only onto"
                 " an identical mesh layout"
             )
         snap_groups = blk.get("groups")
@@ -1056,6 +1188,11 @@ class SpmdEngine:
                     data = self._states[unit.key][n]["data"]
                     unit.ring_rows[n] = (tuple(int(s) for s in data.shape[2:]), data.dtype)
             self._install_stacked_defaults(self._units)
+
+    @staticmethod
+    def _layout(world: int, rows: int, processes: int, rank: int, axis: str) -> str:
+        """A mesh layout as a restore names it."""
+        return f"a {world}-device `{axis}` mesh ({processes} process(es) x {rows} rows, rank {rank})"
 
     def _rebuild_units(self, blk: Dict[str, Any]) -> None:
         """The unit skeleton from a checkpoint's ``#spmd`` block (a restore before the first step)."""

@@ -10,9 +10,14 @@ in-graph sync (``utilities.distributed.sync_in_jit``) follows, and checks
 that a live metric's declared reductions map onto those collectives at all.
 
 The JAX package shards the rows over a ``jax.sharding.Mesh`` of devices.
-Here a :class:`Mesh` is a tuple of ``torch.device`` and one axis name, and
-rows may share a device: eight rows on one card (or on the CPU) are one
-``(8, *s)`` tensor there, and the sync is a reduction over its leading axis.
+Here a :class:`Mesh` is this process's rows (a tuple of ``torch.device``, all
+one device), one axis name and, across processes, a ``torch.distributed``
+process group. Rows share their device: eight rows on one card (or on the
+CPU) are one ``(8, *s)`` tensor there, and the sync is a reduction over its
+leading axis. Over a group of ``P`` processes the mesh has ``P`` times this
+process's rows, rank-major (global row ``g`` is row ``g % rows`` of rank
+``g // rows``), as a JAX mesh over the devices of several processes orders
+them; the sync then also runs collectives over the group.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from torchmetrics_tpu_torch._streams.manifest import _in_graph_sync
 from torchmetrics_tpu_torch._streams.pool import stack_default
@@ -37,10 +43,6 @@ __all__ = [
     "sync_plan",
     "validate_reductions",
 ]
-
-# where a mesh over several cards is queued (the engine refuses one until then)
-MULTI_CARD_ITEM = 'ROADMAP.md queue A, item 7, "the multi-card SPMD mesh"'
-
 
 class InGraphSyncUnsupported(TorchMetricsUserError):
     """The metric cannot take the fused in-graph sync path.
@@ -75,34 +77,53 @@ def _normal(device: Any) -> torch.device:
 
 
 class Mesh:
-    """A 1-D named mesh: one ``torch.device`` per row and one axis name.
+    """A 1-D named mesh: this process's rows (one ``torch.device`` each), one axis name and a process group.
 
-    The counterpart of a 1-D ``jax.sharding.Mesh``. Rows may name the same
-    device; ``shape`` maps the axis name to the number of rows, as the JAX
-    mesh's does.
+    The counterpart of a 1-D ``jax.sharding.Mesh``. ``devices`` are this
+    process's rows; ``shape`` maps the axis name to the *global* number of
+    rows, ``local_rows`` times the size of ``process_group`` (1 without
+    one), as the JAX mesh's counts every device of the job. ``rank`` is this
+    process's rank in the group (0 without one).
     """
 
-    def __init__(self, devices: Sequence[Any], axis_names: Tuple[str, ...]) -> None:
+    def __init__(self, devices: Sequence[Any], axis_names: Tuple[str, ...], process_group: Any = None) -> None:
         self.devices: Tuple[torch.device, ...] = tuple(_normal(d) for d in devices)
         self.axis_names = tuple(axis_names)
+        self.process_group = process_group
+        self.local_rows = len(self.devices)
+        self.processes = 1 if process_group is None else dist.get_world_size(process_group)
+        self.rank = 0 if process_group is None else dist.get_rank(process_group)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
+        return {self.axis_names[0]: self.local_rows * self.processes}
 
 
-def build_mesh(axis_name: str = "dp", devices: Optional[Sequence[Any]] = None) -> Mesh:
-    """A 1-D named mesh over ``devices`` (default: every visible card, one row each).
+def build_mesh(
+    axis_name: str = "dp", devices: Optional[Sequence[Any]] = None, process_group: Any = None
+) -> Mesh:
+    """A 1-D named mesh over ``devices``, across the processes of ``process_group``.
 
     ``devices`` may repeat a device: ``build_mesh(devices=["cuda:0"] * 8)``
-    runs a world of 8 rows on one card, ``["cpu"] * 8`` on the CPU.
+    runs a world of 8 rows on one card, ``["cpu"] * 8`` on the CPU. With
+    ``process_group``, ``devices`` are this process's rows (default: one
+    row, on this process's current card under an NCCL group, else on the
+    CPU) and the mesh spans every process of the group. With neither, the
+    mesh is one such row over the default group where ``torch.distributed``
+    is initialized (one process a card: the counterpart of the JAX mesh over
+    every device of the job), else every visible card, one row each.
     """
+    if process_group is None and devices is None and dist.is_available() and dist.is_initialized():
+        process_group = dist.group.WORLD
+    if process_group is not None and devices is None:
+        on_card = dist.get_backend(process_group) == "nccl"
+        devices = [torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")]
     devs = list(devices) if devices is not None else [
         torch.device("cuda", i) for i in range(torch.cuda.device_count())
     ]
     if not devs:
         raise InGraphSyncUnsupported("no devices available to build a mesh over")
-    return Mesh(devs, (axis_name,))
+    return Mesh(devs, (axis_name,), process_group)
 
 
 def state_specs(names: Sequence[str], axis_name: str) -> Dict[str, Tuple[str]]:

@@ -218,7 +218,9 @@ class MetricCollection(nn.Module):
         once over the mesh's rows, every member computes from the head's
         synced states in the same step, and ``step()`` returns a dict keyed
         like :meth:`compute`. Every member class must pass the eligibility
-        copy's ``in_graph_sync`` gate.
+        copy's ``in_graph_sync`` gate. ``mesh`` is taken as it is, as
+        :meth:`Metric.to_spmd` takes it (a mesh over a process group spans
+        its processes, one a card).
         """
         from torchmetrics_tpu_torch._spmd import SpmdEngine
 

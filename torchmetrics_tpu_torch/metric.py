@@ -1925,9 +1925,14 @@ class Metric(nn.Module, ABC):
         ``step(batch)`` runs update, the sync over the mesh's rows and compute
         as one step, one CUDA graph a signature on the card, in place of
         streaming ``update()`` and syncing after. ``mesh``: a
-        :func:`~torchmetrics_tpu_torch._spmd.build_mesh` mesh whose rows all
-        lie on this metric's device (default: every visible card). Classes the
-        eligibility copy's ``in_graph_sync`` facet certifies host-bound raise
+        :func:`~torchmetrics_tpu_torch._spmd.build_mesh` mesh, taken as it
+        is, whose rows in this process all lie on this metric's device
+        (default: one row over the default process group where
+        ``torch.distributed`` is initialized, else every visible card). A
+        mesh built with ``process_group=`` spans the group's processes, one
+        a card: each passes ``step`` its own share of the batch, and the
+        sync runs collectives over the group. Classes the eligibility copy's
+        ``in_graph_sync`` facet certifies host-bound raise
         :class:`~torchmetrics_tpu_torch._spmd.InGraphSyncUnsupported` and keep
         the eager path.
         """

@@ -27,7 +27,12 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor], RingBuffer]) -> Tensor:
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:
-    return torch.sum(x, dim=0)
+    """The sum over the leading axis; an int32 or int64 sum keeps its dtype, as the JAX package's ``jnp.sum`` does.
+
+    ``torch.sum`` alone widens int32 to int64, so an int32 state (a confusion
+    matrix) synced over processes came out int64 where one process's is int32.
+    """
+    return torch.sum(x, dim=0, dtype=x.dtype if x.dtype in (torch.int32, torch.int64) else None)
 
 
 def dim_zero_mean(x: Tensor) -> Tensor:

@@ -13,6 +13,9 @@ keeps its padded ``dist.all_gather``.
 
 :func:`sync_in_jit` is the SPMD engine's sync: each state's reduction over
 the rows of a row-stacked state, inside the engine's step.
+:func:`sync_in_process_group` is the same sync for a mesh whose rows span
+the processes of a process group: coalesced collectives, then
+:func:`sync_in_jit` over the global rows.
 
 :func:`kv_key` and :class:`KvTtlJanitor` name and expire the keys the fleet
 tier (``_fleet/``) writes into a shared key-value store.
@@ -380,3 +383,113 @@ def _grouped_member_selector(axis_name: str, groups: Sequence[Sequence[int]]) ->
         return torch.stack([per_group[group_of[d]] for d in range(world)])
 
     return select
+
+
+# ---------------------------------------------------------------------------
+# The same sync over a mesh whose rows span the processes of a process group
+# ---------------------------------------------------------------------------
+
+_EXACT_REDUCTIONS = ("sum", "max", "min")
+
+
+def _exact(dtype: torch.dtype) -> bool:
+    """An integer dtype: its sums, maxima and minima come out the same in any order of their terms."""
+    return not (dtype.is_floating_point or dtype.is_complex or dtype == torch.bool)
+
+
+def _all_gather_into(out: Tensor, x: Tensor, group: Any) -> None:
+    """``out`` (``P * x.shape[0]`` rows) filled with every process's ``x``, rank by rank: one collective.
+
+    ``all_gather_single`` where torch has it (it deprecates
+    ``all_gather_into_tensor`` for it), else ``all_gather_into_tensor``.
+    """
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, x, group=group)
+
+
+def sync_in_process_group(
+    states: Sequence[Dict[str, Any]],
+    reductions: Sequence[Dict[str, Union[str, Callable, None]]],
+    group: Any,
+    axis_name: str = "dp",
+    axis_index_groups: Optional[Sequence[Sequence[int]]] = None,
+    tally: Optional[Dict[str, int]] = None,
+) -> List[Dict[str, Any]]:
+    """:func:`sync_in_jit` of each row-stacked ``states[i]`` over the global rows of a mesh that spans ``group``.
+
+    Each state holds this process's rows, ``(rows, *s)`` (a ring buffer: its
+    stacked leaves); global row ``g`` is row ``g % rows`` of rank
+    ``g // rows``. The result is :func:`sync_in_jit`'s on the global
+    ``(P * rows, *s)`` stack, bit for bit with a one-process mesh of the same
+    global rows, and the same on every process:
+
+    - without ``axis_index_groups``, an integer ``sum``/``max``/``min`` state
+      reduces its local rows, then takes one ``all_reduce`` a (dtype,
+      reduction) over a flat buffer of every such state: integer reductions
+      do not depend on the order of their terms;
+    - every other leaf (floating states, whose sums must keep the one-process
+      order, ``mean``, ``cat`` rings, ``None`` gathers, and every state under
+      groups) takes one all-gather a dtype, coalesced (a ``bool`` leaf as
+      ``uint8``), into the global stack, over which :func:`sync_in_jit` runs.
+
+    The collectives are issued on the current stream's side, so a CUDA graph
+    captures them with the step. ``tally`` counts them (``all_reduce``,
+    ``all_gather``).
+    """
+    procs = dist.get_world_size(group)
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    reduced: Dict[tuple, List[tuple]] = {}  # (dtype, reduction) -> [(i, name, local reduction)]
+    gathered: Dict[torch.dtype, List[tuple]] = {}  # wire dtype -> [(i, name, ring part or None, rows)]
+    for i, (state, reds) in enumerate(zip(states, reductions)):
+        for name, value in state.items():
+            red = reds.get(name, "sum")
+            if isinstance(value, dict):
+                for part, leaf in value.items():
+                    gathered.setdefault(_wire(leaf.dtype), []).append((i, name, part, leaf))
+            elif axis_index_groups is None and red in _EXACT_REDUCTIONS and _exact(value.dtype):
+                reduced.setdefault((value.dtype, red), []).append((i, name, _COLLECTIVES[red](value), value.shape[0]))
+            else:
+                gathered.setdefault(_wire(value.dtype), []).append((i, name, None, value))
+    out: List[Dict[str, Any]] = [{} for _ in states]
+    for (_, red), items in reduced.items():
+        flat = torch.cat([v.reshape(-1) for _, _, v, _ in items])
+        if flat.numel():
+            dist.all_reduce(flat, op=ops[red], group=group)
+            _count(tally, "all_reduce")
+        for (i, name, v, rows), piece in zip(items, flat.split([v.numel() for _, _, v, _ in items])):
+            res = piece.view(v.shape)
+            out[i][name] = res.unsqueeze(0).expand(procs * rows, *res.shape)
+    stacks: List[Dict[str, Any]] = [{} for _ in states]
+    for wire, items in gathered.items():
+        rows = items[0][3].shape[0]
+        widths = [leaf[0].numel() for *_, leaf in items]
+        local = torch.cat([leaf.view(wire).reshape(rows, w) for (*_, leaf), w in zip(items, widths)], dim=1)
+        full = local.new_empty((procs * rows, local.shape[1]))
+        if local.numel():
+            _all_gather_into(full, local, group)
+            _count(tally, "all_gather")
+        off = 0
+        for (i, name, part, leaf), w in zip(items, widths):
+            # a contiguous copy of each leaf: its reduction reads the layout the one-process rows have
+            glob = full[:, off:off + w].contiguous().view(procs * rows, *leaf.shape[1:]).view(leaf.dtype)
+            off += w
+            if part is None:
+                stacks[i][name] = glob
+            else:
+                stacks[i].setdefault(name, {})[part] = glob
+    synced = []
+    for i, (state, reds) in enumerate(zip(states, reductions)):
+        if stacks[i]:
+            out[i].update(sync_in_jit(stacks[i], reds, axis_name, axis_index_groups=axis_index_groups))
+        synced.append({name: out[i][name] for name in state})
+    return synced
+
+
+def _wire(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a leaf travels as: ``bool`` as ``uint8`` (NCCL has no ``bool``), every other as itself."""
+    return torch.uint8 if dtype == torch.bool else dtype
+
+
+def _count(tally: Optional[Dict[str, int]], kind: str) -> None:
+    if tally is not None:
+        tally[kind] = tally.get(kind, 0) + 1
