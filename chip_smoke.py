@@ -6636,12 +6636,16 @@ def phase_observability(torch, np, kernel, ce, dev, gen, logits, target, npz_fol
         obs.set_profiling_enabled(False)
         obs.set_tracing_enabled(False)
     # the routes the stream implies: every member's first call eager, then the group heads (acc, cm) and the
-    # mean replay; jac and mcc read the head's states
+    # mean replay; jac and mcc read the head's states. The eager call of a class the analyzer certified R1-clean
+    # skips the fingerprint (`_analysis/certified.json`), as in the JAX package
     total = n + 2
     heads = {"acc": "MulticlassAccuracy", "cm": "MulticlassConfusionMatrix", "mean_ce": "MeanMetric"}
+    cert = importlib.import_module("torchmetrics_tpu_torch._analysis.manifest")
+    classes = {**{k: type(m) for k, m in on["mc"].items(copy_state=False)}, "mean_ce": type(on["mean_ce"])}
     for name, rep in reports.items():
         head = name in heads
-        want = {"compiles|kind=auto_update": 1, "fingerprint|outcome=check": 1, "update_calls|path=eager": 1}
+        outcome = "skip" if cert.fingerprint_skip_allowed(classes[name]) else "check"
+        want = {"compiles|kind=auto_update": 1, f"fingerprint|outcome={outcome}": 1, "update_calls|path=eager": 1}
         if head:
             want.update({"update_calls|path=auto_compiled": total - 1})
         got = {k: v for k, v in rep.counters.items() if not k.startswith("latency_") and k != "trace_seconds"}
@@ -9802,13 +9806,295 @@ def phase_spmd_process_group(torch, np, kernel, lh, dev, gen, logits, target, sm
     return out
 
 
+ANALYSIS_SIZES = {"classes": 1000, "batches": (1024, 1000, 968, 936, 904, 872), "tenants": 256, "capacity": 256,
+                  "queue_capacity": 1024, "max_batch": 64, "rows": 1024, "requests": 384, "clients": 4,
+                  "fleet_branching": (2, 2), "fleet_epochs": 2, "fleet_updates": 2, "pool_capacity": 8, "lanes": 8,
+                  "mesh_rows": 8, "mesh_batch": 1024, "mesh_steps": 6}
+
+
+def phase_analysis(torch, np, kernel, dev, gen, logits, target, smi: str, sizes=None) -> dict:
+    """Phase 59: the port's static analysis at work on the card: the R1 certificate in ``Metric``, and sanitized runs.
+
+    (a) BASELINE config 2's collection (phase 54's members, 1,000 classes) takes the imagenet_val logits in six
+        batches of different sizes, so every member update is a signature's first sighting and runs eagerly under
+        the fingerprint guard: once with the certificate's skip on (``set_fingerprint_skip_enabled(True)``), once
+        off. The states must be bit for bit between the two runs; ``fingerprint|outcome=skip`` in the first run and
+        ``check`` in the second must each equal the eager updates of the certified members; B1's launches must
+        equal the eager updates of the members that count a matrix, in each run. Reports the host ms of an eager
+        collection update (median) in both runs.
+    (b) ``set_locksan_enabled(True)`` before the objects are built, then: a metric server at phase 55's shapes
+        taking 384 requests from 4 client threads, every tenant bit for bit with numpy; a fleet ``(2, 2)`` rollup
+        of 2 epochs, the root bit for bit with numpy; a concurrent ``warm_start`` of one pool key from two threads
+        with the AOT cache set (its reentrant resolution lock serializes the build; the pool's units are prepared
+        by a serial ``warm_start`` first, as in the JAX suite's race), which builds it once; a step stream of the mesh over a world-1 process group (NCCL on the card), bit for
+        bit with the plain mesh. Each run must end with ``locksan.violations() == []``, and reports its B1
+        launches (lane-batched and plain). A ``LockDisciplineError`` is not caught: it fails the phase.
+    """
+    import threading
+
+    import torch.distributed as dist
+
+    tp = importlib.import_module("torchmetrics_tpu_torch")
+    obs = importlib.import_module("torchmetrics_tpu_torch._observability")
+    cert = importlib.import_module("torchmetrics_tpu_torch._analysis.manifest")
+    locksan = importlib.import_module("torchmetrics_tpu_torch._analysis.locksan")
+    serving = importlib.import_module("torchmetrics_tpu_torch._serving")
+    fleet = importlib.import_module("torchmetrics_tpu_torch._fleet")
+    spmd = importlib.import_module("torchmetrics_tpu_torch._spmd")
+    compiled = importlib.import_module("torchmetrics_tpu_torch._compile")
+    sizes = dict(ANALYSIS_SIZES, **(sizes or {}))
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    c, rows = sizes["classes"], sizes["rows"]
+    b1, lanes_k = kernel.confusion_matrix_cuda.launches, kernel.confusion_matrix_lanes.launches
+    out = {"phase": "analysis", "device": smi}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ------------------------------------------------ (a) the certificate in the eager update
+    bounds = np.cumsum((0,) + tuple(sizes["batches"]))
+    batches = [(logits[a:b], target[a:b]) for a, b in zip(bounds, bounds[1:])]
+    certified = sorted(k for k, m in spmd_members(tp, c, dev).items() if cert.fingerprint_skip_allowed(type(m)))
+    matrix_members = ("cm", "mcc", "jaccard")  # the members whose update counts a (C, C) matrix (B1 from 256 classes)
+    check("cm" in certified, f"certified members of config 2: {certified}")
+    was_on = obs.telemetry_enabled()
+    obs.set_telemetry_enabled(True)
+    runs = {}
+    try:
+        for skip in (True, False):
+            cert.set_fingerprint_skip_enabled(skip)
+            obs.REGISTRY.reset()
+            mc = tp.MetricCollection(spmd_members(tp, c, dev))
+            sync()
+            b1.reset()
+            host_ms = []
+            for p, t in batches:
+                h0 = time.perf_counter()
+                mc.update(p, t)
+                host_ms.append((time.perf_counter() - h0) * 1e3)
+            sync()
+            reps = {k: m.telemetry_report() for k, m in mc.items(copy_state=False)}
+            eager = {k: r.path_counts.get("eager", 0) for k, r in reps.items()}
+            runs[skip] = {
+                "eager_updates": eager,
+                "fingerprint": {o: sum(r.counter(f"fingerprint|outcome={o}") for r in reps.values())
+                                for o in ("skip", "check", "ineligible")},
+                "b1_launches": int(b1),
+                "host_ms_median": statistics.median(host_ms),
+                "host_ms": host_ms,
+                "states": {k: _bits(torch, [getattr(m, n) for n in sorted(m._defaults)])
+                           for k, m in mc.items(copy_state=False)},
+            }
+            del mc
+    finally:
+        cert.set_fingerprint_skip_enabled(True)
+        obs.set_telemetry_enabled(was_on)
+    on, off = runs[True], runs[False]
+    check(on["states"] == off["states"], "the states differ with and without the fingerprint skip")
+    check(on["eager_updates"] == off["eager_updates"], f"eager updates {on['eager_updates']} / {off['eager_updates']}")
+    certified_eager = sum(n for k, n in on["eager_updates"].items() if k in certified)
+    check(certified_eager > 0, f"no eager update of a certified member: {on['eager_updates']}")
+    check(on["fingerprint"]["skip"] == certified_eager and off["fingerprint"]["check"] == on["fingerprint"]["check"]
+          + certified_eager and off["fingerprint"]["skip"] == 0,
+          f"fingerprint outcomes {on['fingerprint']} (skip on) / {off['fingerprint']} (skip off), "
+          f"{certified_eager} eager updates of certified members")
+    matrix_eager = sum(on["eager_updates"].get(k, 0) for k in matrix_members)
+    for run in (on, off):
+        check(run["b1_launches"] == (matrix_eager if on_card else 0), f"B1 launches {run['b1_launches']} for "
+              f"{matrix_eager} eager updates of the matrix members")
+    out["certificate"] = {
+        "batches": list(sizes["batches"]), "certified_members": certified, "eager_updates": on["eager_updates"],
+        "fingerprint_skip_on": on["fingerprint"], "fingerprint_skip_off": off["fingerprint"],
+        "b1_launches_per_run": on["b1_launches"], "host_ms_median_skip_on": on["host_ms_median"],
+        "host_ms_median_skip_off": off["host_ms_median"], "host_ms_skip_on": on["host_ms"],
+        "host_ms_skip_off": off["host_ms"],
+    }
+    b1_total = on["b1_launches"] + off["b1_launches"]
+    lanes_total = 0
+    del runs, on, off
+
+    # ------------------------------------------------ (b) the sanitized runs
+    def template():
+        return tp.classification.MulticlassConfusionMatrix(num_classes=c, ignore_index=-1, device=dev)
+
+    locksan.set_locksan_enabled(True)
+    locksan.reset()
+    try:
+        # 1. a metric server at phase 55's shapes
+        n_ten, n_req = sizes["tenants"], sizes["requests"]
+        req_p = torch.randint(0, c, (n_req, rows), generator=gen, device=dev).cpu().numpy()
+        req_t = torch.randint(0, c, (n_req, rows), generator=gen, device=dev).cpu().numpy()
+        server = serving.MetricServer(template(), capacity=sizes["capacity"], queue_capacity=sizes["queue_capacity"],
+                                      controller=serving.ControllerConfig(max_batch=sizes["max_batch"]))
+        check(isinstance(server._pool_lock, locksan.SanLock) and isinstance(server.queue._lock, locksan.SanLock),
+              "the sanitized server took plain locks")
+        sids = [server.attach_stream() for _ in range(n_ten)]
+        sync()
+        lanes_k.reset()
+        b1.reset()
+        h0 = time.perf_counter()
+        server.warm(req_p[0], req_t[0])
+        rows_of = {sid: [] for sid in sids}
+        acks, retries = [], []
+        deadline = time.monotonic() + 120.0
+        server.start()
+
+        failures = []
+
+        def client(k):
+            try:
+                for r in range(k, n_req, sizes["clients"]):
+                    sid = sids[r % n_ten]
+                    ack = _submit_until_admitted(serving, server, sid, req_p[r], req_t[r], retries, deadline)
+                    check(ack is not None, f"request {r} was never admitted")
+                    acks.append(ack)
+                    rows_of[sid].append((req_p[r], req_t[r]))
+                    outcome = ack.result(timeout=60.0)
+                    check(outcome == "acked", f"request {r}: {outcome}")
+            except BaseException as err:  # noqa: BLE001 - re-raised on the phase's thread below
+                failures.append(err)
+
+        clients = [threading.Thread(target=client, args=(k,), name=f"analysis-client-{k}")
+                   for k in range(sizes["clients"])]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join()
+        server.stop(drain=True)
+        if failures:
+            raise failures[0]
+        sync()
+        served_s = time.perf_counter() - h0
+        check(len(acks) == n_req and all(a.result(timeout=0.0) == "acked" for a in acks), "an ack is not acked")
+        bad, _ = _served_equal(np, server, rows_of, c)
+        check(not bad, f"tenants {bad[:5]} differ from numpy")
+        server.close()
+        check(locksan.violations() == [], f"server: {locksan.violations()[:3]}")
+        out["server"] = {"requests": n_req, "tenants": n_ten, "clients": sizes["clients"], "seconds": served_s,
+                         "batches": server.batches, "retries": len(retries), "lanes_launches": int(lanes_k),
+                         "b1_launches": int(b1), "violations": 0}
+        lanes_total += int(lanes_k)
+        b1_total += int(b1)
+        del server
+        release_graphs(torch)
+
+        # 2. a fleet (2, 2) rollup
+        b1.reset()
+        h0 = time.perf_counter()
+        tree = fleet.FleetTree.build(template(), branching=sizes["fleet_branching"])
+        epochs, updates = sizes["fleet_epochs"], sizes["fleet_updates"]
+        leaves = tree.leaves
+        fp = torch.randint(0, c, (epochs, len(leaves), updates, rows), generator=gen, device=dev)
+        ft = torch.randint(0, c, (epochs, len(leaves), updates, rows), generator=gen, device=dev)
+        for e in range(epochs):
+            for i, leaf in enumerate(leaves):
+                for u in range(updates):
+                    leaf.update(fp[e, i, u], ft[e, i, u])
+            check(not tree.run_epoch(e).partial, f"fleet epoch {e} rolled up partial")
+        tree.join_pending(timeout=30.0)
+        sync()
+        want = _bincount_cm(np, list(fp.cpu().numpy().reshape(-1, rows)), list(ft.cpu().numpy().reshape(-1, rows)), c)
+        check(np.array_equal(tree.root.metric.confmat.cpu().numpy(), want), "the sanitized fleet root != numpy")
+        check(int(b1) == (epochs * len(leaves) * updates if on_card else 0), f"fleet B1 launches {int(b1)}")
+        check(locksan.violations() == [], f"fleet: {locksan.violations()[:3]}")
+        out["fleet"] = {"branching": list(sizes["fleet_branching"]), "epochs": epochs, "seconds": time.perf_counter() - h0,
+                        "b1_launches": int(b1), "lanes_launches": 0, "violations": 0}
+        b1_total += int(b1)
+        del tree, fp, ft
+        release_graphs(torch)
+
+        # 3. one pool key warmed from two threads at once: built once, under the AOT cache's resolution lock
+        lanes = sizes["lanes"]
+        aot_dir = tempfile.mkdtemp(prefix="tm_analysis_aot_")
+        tp.set_aot_cache(aot_dir)
+        pool = template().to_stream_pool(capacity=sizes["pool_capacity"])
+        ids = np.array([pool.attach() for _ in range(lanes)])
+        wp = torch.randint(0, c, (lanes, rows), generator=gen, device=dev)
+        wt = torch.randint(0, c, (lanes, rows), generator=gen, device=dev)
+        pool.warm_start(ids[:lanes // 2], wp[:lanes // 2], wt[:lanes // 2])  # the pool's units, prepared serially
+        sync()
+        lanes_k.reset()
+        stats_0 = compiled.stats()
+        outcomes, errors = [], []
+
+        def warm():
+            try:
+                outcomes.append(pool.warm_start(ids, wp, wt)["stream_step"])
+            except BaseException as err:  # noqa: BLE001 - reported by the check below, never swallowed
+                errors.append(err)
+
+        warmers = [threading.Thread(target=warm, name=f"analysis-warm-{k}") for k in range(2)]
+        for th in warmers:
+            th.start()
+        for th in warmers:
+            th.join()
+        tp.set_aot_cache(None)
+        shutil.rmtree(aot_dir, ignore_errors=True)
+        if errors:
+            raise errors[0]
+        captured = compiled.stats()["captured"] - stats_0["captured"]
+        check(sorted(outcomes) == ["compiled", "ready"], f"concurrent warm_start outcomes {outcomes}")
+        check(captured == (1 if on_card else 0), f"{captured} captures for one key warmed twice")
+        pool.update(ids, wp, wt)
+        values = pool.compute_all()
+        hp, ht = wp.cpu().numpy(), wt.cpu().numpy()
+        check(all(np.array_equal(values[int(sid)].cpu().numpy(), _bincount_cm(np, [hp[i]], [ht[i]], c))
+                  for i, sid in enumerate(ids)), "a warmed pool's stream != numpy")
+        check(locksan.violations() == [], f"warm_start: {locksan.violations()[:3]}")
+        out["warm_start"] = {"threads": 2, "outcomes": sorted(outcomes), "captures": captured,
+                             "lanes_launches": int(lanes_k), "b1_launches": 0, "violations": 0}
+        lanes_total += int(lanes_k)
+        del pool
+        release_graphs(torch)
+
+        # 4. the mesh over a world-1 process group
+        check(not dist.is_initialized(), "a process group is already initialized before phase 59")
+        dist.init_process_group("nccl" if on_card else "gloo", store=dist.HashStore(), rank=0, world_size=1,
+                                **({"device_id": dev} if on_card else {}))
+        try:
+            mesh_rows, mb = sizes["mesh_rows"], sizes["mesh_batch"]
+            steps = [(logits[s:s + mb], target[s:s + mb]) for s in range(0, sizes["mesh_steps"] * mb, mb)]
+            mesh = spmd.build_mesh(devices=[dev] * mesh_rows, process_group=dist.group.WORLD)
+            plain = spmd.build_mesh(devices=[dev] * mesh_rows)
+            eng = tp.MetricCollection(spmd_members(tp, c, dev)).to_spmd(mesh=mesh)
+            sync()
+            lanes_k.reset()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got = [_bits(torch, eng.step(p, t)) for p, t in steps]
+                sync()
+                mesh_lanes = int(lanes_k)
+                ref = tp.MetricCollection(spmd_members(tp, c, dev)).to_spmd(mesh=plain)
+                want_steps = [_bits(torch, ref.step(p, t)) for p, t in steps]
+            check(got == want_steps, "the sanitized process-group mesh != the plain mesh")
+            check(mesh_lanes == (len(steps) if on_card else 0), f"mesh B1 lane-batched launches {mesh_lanes}")
+            check(not eng.degraded, "the sanitized mesh degraded")
+            del eng, ref
+        finally:
+            dist.destroy_process_group()
+        check(locksan.violations() == [], f"mesh: {locksan.violations()[:3]}")
+        out["mesh"] = {"rows": mesh_rows, "steps": len(steps), "backend": "nccl" if on_card else "gloo",
+                       "lanes_launches": mesh_lanes, "b1_launches": 0, "violations": 0}
+        lanes_total += mesh_lanes
+    finally:
+        locksan.set_locksan_enabled(False)
+    release_graphs(torch)
+    out["b1_launches"], out["lanes_launches"] = b1_total, lanes_total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phase", choices=("all", "compiled_path", "compiled_stream", "captured_trunks", "observability",
                                             "resilience", "stream_pool", "trunk_pools", "spmd_collection",
-                                            "metric_server", "fleet_rollup", "aot_cold_start", "spmd_process_group"),
+                                            "metric_server", "fleet_rollup", "aot_cold_start", "spmd_process_group",
+                                            "analysis"),
                         default="all",
                         help="compiled_path: build, run only the compiled_path phase on the imagenet_val data, stop; "
                              "compiled_stream: build, stream the imagenet_val data in the --order given, stop; "
@@ -9822,7 +10108,8 @@ def main() -> int:
                              "fleet_rollup: build, run only the fleet_rollup phase, stop; "
                              "aot_cold_start: build, run only the aot_cold_start phase, stop; "
                              "spmd_process_group: build, run only the spmd_process_group phase on the imagenet_val "
-                             "data, stop")
+                             "data, stop; analysis: build, run only the analysis phase (59) on the imagenet_val data, "
+                             "stop")
     parser.add_argument("--order", default="compiled,eager,compiled",
                         help="--phase compiled_stream: comma-separated eager, compiled or traced streams")
     args = parser.parse_args()
@@ -9949,6 +10236,12 @@ def main() -> int:
         logits, target = imagenet_val_data(torch, dev, gen)
         phase_spmd_process_group(torch, np, kernel, lh, dev, torch.Generator(device=dev).manual_seed(args.seed + 58),
                                  logits, target, smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "analysis":
+        logits, target = imagenet_val_data(torch, dev, gen)
+        phase_analysis(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 59), logits, target,
+                       smi)
         print(smi, flush=True)
         return 0
     if args.phase != "all":
@@ -10284,6 +10577,10 @@ def main() -> int:
     # ------------- the SPMD engine over a world-1 NCCL group, its collectives in each key's graph, phase 58
     spmd_pg = phase_spmd_process_group(torch, np, kernel, lh, dev,
                                        torch.Generator(device=dev).manual_seed(args.seed + 58), logits, target, smi)
+    release_graphs(torch)
+    # ------------- the port's static analysis: the R1 certificate in Metric, and sanitized runs, phase 59
+    analysis = phase_analysis(torch, np, kernel, dev, torch.Generator(device=dev).manual_seed(args.seed + 59), logits,
+                              target, smi)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "torchmetrics_tpu")],
           "a module of JAX or of the JAX package was imported")
 
@@ -10320,7 +10617,8 @@ def main() -> int:
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": imagenet_launches + ade_launches + exact_launches + collection["confmat_launches"]
         + miou_launches + rest_launches + compiled["confmat_launches"] + observed["b1_launches"]
-        + resilient["b1_launches"] + pooled["b1_unbatched_launches"] + fleet["b1_launches"] + aot["b1_launches"],
+        + resilient["b1_launches"] + pooled["b1_unbatched_launches"] + fleet["b1_launches"] + aot["b1_launches"]
+        + analysis["b1_launches"],
         "max_abs_err": max_abs_err,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -10330,14 +10628,15 @@ def main() -> int:
         "bound_ms_fresh": big["bound_ms_fresh"],
         "at": f"ade20k_update: ({big['n']}, {big['classes']}) {big['labels']} labels + bool mask, into the state, "
               "queued_ms; launches include phase 56's fleet edges (512 edge updates, then its chaos, race and store "
-              "trees) and phase 57's three child processes (a precompile and 3 updates each)",
+              "trees), phase 57's three child processes (a precompile and 3 updates each) and phase 59's eager "
+              "config 2 updates (both runs) and sanitized fleet edges",
     }, {
         "name": "confmat_lanes",
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/confmat.cu",
         "replaces": "torchmetrics_tpu/functional/classification/_pallas_confmat.py:54",
         "launches": pooled["lanes_launches"] + spmd_run["main"]["lanes_launches"] + served["lanes_launches"]
-        + aot["lanes_launches"] + spmd_pg["main"]["lanes_launches"],
+        + aot["lanes_launches"] + spmd_pg["main"]["lanes_launches"] + analysis["lanes_launches"],
         "max_abs_err": max(pooled["max_abs_err"], spmd_run["timing"]["b1_lanes"]["max_abs_err"],
                            served["lane_check"]["max_abs_err"]),
         "ms": pooled["timing"]["ms"],
@@ -10348,8 +10647,8 @@ def main() -> int:
         "at": f"one stream_pool micro-batch: ({pooled['lanes']}, {pooled['rows']}) int64 labels + bool mask, "
               f"{pooled['classes']} classes, into the gathered lanes, queued_ms; B1 under torch.func.vmap; launches: "
               "phase 52's micro-batches, phase 54's SPMD steps, phase 55's server micro-batches (with its warm runs), "
-              "phase 57's children's pool and engine steps (with their warm_starts) and phase 58's steps of the "
-              "engine over a process group",
+              "phase 57's children's pool and engine steps (with their warm_starts), phase 58's steps of the "
+              "engine over a process group and phase 59's sanitized server, warm_start and mesh",
         "server_shapes": served["lane_check"]["shapes"],
         "spmd_rows": {k: spmd_run["timing"]["b1_lanes"][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }] + [{

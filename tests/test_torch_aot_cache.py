@@ -410,8 +410,27 @@ class TestWarmStart:
 
     def test_concurrent_warm_start(self, cache_dir):
         """Threads warming one pool's signatures race benignly: cold resolution runs under the cache's one
-        lock with a second probe of the pool's steps, and every thread ends with a ready step. The JAX test
-        arms its lock sanitizer; the port takes plain locks."""
+        lock with a second probe of the pool's steps, and every thread ends with a ready step."""
+        self._warm_from_four_threads()
+
+    def test_concurrent_warm_start_under_locksan(self, cache_dir):
+        """The same race with the lock sanitizer armed: the reentrant resolution lock, the caches' lock and the
+        stats lock hold their discipline (reentry by the owner, no order cycle, guarded stats)."""
+        from torchmetrics_tpu_torch._analysis import locksan
+        from torchmetrics_tpu_torch._aot import cache as aot_cache
+
+        locksan.set_locksan_enabled(True)
+        locksan.reset()
+        try:
+            assert isinstance(aot_cache.RESOLVE_LOCK, locksan.SanRLock)  # retrofitted: it was built at import
+            self._warm_from_four_threads()
+            assert locksan.violations() == [], locksan.violations()
+        finally:
+            locksan.set_locksan_enabled(False)
+            locksan.reset()
+        assert not isinstance(aot_cache.RESOLVE_LOCK, locksan.SanRLock)
+
+    def _warm_from_four_threads(self):
         p, t = _reg_batch()
         preds, target = _t(p, t)
         pool = tm.MeanSquaredError(device=CPU).to_stream_pool(capacity=4)

@@ -135,6 +135,23 @@ def test_chaos_leaves_no_publisher_thread_and_folds_golden():
                                rtol=RTOL, atol=ATOL)
 
 
+def test_chaos_under_locksan_is_clean():
+    """The fleet tier's lock discipline (publish lock, the KV's condition, the region labeler), sanitized under load."""
+    from torchmetrics_tpu_torch._analysis import locksan
+
+    spec = FleetChaosSpec(branching=(2, 2), rows_per_epoch=1, deadline_s=0.25)
+    locksan.set_locksan_enabled(True)
+    locksan.reset()
+    try:
+        with pytest.warns(UserWarning):
+            res = run_fleet_chaos(PORT.agg.MeanMetric(device="cpu"), _make_update, spec)
+        assert res.ok, res.describe()
+        assert locksan.violations() == []
+    finally:
+        locksan.set_locksan_enabled(False)
+        locksan.reset()
+
+
 def test_flight_dumps_land_on_disk(tmp_path):
     spec = FleetChaosSpec(branching=(2, 2), rows_per_epoch=1, deadline_s=0.25, flight_dir=str(tmp_path))
     with pytest.warns(UserWarning):

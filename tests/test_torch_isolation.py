@@ -167,6 +167,54 @@ def test_fleet_runs_with_jax_and_the_jax_package_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def _analysis_sources():
+    directory = os.path.join(PORT, "_analysis")
+    return sorted(os.path.join(directory, f) for f in os.listdir(directory) if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", _analysis_sources(), ids=os.path.basename)
+def test_the_analysis_package_imports_the_standard_library_only(path):
+    """At import it parses what it scans and never imports it: no torch, no numpy, nothing of the package outside
+    ``_analysis`` (the sanitizer's switch reaches the runtime singletons with imports inside the function)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            modules = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            modules = [node.module or ""]
+        else:
+            continue
+        for module in modules:
+            top = module.split(".")[0]
+            assert module.startswith("torchmetrics_tpu_torch._analysis") or top in sys.stdlib_module_names, (
+                f"{path} imports {module}"
+            )
+
+
+def test_the_ports_lint_runs_with_jax_and_the_jax_package_blocked():
+    """``python -m torchmetrics_tpu_torch._analysis`` scans the port's tree clean and reads nothing of the JAX package."""
+    code = (
+        "import os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['torchmetrics_tpu'] = None\n"
+        "jax_pkg = os.path.join(os.getcwd(), 'torchmetrics_tpu') + os.sep\n"
+        "opened = []\n"
+        "def audit(event, args):\n"
+        "    if event == 'open' and args and isinstance(args[0], (str, bytes)):\n"
+        "        path = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if path.startswith(jax_pkg):\n"
+        "            opened.append(path)\n"
+        "sys.addaudithook(audit)\n"
+        "from torchmetrics_tpu_torch._analysis.__main__ import main\n"
+        "assert main(['torchmetrics_tpu_torch/']) == 0\n"
+        "assert not opened, opened[:3]\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_aot_cache_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     """``_aot`` stands alone: a record written then hit, the CLI's ``verify`` and the golden gate, without JAX."""
     code = (

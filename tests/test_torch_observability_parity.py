@@ -14,10 +14,6 @@ signals give the same health report; a flight dump of an
 
 Divergences by design (ROADMAP §C), each asserted where it shows:
 
-- ``fingerprint|outcome=skip``: the JAX package skips the host-attribute
-  fingerprint for classes its static analyzer certified (MeanSquaredError,
-  MulticlassConfusionMatrix, ...); the port has no certificate yet and
-  fingerprints every eligible class, so it counts ``check``;
 - an ``auto_path_disabled`` event carries ``data["seam"]`` in the port, so a
   flight dump of it names ``metric.update``; the JAX event has no data and
   its dump's seam falls back to the kind;
@@ -45,10 +41,6 @@ from torchmetrics_tpu._observability import manifest as jax_manifest
 from torchmetrics_tpu_torch._observability import export as port_export
 from torchmetrics_tpu_torch._observability import manifest as port_manifest
 
-# the JAX package's certified classes skip the fingerprint that the port always takes (see the module docstring)
-SKIP_TO_CHECK = {"fingerprint|outcome=skip": "fingerprint|outcome=check"}
-
-
 def _reset(obs):
     obs.set_telemetry_enabled(False)
     obs.set_tracing_enabled(False)
@@ -75,19 +67,12 @@ def both():
         _reset(obs)
 
 
-def counters(report, mapping=None):
-    mapping = mapping or {}
-    out = {}
-    for key, value in report.counters.items():
-        if key.startswith("latency_"):
-            continue
-        key = mapping.get(key, key)
-        out[key] = out.get(key, 0) + value
-    return out
+def counters(report):
+    return {key: value for key, value in report.counters.items() if not key.startswith("latency_")}
 
 
-def assert_counters_match(port_report, jax_report, mapping=SKIP_TO_CHECK):
-    got, want = counters(port_report), counters(jax_report, mapping)
+def assert_counters_match(port_report, jax_report):
+    got, want = counters(port_report), counters(jax_report)
     assert set(got) == set(want), (sorted(got), sorted(want))
     for key in want:
         if key == "trace_seconds":
@@ -130,7 +115,7 @@ def test_multiclass_accuracy_counters_match(both):
     assert runs["port"].path_counts == runs["jax"].path_counts == {"eager": 1, "auto_compiled": 4}
 
 
-def test_mean_squared_error_counters_match_but_for_the_certified_fingerprint_skip(both):
+def test_mean_squared_error_counters_match_with_the_certified_fingerprint_skip(both):
     _, _, reg = data(1)
     runs = {}
     for name, pkg, conv, kw in (("port", P, t, {"device": "cpu"}), ("jax", J, j, {})):
@@ -142,9 +127,9 @@ def test_mean_squared_error_counters_match_but_for_the_certified_fingerprint_ski
         m(conv(reg[2]), conv(reg[3]))
         m.compute()
         runs[name] = m.telemetry_report()
-    # the divergence by design: the JAX package certified MeanSquaredError and skipped the fingerprint
-    assert runs["jax"].counter("fingerprint|outcome=skip") == 1 and runs["jax"].counter("fingerprint|outcome=check") == 0
-    assert runs["port"].counter("fingerprint|outcome=check") == 1
+    # both analyzers certified MeanSquaredError R1-clean, so both skip the fingerprint
+    for run in runs.values():
+        assert run.counter("fingerprint|outcome=skip") == 1 and run.counter("fingerprint|outcome=check") == 0
     assert_counters_match(runs["port"], runs["jax"])
     assert runs["port"].counter("update_calls|path=forward_compiled") == 1
 

@@ -66,15 +66,21 @@ def test_chaos_smoke_watchdog_stall():
     assert _schedule(got) == _schedule(_jax_run(101, spec=JAX.chaos.ChaosSpec(stall_final=True)))
 
 
-def test_chaos_smoke_threads_join():
-    """``test_chaos_smoke_under_locksan``'s port: the port has no lock sanitizer yet (ROADMAP §A, ``_analysis/``).
+def test_chaos_smoke_under_locksan():
+    """The chaos schedule runs clean with the lock sanitizer armed: the guarded-sync workers, the snapshot writer,
+    the event bus and the telemetry registry hold their declared discipline live, the watchdog stall included, and
+    no snapshot writer outlives the run."""
+    from torchmetrics_tpu_torch._analysis import locksan
 
-    It holds what the sanitizer run guards against: a schedule with the
-    watchdog stall leaves no snapshot writer running and every guarded-sync
-    worker idle or parked on its released stall.
-    """
-    _run(7)
-    _run(102, spec=PORT.chaos.ChaosSpec(stall_final=True))
+    locksan.set_locksan_enabled(True)
+    locksan.reset()
+    try:
+        _run(7)
+        _run(102, spec=PORT.chaos.ChaosSpec(stall_final=True))
+        assert locksan.violations() == []
+    finally:
+        locksan.set_locksan_enabled(False)
+        locksan.reset()
     assert not [t for t in threading.enumerate() if t.name == "tm-tpu-snapshot-writer" and t.is_alive()]
 
 

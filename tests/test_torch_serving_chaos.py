@@ -102,6 +102,21 @@ def test_serving_chaos_leaves_no_worker_or_pending_ack(monkeypatch):
     assert not [t for t in threading.enumerate() if t.name == "tm-serving-ingest" and t.is_alive()]
 
 
+def test_serving_chaos_under_locksan():
+    """The whole serving loop (client threads, ingest worker, snapshot journal, controller, event bus) holds its
+    declared lock discipline live under a fault-heavy schedule."""
+    from torchmetrics_tpu_torch._analysis import locksan
+
+    locksan.set_locksan_enabled(True)
+    locksan.reset()
+    try:
+        _run(2)
+        assert locksan.violations() == [], locksan.violations()
+    finally:
+        locksan.set_locksan_enabled(False)
+        locksan.reset()
+
+
 def test_serving_chaos_faults_produce_flight_dumps(tmp_path):
     """Every injected fault (preemption kill, collective failure) freezes exactly one ``chaos_fault``
     post-mortem with the right seam; dumps are deduplicated per bus event."""

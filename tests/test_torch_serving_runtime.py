@@ -513,12 +513,31 @@ def test_telemetry_counters_match_the_jax_server_key_for_key(serving_env):
 
 
 # ------------------------------------------------------------------ divergences by design (ROADMAP §C)
-def test_the_port_takes_plain_locks_where_the_jax_package_takes_its_sanitizers(serving_env):
-    srv = MetricServer(_mse(), capacity=2)
+def test_a_server_built_under_the_sanitizer_takes_sanlocks_and_serves_clean(serving_env):
+    """Built with the lock sanitizer armed, the server's pool lock, its queue's and its controller's are
+    ``SanLock``s, and a served stream holds their declared discipline; built without it, they are plain locks."""
+    from torchmetrics_tpu_torch._analysis import locksan
+
+    plain = MetricServer(_mse(), capacity=2)
     lock_type = type(threading.Lock())
-    assert isinstance(srv._pool_lock, lock_type)
-    assert isinstance(srv.queue._lock, lock_type) and isinstance(srv.controller._lock, lock_type)
-    srv.close()
+    assert isinstance(plain._pool_lock, lock_type)
+    assert isinstance(plain.queue._lock, lock_type) and isinstance(plain.controller._lock, lock_type)
+    plain.close()
+    locksan.set_locksan_enabled(True)
+    locksan.reset()
+    try:
+        srv = MetricServer(_mse(), capacity=4, controller=ControllerConfig(max_batch=4))
+        assert isinstance(srv._pool_lock, locksan.SanLock)
+        assert isinstance(srv.queue._lock, locksan.SanLock) and isinstance(srv.controller._lock, locksan.SanLock)
+        sid = srv.attach_stream()
+        with srv:
+            acks = [srv.submit(sid, np.full(4, 2.0, dtype=np.float32), np.zeros(4, dtype=np.float32)) for _ in range(8)]
+            assert [a.result(timeout=30.0) for a in acks] == ["acked"] * 8
+            assert float(srv.compute(sid)) == 4.0
+        assert locksan.violations() == [], locksan.violations()
+    finally:
+        locksan.set_locksan_enabled(False)
+        locksan.reset()
 
 
 def test_warm_answers_compiled_then_ready_never_hit(serving_env):
@@ -564,7 +583,7 @@ def test_the_worker_runs_under_the_pools_device(serving_env):
 
 def test_tensors_go_to_the_host_before_stacking(serving_env):
     """numpy arrays, lists and tensors stack together (a tensor's signature is read without a copy, by numpy's dtype
-    names); tensors are copied to the host inside the worker, under the pool lock."""
+    names); tensors are copied to the host inside the worker, before it takes the pool lock."""
     req = UpdateRequest(0, (torch.ones(4), np.ones(4, dtype=np.float32)), {"w": torch.zeros(2, dtype=torch.int64)})
     twin = UpdateRequest(1, (np.ones(4, dtype=np.float32), torch.ones(4)), {"w": np.zeros(2, dtype=np.int64)})
     assert port_runtime._signature_of(req) == port_runtime._signature_of(twin)
@@ -588,4 +607,4 @@ def test_tensors_go_to_the_host_before_stacking(serving_env):
             assert [float(srv.compute(s)) for s in sids] == [9.0, 9.0, 9.0]
     finally:
         port_runtime._host = host
-    assert ("Tensor", True) in copies and all(locked for _, locked in copies)
+    assert ("Tensor", False) in copies and not any(locked for _, locked in copies)

@@ -8,9 +8,9 @@ streams, then resets of 8 tenants and a detach/attach churn of 8 more, then a
 second 64-stream micro-batch; ``compute_all()`` must give each surviving
 stream its eager twin's value (counts bit for bit, floats at the JAX sweep's
 ``rtol=1e-4, atol=1e-6``). The same seeded numpy batches go through the JAX
-package's pool, and the two pools must agree at the same tolerance. The JAX
-test arms its lock sanitizer; the port has none (its labeler takes a plain
-``threading.Lock``). Added for the port: ``predicted_stream_bytes()`` equals
+package's pool, and the two pools must agree at the same tolerance. As in
+the JAX test, the whole sweep runs with the lock sanitizer armed and ends
+with no recorded violation. Added for the port: ``predicted_stream_bytes()`` equals
 the bytes of one stream's real stacked rows for every pooled class, and the
 checked-in ``_memory.json`` and ``_eligibility.json`` are what
 ``tools/port_memory_manifest.py`` writes from the port's classes today.
@@ -35,6 +35,22 @@ from torchmetrics_tpu_torch._streams.manifest import stream_pool_eligible
 
 N_STREAMS = 64
 RTOL, ATOL = 1e-4, 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _locksan_armed():
+    """Every pool's StreamLabeler, and the process singletons it publishes telemetry through, hold the declared
+    guard map live: zero recorded violations at module teardown."""
+    from torchmetrics_tpu_torch._analysis import locksan
+
+    locksan.set_locksan_enabled(True)
+    locksan.reset()
+    yield
+    try:
+        assert locksan.violations() == [], locksan.violations()
+    finally:
+        locksan.set_locksan_enabled(False)
+        locksan.reset()
 
 
 def _jax_sweep():

@@ -52,6 +52,10 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
+from torchmetrics_tpu_torch._analysis.locksan import new_rlock as _san_rlock
 from torchmetrics_tpu_torch._aot import artifacts as _artifacts
 from torchmetrics_tpu_torch._aot.state import AOT
 from torchmetrics_tpu_torch._observability import costs as _costs
@@ -124,7 +128,7 @@ def _current_fingerprint(header: Dict[str, Any]) -> Dict[str, str]:
     return _artifacts.backend_fingerprint()
 
 
-class AotCache:
+class AotCache:  # concurrency: shared hot paths bump stats while benches/tests scrape
     """The port's artifact store under ``<directory>/torch/`` (list, load, store, verify, evict).
 
     Disk operations never run under the lock: it only guards the stats
@@ -136,12 +140,15 @@ class AotCache:
     def __init__(self, directory: str) -> None:
         self.root = Path(directory)
         self.directory = self.root / SUBDIR
-        self._lock = threading.Lock()
+        self._lock = _san_lock("AotCache._lock")
+        # concurrency: shared stats dict guarded-by _lock
         self._stats: Dict[str, int] = {k: 0 for k in _STEP_COUNTERS + _LIBRARY_COUNTERS}
 
     # --------------------------------------------------------------- counters
     def _bump(self, key: str, telem_obj: Any = None, label: Optional[str] = None) -> None:
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_stats")
             self._stats[key] = self._stats.get(key, 0) + 1
         if telem_obj is not None and _OBS.enabled and label is not None:
             from torchmetrics_tpu_torch._observability.telemetry import telemetry_for
@@ -151,6 +158,8 @@ class AotCache:
     def stats(self) -> Dict[str, int]:
         """Step counters under the JAX package's keys, library counters under ``library_*``."""
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_stats")
             return dict(self._stats)
 
     # ------------------------------------------------------------------ paths
@@ -307,7 +316,7 @@ class AotCache:
 
 # one AotCache a directory, so re-pointing the cache mid-process keeps each directory's counters
 _CACHES: Dict[str, AotCache] = {}
-_CACHES_LOCK = threading.Lock()
+_CACHES_LOCK = _san_lock("aot._CACHES_LOCK")
 
 
 def get_cache(directory: Optional[str] = None) -> Optional[AotCache]:
@@ -438,7 +447,7 @@ def _store_library_bytes(
 # pool's and the SPMD engine's seams, the whole build, with a second probe of
 # the seam's own cache once it is held (so a concurrent `warm_start` of one
 # key builds once). Reentrant: a seam that holds it calls `wrap_executable`.
-RESOLVE_LOCK = threading.RLock()
+RESOLVE_LOCK = _san_rlock("aot.RESOLVE_LOCK")
 
 
 def _step_digest(owner: str, kind: str, components: Dict[str, str], extra: str) -> str:

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability import costs as _obs_costs
 from torchmetrics_tpu_torch._observability.profiling import LEDGER as _PROF_LEDGER
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
@@ -90,6 +91,8 @@ _STATS = {
     "captured": 0, "replayed": 0, "capture_seconds": 0.0,
     "forward_captured": 0, "forward_replayed": 0, "forward_capture_seconds": 0.0,
 }
+# a serving worker replays its pool's graphs while the caller's thread replays its own
+_STATS_LOCK = _san_lock("compile._STATS_LOCK")
 
 
 def stats() -> Dict[str, Any]:
@@ -99,7 +102,14 @@ def stats() -> Dict[str, Any]:
     and forward steps; the ``forward_`` keys count the trunks' forwards
     (:class:`CapturedForward`).
     """
-    return dict(_STATS)
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def _count(key: str, n: float = 1) -> None:
+    """Add ``n`` to one of :func:`stats`' counters (under its lock: several threads capture and replay)."""
+    with _STATS_LOCK:
+        _STATS[key] += n
 
 
 # on this thread: the constant stores of the warm-ups and captures running, innermost last (`stack`),
@@ -299,8 +309,8 @@ class CapturedStep:
             if collecting:
                 gc.enable()
         current.wait_stream(side)
-        _STATS[stat + "captured"] += 1
-        _STATS[stat + "capture_seconds"] += time.perf_counter() - t0
+        _count(stat + "captured")
+        _count(stat + "capture_seconds", time.perf_counter() - t0)
 
     def replay(self, dyn: List[Tensor], then: Optional[Callable[[float], None]] = None) -> Any:
         """Copy the batch ``dyn`` into the graph's inputs and replay; with profiling on, timed on the card.
@@ -317,7 +327,7 @@ class CapturedStep:
             _PROF_LEDGER.record_event_pair(self.seam, self.owner, start, end, then)
         else:
             self._replay(dyn)
-        _STATS[self.stat + "replayed"] += 1
+        _count(self.stat + "replayed")
         return self.outputs
 
     def _replay(self, dyn: List[Tensor]) -> None:

@@ -56,6 +56,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._fleet.observe import RegionLabeler
 from torchmetrics_tpu_torch._fleet.transport import contribution_key, contribution_prefix
 from torchmetrics_tpu_torch._fleet.wire import (
@@ -168,9 +169,10 @@ class AggregationNode:
         self._pending_delta = self._fresh_delta(template)
         self._pending_sources: Set[Tuple[str, int]] = set()
         self._pending_epochs: Set[int] = set()  # leaf provenance between publishes
-        # concurrency: _returned, publish_failures, _send_threads guarded-by
-        # _pub_lock (send threads hand back failed bytes while the node's thread settles)
-        self._pub_lock = threading.Lock()
+        # concurrency: _returned, publish_failures, _send_threads, _pending_*, _ledger
+        # guarded-by _pub_lock (send threads hand back failed bytes while the node's
+        # thread settles; the node's thread keeps its pending sets under it too)
+        self._pub_lock = _san_lock("AggregationNode._pub_lock")
         self._returned: List[Tuple[bytes, Set[Tuple[str, int]]]] = []
         # epoch fence: (child, epoch) -> digest of the contribution folded.
         # Pruned below the watermark; anything at/below the watermark is a
@@ -184,6 +186,9 @@ class AggregationNode:
         self.last_rollup: Optional[Rollup] = None
         self.publish_failures = 0
         self._send_threads: List[threading.Thread] = []
+        # the newest send thread, joined by join_pending beside the list (the lint's R9 sees a join
+        # through a `self.<attr>.join`, as the JAX node keeps it)
+        self._send_thread: Optional[threading.Thread] = None
         # per-fold scratch outputs read back by _rollup_inner
         self._last_fold_sources: Tuple[Tuple[str, int], ...] = ()
         self._last_fold_rows = 0
@@ -263,8 +268,9 @@ class AggregationNode:
         # advance the fence: epochs at/below the new watermark are closed; a
         # zombie replaying one is dropped before decode from now on
         self._watermark = max(self._watermark, epoch - self.epoch_window)
-        for fence_key in [k for k in self._ledger if k[1] <= self._watermark]:
-            del self._ledger[fence_key]
+        with self._pub_lock:
+            for fence_key in [k for k in self._ledger if k[1] <= self._watermark]:
+                del self._ledger[fence_key]
 
         if partial:
             self.metric._record_degradation(
@@ -350,8 +356,9 @@ class AggregationNode:
             # so one scratch serves both)
             self.metric.merge_state(scratch)
             self._pending_delta.merge_state(scratch)
+        with self._pub_lock:
             self._pending_sources.update(new_sources)
-        self._ledger[fence] = contrib.digest
+            self._ledger[fence] = contrib.digest
         if carried:
             if len(self.folded_sources) + len(new_sources) <= self.sources_cap:
                 self.folded_sources.update(new_sources)
@@ -408,16 +415,16 @@ class AggregationNode:
         :meth:`join_pending` on this thread.
         """
         prepared = self._prepare_publish(epoch)
-        thread = threading.Thread(
+        self._send_thread = threading.Thread(
             target=self._send,
             args=(prepared,),
             name=f"fleet-publish-{self.node_id}-{prepared[2]}",
             daemon=True,
         )
         with self._pub_lock:
-            self._send_threads.append(thread)
-        thread.start()
-        return thread
+            self._send_threads.append(self._send_thread)
+        self._send_thread.start()
+        return self._send_thread
 
     def join_pending(self, timeout: Optional[float] = None) -> None:
         """Join outstanding async publish threads, then merge back what they failed to send."""
@@ -425,6 +432,9 @@ class AggregationNode:
             threads, self._send_threads = self._send_threads, []
         for t in threads:
             t.join(timeout)
+        if self._send_thread is not None:
+            self._send_thread.join(timeout)
+            self._send_thread = None
         self._settle_returned()
 
     def _settle_returned(self) -> None:
@@ -435,26 +445,28 @@ class AggregationNode:
             contrib = decode_contribution(blob)
             if contrib.count > 0:
                 self._pending_delta.merge_state(self._verified_scratch(contrib))
-            self._pending_sources.update(out_sources)
-            self._pending_epochs.update(e for n, e in out_sources if n == self.node_id)
+            with self._pub_lock:
+                self._pending_sources.update(out_sources)
+                self._pending_epochs.update(e for n, e in out_sources if n == self.node_id)
 
     def _prepare_publish(self, epoch: int) -> _Prepared:
         """Swap the pending delta out and encode it for exclusive wire ownership."""
         epoch = int(epoch)
         self._settle_returned()
-        if not self.children:
+        if not self.children and self.metric._update_count > 0:
             # fold the live edge delta into the unACKed pending pile
-            if self.metric._update_count > 0:
-                self._pending_delta.merge_state(self.metric)
-                self.metric.reset()
-            self._pending_epochs.add(epoch)
-            out_sources: Set[Tuple[str, int]] = {(self.node_id, e) for e in self._pending_epochs}
-        else:
-            out_sources = set(self._pending_sources)
+            self._pending_delta.merge_state(self.metric)
+            self.metric.reset()
+        with self._pub_lock:
+            if not self.children:
+                self._pending_epochs.add(epoch)
+                out_sources: Set[Tuple[str, int]] = {(self.node_id, e) for e in self._pending_epochs}
+            else:
+                out_sources = set(self._pending_sources)
+            self._pending_sources.clear()
+            self._pending_epochs.clear()
         outbound = self._pending_delta
         self._pending_delta = self._fresh_delta()
-        self._pending_sources.clear()
-        self._pending_epochs.clear()
         blob, digest = encode_contribution(outbound, self.node_id, epoch, tuple(sorted(out_sources)))
         key = contribution_key(self.namespace, self.node_id, epoch, digest)
         return key, blob, epoch, out_sources

@@ -16,6 +16,9 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._streams.telemetry import OVERFLOW_LABEL, StreamLabeler
 
 __all__ = ["OVERFLOW_LABEL", "RegionLabeler"]
@@ -26,12 +29,14 @@ class RegionLabeler:  # concurrency: shared node rollup threads note() while scr
 
     def __init__(self, k: int = 8, rebalance_every: int = 512) -> None:
         self._inner = StreamLabeler(k=k, rebalance_every=rebalance_every)
-        self._lock = threading.Lock()
+        self._lock = _san_lock("RegionLabeler._lock")
         # concurrency: shared name->id table guarded-by _lock
         self._ids: Dict[str, int] = {}
 
     def _id_of(self, region: str) -> int:
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_ids")
             rid = self._ids.get(region)
             if rid is None:
                 rid = self._ids[region] = len(self._ids)

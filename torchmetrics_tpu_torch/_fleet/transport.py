@@ -32,6 +32,9 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch.utilities.distributed import KvTtlJanitor, kv_key
 
 __all__ = [
@@ -78,7 +81,7 @@ class InProcessKV:  # concurrency: shared child publisher threads set() while pa
     """
 
     def __init__(self, ttl_s: float = 300.0) -> None:
-        self._cond = threading.Condition()
+        self._cond = threading.Condition(_san_lock("InProcessKV._cond"))
         self._data: Dict[str, bytes] = {}
         self.janitor = KvTtlJanitor(ttl_s=ttl_s)
         # fault injection (chaos seam): counters guarded by _cond's lock
@@ -95,6 +98,8 @@ class InProcessKV:  # concurrency: shared child publisher threads set() while pa
         """Publish one key (at-least-once producer side; overwrite is legal)."""
         stall = 0.0
         with self._cond:
+            if _SAN.enabled:
+                _san_check(self, "_data,_fail_next,_stall_next")
             self.set_calls += 1
             if self._fail_next > 0:
                 self._fail_next -= 1
@@ -157,7 +162,7 @@ class InProcessKV:  # concurrency: shared child publisher threads set() while pa
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     return False
-                self._cond.wait(remaining)
+                self._cond.wait(remaining)  # lint-ok: R8 Condition.wait releases the lock while blocking
 
     # ---------------------------------------------------------------- hygiene
     def sweep_expired(self, now: Optional[float] = None) -> List[str]:

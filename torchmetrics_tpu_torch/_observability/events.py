@@ -15,12 +15,14 @@ after warning once rather than breaking the runtime path that published).
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.state import OBS
 
 __all__ = ["TelemetryEvent", "EventBus", "BUS"]
@@ -56,7 +58,7 @@ class EventBus:
     """Bounded multi-reader event stream with inline subscribers."""
 
     def __init__(self, capacity: int = DEFAULT_BUS_CAPACITY) -> None:
-        self._lock = threading.Lock()
+        self._lock = _san_lock("EventBus._lock")
         self._events: "deque[TelemetryEvent]" = deque(maxlen=capacity)
         self._seq = 0
         self.dropped = 0
@@ -84,6 +86,8 @@ class EventBus:
         if not (OBS.enabled or force):
             return None
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_events,_kind_totals,_subscribers")
             self._seq += 1
             event = TelemetryEvent(
                 seq=self._seq, ts=time.time(), mono=time.monotonic(),

@@ -45,11 +45,13 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.events import BUS, TelemetryEvent
 from torchmetrics_tpu_torch._observability.tracing import TRACER, current_span
 
@@ -135,7 +137,7 @@ class FlightRecorder:  # concurrency: shared bus publisher threads dump while te
             except ValueError:
                 max_files = DEFAULT_MAX_FILES
         self.max_files = max(1, int(max_files))
-        self._lock = threading.Lock()
+        self._lock = _san_lock("FlightRecorder._lock")
         self._dumps: "deque[Dict[str, Any]]" = deque(maxlen=max(1, int(keep)))
         self._seen: "deque[int]" = deque(maxlen=512)  # trigger seqs already dumped
         self._unsubscribe: Optional[Callable[[], None]] = None
@@ -171,6 +173,8 @@ class FlightRecorder:  # concurrency: shared bus publisher threads dump while te
     def dump(self, trigger: TelemetryEvent) -> Optional[Dict[str, Any]]:
         """Freeze one post-mortem for ``trigger``; dedup on its bus seq."""
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_dumps,_seen")
             if trigger.seq in self._seen:
                 return None
             self._seen.append(trigger.seq)
@@ -326,7 +330,7 @@ class FlightRecorder:  # concurrency: shared bus publisher threads dump while te
             self.dump_count = 0
 
 
-_active_lock = threading.Lock()
+_active_lock = _san_lock("flight._active_lock")
 _active: List[FlightRecorder] = []  # 0 or 1 armed recorder (list for lock-scoped swap)
 
 

@@ -56,11 +56,13 @@ both switches on; the gauges need only profiling.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.costs import ExecutableCost, get_ceilings
 from torchmetrics_tpu_torch._observability.events import BUS
 from torchmetrics_tpu_torch._observability.state import OBS
@@ -160,7 +162,7 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
     COOLDOWN_SECONDS = 30.0  # per-seam re-trigger rate limit
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = _san_lock("CostLedger._lock")
         # concurrency: guarded-by _lock — (kind, class) -> latest cost claim
         self._costs: Dict[Tuple[str, str], ExecutableCost] = {}
         # concurrency: guarded-by _lock — digest12 -> executable record
@@ -203,6 +205,8 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
         cls = owner_class(owner)
         key = digest[:12] if digest else "?"
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_costs,_executables")
             if cost is not None:
                 self._costs[(kind, cls)] = cost
             entry = self._executables.get(key)
@@ -226,6 +230,8 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
         """Latest cost claim backing ``seam`` for metric class ``cls``."""
         kinds = SEAM_KINDS.get(seam, (seam,))
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_costs")
             for kind in kinds:
                 cost = self._costs.get((kind, cls))
                 if cost is not None:
@@ -252,17 +258,15 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
         """
         with self._lock:
             self._pending.append((seam, cls, start, end, then))
-            ready = self._take_resolved(wait=False)
+            ready = self._take_resolved()
         self._account_resolved(ready)
 
-    def _take_resolved(self, wait: bool) -> List[Tuple[str, str, float, Any]]:  # concurrency: guarded-by _lock
-        """Pop the pending pairs whose end has completed (all of them with ``wait``), as seconds."""
+    def _take_resolved(self) -> List[Tuple[str, str, float, Any]]:  # concurrency: guarded-by _lock
+        """Pop the pending pairs whose end has completed, in order, as seconds."""
         out: List[Tuple[str, str, float, Any]] = []
         while self._pending:
             seam, cls, start, end, then = self._pending[0]
-            if wait:
-                end.synchronize()
-            elif not end.query():
+            if not end.query():
                 break
             self._pending.popleft()
             out.append((seam, cls, start.elapsed_time(end) / 1e3, then))
@@ -276,9 +280,17 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
                 then(seconds)
 
     def flush(self) -> None:
-        """Wait for every pending event pair and account it (done by each read of the ledger)."""
+        """Wait for every pending event pair and account it (done by each read of the ledger).
+
+        The wait runs outside the lock, so a thread recording its steps
+        meanwhile never waits for the card behind a reader.
+        """
         with self._lock:
-            ready = self._take_resolved(wait=True)
+            ends = [pair[3] for pair in self._pending]
+        for end in ends:
+            end.synchronize()
+        with self._lock:
+            ready = self._take_resolved()
         self._account_resolved(ready)
 
     # ------------------------------------------------------------------ steps
@@ -296,6 +308,8 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
             return
         trigger: Optional[Tuple[float, float]] = None
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_buckets,_baselines,_costs")
             bucket = self._buckets.get((seam, cls))
             if bucket is None:
                 bucket = self._buckets[(seam, cls)] = {
@@ -394,6 +408,8 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
         ceilings = get_ceilings()
         out: Dict[str, Dict[str, float]] = {}
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_buckets,_costs")
             items = [(k, dict(v)) for k, v in self._buckets.items()]
             costs = dict(self._costs)
         for (seam, cls), bucket in items:
@@ -421,6 +437,8 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
         self.flush()
         ceilings = get_ceilings()
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_buckets,_executables,_baselines")
             buckets = [(seam, cls, dict(b)) for (seam, cls), b in self._buckets.items()]
             executables = {k: dict(v) for k, v in self._executables.items()}
             baselines = {
@@ -455,6 +473,8 @@ class CostLedger:  # concurrency: shared step threads record while scrapes/tools
     def total_device_seconds(self) -> float:
         self.flush()
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_buckets")
             return sum(b["device_seconds"] for b in self._buckets.values())
 
     def reset(self) -> None:

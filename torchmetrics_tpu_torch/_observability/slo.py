@@ -32,12 +32,14 @@ demand (scrape-rate, not stream-rate).
 from __future__ import annotations
 
 import json
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.reservoir import nearest_rank
 from torchmetrics_tpu_torch._observability.state import OBS
 from torchmetrics_tpu_torch._observability.telemetry import REGISTRY, _split_key
@@ -185,7 +187,7 @@ class SloTracker:  # concurrency: shared probe threads evaluate while ingestion 
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate SLO names: {sorted(n for n in names if names.count(n) > 1)}")
         self._registry = registry if registry is not None else REGISTRY
-        self._lock = threading.Lock()
+        self._lock = _san_lock("SloTracker._lock")
         max_window = max((s.window_s for s in self.slos), default=300.0)
         self._max_window = max_window
         # (mono, {family: summed total}) checkpoints, oldest first; bounded
@@ -218,6 +220,8 @@ class SloTracker:  # concurrency: shared probe threads evaluate while ingestion 
         base: Optional[Dict[str, float]] = None
         base_t = now
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_checkpoints")
             for t, snap in self._checkpoints:
                 if now - t <= slo.window_s:
                     base, base_t = snap, t
@@ -343,7 +347,7 @@ DEFAULT_SLOS: List[SLO] = [
 ]
 
 
-_tracker_lock = threading.Lock()
+_tracker_lock = _san_lock("slo._tracker_lock")
 _tracker: List[SloTracker] = []  # 0 or 1 process-wide tracker (lock-scoped swap)
 
 

@@ -26,13 +26,15 @@ capture time.
 
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.events import BUS
 from torchmetrics_tpu_torch._observability.reservoir import LatencyReservoir
 from torchmetrics_tpu_torch._observability.state import OBS
@@ -340,7 +342,7 @@ class TelemetryRegistry:
     """Process-wide directory of live metric telemetries + retired totals."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = _san_lock("TelemetryRegistry._lock")
         # id(metric) -> (weakref-to-metric, telemetry); the weakref callback
         # queues the entry for retirement, folding its counters into
         # per-class totals at the next locked entry point
@@ -370,6 +372,8 @@ class TelemetryRegistry:
         except TypeError:  # objects without weakref support still get counters
             ref = None
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_live")
             self._drain_retired()
             self._live[oid] = (ref, telem)
         return telem
@@ -410,6 +414,8 @@ class TelemetryRegistry:
         latency reservoirs pooled over live instances."""
         out: Dict[str, Dict[str, Any]] = {}
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_live,_retired,_retired_instances")
             self._drain_retired()
             live = [t for _, t in self._live.values()]
             retired = {k: dict(v) for k, v in self._retired.items()}
@@ -468,6 +474,8 @@ class TelemetryRegistry:
         hit this every few seconds; sorting retained samples per probe just
         to discard them is wasted work)."""
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_live,_retired,_retired_instances")
             self._drain_retired()
             live = [t for _, t in self._live.values()]
             retired = [dict(v) for v in self._retired.values()]

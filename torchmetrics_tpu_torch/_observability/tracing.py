@@ -42,6 +42,9 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.state import OBS
 
 __all__ = [
@@ -152,13 +155,15 @@ class SpanRecorder:  # concurrency: shared request threads record() while export
     """
 
     def __init__(self, capacity: int = DEFAULT_SPAN_CAPACITY) -> None:
-        self._lock = threading.Lock()
+        self._lock = _san_lock("SpanRecorder._lock")
         self._spans: "deque[Span]" = deque(maxlen=capacity)
         self.dropped = 0
         self.recorded = 0
 
     def record(self, span: Span) -> None:
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_spans")
             if len(self._spans) == self._spans.maxlen:
                 self.dropped += 1
             self._spans.append(span)

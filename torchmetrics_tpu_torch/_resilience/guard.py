@@ -36,6 +36,7 @@ import numpy as np
 
 import torch
 
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability import tracing as _obs_trace
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
 from torchmetrics_tpu_torch._observability.telemetry import telemetry_for as _telemetry_for
@@ -118,7 +119,7 @@ class _Worker:
         raise val
 
 
-_worker_lock = threading.Lock()
+_worker_lock = _san_lock("guard._worker_lock")
 _workers: list = []  # idle-or-busy pool; stuck (timed-out) workers are evicted
 _METRIC_BASE: Optional[type] = None  # lazily bound to Metric (import-cycle break)
 

@@ -39,6 +39,9 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, List, Optional
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.events import BUS as _BUS
 from torchmetrics_tpu_torch._observability.slo import FAST_BURN, SLO, SloTracker
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
@@ -105,7 +108,7 @@ class BatchController:  # concurrency: shared probe/test threads read while the 
 
     def __init__(self, config: Optional[ControllerConfig] = None, registry: Any = None) -> None:
         self.config = config or ControllerConfig()
-        self._lock = threading.Lock()
+        self._lock = _san_lock("BatchController._lock")
         self._target = self.config.min_batch
         self._shed = False
         self._last_eval = 0.0
@@ -132,6 +135,8 @@ class BatchController:  # concurrency: shared probe/test threads read while the 
         """
         now = time.monotonic()
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_target,_shed")
             if now - self._last_eval < self.config.interval_s:
                 return None
             self._last_eval = now
@@ -197,6 +202,8 @@ class BatchController:  # concurrency: shared probe/test threads read while the 
     def decisions(self) -> List[Decision]:
         """Recent decisions, oldest first (bounded window)."""
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_decisions")
             return list(self._decisions)
 
     def burn_rate(self) -> float:

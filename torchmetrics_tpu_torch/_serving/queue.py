@@ -35,6 +35,9 @@ import queue as _pyqueue
 import threading
 from typing import Optional
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.events import BUS as _BUS
 from torchmetrics_tpu_torch._serving.requests import BackpressureError, UpdateRequest
 
@@ -56,7 +59,7 @@ class IngressQueue:  # concurrency: shared client threads put while the ingest w
             raise ValueError(f"`capacity` must be a positive int, got {capacity!r}")
         self.capacity = capacity
         self._q: "_pyqueue.Queue[Optional[UpdateRequest]]" = _pyqueue.Queue()
-        self._lock = threading.Lock()
+        self._lock = _san_lock("IngressQueue._lock")
         self._depth = 0  # live request count (Queue.qsize also counts sentinels)
         self._drain_rate = 0.0  # EWMA rows/second; 0.0 = no evidence yet
         self._shedding = False
@@ -69,6 +72,8 @@ class IngressQueue:  # concurrency: shared client threads put while the ingest w
     def put(self, req: UpdateRequest) -> None:
         """Admit one request or raise :class:`BackpressureError`."""
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_depth,_shedding")
             if self._shedding and self._depth > 0:
                 # canary admission: one in-flight probe keeps latency
                 # samples flowing so the controller can observe recovery
@@ -137,6 +142,8 @@ class IngressQueue:  # concurrency: shared client threads put while the ingest w
             return
         rate = rows / elapsed_s
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_drain_rate")
             self._drain_rate = (
                 rate if self._drain_rate <= 0.0
                 else (1.0 - _DRAIN_ALPHA) * self._drain_rate + _DRAIN_ALPHA * rate
@@ -153,6 +160,8 @@ class IngressQueue:  # concurrency: shared client threads put while the ingest w
         """
         publish = None
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "_shedding")
             if flag == self._shedding:
                 return False
             self._shedding = flag

@@ -57,6 +57,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 from torchmetrics_tpu_torch._observability.slo import HealthReport
 from torchmetrics_tpu_torch._observability.slo import health_report as _health_report
 from torchmetrics_tpu_torch._observability.state import OBS as _OBS
@@ -137,7 +140,7 @@ class MetricServer:
         self._mgr: Optional[Any] = None
         self._queue = IngressQueue(queue_capacity)
         self._controller = BatchController(controller)
-        self._pool_lock = threading.Lock()
+        self._pool_lock = _san_lock("MetricServer._pool_lock")
         self._stop_flag = threading.Event()
         self._drain_on_stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -272,8 +275,11 @@ class MetricServer:
             buckets.append(b)
             b <<= 1
         buckets.append(cfg.max_batch)
+        # a tensor on the card is copied off it before the lock, so no thread waits behind the copy
+        rows = [_host(a) for a in example_args]
         with self._pool_lock:
-            rows = [_host(a) for a in example_args]
+            if _SAN.enabled:
+                _san_check(self, "_warm_outcomes")
             self._warm_rows = tuple(rows)
             self._warm_kw_items = tuple(sorted(example_kwargs.items()))
             actives = self._pool.active_streams
@@ -305,6 +311,8 @@ class MetricServer:
     @property
     def warm_outcomes(self) -> Dict[str, str]:
         with self._pool_lock:
+            if _SAN.enabled:
+                _san_check(self, "_warm_outcomes")
             return dict(self._warm_outcomes)
 
     # ---------------------------------------------------------------- ingest
@@ -477,6 +485,8 @@ class MetricServer:
         sig: Optional[Tuple[Any, ...]] = None
         recarry: List[UpdateRequest] = []
         with self._pool_lock:
+            if _SAN.enabled:
+                _san_check(self, "_carry")
             carried, self._carry = self._carry, []
         for req in carried:
             if len(batch) < target and req.stream_id not in streams:
@@ -523,23 +533,27 @@ class MetricServer:
         elapsed = 0.0
         q_before: Dict[int, int] = {}
         q_after: Dict[int, int] = {}
-        with self._pool_lock:
-            try:
-                # a tensor argument on the card is copied to the host here, under the lock
-                stacked: List[np.ndarray] = []
-                for pos in range(n_args):
-                    rows = [_host(req.args[pos]) for req in batch]
-                    pad = [np.zeros_like(rows[0])] * (bucket - len(batch))
-                    stacked.append(np.stack(rows + pad, axis=0))
-                for req in batch:
-                    q_before[req.stream_id] = self._pool.quarantined_updates(req.stream_id)
-                t0 = time.perf_counter()
-                self._pool.update(ids, *stacked, **kwargs)
-                elapsed = time.perf_counter() - t0
-                for req in batch:
-                    q_after[req.stream_id] = self._pool.quarantined_updates(req.stream_id)
-            except BaseException as caught:  # noqa: BLE001 - one bad batch must not kill the worker
-                err = caught
+        stacked: List[np.ndarray] = []
+        try:
+            # a tensor argument on the card is copied to the host here, before the lock
+            for pos in range(n_args):
+                rows = [_host(req.args[pos]) for req in batch]
+                pad = [np.zeros_like(rows[0])] * (bucket - len(batch))
+                stacked.append(np.stack(rows + pad, axis=0))
+        except BaseException as caught:  # noqa: BLE001 - one bad batch must not kill the worker
+            err = caught
+        if err is None:
+            with self._pool_lock:
+                try:
+                    for req in batch:
+                        q_before[req.stream_id] = self._pool.quarantined_updates(req.stream_id)
+                    t0 = time.perf_counter()
+                    self._pool.update(ids, *stacked, **kwargs)
+                    elapsed = time.perf_counter() - t0
+                    for req in batch:
+                        q_after[req.stream_id] = self._pool.quarantined_updates(req.stream_id)
+                except BaseException as caught:  # noqa: BLE001 - one bad batch must not kill the worker
+                    err = caught
         if self._step_delay_s > 0.0:
             time.sleep(self._step_delay_s)
             elapsed += self._step_delay_s

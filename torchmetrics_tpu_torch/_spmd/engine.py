@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -295,7 +296,9 @@ class SpmdEngine:
         self.collectives: Dict[Any, Dict[str, int]] = {}
         self._tally: Optional[Dict[str, int]] = None
         self._agreed: set = set()
-        self._built_as = "compiled"  # how the last key built was resolved: compiled, hit (AOT cache) or ready
+        # how the last key each thread built was resolved (compiled, hit: the AOT cache, or ready), by thread id:
+        # two threads warming one key at once each read their own answer
+        self._built_as: Dict[int, str] = {}
         # the running step has written rows in place: a fault now cannot fold
         self._writing = False
         # SnapshotManager target surface (filled at the first step)
@@ -430,7 +433,7 @@ class SpmdEngine:
 
             with _aot_cache.RESOLVE_LOCK:
                 if key in self._step_fns:  # built by another thread while this one waited for the lock
-                    self._built_as = "ready"
+                    self._built_as[threading.get_ident()] = "ready"
                     return self._run_step(key, treedef, statics, dyn, False)
                 res = _aot_cache.wrap_executable(
                     owner=f"SpmdEngine[{cls_name}]", kind="spmd_step",
@@ -507,7 +510,7 @@ class SpmdEngine:
             )
         if res is not None:
             res.done(_compile.capture_outcome(entry, on_card, self.capture_failures.get(key)), tally)
-        self._built_as = "compiled" if res is None else res.outcome
+        self._built_as[threading.get_ident()] = "compiled" if res is None else res.outcome
         return out
 
     def _capture(self, key: Any, step: Callable, dyn: List[Tensor]) -> Any:
@@ -621,7 +624,7 @@ class SpmdEngine:
         finally:
             for live, old in zip(_leaves(self._states or {}), _leaves(saved)):
                 live.copy_(old)  # the example batch is not part of the stream
-        outcomes["spmd_step"] = self._built_as
+        outcomes["spmd_step"] = self._built_as.pop(threading.get_ident(), "compiled")
         return outcomes
 
     def _shape_value(self, value: Dict[str, Any]) -> Any:

@@ -61,6 +61,7 @@ import functools
 import hashlib
 import heapq
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -303,7 +304,9 @@ class StreamPool:
         self._graph_pool: Any = None
         self._graph_constants: Dict[tuple, Tensor] = {}
         self.capture_failures: Dict[Any, str] = {}
-        self._built_as = "compiled"  # how the last key built was resolved: compiled, hit (AOT cache) or ready
+        # how the last key each thread built was resolved (compiled, hit: the AOT cache, or ready), by thread id:
+        # two threads warming one key at once each read their own answer
+        self._built_as: Dict[int, str] = {}
         self.growths = 0
         self.total_row_updates = 0
         self._row_guards = False
@@ -703,7 +706,7 @@ class StreamPool:
 
             with _aot_cache.RESOLVE_LOCK:
                 if key in self._step_fns:  # built by another thread while this one waited for the lock
-                    self._built_as = "ready"
+                    self._built_as[threading.get_ident()] = "ready"
                     return self._run_step(key, treedef, statics, dyn, False, meter)
                 res = _aot_cache.wrap_executable(
                     owner=f"StreamPool[{cls_name}]", kind="stream_step", components=self._components(key, treedef, statics),
@@ -758,7 +761,7 @@ class StreamPool:
             )
         if res is not None:
             res.done(_compile.capture_outcome(entry, on_card, self.capture_failures.get(key)), tally)
-        self._built_as = "compiled" if res is None else res.outcome
+        self._built_as[threading.get_ident()] = "compiled" if res is None else res.outcome
         return out
 
     def _capture(self, key: Any, step: Callable, dyn: List[Tensor]) -> Any:
@@ -1141,7 +1144,7 @@ class StreamPool:
             self._compile_event(key, treedef, statics)
         padding = torch.full((ids.size,), -1, dtype=torch.int64, device=self.device)
         self._run_step(key, treedef, statics, [padding, *dynamic], True, None)
-        outcomes["stream_step"] = self._built_as
+        outcomes["stream_step"] = self._built_as.pop(threading.get_ident(), "compiled")
         return outcomes
 
     # -------------------------------------------------- snapshot/restore surface

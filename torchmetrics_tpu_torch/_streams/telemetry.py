@@ -25,12 +25,16 @@ from __future__ import annotations
 import threading
 from typing import Dict, Set
 
+from torchmetrics_tpu_torch._analysis.locksan import SAN as _SAN
+from torchmetrics_tpu_torch._analysis.locksan import check_access as _san_check
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
+
 __all__ = ["OVERFLOW_LABEL", "StreamLabeler"]
 
 OVERFLOW_LABEL = "__overflow__"
 
 
-class StreamLabeler:
+class StreamLabeler:  # concurrency: shared ingestion threads note() while scrapes label()
     """Map stream ids onto a bounded set of telemetry label values."""
 
     def __init__(self, k: int = 8, rebalance_every: int = 512) -> None:
@@ -38,7 +42,7 @@ class StreamLabeler:
             raise ValueError(f"`k` must be >= 0, got {k}")
         self.k = int(k)
         self.rebalance_every = max(1, int(rebalance_every))
-        self._lock = threading.Lock()
+        self._lock = _san_lock("StreamLabeler._lock")
         self.volumes: Dict[int, int] = {}
         self._labeled: Set[int] = set()
         self._since_rebalance = 0
@@ -47,6 +51,8 @@ class StreamLabeler:
         """Record ``n`` events for the stream; return its current label value."""
         sid = int(stream_id)
         with self._lock:
+            if _SAN.enabled:
+                _san_check(self, "volumes,_labeled,_since_rebalance")
             self.volumes[sid] = self.volumes.get(sid, 0) + n
             self._since_rebalance += 1
             if sid not in self._labeled and len(self._labeled) < self.k:
@@ -64,7 +70,7 @@ class StreamLabeler:
         with self._lock:
             self._rebalance_locked()
 
-    def _rebalance_locked(self) -> None:  # caller holds _lock
+    def _rebalance_locked(self) -> None:  # concurrency: guarded-by _lock
         self._since_rebalance = 0
         if len(self.volumes) <= self.k:
             self._labeled = set(self.volumes)

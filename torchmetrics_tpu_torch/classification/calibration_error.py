@@ -37,11 +37,7 @@ class _AbstractCalibrationError(Metric):
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
 
-    def _create_state(self, n_bins: int, norm: str, ignore_index: Optional[int], validate_args: bool) -> None:
-        self.n_bins = n_bins
-        self.norm = norm
-        self.ignore_index = ignore_index
-        self.validate_args = validate_args
+    def _create_state(self) -> None:
         self.add_state("confidences", [], dist_reduce_fx="cat")
         self.add_state("accuracies", [], dist_reduce_fx="cat")
 
@@ -77,7 +73,12 @@ class BinaryCalibrationError(_AbstractCalibrationError):
         super().__init__(**kwargs)
         if validate_args:
             _binary_calibration_error_arg_validation(n_bins, norm, ignore_index)
-        self._create_state(n_bins, norm, ignore_index, validate_args)
+        # config set in `__init__` itself: the R1 certifier proves the class against it
+        self.n_bins = n_bins
+        self.norm = norm
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_state()
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.validate_args:
@@ -104,7 +105,12 @@ class MulticlassCalibrationError(_AbstractCalibrationError):
         if validate_args:
             _multiclass_calibration_error_arg_validation(num_classes, n_bins, norm, ignore_index)
         self.num_classes = num_classes
-        self._create_state(n_bins, norm, ignore_index, validate_args)
+        # config set in `__init__` itself: the R1 certifier proves the class against it
+        self.n_bins = n_bins
+        self.norm = norm
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_state()
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         preds, target = _multiclass_calibration_error_format(preds, target, self.num_classes, self.ignore_index)

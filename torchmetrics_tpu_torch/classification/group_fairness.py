@@ -24,15 +24,14 @@ from torchmetrics_tpu_torch.metric import Metric
 class _AbstractGroupStatScores(Metric):
     """Holds the per-group tp/fp/tn/fn states."""
 
-    def _create_states(self, num_groups: int, threshold: float, ignore_index: Optional[int], validate_args: bool) -> None:
+    def _create_states(self, num_groups: int) -> None:
         if not isinstance(num_groups, int) or num_groups < 2:
             raise ValueError(f"Expected argument `num_groups` to be an int larger than 1, but got {num_groups}")
-        self.num_groups = num_groups
-        self.threshold = threshold
-        self.ignore_index = ignore_index
-        self.validate_args = validate_args
-        for name in ("tp", "fp", "tn", "fn"):
-            self.add_state(name, torch.zeros(num_groups, dtype=torch.int32), dist_reduce_fx="sum")
+        # literal names: the R1 certifier proves the class against its registered states
+        self.add_state("tp", torch.zeros(num_groups, dtype=torch.int32), dist_reduce_fx="sum")
+        self.add_state("fp", torch.zeros(num_groups, dtype=torch.int32), dist_reduce_fx="sum")
+        self.add_state("tn", torch.zeros(num_groups, dtype=torch.int32), dist_reduce_fx="sum")
+        self.add_state("fn", torch.zeros(num_groups, dtype=torch.int32), dist_reduce_fx="sum")
 
     def _update_states(self, group_stats: GroupStats) -> None:
         for i, name in enumerate(("tp", "fp", "tn", "fn")):
@@ -76,7 +75,11 @@ class BinaryGroupStatRates(_AbstractGroupStatScores):
         **kwargs: Any,
     ) -> None:
         super().__init__(**kwargs)
-        self._create_states(num_groups, threshold, ignore_index, validate_args)
+        self._create_states(num_groups)
+        self.num_groups = num_groups
+        self.threshold = threshold
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
 
     def update(self, preds: Tensor, target: Tensor, groups: Tensor) -> None:
         group_stats = _binary_groups_stat_scores(
@@ -120,7 +123,11 @@ class BinaryFairness(_AbstractGroupStatScores):
                 f"``equal_opportunity`` or ``all`` but got {task}."
             )
         self.task = task
-        self._create_states(num_groups, threshold, ignore_index, validate_args)
+        self._create_states(num_groups)
+        self.num_groups = num_groups
+        self.threshold = threshold
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
 
     def update(self, preds: Tensor, target: Tensor, groups: Tensor) -> None:
         if self.task == "demographic_parity":

@@ -146,7 +146,7 @@ def _pq_update_sample(
     return iou_sum.to(torch.float32), tp.to(torch.int32), fp.to(torch.int32), fn.to(torch.int32)
 
 
-def _panoptic_quality_update(
+def _panoptic_quality_update(  # lint: eager-helper — host color-coding feeds the per-sample body
     flatten_preds: Tensor,
     flatten_target: Tensor,
     cat_id_to_continuous_id: Dict[int, int],

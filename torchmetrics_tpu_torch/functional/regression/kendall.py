@@ -60,6 +60,12 @@ def _pair_counts(preds: Tensor, target: Tensor) -> Tensor:
     return counts
 
 
+def _distinct_count(x: Tensor) -> Tensor:
+    """How many distinct values the 1-D ``x`` holds, counted on its device (no host read, vmappable)."""
+    ordered = torch.sort(x).values
+    return (ordered[1:] != ordered[:-1]).sum() + 1
+
+
 def _kendall_corrcoef_compute_single(preds: Tensor, target: Tensor, variant: str) -> Tuple[Tensor, Tensor]:
     """Tau of 1-D inputs, and ``concordant - discordant``."""
     n = preds.shape[0]
@@ -74,8 +80,7 @@ def _kendall_corrcoef_compute_single(preds: Tensor, target: Tensor, variant: str
         ty = (ties_y + ties_xy).to(torch.float32)
         tau = (con - dis) / torch.sqrt((n_total - tx) * (n_total - ty))
     else:
-        m_int = min(torch.unique(preds).numel(), torch.unique(target).numel())
-        m = torch.tensor(m_int, dtype=torch.float32, device=preds.device)
+        m = torch.minimum(_distinct_count(preds), _distinct_count(target)).to(torch.float32)
         tau = 2 * (con - dis) / (n**2 * (m - 1) / m)
     return torch.clamp(tau, -1.0, 1.0), con - dis
 

@@ -150,7 +150,7 @@ def _chrf_score_update(
     return tot_p_char, tot_p_word, tot_t_char, tot_t_word, tot_m_char, tot_m_word, sentence_scores
 
 
-def _chrf_score_compute(
+def _chrf_score_compute(  # lint: eager-helper — final F-score fold runs on host by design
     total_preds_char: Tensor,
     total_preds_word: Tensor,
     total_target_char: Tensor,

@@ -139,7 +139,10 @@ class FrechetInceptionDistance(Metric):
             super().reset()
             return
         # copies: states are updated in place, and `forward` keeps the pre-reset ones by reference
-        real = {k: getattr(self, k).clone() for k in self._defaults if k.startswith("real_")}
+        real_sum = self.real_features_sum.clone()
+        real_cov_sum = self.real_features_cov_sum.clone()
+        real_num_samples = self.real_features_num_samples.clone()
         super().reset()
-        for key, value in real.items():
-            setattr(self, key, value)
+        self.real_features_sum = real_sum
+        self.real_features_cov_sum = real_cov_sum
+        self.real_features_num_samples = real_num_samples

@@ -48,6 +48,9 @@ import torch
 from torch import Tensor, nn
 
 from torchmetrics_tpu_torch import _compile
+# module scope (not inside `_fingerprint_exempt`): the exemption check sits on
+# the eager per-update hot path; manifest.py imports the standard library only
+from torchmetrics_tpu_torch._analysis.manifest import fingerprint_skip_allowed
 from torchmetrics_tpu_torch._aot.state import AOT as _AOT
 
 # telemetry hot switches (``_observability/state.py``): `_OBS.enabled`,
@@ -649,12 +652,18 @@ class Metric(nn.Module, ABC):
             self._unshare_states()
         self._update_count += 1
         # where a compiled path could engage, an update that rebinds or
-        # mutates a plain attribute turns it off: a replay would not
-        guard = self._auto_eligible()
+        # mutates a plain attribute turns it off: a replay would not. The
+        # fingerprint is only paid where the static analyzer has not already
+        # proven the whole class chain free of such mutation (R1
+        # certification, see torchmetrics_tpu_torch/_analysis)
+        eligible = self._auto_eligible()
+        guard = eligible and not self._fingerprint_exempt()
         if _OBS.enabled:
-            # the port fingerprints every eligible class: it has no certificate that an update
-            # mutates no plain attribute (the JAX package's "skip" outcome)
-            _telemetry_for(self).inc("fingerprint|outcome=check" if guard else "fingerprint|outcome=ineligible")
+            _telemetry_for(self).inc(
+                "fingerprint|outcome=check" if guard
+                else "fingerprint|outcome=skip" if eligible
+                else "fingerprint|outcome=ineligible"
+            )
         if guard:
             before, _keepalive = self._host_attr_snapshot()
         # quarantine is the only nan_policy needing a rollback point; the
@@ -1203,6 +1212,19 @@ class Metric(nn.Module, ABC):
             tuple((tuple(d.shape), d.dtype, d.device, *_compile.layout_key(d)) for d in dynamic),
         )
         return sig, treedef, dynamic, statics
+
+    def _fingerprint_exempt(self) -> bool:
+        """True when the R1-certified manifest covers this instance's class.
+
+        The analyzer (``python -m torchmetrics_tpu_torch._analysis
+        --write-manifest``) records every class whose static MRO provably
+        never mutates an unregistered attribute; for those the per-``update()``
+        ``_host_attr_snapshot`` fingerprint is redundant work. Any class the
+        analyzer has not seen (user subclasses included) keeps the guard.
+        """
+        # per-class memoization lives in the manifest module, so the runtime
+        # toggle (set_fingerprint_skip_enabled) invalidates in one place
+        return fingerprint_skip_allowed(type(self))
 
     def _host_attr_snapshot(self) -> Tuple[List[tuple], List[Any]]:
         """Fingerprint of the plain (public, unregistered) attributes (JAX ``metric.py:717``).

@@ -41,19 +41,28 @@ class CriticalSuccessIndex(Metric):
         if keep_sequence_dim is not None and not isinstance(keep_sequence_dim, bool):
             raise ValueError(f"Expected argument `keep_sequence_dim` to be bool, but got {keep_sequence_dim}")
         self.keep_sequence_dim = keep_sequence_dim
-        for name in ("hits", "misses", "false_alarms"):
-            if keep_sequence_dim:
-                self.add_state(name, default=[], dist_reduce_fx="cat")
-            else:
-                self.add_state(name, default=torch.tensor(0), dist_reduce_fx="sum")
+        # literal names: the R1 certifier proves the class against its registered states
+        if keep_sequence_dim:
+            self.add_state("hits", default=[], dist_reduce_fx="cat")
+            self.add_state("misses", default=[], dist_reduce_fx="cat")
+            self.add_state("false_alarms", default=[], dist_reduce_fx="cat")
+        else:
+            self.add_state("hits", default=torch.tensor(0), dist_reduce_fx="sum")
+            self.add_state("misses", default=torch.tensor(0), dist_reduce_fx="sum")
+            self.add_state("false_alarms", default=torch.tensor(0), dist_reduce_fx="sum")
 
     def update(self, preds: Tensor, target: Tensor) -> None:
-        counts = _critical_success_index_update(preds, target, self.threshold, self.keep_sequence_dim)
-        for name, count in zip(("hits", "misses", "false_alarms"), counts):
-            if self.keep_sequence_dim:
-                getattr(self, name).append(count)
-            else:
-                getattr(self, name).add_(count)
+        hits, misses, false_alarms = _critical_success_index_update(
+            preds, target, self.threshold, self.keep_sequence_dim
+        )
+        if self.keep_sequence_dim:
+            self.hits.append(hits)
+            self.misses.append(misses)
+            self.false_alarms.append(false_alarms)
+        else:
+            self.hits.add_(hits)
+            self.misses.add_(misses)
+            self.false_alarms.add_(false_alarms)
 
     def compute(self) -> Tensor:
         if self.keep_sequence_dim:

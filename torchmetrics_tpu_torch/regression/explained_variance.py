@@ -43,8 +43,11 @@ class ExplainedVariance(Metric):
                 f"Invalid input to argument `multioutput`. Choose one of the following: {ALLOWED_MULTIOUTPUT}"
             )
         self.multioutput = multioutput
-        for name in ("sum_error", "sum_squared_error", "sum_target", "sum_squared_target", "num_obs"):
-            self.add_state(name, default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("sum_error", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("sum_squared_error", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("sum_target", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("sum_squared_target", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("num_obs", default=torch.tensor(0.0), dist_reduce_fx="sum")
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         num_obs, sum_error, sum_squared_error, sum_target, sum_squared_target = _explained_variance_update(preds, target)

@@ -46,8 +46,13 @@ class PearsonCorrCoef(Metric):
         if not (isinstance(num_outputs, int) and num_outputs > 0):
             raise ValueError(f"Expected argument `num_outputs` to be an int larger than 0, but got {num_outputs}")
         self.num_outputs = num_outputs
-        for name in _MOMENTS:  # n_total is a float32 count, as in the JAX package
-            self.add_state(name, default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
+        # the _MOMENTS, by literal name (n_total is a float32 count, as in the JAX package)
+        self.add_state("mean_x", default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
+        self.add_state("mean_y", default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
+        self.add_state("var_x", default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
+        self.add_state("var_y", default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
+        self.add_state("corr_xy", default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
+        self.add_state("n_total", default=torch.zeros(self.num_outputs), dist_reduce_fx=None)
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         self.mean_x, self.mean_y, self.var_x, self.var_y, self.corr_xy, self.n_total = _pearson_corrcoef_update(

@@ -68,7 +68,7 @@ class RetrievalMetric(Metric):
         self.preds.append(preds)
         self.target.append(target)
 
-    def _group_and_pad(self) -> Optional[Tuple[Tensor, Tensor, Tensor]]:
+    def _group_and_pad(self) -> Optional[Tuple[Tensor, Tensor, Tensor]]:  # lint: eager-helper
         """The list states as ``(num_q, max_len)`` preds, target and mask arrays, on the device.
 
         A stable sort of the query indexes keeps each query's rows in their
@@ -101,7 +101,7 @@ class RetrievalMetric(Metric):
             return ((pad_target == 0) & pad_mask).any(dim=1)
         return (pad_target > 0).any(dim=1)
 
-    def _apply_empty_target_action(self, res: Tensor, non_empty: Tensor) -> Tensor:
+    def _apply_empty_target_action(self, res: Tensor, non_empty: Tensor) -> Tensor:  # lint: eager-helper
         if self.empty_target_action == "error" and bool((~non_empty).any()):
             raise ValueError("`compute` method was provided with a query without positive target.")
         if self.empty_target_action == "pos":

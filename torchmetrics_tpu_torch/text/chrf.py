@@ -60,9 +60,13 @@ class CHRFScore(Metric):
         self.return_sentence_level_score = return_sentence_level_score
         self.n_order = float(n_char_order + n_word_order)
 
-        for name in _STATES:
-            order = n_char_order if name.endswith("char") else n_word_order
-            self.add_state(f"total_{name}_n_grams", default=torch.zeros(order), dist_reduce_fx="sum")
+        # the _STATES' counts, by literal name
+        self.add_state("total_preds_char_n_grams", default=torch.zeros(n_char_order), dist_reduce_fx="sum")
+        self.add_state("total_preds_word_n_grams", default=torch.zeros(n_word_order), dist_reduce_fx="sum")
+        self.add_state("total_target_char_n_grams", default=torch.zeros(n_char_order), dist_reduce_fx="sum")
+        self.add_state("total_target_word_n_grams", default=torch.zeros(n_word_order), dist_reduce_fx="sum")
+        self.add_state("total_matching_char_n_grams", default=torch.zeros(n_char_order), dist_reduce_fx="sum")
+        self.add_state("total_matching_word_n_grams", default=torch.zeros(n_word_order), dist_reduce_fx="sum")
         if self.return_sentence_level_score:
             self.add_state("sentence_chrf_score", default=[], dist_reduce_fx="cat")
 

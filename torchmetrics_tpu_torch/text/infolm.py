@@ -102,11 +102,12 @@ class InfoLM(Metric):
         tgt_enc = self._encode(target, width)
         if np.asarray(pred_enc["input_ids"]).shape[0] != np.asarray(tgt_enc["input_ids"]).shape[0]:
             raise ValueError("Number of predicted and reference sententes must be the same!")
-        for prefix, enc in (("preds", pred_enc), ("target", tgt_enc)):
-            for key in ("input_ids", "attention_mask"):
-                getattr(self, f"{prefix}_{key}").append(torch.as_tensor(np.asarray(enc[key]), device=self.device))
+        self.preds_input_ids.append(torch.as_tensor(np.asarray(pred_enc["input_ids"]), device=self.device))
+        self.preds_attention_mask.append(torch.as_tensor(np.asarray(pred_enc["attention_mask"]), device=self.device))
+        self.target_input_ids.append(torch.as_tensor(np.asarray(tgt_enc["input_ids"]), device=self.device))
+        self.target_attention_mask.append(torch.as_tensor(np.asarray(tgt_enc["attention_mask"]), device=self.device))
 
-    def compute(self) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    def compute(self) -> Union[Tensor, Tuple[Tensor, Tensor]]:  # lint: eager-helper — host transformer scoring
         return _infolm_fn(
             {"input_ids": _host(self.preds_input_ids), "attention_mask": _host(self.preds_attention_mask)},
             {"input_ids": _host(self.target_input_ids), "attention_mask": _host(self.target_attention_mask)},

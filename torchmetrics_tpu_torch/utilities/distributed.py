@@ -23,7 +23,6 @@ tier (``_fleet/``) writes into a shared key-value store.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -32,6 +31,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import Tensor
+
+from torchmetrics_tpu_torch._analysis.locksan import new_lock as _san_lock
 
 _world_override: Optional[int] = None  # simulated world size (None: the real one)
 _transport: Optional[Callable[[Any], Any]] = None  # transport override (None: the real collective)
@@ -230,7 +231,7 @@ class KvTtlJanitor:  # concurrency: shared fleet publishers note() while epoch s
         if ttl_s <= 0:
             raise ValueError(f"`ttl_s` must be positive, got {ttl_s}")
         self.ttl_s = float(ttl_s)
-        self._lock = threading.Lock()
+        self._lock = _san_lock("KvTtlJanitor._lock")
         self._born: Dict[str, float] = {}
 
     def note(self, key: str, now: Optional[float] = None) -> None:

@@ -141,7 +141,12 @@ class BootStrapper(WrapperMetric):
         self._fast_disabled = False
         self._fast_checked_sizes: set = set()  # batch sizes whose additivity check passed
         self._loop_warmed = False  # a stream's first batch runs the loop (the copies validate eagerly)
-        self.route_counts = {"loop": 0, "stacked": 0}
+        self._route_counts = {"loop": 0, "stacked": 0}
+
+    @property
+    def route_counts(self) -> Dict[str, int]:
+        """How many updates took each route (``"loop"``, ``"stacked"``) since the last reset."""
+        return self._route_counts
 
     # ---------------------------------------------------------- stacked route
     def _fast_names(self) -> Optional[List[str]]:
@@ -268,7 +273,7 @@ class BootStrapper(WrapperMetric):
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Resample the batch for each bootstrap copy and update the copies, by the stacked route where it holds."""
         if self._try_fast_update(args, kwargs):
-            self.route_counts["stacked"] += 1
+            self._route_counts["stacked"] += 1
             return
         self._materialize()
         args_sizes = [a.shape[0] for a in args if isinstance(a, Tensor) and a.ndim > 0]
@@ -289,7 +294,7 @@ class BootStrapper(WrapperMetric):
                 return v[index.to(v.device)] if isinstance(v, Tensor) and v.ndim > 0 else v
 
             self.metrics[idx].update(*[take(a) for a in args], **{k: take(v) for k, v in kwargs.items()})
-        self.route_counts["loop"] += 1
+        self._route_counts["loop"] += 1
 
     def compute(self) -> Dict[str, Tensor]:
         """Mean, std, quantile and raw values over the bootstrap copies."""
@@ -317,7 +322,7 @@ class BootStrapper(WrapperMetric):
         self._stacked = None
         self._stacked_pending = 0
         self._loop_warmed = False  # the next stream's first batch runs the loop again
-        self.route_counts = {"loop": 0, "stacked": 0}
+        self._route_counts = {"loop": 0, "stacked": 0}
         for m in self.metrics:
             m.reset()
         super().reset()
